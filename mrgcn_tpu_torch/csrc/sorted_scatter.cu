@@ -1,0 +1,170 @@
+// Block-sorted scatter-add for Hopper (sm_90a).
+//
+// Computes  out[blk[s] * RB + local[s, j]] += msgs[s * EB + j]  for every
+// slab s of EB edges, where the per-slab block ids blk[] never decrease and
+// a local index outside [0, RB) marks a padding edge. Blocks that no slab
+// addresses are left as the caller allocated them (the wrapper zero-fills).
+//
+// Replaces: mrgcn_tpu/ops/pallas_gather.py::_scatter_kernel (the TPU kernel
+// behind pallas_gather.sorted_scatter). That kernel walks the grid in order
+// and carries a VMEM accumulator of one whole (RB, L) output block from one
+// grid step to the next, flushing it when the block id changes.
+//
+// What bounds it on the card: memory bandwidth. It does one add per byte
+// pair moved. At the DMG-scale bench shapes the layer-0 backward call reads
+// 421 MB of messages (822,784 x 128 f32) and writes the 793 MB composed
+// table (1,548,800 x 128 f32); the forward call reads 183 MB and writes
+// 3.4 MB.
+//
+// What the design does about it:
+//  * One CTA per (run of equal block ids, 32-lane tile). A run is owned by
+//    exactly one CTA, so nothing is carried between CTAs and no global
+//    atomics are needed. A CTA whose first slab continues the previous
+//    slab's run exits at once.
+//  * The (RB, 32) f32 accumulator lives in shared memory: 64 KB at RB=512,
+//    where the whole (512, 128) block would be 256 KB, above the 227 KB a
+//    CTA may have. Lane tiles keep two CTAs resident per SM.
+//  * Each slab's (EB, 32) message tile is read once, coalesced, 16 bytes a
+//    thread; the next slab's tile is loaded into registers while the
+//    current one is accumulated, so loads overlap the adds.
+//  * Determinism: warp w owns the rows r with r % 8 == w and each thread
+//    owns one lane, so every output element is summed by one thread in
+//    stream order. Results are bit-identical from run to run.
+//  * Each block is written once, whole, with 16-byte stores. Offsets are
+//    computed in 64 bits (blk * RB * L exceeds 2^31 at link-prediction
+//    scale).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kLanes = 32;                 // lanes per CTA: one per thread
+constexpr int kThreads = 256;              // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxEdgeBlock = kThreads;    // one local index per thread
+constexpr int kVecPerRow = kLanes / 4;     // float4s per tile row
+constexpr int kPrefetch = kMaxEdgeBlock * kVecPerRow / kThreads;
+
+__global__ void __launch_bounds__(kThreads, 2)
+sorted_scatter_kernel(const float* __restrict__ msgs,
+                      const int* __restrict__ local,
+                      const int* __restrict__ blk,
+                      float* __restrict__ out,
+                      int nslab, int edge_block, int row_block,
+                      long long out_rows, int L) {
+    const int s_first = blockIdx.x;
+    const int b = blk[s_first];
+    if (s_first > 0 && blk[s_first - 1] == b) return;  // not a run start
+    int s_end = s_first + 1;
+    while (s_end < nslab && blk[s_end] == b) ++s_end;
+
+    extern __shared__ float4 smem4[];
+    float* acc = reinterpret_cast<float*>(smem4);         // (RB, 32)
+    float* stage = acc + row_block * kLanes;              // (EB, 32)
+    int* s_local = reinterpret_cast<int*>(stage + edge_block * kLanes);
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const long long lane0 = (long long)blockIdx.y * kLanes;
+    const int n_vec = edge_block * kVecPerRow;
+
+    for (int i = tid; i < row_block * kVecPerRow; i += kThreads)
+        reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+    float4 pre[kPrefetch];
+    int pre_local = row_block;
+    auto prefetch = [&](int s) {
+        const float* base = msgs + (long long)s * edge_block * L + lane0;
+#pragma unroll
+        for (int j = 0; j < kPrefetch; ++j) {
+            const int c = tid + j * kThreads;
+            if (c < n_vec) {
+                const int e = c / kVecPerRow;
+                const int q = c % kVecPerRow;
+                pre[j] = __ldg(reinterpret_cast<const float4*>(
+                    base + (long long)e * L + q * 4));
+            }
+        }
+        pre_local = tid < edge_block
+            ? __ldg(local + (long long)s * edge_block + tid) : row_block;
+    };
+
+    prefetch(s_first);
+    for (int s = s_first; s < s_end; ++s) {
+        __syncthreads();  // zeroing done / previous slab fully consumed
+#pragma unroll
+        for (int j = 0; j < kPrefetch; ++j) {
+            const int c = tid + j * kThreads;
+            if (c < n_vec) reinterpret_cast<float4*>(stage)[c] = pre[j];
+        }
+        if (tid < edge_block) s_local[tid] = pre_local;
+        __syncthreads();
+        if (s + 1 < s_end) prefetch(s + 1);
+
+        // 32 edges at a time: the warp's owned edges, taken in stream order
+        for (int e0 = 0; e0 < edge_block; e0 += 32) {
+            const int e = e0 + lane;
+            const int r = e < edge_block ? s_local[e] : row_block;
+            unsigned own = __ballot_sync(
+                0xffffffffu,
+                (unsigned)r < (unsigned)row_block && r % kWarps == warp);
+            while (own) {
+                const int i = __ffs(own) - 1;
+                own &= own - 1;
+                const int row = __shfl_sync(0xffffffffu, r, i);
+                acc[row * kLanes + lane] += stage[(e0 + i) * kLanes + lane];
+            }
+        }
+    }
+    __syncthreads();
+
+    const long long row0 = (long long)b * row_block;
+    for (int i = tid; i < row_block * kVecPerRow; i += kThreads) {
+        const long long row = row0 + i / kVecPerRow;
+        if (row >= 0 && row < out_rows) {
+            *reinterpret_cast<float4*>(
+                out + row * L + lane0 + (i % kVecPerRow) * 4) =
+                reinterpret_cast<const float4*>(acc)[i];
+        }
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Lanes a CTA covers and the largest edge block it takes; the Python
+// wrapper checks its arguments against these.
+int mrgcn_sorted_scatter_lane_tile() { return kLanes; }
+int mrgcn_sorted_scatter_max_edge_block() { return kMaxEdgeBlock; }
+
+size_t mrgcn_sorted_scatter_smem_bytes(int row_block, int edge_block) {
+    return (size_t)row_block * kLanes * sizeof(float)
+         + (size_t)edge_block * kLanes * sizeof(float)
+         + (size_t)edge_block * sizeof(int);
+}
+
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// `out` must already hold zeros in every block no slab addresses.
+int mrgcn_sorted_scatter_f32(const float* msgs, const int* local,
+                             const int* blk, float* out, int nslab,
+                             int edge_block, int row_block,
+                             long long out_rows, int L, void* stream) {
+    const size_t smem = mrgcn_sorted_scatter_smem_bytes(row_block,
+                                                        edge_block);
+    cudaError_t err = cudaFuncSetAttribute(
+        sorted_scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)nslab, (unsigned)(L / kLanes));
+    sorted_scatter_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        msgs, local, blk, out, nslab, edge_block, row_block, out_rows, L);
+    return (int)cudaGetLastError();
+}
+
+const char* mrgcn_cuda_error_string(int code) {
+    return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

@@ -1,0 +1,256 @@
+"""Node classification: full-batch training and evaluation (PyTorch).
+
+Counterpart of :mod:`mrgcn_tpu.tasks.node_classification` for the
+featureless full-batch path: frontier-restricted layer edges, CE loss with
+L1/L2 penalties, global-norm clip and Adam, early stopping on validation
+loss, and the reference's evaluation semantics (train and validation
+labels merge in test mode; loss and accuracy are per-batch means).
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass, field
+from time import perf_counter
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from mrgcn_tpu.data.artifact import Artifact
+from mrgcn_tpu_torch.models.mrgcn import MRGCN
+from mrgcn_tpu_torch.models.rgcn import TODO_DENSE
+from mrgcn_tpu_torch.tasks import utils as tutils
+from mrgcn_tpu_torch.tasks.common import (RunInputs, hidden_dims_from_config,
+                                          prepare_inputs,
+                                          restricted_layer_edges)
+
+logger = logging.getLogger(__name__)
+
+TODO_MINIBATCH = "ROADMAP Queue 1, item 2 (mini-batch NC)"
+
+
+def build_model(inputs: RunInputs, config: Dict, num_classes: int,
+                generator: torch.Generator) -> MRGCN:
+    """The model with parameters drawn from ``generator`` (a CPU generator,
+    so the draw does not depend on the device), moved to the inputs'
+    device."""
+    model = MRGCN(hidden_dims=hidden_dims_from_config(config, num_classes),
+                  modules_config=(),
+                  num_relations=inputs.num_relations,
+                  num_nodes=inputs.num_nodes, generator=generator,
+                  num_bases=config["model"]["num_bases"],
+                  p_dropout=config["model"]["p_dropout"],
+                  use_bias=config["model"]["bias"])
+    return model.to(inputs.device)
+
+
+def _loss_and_metrics(logits, idx, targets, weights):
+    """Weighted CE/accuracy; padded label rows carry weight 0."""
+    picked = logits[idx]
+    ce = F.cross_entropy(picked, targets.long(), reduction="none")
+    total = torch.clamp(weights.sum(), min=1.0)
+    loss = (ce * weights).sum() / total
+    labels = picked.argmax(dim=1)
+    acc = ((labels == targets).to(weights.dtype) * weights).sum() / total
+    return loss, acc, labels, targets
+
+
+@dataclass
+class NCBatch:
+    """One batch: graph slice + padded labels."""
+
+    edges: object                # EdgeBlock or tuple of per-layer blocks
+    idx: torch.Tensor            # (m,) output-row index per labelled node
+    targets: torch.Tensor        # (m,) class per labelled node
+    weights: torch.Tensor        # (m,) 1.0 real / 0.0 padding
+    num_real: int = 0
+
+
+def bucket(n: int, minimum: int = 64) -> int:
+    """Next power of two >= n (>= minimum)."""
+    size = minimum
+    while size < n:
+        size *= 2
+    return size
+
+
+def _pad_labels(idx, targets, device, bucket_min: int = 64):
+    m = len(idx)
+    pad = bucket(m, bucket_min) - m
+    idx = np.concatenate([idx, np.zeros(pad, dtype=np.int32)])
+    targets = np.concatenate([targets, np.zeros(pad, dtype=np.int32)])
+    weights = np.concatenate([np.ones(m, dtype=np.float32),
+                              np.zeros(pad, dtype=np.float32)])
+    return (torch.as_tensor(idx.astype(np.int64), device=device),
+            torch.as_tensor(targets.astype(np.int64), device=device),
+            torch.as_tensor(weights, device=device))
+
+
+def make_batches(inputs: RunInputs, label_rows: np.ndarray, batchsize: int,
+                 num_layers: int) -> List[NCBatch]:
+    """The full batch, on frontier-restricted layer edges: every layer
+    aggregates only at the rows the loss (transitively) reads."""
+    num_samples = label_rows.shape[0]
+    if 0 < batchsize < num_samples:
+        raise NotImplementedError(f"batchsize > 0: {TODO_MINIBATCH}")
+    uniq, inverse = np.unique(label_rows[:, 0], return_inverse=True)
+    if len(uniq) >= inputs.num_nodes:
+        raise NotImplementedError(
+            "labels cover every node, so the output layer is not "
+            f"restricted (dense_aggregate): {TODO_DENSE}")
+    edges = restricted_layer_edges(
+        inputs.structure, uniq, num_layers, inputs.edges,
+        first_dim=inputs.hidden_dims[0],
+        identity_basis=inputs.identity_basis, device=inputs.device)
+    idx, targets, weights = _pad_labels(inverse.astype(np.int32),
+                                        label_rows[:, 1], inputs.device)
+    return [NCBatch(edges=edges, idx=idx, targets=targets, weights=weights,
+                    num_real=num_samples)]
+
+
+def train_step(model: MRGCN, optimizer: tutils.ClippedAdam, batch: NCBatch,
+               l1: float, l2: float,
+               generator: Optional[torch.Generator] = None):
+    """One optimizer step; returns (loss incl. penalties, accuracy) as
+    0-dim tensors."""
+    model.train()
+    optimizer.zero_grad()
+    out = model(batch.edges, train=True, generator=generator)
+    loss, acc, _, _ = _loss_and_metrics(out, batch.idx, batch.targets,
+                                        batch.weights)
+    loss = loss + tutils.regularization(model, l1, l2)
+    loss.backward()
+    optimizer.step()
+    return loss.detach(), acc.detach()
+
+
+@torch.no_grad()
+def eval_step(model: MRGCN, batch: NCBatch):
+    model.eval()
+    out = model(batch.edges, train=False)
+    return _loss_and_metrics(out, batch.idx, batch.targets, batch.weights)
+
+
+def eval_batches(model: MRGCN, batches: List[NCBatch]):
+    """Per-batch means averaged over batches."""
+    losses, accs, labels_all, targets_all = [], [], [], []
+    for b in batches:
+        loss, acc, labels, targets = eval_step(model, b)
+        losses.append(float(loss))
+        accs.append(float(acc))
+        labels_all.append(labels[:b.num_real].cpu().numpy())
+        targets_all.append(targets[:b.num_real].cpu().numpy())
+    return (float(np.mean(losses)), float(np.mean(accs)),
+            np.concatenate(labels_all), np.concatenate(targets_all))
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@dataclass
+class NCResult:
+    model: MRGCN
+    optimizer: tutils.ClippedAdam
+    epoch: int
+    loss: float
+    acc: float
+    labels: np.ndarray
+    targets: np.ndarray
+    # per epoch: epoch, train/val loss and accuracy, seconds (synchronised)
+    history: List[Dict] = field(default_factory=list)
+
+
+def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
+        test_split: str, seed: int, device: torch.device) -> NCResult:
+    """Full training + final evaluation on ``device``."""
+    tsv_writer.writerow(["epoch", "training_loss", "training_accurary",
+                         "validation_loss", "validation_accuracy",
+                         "test_loss", "test_accuracy"])
+
+    inputs = prepare_inputs(artifact, config, featureless, device)
+
+    Y = {k: np.asarray(v).reshape(-1, 2) for k, v in artifact.Y.items()}
+    num_classes = len(artifact.class_map)
+    Y_train, Y_valid = Y["train"], Y.get("valid")
+    if test_split == "test" and Y_valid is not None:
+        # train and validation labels merge when testing
+        Y_train = np.concatenate([Y_train, Y_valid], axis=0)
+        Y_valid = None
+
+    model = build_model(inputs, config, num_classes,
+                        torch.Generator().manual_seed(seed))
+    optimizer = tutils.build_optimizer(model, config,
+                                       inputs.optimizer_config, True)
+    dropout_rng = torch.Generator(device=device).manual_seed(seed)
+
+    nepoch = config["model"]["epoch"]
+    batchsize = config["task"].get("batchsize", -1)
+    num_layers = len(model.hidden_dims)
+    l1 = config["model"]["l1_lambda"]
+    l2 = config["model"]["l2_lambda"]
+    patience = config["task"]["early_stopping"]["patience"]
+    tolerance = config["task"]["early_stopping"]["tolerance"]
+    early_stop = tutils.EarlyStop(patience, tolerance) \
+        if patience > 0 else None
+
+    train_batches = make_batches(inputs, Y_train, batchsize, num_layers)
+    valid_batches = make_batches(inputs, Y_valid, batchsize, num_layers) \
+        if Y_valid is not None else []
+
+    logger.info("Training for %d epoch (%d batch(es)) on %s", nepoch,
+                len(train_batches), device)
+    history: List[Dict] = []
+    t0 = perf_counter()
+    final_epoch = 0
+    for ep in range(1, nepoch + 1):
+        if early_stop is not None and early_stop.stop:
+            logger.info("Stopping early after %d epoch", ep - 1)
+            if early_stop.best_state is not None:
+                model_state, opt_state = early_stop.best_state
+                model.load_state_dict(model_state)
+                optimizer.adam.load_state_dict(opt_state)
+            break
+        final_epoch = ep
+        t_ep = perf_counter()
+        progress = tutils.BatchProgress(len(train_batches), label="TRAIN")
+        losses, accs = [], []
+        for bi, b in enumerate(train_batches, 1):
+            progress.update(bi)
+            loss, acc = train_step(model, optimizer, b, l1, l2, dropout_rng)
+            losses.append(float(loss))
+            accs.append(float(acc))
+        progress.done()
+        train_loss, train_acc = float(np.mean(losses)), float(np.mean(accs))
+
+        val_loss, val_acc = -1.0, -1.0
+        if valid_batches:
+            val_loss, val_acc, _, _ = eval_batches(model, valid_batches)
+            if early_stop is not None:
+                early_stop.record(val_loss, (model.state_dict(),
+                                             optimizer.state_dict()))
+        _synchronize(device)
+        seconds = perf_counter() - t_ep
+        history.append({"epoch": ep, "train_loss": train_loss,
+                        "train_acc": train_acc, "val_loss": val_loss,
+                        "val_acc": val_acc, "seconds": seconds})
+        logger.info("%04d | train loss %.4f / acc %.4f | val loss %.4f / "
+                    "acc %.4f | %.4fs", ep, train_loss, train_acc,
+                    val_loss, val_acc, seconds)
+        tsv_writer.writerow([str(ep), str(train_loss), str(train_acc),
+                             str(val_loss), str(val_acc), "-1", "-1"])
+
+    logger.info("Training time: %.2fs", perf_counter() - t0)
+
+    test_batches = make_batches(inputs, Y[test_split], batchsize,
+                                num_layers)
+    loss, acc, labels, targets = eval_batches(model, test_batches)
+    logger.info("Performance on %s set: loss %.4f / accuracy %.4f",
+                test_split, loss, acc)
+    tsv_writer.writerow(["-1", "-1", "-1", "-1", "-1", str(loss), str(acc)])
+    return NCResult(model=model, optimizer=optimizer, epoch=final_epoch,
+                    loss=loss, acc=acc, labels=labels, targets=targets,
+                    history=history)
