@@ -1,11 +1,12 @@
 """Relational Graph Convolutional Network (R-GCN) in PyTorch.
 
-Counterpart of :mod:`mrgcn_tpu.models.rgcn` for the featureless
-full-batch path. The layer math is the reference's
-``A [I F] W = A I W_I + A F W_F`` with basis decomposition, over the
-relation-partitioned COO edge list: the featureless input layer runs on
-the sorted-stream engine (:func:`..ops.relational.featureless_aggregate`),
-the frontier-restricted output layer on the relation-grouped path
+Counterpart of :mod:`mrgcn_tpu.models.rgcn` for the full-batch path. The
+layer math is the reference's ``A [I F] W = A I W_I + A F W_F`` with basis
+decomposition, over the relation-partitioned COO edge list: the identity
+half of the input layer runs on the sorted-stream engine
+(:func:`..ops.relational.featureless_aggregate`); a layer over features
+runs :func:`..ops.relational.dense_aggregate` where the edges carry a plan
+for its shape, else the relation-grouped path
 (:func:`..ops.rspmm.transform_aggregate_grouped`). Branches not ported yet
 raise ``NotImplementedError`` naming their ROADMAP item.
 
@@ -26,10 +27,8 @@ from mrgcn_tpu_torch.models import init as tinit
 from mrgcn_tpu_torch.ops import relational as rl
 from mrgcn_tpu_torch.ops import rspmm
 
-TODO_DENSE = "ROADMAP Queue 1, item 1 (dense_aggregate)"
 TODO_LP = "ROADMAP Queue 1, item 4 (link prediction and its layer ops)"
 TODO_UNPLANNED = "ROADMAP Queue 1, item 5 (unplanned fallbacks)"
-TODO_ENCODERS = "ROADMAP Queue 1, item 3 (multimodal encoders)"
 
 
 @dataclass
@@ -164,20 +163,23 @@ class RGCNLayer(nn.Module):
         in_dim = H.shape[-1]
         plan_f = edges.plan_for(in_dim, self.out_dim)
         # the JAX layer leaves a plan without relation-constant slabs to
-        # the grouped path when the layer is wide; otherwise a plan means
-        # dense_aggregate
-        if plan_f is not None and (plan_f.fwd.rel_const
-                                   or in_dim * self.out_dim <= 4096):
-            raise NotImplementedError(
-                f"planned dense layer (dense_aggregate): {TODO_DENSE}")
-        if not edges.grouped:
+        # the grouped path when the layer is wide (its dense_basis variant
+        # is off by default); otherwise a plan means dense_aggregate
+        if plan_f is not None and not plan_f.fwd.rel_const \
+                and in_dim * self.out_dim > 4096:
+            plan_f = None
+        if plan_f is not None:
+            W = rspmm._compose_weights(self.weight_f, self.comp_f)
+            agg = rl.dense_aggregate(H, W, plan_f, in_dim, self.out_dim)
+        elif edges.grouped:
+            agg = rspmm.transform_aggregate_grouped(
+                H, edges.grp_src, edges.grp_dst, edges.grp_norm,
+                edges.group_rel, edges.group_size, edges.num_out,
+                self.weight_f, comp=self.comp_f)
+        else:
             raise NotImplementedError(
                 f"ungrouped dense layer (transform_aggregate): "
                 f"{TODO_UNPLANNED}")
-        agg = rspmm.transform_aggregate_grouped(
-            H, edges.grp_src, edges.grp_dst, edges.grp_norm,
-            edges.group_rel, edges.group_size, edges.num_out,
-            self.weight_f, comp=self.comp_f)
         out = out + agg
         return out if self.bias is None else out + self.bias
 
@@ -189,11 +191,13 @@ class RGCN(nn.Module):
     def __init__(self, hidden_dims: Sequence[int], num_relations: int,
                  num_nodes: int, generator: torch.Generator,
                  num_bases: int = 0, p_dropout: float = 0.0,
-                 featureless: bool = False, use_bias: bool = False):
+                 featureless: bool = False, use_bias: bool = False,
+                 in_dim: Optional[int] = None):
+        """``in_dim``: the width of the node features the input layer
+        takes (``X_width``); unused when ``featureless``."""
         super().__init__()
-        if not featureless:
-            raise NotImplementedError(
-                f"R-GCN over node features: {TODO_ENCODERS}")
+        if not featureless and not in_dim:
+            raise ValueError("an R-GCN over features needs their width")
         self.hidden_dims = tuple(hidden_dims)
         self.p_dropout = p_dropout
         self.num_layers = len(self.hidden_dims)
@@ -203,7 +207,7 @@ class RGCN(nn.Module):
                 num_nodes=num_nodes, generator=generator,
                 num_bases=num_bases, input_layer=(i == 0),
                 featureless=featureless and i == 0, use_bias=use_bias,
-                in_dim=None if i == 0 else self.hidden_dims[i - 1]))
+                in_dim=in_dim if i == 0 else self.hidden_dims[i - 1]))
 
     def layers(self):
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]

@@ -20,12 +20,16 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
+
+# shared memory one thread block may use on Hopper (232,448 bytes)
+SMEM_LIMIT = 227 * 1024
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,7 +46,13 @@ class KernelLibrary:
 
 
 _loaded: dict = {}
-_lock = threading.Lock()
+_locks: dict = {}
+_locks_guard = threading.Lock()
+
+
+def _lock_for(name: str) -> threading.Lock:
+    with _locks_guard:
+        return _locks.setdefault(name, threading.Lock())
 
 
 def find_nvcc() -> str:
@@ -84,8 +94,8 @@ def _compile(source: Path, target: Path) -> str:
 def load(name: str, rebuild: bool = False) -> KernelLibrary:
     """Build (if needed, or always with ``rebuild``) and load
     ``csrc/<name>.cu``. A library already loaded in this process is
-    returned as it is."""
-    with _lock:
+    returned as it is. Different libraries build concurrently."""
+    with _lock_for(name):
         if name in _loaded:
             return _loaded[name]
         source = CSRC_DIR / f"{name}.cu"
@@ -101,3 +111,26 @@ def load(name: str, rebuild: bool = False) -> KernelLibrary:
         lib = KernelLibrary(ctypes.CDLL(str(target)), target, seconds, log)
         _loaded[name] = lib
         return lib
+
+
+def load_all(names, rebuild: bool = False) -> dict:
+    """:func:`load` for several libraries at once, one ``nvcc`` each, all
+    started together. Returns ``{name: KernelLibrary}``."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        libs = pool.map(lambda n: load(n, rebuild=rebuild), names)
+        return dict(zip(names, libs))
+
+
+def bind(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library ``name`` with its C functions typed:
+    ``signatures`` maps a function name to ``(argtypes, restype)``. Every
+    pointer and the stream go as ``c_void_p`` (a Python int would be cut
+    to 32 bits)."""
+    lib = load(name).lib
+    if not getattr(lib, "_mrgcn_typed", False):
+        for fn, (argtypes, restype) in signatures.items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = restype
+        lib._mrgcn_typed = True
+    return lib

@@ -125,6 +125,10 @@ class LayerPlans:
     def out_nodes(self) -> int:
         return self.num_out_nodes or self.num_nodes
 
+    @property
+    def in_nodes(self) -> int:
+        return self.num_in_nodes or self.num_nodes
+
     def to(self, device) -> "LayerPlans":
         fwd = self.fwd.to(device)
         bwd_h = fwd if self.bwd_h is self.fwd else self.bwd_h.to(device)
@@ -410,3 +414,116 @@ def featureless_aggregate(table: torch.Tensor, plans: LayerPlans,
     :func:`sorted_scatter`.
     """
     return _FeaturelessAggregate.apply(table, plans, out_dim)
+
+
+# --------------------------------------------------------------------------
+# dense layer: out[src] += norm * (H[dst] @ W[rel])
+# --------------------------------------------------------------------------
+
+def _slab_weights(W: torch.Tensor, stream: Stream) -> torch.Tensor:
+    """One ``(in, out)`` weight per slab of a relation-constant stream."""
+    return W[stream.slab_rel.long()]
+
+
+def _slab_matmul(x: torch.Tensor, W: torch.Tensor, stream: Stream,
+                 in_dim: int, out_dim: int) -> torch.Tensor:
+    """``x[e] @ W[rel_e]`` on a stream whose slabs are relation-constant:
+    one weight per slab, then a batched matmul. Padding edges carry
+    ``norm == 0`` downstream, so the slab weight applied to them is
+    harmless."""
+    nslab, eb = stream.num_slabs, stream.edge_block
+    return torch.bmm(x.reshape(nslab, eb, in_dim),
+                     _slab_weights(W, stream)).reshape(-1, out_dim)
+
+
+def _slab_matmul_t(d: torch.Tensor, W: torch.Tensor, stream: Stream,
+                   in_dim: int, out_dim: int) -> torch.Tensor:
+    """``d[e] @ W[rel_e]^T`` (cotangent side of :func:`_slab_matmul`)."""
+    nslab, eb = stream.num_slabs, stream.edge_block
+    return torch.bmm(d.reshape(nslab, eb, out_dim),
+                     _slab_weights(W, stream).transpose(1, 2)
+                     ).reshape(-1, in_dim)
+
+
+def _edge_weights(W: torch.Tensor, stream: Stream) -> torch.Tensor:
+    return W[stream.rel.long()]                      # (E, in, out)
+
+
+class _DenseAggregate(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, H, W, plans, in_dim, out_dim):
+        f = plans.fwd
+        Hp = pack_rows(H, plans.k_in, plans.n_in_rows)
+        Hg = _gather_sub(Hp, f.gather_row, f.in_mod, plans.k_in, in_dim)
+        L_out = line_width(plans.k_out, out_dim)
+        if f.rel_const:
+            v = _slab_matmul(Hg, W, f, in_dim, out_dim)
+            out = _place_scatter(v, f.out_mod, f, plans.n_out_rows,
+                                 plans.k_out, out_dim, L_out)
+        else:
+            v = torch.einsum("ei,eio->eo", Hg, _edge_weights(W, f)) \
+                * f.norm[:, None]
+            msgs = _expand_sub(v, f.out_mod, plans.k_out)
+            out = sorted_scatter(msgs, f.scatter_local, f.scatter_blk,
+                                 plans.n_out_rows, f.row_block,
+                                 f.edge_block)
+        ctx.save_for_backward(H, W)
+        ctx.plans, ctx.in_dim, ctx.out_dim = plans, in_dim, out_dim
+        return unpack_rows(out, plans.k_out, plans.out_nodes, out_dim)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        H, W = ctx.saved_tensors
+        plans, in_dim, out_dim = ctx.plans, ctx.in_dim, ctx.out_dim
+        d_out_p = pack_rows(d_out.contiguous(), plans.k_out,
+                            plans.n_out_rows)
+        L_in = line_width(plans.k_in, in_dim)
+
+        # d_H on the dst-sorted stream: d_H[dst] += norm (d_out[src] W^T)
+        h = plans.bwd_h
+        d_v_h = _gather_sub(d_out_p, h.src_row, h.out_mod, plans.k_out,
+                            out_dim)
+        if h.rel_const:
+            # norm is a scalar per edge: the place-scatter applies it after
+            # the weight matmul it commutes with
+            d_Hg = _slab_matmul_t(d_v_h, W, h, in_dim, out_dim)
+            d_Hp = _place_scatter(d_Hg, h.in_mod, h, plans.n_in_rows,
+                                  plans.k_in, in_dim, L_in)
+        else:
+            d_Hg = torch.einsum("eo,eio->ei", d_v_h * h.norm[:, None],
+                                _edge_weights(W, h))
+            msgs = _expand_sub(d_Hg, h.in_mod, plans.k_in)
+            d_Hp = sorted_scatter(msgs, h.scatter_local, h.scatter_blk,
+                                  plans.n_in_rows, h.row_block,
+                                  h.edge_block)
+        d_H = unpack_rows(d_Hp, plans.k_in, plans.in_nodes,
+                          in_dim).to(H.dtype)
+
+        # d_W on the (rel, dst)-sorted stream: its slabs are
+        # relation-constant, so per-slab outer-product sums are batched
+        # matmuls, then a segment sum over slabs by relation
+        t = plans.bwd_table
+        eb, nslab = t.edge_block, t.num_slabs
+        Hp = pack_rows(H, plans.k_in, plans.n_in_rows)
+        Hg_t = _gather_sub(Hp, t.gather_row, t.in_mod, plans.k_in, in_dim)
+        d_v_t = _gather_sub(d_out_p, t.src_row, t.out_mod, plans.k_out,
+                            out_dim) * t.norm[:, None]
+        per_slab = torch.bmm(Hg_t.reshape(nslab, eb, in_dim).transpose(1, 2),
+                             d_v_t.reshape(nslab, eb, out_dim))
+        d_W = torch.zeros_like(W).index_add_(0, t.slab_rel.long(), per_slab)
+        return d_H, d_W, None, None, None
+
+
+def dense_aggregate(H: torch.Tensor, W: torch.Tensor, plans: LayerPlans,
+                    in_dim: int, out_dim: int) -> torch.Tensor:
+    """``out[s] = sum_e norm_e * H[dst_e] @ W[rel_e]``.
+
+    ``H``: ``(in_nodes, in_dim)``; ``W``: ``(R, in_dim, out_dim)``, the
+    composed weights (the caller's compose turns the returned ``d_W`` into
+    basis and coefficient gradients). Forward and backward each run
+    :func:`sorted_scatter` on their stream: ``fwd`` for the output,
+    ``bwd_h`` for ``d_H``; ``d_W`` comes from the ``bwd_table`` stream's
+    relation-constant slabs.
+    """
+    return _DenseAggregate.apply(H, W, plans, in_dim, out_dim)

@@ -24,8 +24,15 @@ from mrgcn_tpu_torch.ops import _build
 ROW_BLOCK = 512    # output rows per block
 EDGE_BLOCK = 256   # edges per slab
 
-# shared memory one thread block may use on Hopper (232,448 bytes)
-_SMEM_LIMIT = 227 * 1024
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "mrgcn_sorted_scatter_f32": (
+        [_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I, _P], _I),
+    "mrgcn_sorted_scatter_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "mrgcn_sorted_scatter_lane_tile": ([], _I),
+    "mrgcn_sorted_scatter_max_edge_block": ([], _I),
+    "mrgcn_cuda_error_string": ([_I], ctypes.c_char_p),
+}
 
 
 def sorted_scatter_reference(msgs: torch.Tensor, local: torch.Tensor,
@@ -45,25 +52,7 @@ def sorted_scatter_reference(msgs: torch.Tensor, local: torch.Tensor,
 
 
 def _library():
-    kl = _build.load("sorted_scatter")
-    lib = kl.lib
-    if not getattr(lib, "_mrgcn_typed", False):
-        lib.mrgcn_sorted_scatter_f32.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-        lib.mrgcn_sorted_scatter_f32.restype = ctypes.c_int
-        lib.mrgcn_sorted_scatter_smem_bytes.argtypes = [ctypes.c_int,
-                                                        ctypes.c_int]
-        lib.mrgcn_sorted_scatter_smem_bytes.restype = ctypes.c_size_t
-        lib.mrgcn_sorted_scatter_lane_tile.argtypes = []
-        lib.mrgcn_sorted_scatter_lane_tile.restype = ctypes.c_int
-        lib.mrgcn_sorted_scatter_max_edge_block.argtypes = []
-        lib.mrgcn_sorted_scatter_max_edge_block.restype = ctypes.c_int
-        lib.mrgcn_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.mrgcn_cuda_error_string.restype = ctypes.c_char_p
-        lib._mrgcn_typed = True
-    return lib
+    return _build.bind("sorted_scatter", _SIGNATURES)
 
 
 def _check_cuda_args(msgs, local, out_blk, out_rows, row_block,
@@ -98,7 +87,7 @@ def _check_cuda_args(msgs, local, out_blk, out_rows, row_block,
         raise ValueError(f"sorted_scatter: edge_block {edge_block} out of "
                          "the kernel's range")
     if row_block <= 0 or lib.mrgcn_sorted_scatter_smem_bytes(
-            row_block, edge_block) > _SMEM_LIMIT:
+            row_block, edge_block) > _build.SMEM_LIMIT:
         raise ValueError(f"sorted_scatter: row_block {row_block} needs "
                          "more shared memory than a thread block has")
     if msgs.data_ptr() % 16:

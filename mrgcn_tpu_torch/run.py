@@ -2,9 +2,11 @@
 
 Same flags as ``python -m mrgcn_tpu.run``
 (``-c/-i/-o/-v/--dry_run/--load_checkpoint/--save_output/--save_checkpoint/
---test/--version``). Node classification on the featureless full-batch
-path is supported; link prediction, reference ``.tar`` input and
-checkpoints raise a "not yet ported" error.
+--test/--version``). Full-batch node classification is supported,
+featureless or over numeric, boolean, temporal and string features (the
+from-scratch text encoder); image and WKT features, mini-batches, link
+prediction, reference ``.tar`` input and checkpoints raise a "not yet
+ported" error naming their ROADMAP item.
 
 The device comes from ``MRGCN_PLATFORM`` (``cpu``, else CUDA; see
 :mod:`mrgcn_tpu_torch.utils.device`). Example::

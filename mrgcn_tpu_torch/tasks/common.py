@@ -1,27 +1,33 @@
 """Shared run-time assembly: artifact -> model inputs on a device.
 
-Counterpart of :mod:`mrgcn_tpu.tasks.common` for the featureless path. The
-artifact format, the feature setup and the graph structure are the JAX
-package's own host modules, imported as they are (none of them imports
-JAX).
+Counterpart of :mod:`mrgcn_tpu.tasks.common`. The artifact format, the
+feature pipeline (``setup_features``, ``densify``, the tokenizer's pad id)
+and the graph structure are the JAX package's own host modules, imported
+as they are (none of them imports JAX).
 """
 
 from __future__ import annotations
 
 import logging
-from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from mrgcn_tpu.data.artifact import Artifact
-from mrgcn_tpu.encodings.features import setup_features
+from mrgcn_tpu.encodings.features import (densify, getDatatypeConfig,
+                                          isDatatypeIncluded, setup_features)
 from mrgcn_tpu.encodings.structure import group_by_relation
-from mrgcn_tpu_torch.models.rgcn import TODO_ENCODERS, EdgeBlock
+from mrgcn_tpu.encodings.xsd.string import ByteTokenizer, pad_symbol_for
+from mrgcn_tpu_torch.models.mrgcn import TODO_ENCODERS, module_names
+from mrgcn_tpu_torch.models.rgcn import EdgeBlock
 from mrgcn_tpu_torch.ops import relational as rl
+from mrgcn_tpu_torch.ops.placement import build_rows
 
 logger = logging.getLogger(__name__)
+
+_TEXT = ("xsd.string", "xsd.anyURI")
 
 
 @dataclass
@@ -34,6 +40,13 @@ class RunInputs:
     hidden_dims: Tuple[int, ...]
     device: torch.device
     identity_basis: bool = False          # featureless plan kind decision
+    # encoder name -> (data, node_idx, rows) on the device
+    features: Dict[str, Tuple] = field(default_factory=dict)
+    modules_config: Tuple = ()            # sorted by datatype
+    X_width: int = 0
+    featureless: bool = True
+    text_vocab_size: int = ByteTokenizer.VOCAB_SIZE
+    text_pad_id: int = ByteTokenizer.PAD
 
 
 def _edge_block(src, dst, rel, norm, num_out: int, num_in: Optional[int],
@@ -52,17 +65,72 @@ def _edge_block(src, dst, rel, norm, num_out: int, num_in: Optional[int],
                      group_size=grouping.group_size)
 
 
+def _layer_shapes(dims, X_width: int, featureless: bool):
+    """(in_width, out_width) per planned layer shape; ``None`` marks the
+    identity gather."""
+    shapes = [(None, dims[0])]
+    if not featureless and X_width > 0:
+        shapes.append((X_width, dims[0]))
+    shapes.extend((dims[i - 1], dims[i]) for i in range(1, len(dims)))
+    return shapes
+
+
+def _feature_tensors(X, modules_config, num_nodes: int, device,
+                     text_vocab: int):
+    """Encoder name -> (data, node_idx, rows) tensors for every non-empty
+    encoding set, and the text vocabulary size they need."""
+    flat_sets: List = []
+    for datatype, sets in sorted(X[1:], key=lambda e: e[0]):
+        flat_sets.extend((datatype, s) for s in sets)
+    names = module_names(tuple(modules_config))
+    if len(flat_sets) != len(names):
+        raise ValueError(f"{len(flat_sets)} encoding sets vs {len(names)} "
+                         "modules")
+    features: Dict[str, Tuple] = {}
+    for name, (datatype, (enc, node_idx, _)) in zip(names, flat_sets):
+        if len(enc) == 0:
+            continue
+        if datatype in _TEXT:
+            text_vocab = max(text_vocab, int(np.max(enc)) + 1)
+        idx = np.asarray(node_idx)
+        features[name] = tuple(
+            torch.as_tensor(a, device=device)
+            for a in (np.asarray(enc), idx.astype(np.int32),
+                      build_rows(idx, num_nodes)))
+    return features, text_vocab
+
+
 def prepare_inputs(artifact: Artifact, config: Dict, featureless: bool,
                    device: torch.device) -> RunInputs:
-    """Featureless model inputs: the full-graph edge block with its
-    relation-grouped layout and sorted-stream plans, on ``device``."""
+    """Model inputs on ``device``: the encoders' feature arrays (padded
+    once, with their placement maps), and the full-graph edge block with
+    its relation-grouped layout and sorted-stream plans."""
     structure = artifact.structure
     n = structure.num_nodes
 
-    _, X_width, modules_config, optimizer_config = setup_features(
+    X, X_width, modules_config, optimizer_config = setup_features(
         artifact.F, n, featureless, config)
-    if X_width > 0 or modules_config:
-        raise NotImplementedError(f"node features: {TODO_ENCODERS}")
+    if X_width <= 0:
+        featureless = True
+    # stable datatype order, so encoder instance ids match across runs
+    modules_config = tuple(sorted(modules_config, key=lambda t: t[0]))
+    for datatype, _ in modules_config:
+        if datatype in ("blob.image", "ogc.wktLiteral"):
+            raise NotImplementedError(f"{datatype} features: "
+                                      f"{TODO_ENCODERS}")
+
+    # pad symbols for token sequences (reference:
+    # node_classification.py:61-70)
+    pad_symbols: Dict[str, int] = {}
+    text_pad_id = ByteTokenizer.PAD
+    for datatype in _TEXT:
+        if isDatatypeIncluded(config, datatype):
+            pad_symbols[datatype] = pad_symbol_for(
+                getDatatypeConfig(config, datatype) or {})
+            text_pad_id = pad_symbols[datatype]
+    X = densify(X, pad_symbols=pad_symbols)
+    features, text_vocab = _feature_tensors(X, modules_config, n, device,
+                                            ByteTokenizer.VOCAB_SIZE)
 
     task = config.get("task", {}).get("type", "")
     out_final = len(artifact.class_map) \
@@ -70,17 +138,19 @@ def prepare_inputs(artifact: Artifact, config: Dict, featureless: bool,
     dims = tuple(hidden_dims_from_config(config, out_final))
     basis = rl.basis_stream_wanted(structure.num_relations, n, dims[0],
                                    int(config["model"]["num_bases"]))
-    shapes = [(None, dims[0])]                        # identity gather
-    shapes.extend((dims[i - 1], dims[i]) for i in range(1, len(dims)))
     plans = rl.plans_for_layers(structure.src, structure.dst,
-                                structure.rel, structure.norm, n, shapes,
+                                structure.rel, structure.norm, n,
+                                _layer_shapes(dims, X_width, featureless),
                                 identity_basis=basis, device=device)
     edges = _edge_block(structure.src, structure.dst, structure.rel,
                         structure.norm, n, None, device, plans=plans)
     return RunInputs(edges=edges, optimizer_config=optimizer_config,
                      num_nodes=n, num_relations=structure.num_relations,
                      structure=structure, hidden_dims=dims, device=device,
-                     identity_basis=basis)
+                     identity_basis=basis, features=features,
+                     modules_config=modules_config, X_width=X_width,
+                     featureless=featureless, text_vocab_size=text_vocab,
+                     text_pad_id=text_pad_id)
 
 
 def _filter_remap(src, dst, rel, norm, out_nodes):
@@ -96,6 +166,7 @@ def _filter_remap(src, dst, rel, norm, out_nodes):
 def restricted_layer_edges(structure, out_nodes: np.ndarray,
                            num_layers: int, full_edges: EdgeBlock,
                            first_dim: Optional[int] = None,
+                           X_width: int = 0, featureless: bool = True,
                            identity_basis: bool = False,
                            group_size: int = 64, min_shrink: float = 0.9,
                            device=None) -> Tuple:
@@ -105,7 +176,8 @@ def restricted_layer_edges(structure, out_nodes: np.ndarray,
     Walks frontiers backwards from the labels: each layer aggregates only
     at the rows the layer above reads (dropped rows would receive zero
     cotangent anyway; per-edge norms are untouched). The input layer keeps
-    the global input space and carries rectangular sorted-stream plans;
+    the global input space and carries rectangular sorted-stream plans
+    (identity and, over ``X_width`` features, dense);
     the other restricted layers run the relation-grouped path. When a
     frontier stops shrinking (>= ``min_shrink * num_nodes``) the layers
     below reuse ``full_edges``.
@@ -128,7 +200,8 @@ def restricted_layer_edges(structure, out_nodes: np.ndarray,
             plans = None
             if first_dim is not None:
                 plans = rl.plans_for_layers(
-                    src_l, dst_l, rel_l, norm_l, n, [(None, first_dim)],
+                    src_l, dst_l, rel_l, norm_l, n,
+                    _layer_shapes((first_dim,), X_width, featureless),
                     identity_basis=identity_basis, num_out_nodes=num_out,
                     device=device)
             blocks[0] = _edge_block(src_l, dst_l, rel_l, norm_l, num_out,

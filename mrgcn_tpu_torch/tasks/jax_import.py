@@ -1,10 +1,13 @@
 """Weight bridge between the JAX package and the port.
 
 The JAX package's parameters are a nested dict (``params["rgcn"]
-["layer_0"]["comp_i"]``); the port keeps the same names as module paths
-(``rgcn.layer_0.comp_i``). The bridge maps one onto the other by path, so
-both packages can run the same weights. Arrays travel as numpy; nothing
-here imports JAX.
+["layer_0"]["comp_i"]``, ``params["xsd_string_0"]["_TextBlock_0"]["qkv"]
+["kernel"]``, ``params["gate_weights"]``); the port keeps the same names
+and layouts as module paths (``rgcn.layer_0.comp_i``,
+``xsd_string_0._TextBlock_0.qkv.kernel``, ``gate_weights``). The bridge
+maps one onto the other by path, so both packages can run the same
+weights: the R-GCN, every encoder and the gates. Arrays travel as numpy;
+nothing here imports JAX.
 """
 
 from __future__ import annotations

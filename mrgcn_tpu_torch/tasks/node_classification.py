@@ -1,10 +1,12 @@
 """Node classification: full-batch training and evaluation (PyTorch).
 
 Counterpart of :mod:`mrgcn_tpu.tasks.node_classification` for the
-featureless full-batch path: frontier-restricted layer edges, CE loss with
-L1/L2 penalties, global-norm clip and Adam, early stopping on validation
-loss, and the reference's evaluation semantics (train and validation
-labels merge in test mode; loss and accuracy are per-batch means).
+full-batch path, featureless or over encoded node features:
+frontier-restricted layer edges (or the full edge set when the labels
+cover every node), CE loss with L1/L2 penalties, global-norm clip and
+Adam, early stopping on validation loss, and the reference's evaluation
+semantics (train and validation labels merge in test mode; loss and
+accuracy are per-batch means).
 """
 
 from __future__ import annotations
@@ -20,7 +22,6 @@ import torch.nn.functional as F
 
 from mrgcn_tpu.data.artifact import Artifact
 from mrgcn_tpu_torch.models.mrgcn import MRGCN
-from mrgcn_tpu_torch.models.rgcn import TODO_DENSE
 from mrgcn_tpu_torch.tasks import utils as tutils
 from mrgcn_tpu_torch.tasks.common import (RunInputs, hidden_dims_from_config,
                                           prepare_inputs,
@@ -37,12 +38,15 @@ def build_model(inputs: RunInputs, config: Dict, num_classes: int,
     so the draw does not depend on the device), moved to the inputs'
     device."""
     model = MRGCN(hidden_dims=hidden_dims_from_config(config, num_classes),
-                  modules_config=(),
+                  modules_config=inputs.modules_config,
                   num_relations=inputs.num_relations,
                   num_nodes=inputs.num_nodes, generator=generator,
                   num_bases=config["model"]["num_bases"],
                   p_dropout=config["model"]["p_dropout"],
-                  use_bias=config["model"]["bias"])
+                  featureless=inputs.featureless,
+                  use_bias=config["model"]["bias"],
+                  text_vocab_size=inputs.text_vocab_size,
+                  text_pad_id=inputs.text_pad_id)
     return model.to(inputs.device)
 
 
@@ -59,8 +63,9 @@ def _loss_and_metrics(logits, idx, targets, weights):
 
 @dataclass
 class NCBatch:
-    """One batch: graph slice + padded labels."""
+    """One batch: graph slice + features + padded labels."""
 
+    features: Dict               # encoder name -> (data, node_idx, rows)
     edges: object                # EdgeBlock or tuple of per-layer blocks
     idx: torch.Tensor            # (m,) output-row index per labelled node
     targets: torch.Tensor        # (m,) class per labelled node
@@ -90,23 +95,28 @@ def _pad_labels(idx, targets, device, bucket_min: int = 64):
 
 def make_batches(inputs: RunInputs, label_rows: np.ndarray, batchsize: int,
                  num_layers: int) -> List[NCBatch]:
-    """The full batch, on frontier-restricted layer edges: every layer
-    aggregates only at the rows the loss (transitively) reads."""
+    """The full batch. On frontier-restricted layer edges, where every
+    layer aggregates only at the rows the loss (transitively) reads; when
+    the labels cover every node, on the full edge set and its planned
+    layers."""
     num_samples = label_rows.shape[0]
     if 0 < batchsize < num_samples:
         raise NotImplementedError(f"batchsize > 0: {TODO_MINIBATCH}")
     uniq, inverse = np.unique(label_rows[:, 0], return_inverse=True)
-    if len(uniq) >= inputs.num_nodes:
-        raise NotImplementedError(
-            "labels cover every node, so the output layer is not "
-            f"restricted (dense_aggregate): {TODO_DENSE}")
-    edges = restricted_layer_edges(
-        inputs.structure, uniq, num_layers, inputs.edges,
-        first_dim=inputs.hidden_dims[0],
-        identity_basis=inputs.identity_basis, device=inputs.device)
-    idx, targets, weights = _pad_labels(inverse.astype(np.int32),
-                                        label_rows[:, 1], inputs.device)
-    return [NCBatch(edges=edges, idx=idx, targets=targets, weights=weights,
+    if len(uniq) < inputs.num_nodes:
+        edges = restricted_layer_edges(
+            inputs.structure, uniq, num_layers, inputs.edges,
+            first_dim=inputs.hidden_dims[0], X_width=inputs.X_width,
+            featureless=inputs.featureless,
+            identity_basis=inputs.identity_basis, device=inputs.device)
+        idx = inverse.astype(np.int32)
+    else:
+        edges = inputs.edges
+        idx = label_rows[:, 0]
+    idx, targets, weights = _pad_labels(idx, label_rows[:, 1],
+                                        inputs.device)
+    return [NCBatch(features=inputs.features, edges=edges, idx=idx,
+                    targets=targets, weights=weights,
                     num_real=num_samples)]
 
 
@@ -117,7 +127,8 @@ def train_step(model: MRGCN, optimizer: tutils.ClippedAdam, batch: NCBatch,
     0-dim tensors."""
     model.train()
     optimizer.zero_grad()
-    out = model(batch.edges, train=True, generator=generator)
+    out = model(batch.edges, batch.features, train=True,
+                generator=generator)
     loss, acc, _, _ = _loss_and_metrics(out, batch.idx, batch.targets,
                                         batch.weights)
     loss = loss + tutils.regularization(model, l1, l2)
@@ -129,7 +140,7 @@ def train_step(model: MRGCN, optimizer: tutils.ClippedAdam, batch: NCBatch,
 @torch.no_grad()
 def eval_step(model: MRGCN, batch: NCBatch):
     model.eval()
-    out = model(batch.edges, train=False)
+    out = model(batch.edges, batch.features, train=False)
     return _loss_and_metrics(out, batch.idx, batch.targets, batch.weights)
 
 
@@ -172,6 +183,7 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
                          "test_loss", "test_accuracy"])
 
     inputs = prepare_inputs(artifact, config, featureless, device)
+    featureless = inputs.featureless
 
     Y = {k: np.asarray(v).reshape(-1, 2) for k, v in artifact.Y.items()}
     num_classes = len(artifact.class_map)
@@ -184,7 +196,7 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
     model = build_model(inputs, config, num_classes,
                         torch.Generator().manual_seed(seed))
     optimizer = tutils.build_optimizer(model, config,
-                                       inputs.optimizer_config, True)
+                                       inputs.optimizer_config, featureless)
     dropout_rng = torch.Generator(device=device).manual_seed(seed)
 
     nepoch = config["model"]["epoch"]

@@ -185,15 +185,12 @@ def test_unported_paths_raise(small_artifact, tmp_path):
     Y_train = np.asarray(small_artifact.Y["train"]).reshape(-1, 2)
     with pytest.raises(NotImplementedError, match="mini-batch"):
         nc.make_batches(tin, Y_train, 8, 2)
-    every = np.stack([np.arange(tin.num_nodes),
-                      np.zeros(tin.num_nodes, int)], axis=1)
-    with pytest.raises(NotImplementedError, match="dense_aggregate"):
-        nc.make_batches(tin, every, -1, 2)
-    with pytest.raises(NotImplementedError, match="encoders"):
-        MRGCN(hidden_dims=(4, 2), modules_config=(("xsd.numeric",
-                                                   (1, 4, 0.0)),),
-              num_relations=3, num_nodes=5,
-              generator=torch.Generator())
+    for datatype, args in (("blob.image", (None, {}, 16, 0.0)),
+                           ("ogc.wktLiteral", (9, 16, "S", 0.0))):
+        with pytest.raises(NotImplementedError, match="item 3"):
+            MRGCN(hidden_dims=(4, 2), modules_config=((datatype, args),),
+                  num_relations=3, num_nodes=5,
+                  generator=torch.Generator(), featureless=False)
     for flag in ("--save_checkpoint", "--load_checkpoint=x.npz"):
         with pytest.raises(NotImplementedError, match="checkpoints"):
             torch_run.main(["-c", "c.toml", "-i", "a.npz", flag])
@@ -271,16 +268,21 @@ for m in pkgutil.walk_packages(mrgcn_tpu_torch.__path__, "mrgcn_tpu_torch."):
     importlib.import_module(m.name)
 from benchmarks.torch_baseline import build_workload
 from mrgcn_tpu_torch import run
+from mrgcn_tpu_torch.tasks.synthetic import (multimodal_features,
+                                             save_nc_artifact)
 w = build_workload(n=300, num_props=3, num_edges=1500, num_labeled=40,
                    seed=1)
 d = tempfile.mkdtemp()
 art, cfg = os.path.join(d, "a.npz"), os.path.join(d, "c.toml")
-chip_smoke.write_config(__import__("pathlib").Path(cfg), 2, 4, 16)
-from mrgcn_tpu_torch.tasks.synthetic import save_nc_artifact
+chip_smoke.write_config(__import__("pathlib").Path(cfg), 2, 4, 16,
+                        features=chip_smoke.MULTIMODAL)
+F = multimodal_features(w["n"], num_numeric=50, num_years=30,
+                        num_strings=20, max_len=16)
 save_nc_artifact(art, w["n"], w["R"], w["src"], w["dst"], w["rel"],
                  w["norm"], w["labels_idx"], w["labels_cls"],
-                 w["num_classes"], num_eval=20)
+                 w["num_classes"], num_eval=20, F=F)
 res = run.run_cli(["-c", cfg, "-i", art, "-o", d, "--dry_run", "--test"])
+assert not res.model.featureless
 loaded = [k for k, v in sys.modules.items()
           if v is not None and k.split(".")[0] in ("jax", "flax", "optax")]
 assert not loaded, loaded
