@@ -17,10 +17,10 @@
 // 3.4 MB.
 //
 // What the design does about it:
-//  * One CTA per (run of equal block ids, 32-lane tile). A run is owned by
-//    exactly one CTA, so nothing is carried between CTAs and no global
-//    atomics are needed. A CTA whose first slab continues the previous
-//    slab's run exits at once.
+//  * One CTA per (run of equal block ids, 32-lane tile): the walk of
+//    stream_walk.cuh. A run is owned by exactly one CTA, so nothing is
+//    carried between CTAs and no global atomics are needed. A CTA whose
+//    first slab continues the previous slab's run exits at once.
 //  * The (RB, 32) f32 accumulator lives in shared memory: 64 KB at RB=512,
 //    where the whole (512, 128) block would be 256 KB, above the 227 KB a
 //    CTA may have. Lane tiles keep two CTAs resident per SM.
@@ -34,15 +34,12 @@
 //    computed in 64 bits (blk * RB * L exceeds 2^31 at link-prediction
 //    scale).
 
-#include <cuda_runtime.h>
+#include "stream_walk.cuh"
 
 namespace {
 
-constexpr int kLanes = 32;                 // lanes per CTA: one per thread
-constexpr int kThreads = 256;              // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxEdgeBlock = kThreads;    // one local index per thread
-constexpr int kVecPerRow = kLanes / 4;     // float4s per tile row
+using namespace stream_walk;
+
 constexpr int kPrefetch = kMaxEdgeBlock * kVecPerRow / kThreads;
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -53,10 +50,8 @@ sorted_scatter_kernel(const float* __restrict__ msgs,
                       int nslab, int edge_block, int row_block,
                       long long out_rows, int L) {
     const int s_first = blockIdx.x;
-    const int b = blk[s_first];
-    if (s_first > 0 && blk[s_first - 1] == b) return;  // not a run start
-    int s_end = s_first + 1;
-    while (s_end < nslab && blk[s_end] == b) ++s_end;
+    if (!run_starts(blk, s_first)) return;
+    const int s_end = run_end(blk, nslab, s_first);
 
     extern __shared__ float4 smem4[];
     float* acc = reinterpret_cast<float*>(smem4);         // (RB, 32)
@@ -66,11 +61,10 @@ sorted_scatter_kernel(const float* __restrict__ msgs,
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
-    const long long lane0 = (long long)blockIdx.y * kLanes;
+    const int lane0 = blockIdx.y * kLanes;
     const int n_vec = edge_block * kVecPerRow;
 
-    for (int i = tid; i < row_block * kVecPerRow; i += kThreads)
-        reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    zero_tile(acc, row_block, tid);
 
     float4 pre[kPrefetch];
     int pre_local = row_block;
@@ -102,32 +96,13 @@ sorted_scatter_kernel(const float* __restrict__ msgs,
         __syncthreads();
         if (s + 1 < s_end) prefetch(s + 1);
 
-        // 32 edges at a time: the warp's owned edges, taken in stream order
-        for (int e0 = 0; e0 < edge_block; e0 += 32) {
-            const int e = e0 + lane;
-            const int r = e < edge_block ? s_local[e] : row_block;
-            unsigned own = __ballot_sync(
-                0xffffffffu,
-                (unsigned)r < (unsigned)row_block && r % kWarps == warp);
-            while (own) {
-                const int i = __ffs(own) - 1;
-                own &= own - 1;
-                const int row = __shfl_sync(0xffffffffu, r, i);
-                acc[row * kLanes + lane] += stage[(e0 + i) * kLanes + lane];
-            }
-        }
+        for_owned_edges(s_local, edge_block, row_block, lane, warp,
+                        [&](int e, int row) {
+            acc[row * kLanes + lane] += stage[e * kLanes + lane];
+        });
     }
     __syncthreads();
-
-    const long long row0 = (long long)b * row_block;
-    for (int i = tid; i < row_block * kVecPerRow; i += kThreads) {
-        const long long row = row0 + i / kVecPerRow;
-        if (row >= 0 && row < out_rows) {
-            *reinterpret_cast<float4*>(
-                out + row * L + lane0 + (i % kVecPerRow) * 4) =
-                reinterpret_cast<const float4*>(acc)[i];
-        }
-    }
+    store_block(out, acc, blk[s_first], row_block, out_rows, L, lane0, tid);
 }
 
 }  // namespace
@@ -161,10 +136,6 @@ int mrgcn_sorted_scatter_f32(const float* msgs, const int* local,
     sorted_scatter_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
         msgs, local, blk, out, nslab, edge_block, row_block, out_rows, L);
     return (int)cudaGetLastError();
-}
-
-const char* mrgcn_cuda_error_string(int code) {
-    return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

@@ -85,7 +85,7 @@ def _backbone_cached(hub_spec) -> bool:
     name = _hub_model_name(hub_spec)
     if name is None:
         return False
-    from mrgcn_tpu.utils.hf import force_hf_offline
+    from mrgcn_tpu_torch.utils.hf import force_hf_offline
     force_hf_offline()
     try:
         from transformers import AutoConfig
@@ -111,7 +111,8 @@ class MRGCN(nn.Module):
                  p_dropout: float = 0.0, featureless: bool = True,
                  use_bias: bool = False, text_vocab_size: int = 259,
                  text_pad_id: int = 256,
-                 skip_encoders: Tuple[str, ...] = ()):
+                 skip_encoders: Tuple[str, ...] = (),
+                 link_prediction: bool = False):
         super().__init__()
         self.hidden_dims = tuple(hidden_dims)
         self.modules_config = tuple(modules_config)
@@ -156,7 +157,8 @@ class MRGCN(nn.Module):
                          generator=generator, num_bases=num_bases,
                          p_dropout=p_dropout, featureless=featureless,
                          use_bias=use_bias,
-                         in_dim=None if featureless else self.modality_dim)
+                         in_dim=None if featureless else self.modality_dim,
+                         link_prediction=link_prediction)
 
     @staticmethod
     def _prepare(datatype: str, data: torch.Tensor) -> torch.Tensor:

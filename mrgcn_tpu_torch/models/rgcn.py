@@ -4,7 +4,9 @@ Counterpart of :mod:`mrgcn_tpu.models.rgcn` for the full-batch path. The
 layer math is the reference's ``A [I F] W = A I W_I + A F W_F`` with basis
 decomposition, over the relation-partitioned COO edge list: the identity
 half of the input layer runs on the sorted-stream engine
-(:func:`..ops.relational.featureless_aggregate`); a layer over features
+(:func:`..ops.relational.featureless_aggregate`, or
+:func:`..ops.relational.featureless_basis` where the composed table is over
+budget); a layer over features
 runs :func:`..ops.relational.dense_aggregate` where the edges carry a plan
 for its shape, else the relation-grouped path
 (:func:`..ops.rspmm.transform_aggregate_grouped`). Branches not ported yet
@@ -27,7 +29,6 @@ from mrgcn_tpu_torch.models import init as tinit
 from mrgcn_tpu_torch.ops import relational as rl
 from mrgcn_tpu_torch.ops import rspmm
 
-TODO_LP = "ROADMAP Queue 1, item 4 (link prediction and its layer ops)"
 TODO_UNPLANNED = "ROADMAP Queue 1, item 5 (unplanned fallbacks)"
 
 
@@ -95,6 +96,15 @@ def _identity_planned(packed: torch.Tensor, comp: Optional[torch.Tensor],
     return rl.featureless_aggregate(flat.reshape(-1, lw), plan, out_dim)
 
 
+def _basis_planned(packed: torch.Tensor, comp: torch.Tensor, plan,
+                   out_dim: int) -> torch.Tensor:
+    """Featureless basis-stream layer: the composed table would be over
+    budget, so the compose happens per edge
+    (:func:`..ops.relational.featureless_basis`)."""
+    return rl.featureless_basis(comp, _fit_rows(packed, plan), plan,
+                                out_dim)
+
+
 class RGCNLayer(nn.Module):
     """One graph convolution. The input layer holds the identity weight
     ``W_I`` in the packed ``(S, rows, lanes)`` layout; a feature layer holds
@@ -148,15 +158,26 @@ class RGCNLayer(nn.Module):
                 raise NotImplementedError(
                     "featureless layer without sorted-stream plans "
                     f"(gather_aggregate_packed): {TODO_UNPLANNED}")
+            # the planned op gathers from the composed (R * rows, lanes)
+            # table; where that table is over budget (link prediction:
+            # hundreds of relations, wide rows) the basis-stream op
+            # composes per edge instead, on plans that carry its
+            # dst-sorted bwd_h stream
+            use_basis = False
             if self.comp_i is not None and rl.composed_table_elems(
                     self.num_relations, self.num_nodes, self.out_dim,
                     n_in_rows=plan_i.n_in_rows) \
                     > rl.COMPOSED_TABLE_MAX_ELEMS:
-                raise NotImplementedError(
-                    "composed identity table over budget "
-                    f"(featureless_basis): {TODO_LP}")
-            out = _identity_planned(getattr(self, self.weight_i_name),
-                                    self.comp_i, plan_i, self.out_dim)
+                if plan_i.kind != "identity_basis" or not \
+                        0 < self.num_bases <= rl.MAX_BASIS_STREAMS:
+                    raise NotImplementedError(
+                        "composed identity table over budget without "
+                        "basis-stream plans (gather_aggregate): "
+                        f"{TODO_UNPLANNED}")
+                use_basis = True
+            layer_fn = _basis_planned if use_basis else _identity_planned
+            out = layer_fn(getattr(self, self.weight_i_name), self.comp_i,
+                           plan_i, self.out_dim)
             if self.featureless:
                 return out if self.bias is None else out + self.bias
 
@@ -185,14 +206,18 @@ class RGCNLayer(nn.Module):
 
 
 class RGCN(nn.Module):
-    """Stack of graph convolutions with node dropout; the output layer is
-    linear (logits), every other layer is followed by ReLU."""
+    """Stack of graph convolutions with node dropout. For node
+    classification the output layer is linear (logits) and every other
+    layer is followed by ReLU; with ``link_prediction`` every layer is
+    followed by ReLU and the model holds the DistMult relation vectors
+    ``relations (R, hidden_dims[-1])``."""
 
     def __init__(self, hidden_dims: Sequence[int], num_relations: int,
                  num_nodes: int, generator: torch.Generator,
                  num_bases: int = 0, p_dropout: float = 0.0,
                  featureless: bool = False, use_bias: bool = False,
-                 in_dim: Optional[int] = None):
+                 in_dim: Optional[int] = None,
+                 link_prediction: bool = False):
         """``in_dim``: the width of the node features the input layer
         takes (``X_width``); unused when ``featureless``."""
         super().__init__()
@@ -200,6 +225,7 @@ class RGCN(nn.Module):
             raise ValueError("an R-GCN over features needs their width")
         self.hidden_dims = tuple(hidden_dims)
         self.p_dropout = p_dropout
+        self.link_prediction = link_prediction
         self.num_layers = len(self.hidden_dims)
         for i, out_dim in enumerate(self.hidden_dims):
             self.add_module(f"layer_{i}", RGCNLayer(
@@ -208,6 +234,10 @@ class RGCN(nn.Module):
                 num_bases=num_bases, input_layer=(i == 0),
                 featureless=featureless and i == 0, use_bias=use_bias,
                 in_dim=in_dim if i == 0 else self.hidden_dims[i - 1]))
+        # drawn after the layers' weights, as the JAX module declares it
+        self.relations = nn.Parameter(tinit.xavier_uniform(
+            (num_relations, self.hidden_dims[-1]), generator)) \
+            if link_prediction else None
 
     def layers(self):
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
@@ -231,6 +261,6 @@ class RGCN(nn.Module):
         for i, layer in enumerate(self.layers()):
             X = layer(X, edges[i] if per_layer else edges)
             X = self._node_dropout(X, train, generator)
-            if i < self.num_layers - 1:
+            if i < self.num_layers - 1 or self.link_prediction:
                 X = torch.relu(X)
         return X

@@ -4,8 +4,9 @@ Each kernel source under ``mrgcn_tpu_torch/csrc/`` exposes a plain C
 interface. At first use it is compiled with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library and loaded with :mod:`ctypes`; no
 PyTorch header is compiled, so a build takes seconds. Libraries are cached
-in ``mrgcn_tpu_torch/_build/`` under a hash of the source and the compiler
-flags, so an edited source rebuilds and an unchanged one loads at once.
+in ``mrgcn_tpu_torch/_build/`` under a hash of the source, the headers
+beside it (``csrc/*.cuh``) and the compiler flags, so an edited source
+rebuilds and an unchanged one loads at once.
 
 Nothing here runs at import time: the CPU test suite imports every module
 of the port on machines without ``nvcc`` or a card.
@@ -73,6 +74,8 @@ def _digest(source: Path) -> str:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update(source.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     return h.hexdigest()[:16]
 
 

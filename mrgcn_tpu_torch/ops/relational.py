@@ -8,12 +8,14 @@ full-batch path:
   the scatter target, then moves them to torch tensors on the chosen
   device. The arrays equal the JAX package's plans element for element.
 * **Packing helpers.** Narrow rows are packed ``k`` to a 128-lane line.
-* **The layer op.** :func:`featureless_aggregate` gathers per-edge rows of
-  the relation-major packed table and block-scatters them
-  (:func:`..sorted_stream.sorted_scatter`); its backward recomputes the
-  per-edge cotangent on the (rel, dst)-sorted ``bwd_table`` stream and
-  block-scatters it into the table gradient. No E-sized tensor crosses
-  between differently sorted streams.
+* **The layer ops.** :func:`featureless_aggregate` gathers per-edge rows
+  of the relation-major packed table and block-scatters them
+  (:func:`..sorted_stream.fused_place_scatter`); its backward recomputes
+  the per-edge cotangent on the (rel, dst)-sorted ``bwd_table`` stream and
+  block-scatters it into the table gradient. :func:`featureless_basis`
+  composes the basis tables per edge instead, for graphs whose composed
+  table is over budget; :func:`dense_aggregate` is the layer over node
+  features. No E-sized tensor crosses between differently sorted streams.
 """
 
 from __future__ import annotations
@@ -27,6 +29,9 @@ import torch
 
 from mrgcn_tpu_torch.ops.rspmm import packed_identity_shape, packing_factor
 from mrgcn_tpu_torch.ops.sorted_stream import (EDGE_BLOCK, ROW_BLOCK,
+                                               expand_sub,
+                                               fused_place_scatter,
+                                               fused_scatter_dot,
                                                sorted_scatter)
 
 
@@ -342,12 +347,7 @@ def _select_sub(G: torch.Tensor, mod: torch.Tensor, k: int, d: int
 def _expand_sub(v: torch.Tensor, mod: torch.Tensor, k: int) -> torch.Tensor:
     """Per-edge sub-row placement (E, d) -> (E, line_width): ``v`` lands in
     lane slot ``mod``, every other slot is zero."""
-    E, d = v.shape
-    sub = line_width(k, d) // k
-    out = v.new_zeros(E, k, sub)
-    rows = torch.arange(E, device=v.device)
-    out[rows, mod.long() if k > 1 else 0, :d] = v
-    return out.reshape(E, k * sub)
+    return expand_sub(v, mod, k, line_width(k, v.shape[1]))
 
 
 def _gather_sub(table: torch.Tensor, row: torch.Tensor, mod: torch.Tensor,
@@ -361,12 +361,12 @@ def _place_scatter(V: torch.Tensor, place_mod: torch.Tensor,
                    stream: Stream, out_rows: int, k: int, d: int,
                    L: int) -> torch.Tensor:
     """norm-scale + sub-row place + block scatter of per-edge values
-    ``V`` (E, d) into ``(out_rows, L)``."""
-    msgs = _expand_sub(V[:, :d] * stream.norm[:, None], place_mod, k)
-    if msgs.shape[1] < L:
-        msgs = torch.nn.functional.pad(msgs, (0, L - msgs.shape[1]))
-    return sorted_scatter(msgs, stream.scatter_local, stream.scatter_blk,
-                          out_rows, stream.row_block, stream.edge_block)
+    ``V`` (E, d) into ``(out_rows, L)``: one :func:`fused_place_scatter`
+    pass, without the ``(E, L)`` lines in between."""
+    return fused_place_scatter(V[:, :d], place_mod, stream.norm,
+                               stream.scatter_local, stream.scatter_blk,
+                               out_rows, k, L, stream.row_block,
+                               stream.edge_block)
 
 
 # --------------------------------------------------------------------------
@@ -411,9 +411,101 @@ def featureless_aggregate(table: torch.Tensor, plans: LayerPlans,
     ``table``: relation-major packed weight table ``(R * n_in_rows, L)``,
     typically ``compose_packed(comp, packed)``. Returns
     ``(out_nodes, out_dim)``. Forward and backward each run one
-    :func:`sorted_scatter`.
+    :func:`fused_place_scatter`.
     """
     return _FeaturelessAggregate.apply(table, plans, out_dim)
+
+
+# --------------------------------------------------------------------------
+# basis-stream featureless layer: compose per edge, never build the table
+# --------------------------------------------------------------------------
+
+class _FeaturelessBasis(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, comp, packed, plans, out_dim):
+        f = plans.fwd
+        k = plans.k_in
+        w = comp[f.rel.long()]                              # (E, B)
+        v = 0.0
+        for b in range(comp.shape[1]):
+            g = _gather_sub(packed[b], f.gather_row, f.in_mod, k, out_dim)
+            v = v + w[:, b:b + 1] * g                       # (E, out_dim)
+        out = _place_scatter(v, f.out_mod, f, plans.n_out_rows, plans.k_out,
+                             out_dim, packed.shape[2])
+        ctx.save_for_backward(comp, packed)
+        ctx.plans, ctx.out_dim = plans, out_dim
+        return unpack_rows(out, plans.k_out, plans.out_nodes, out_dim)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        comp, packed = ctx.saved_tensors
+        plans, out_dim = ctx.plans, ctx.out_dim
+        R, B = comp.shape
+        k, L = plans.k_in, packed.shape[2]
+        d_out_p = pack_rows(d_out.contiguous(), plans.k_out,
+                            plans.n_out_rows)
+        # both gradients on the dst-sorted bwd_h stream: the d_packed
+        # scatter and the d_comp gather visit the same packed rows
+        h = plans.bwd_h
+        d_vh = _gather_sub(d_out_p, h.src_row, h.out_mod, plans.k_out,
+                           out_dim)                         # (E, out)
+        w_h = comp[h.rel.long()]                            # (E, B)
+        dvn = d_vh * h.norm[:, None]
+        planes, cols = [], []
+        if k == 1:
+            # one fused pass per basis: scatter w * dvn into d_packed[b]
+            # and dot dvn with the packed row at the same address
+            for b in range(B):
+                plane, dots = fused_scatter_dot(
+                    dvn, w_h[:, b].contiguous(), h.scatter_local,
+                    h.scatter_blk, packed[b], plans.n_in_rows, h.row_block,
+                    h.edge_block)
+                planes.append(plane)
+                cols.append(dots)
+        else:
+            # packed rows: the scatter places sub-rows, the dot gathers them
+            for b in range(B):
+                planes.append(_place_scatter(
+                    d_vh * w_h[:, b:b + 1], h.in_mod, h, plans.n_in_rows, k,
+                    out_dim, L))
+                g_hb = _gather_sub(packed[b], h.gather_row, h.in_mod, k,
+                                   out_dim)
+                cols.append((dvn * g_hb).sum(dim=1))
+        d_packed = torch.stack(planes, dim=0)               # (B, rows, L)
+        per_edge = torch.stack(cols, dim=1)                 # (E, B)
+        d_comp = torch.zeros(R, B, dtype=per_edge.dtype,
+                             device=per_edge.device
+                             ).index_add_(0, h.rel.long(), per_edge)
+        return d_comp.to(comp.dtype), d_packed.to(packed.dtype), None, None
+
+
+def featureless_basis(comp: torch.Tensor, packed: torch.Tensor,
+                      plans: LayerPlans, out_dim: int) -> torch.Tensor:
+    """Featureless layer for graphs whose composed identity table is over
+    budget (link prediction: hundreds of relations times wide rows):
+    gather the ``B`` basis tables per edge on the src-sorted stream,
+    contract with ``comp[rel_e]`` and block-scatter, without ever building
+    the ``(R * rows, L)`` table.
+
+    ``comp``: ``(R, B)`` with small ``B`` (:data:`MAX_BASIS_STREAMS`);
+    ``packed``: ``(B, n_in_rows, L)``. Returns ``(out_nodes, out_dim)``.
+    ``plans`` must be of kind ``"identity_basis"``: plain identity plans
+    alias ``bwd_h`` to the ``fwd`` stream, which would give a silently
+    wrong ``d_packed``.
+
+    Backward, all on the dst-sorted ``bwd_h`` stream:
+    ``d_packed[b] += comp[rel_e, b] norm_e d_out[src_e]`` and
+    ``d_comp[r, b] = sum_e norm_e <d_out[src_e], packed[b, dst_e]>``. For
+    unpacked rows (``k == 1``) each basis is one
+    :func:`..sorted_stream.fused_scatter_dot` pass; for packed rows a
+    :func:`fused_place_scatter` and a gathered dot.
+    """
+    if plans.kind != "identity_basis":
+        raise ValueError(
+            "featureless_basis needs identity_basis plans (plain identity "
+            "plans alias bwd_h to the fwd stream: silently wrong d_packed)")
+    return _FeaturelessBasis.apply(comp, packed, plans, out_dim)
 
 
 # --------------------------------------------------------------------------
@@ -521,9 +613,10 @@ def dense_aggregate(H: torch.Tensor, W: torch.Tensor, plans: LayerPlans,
 
     ``H``: ``(in_nodes, in_dim)``; ``W``: ``(R, in_dim, out_dim)``, the
     composed weights (the caller's compose turns the returned ``d_W`` into
-    basis and coefficient gradients). Forward and backward each run
-    :func:`sorted_scatter` on their stream: ``fwd`` for the output,
-    ``bwd_h`` for ``d_H``; ``d_W`` comes from the ``bwd_table`` stream's
-    relation-constant slabs.
+    basis and coefficient gradients). Forward and backward each scatter
+    on their stream, ``fwd`` for the output, ``bwd_h`` for ``d_H``:
+    :func:`fused_place_scatter` where the slabs are relation-constant,
+    else :func:`sorted_scatter` of the expanded lines; ``d_W`` comes from
+    the ``bwd_table`` stream's relation-constant slabs.
     """
     return _DenseAggregate.apply(H, W, plans, in_dim, out_dim)

@@ -45,8 +45,10 @@ def transform_aggregate_grouped(H: torch.Tensor, grp_src: torch.Tensor,
     G = group_rel.shape[0]
     in_dim = H.shape[-1]
     out_dim = W.shape[-1]
-    Hg = H[grp_dst].reshape(G, group_size, in_dim)
-    m = torch.bmm(Hg, W[group_rel])               # (G, group_size, out)
+    # index_select: its backward is an index_add_, where the backward of
+    # H[idx] walks duplicate indices one by one
+    Hg = H.index_select(0, grp_dst).reshape(G, group_size, in_dim)
+    m = torch.bmm(Hg, W.index_select(0, group_rel))   # (G, group_size, out)
     messages = m.reshape(G * group_size, out_dim) * grp_norm[:, None]
     return segment_sum(messages, grp_src, num_nodes)
 

@@ -1,16 +1,22 @@
-"""Block-sorted scatter-add: the CUDA kernel and its plain version.
+"""Block-sorted stream kernels: scatter, gather and their fused forms.
 
-Counterpart of :mod:`mrgcn_tpu.ops.pallas_gather` for the part the
-featureless full-batch path runs: ``ROW_BLOCK``, ``EDGE_BLOCK`` and
-:func:`sorted_scatter`.
+Counterpart of :mod:`mrgcn_tpu.ops.pallas_gather` for the sorted-stream
+engine: ``ROW_BLOCK``, ``EDGE_BLOCK``, :func:`sorted_scatter`,
+:func:`sorted_gather`, :func:`fused_place_scatter` and
+:func:`fused_scatter_dot`.
 
 An edge stream is cut into slabs of ``edge_block`` edges; slab ``s``
-addresses one ``row_block``-row block ``blk[s]`` of the output, block ids
-never decrease along the stream, and ``local[s, j]`` is the edge's row
-inside that block (``row_block`` on padding). The CUDA kernel
-(``csrc/sorted_scatter.cu``) gives each run of equal block ids to one
-thread block that accumulates it in shared memory, so the sum is
-deterministic and needs no atomics.
+addresses one ``row_block``-row block ``blk[s]`` of a table, and
+``local[s, j]`` is the edge's row inside that block (``row_block`` on
+padding). For the scatters the block ids never decrease along the stream:
+the CUDA kernels (``csrc/sorted_scatter.cu``, ``fused_place_scatter.cu``,
+``scatter_dot.cu``) give each run of equal block ids to one thread block
+that accumulates it in shared memory, so the sums are deterministic and
+need no atomics. The gather (``csrc/sorted_gather.cu``) copies rows.
+
+Each wrapper takes its plain PyTorch version (``*_reference``) for CPU
+tensors and launches its kernel for CUDA tensors, or raises: there is no
+fallback. ``<wrapper>.launches`` counts the kernel launches.
 """
 
 from __future__ import annotations
@@ -21,18 +27,55 @@ import torch
 
 from mrgcn_tpu_torch.ops import _build
 
-ROW_BLOCK = 512    # output rows per block
+ROW_BLOCK = 512    # table rows per block
 EDGE_BLOCK = 256   # edges per slab
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ERR = {"mrgcn_cuda_error_string": ([_I], ctypes.c_char_p)}
 _SIGNATURES = {
-    "mrgcn_sorted_scatter_f32": (
-        [_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I, _P], _I),
-    "mrgcn_sorted_scatter_smem_bytes": ([_I, _I], ctypes.c_size_t),
-    "mrgcn_sorted_scatter_lane_tile": ([], _I),
-    "mrgcn_sorted_scatter_max_edge_block": ([], _I),
-    "mrgcn_cuda_error_string": ([_I], ctypes.c_char_p),
+    "sorted_scatter": {
+        "mrgcn_sorted_scatter_f32": (
+            [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _P], _I),
+        "mrgcn_sorted_scatter_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        "mrgcn_sorted_scatter_lane_tile": ([], _I),
+        "mrgcn_sorted_scatter_max_edge_block": ([], _I), **_ERR},
+    "sorted_gather": {
+        "mrgcn_sorted_gather_f32": (
+            [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _P], _I),
+        "mrgcn_sorted_gather_max_edge_block": ([], _I), **_ERR},
+    "fused_place_scatter": {
+        "mrgcn_fused_place_scatter_f32": (
+            [_P, _LL, _I, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _P],
+            _I),
+        "mrgcn_fused_place_scatter_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        "mrgcn_fused_place_scatter_lane_tile": ([], _I),
+        "mrgcn_fused_place_scatter_max_edge_block": ([], _I), **_ERR},
+    "scatter_dot": {
+        "mrgcn_scatter_dot_f32": (
+            [_P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I,
+             _P], _I),
+        "mrgcn_scatter_dot_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        "mrgcn_scatter_dot_lane_tile": ([], _I),
+        "mrgcn_scatter_dot_max_edge_block": ([], _I), **_ERR},
 }
+
+
+def _library(name: str):
+    return _build.bind(name, _SIGNATURES[name])
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch versions
+# --------------------------------------------------------------------------
+
+def _edge_rows(local: torch.Tensor, blk: torch.Tensor, row_block: int,
+               num_rows: int):
+    """Global table row per padded edge, and which edges are real: the
+    local index lies inside the block and the row inside the table."""
+    rows = (blk.long()[:, None] * row_block + local.long()).reshape(-1)
+    valid = ((local >= 0) & (local < row_block)).reshape(-1) \
+        & (rows >= 0) & (rows < num_rows)
+    return rows, valid
 
 
 def sorted_scatter_reference(msgs: torch.Tensor, local: torch.Tensor,
@@ -43,57 +86,242 @@ def sorted_scatter_reference(msgs: torch.Tensor, local: torch.Tensor,
     the valid edges): the counterpart of ``pallas_gather._xla_scatter``.
     Rows outside ``[0, out_rows)`` are dropped, as ``segment_sum`` does."""
     del edge_block
-    rows = (out_blk.long()[:, None] * row_block + local.long()).reshape(-1)
-    valid = ((local >= 0) & (local < row_block)).reshape(-1) \
-        & (rows >= 0) & (rows < out_rows)
+    rows, valid = _edge_rows(local, out_blk, row_block, out_rows)
     out = torch.zeros(out_rows, msgs.shape[1], dtype=msgs.dtype,
                       device=msgs.device)
     return out.index_add_(0, rows[valid], msgs[valid])
 
 
-def _library():
-    return _build.bind("sorted_scatter", _SIGNATURES)
+def sorted_gather_reference(table: torch.Tensor, local: torch.Tensor,
+                            tbl_idx: torch.Tensor, row_block: int,
+                            edge_block: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sorted_gather` (a row gather with
+    zero rows on padding): the counterpart of
+    ``pallas_gather._xla_gather``."""
+    del edge_block
+    rows, valid = _edge_rows(local, tbl_idx, row_block, table.shape[0])
+    safe = torch.where(valid, rows, torch.zeros_like(rows))
+    return table[safe].float() * valid[:, None]
 
 
-def _check_cuda_args(msgs, local, out_blk, out_rows, row_block,
-                     edge_block, lib) -> None:
-    for name, t, dtype in (("msgs", msgs, torch.float32),
-                           ("local", local, torch.int32),
-                           ("out_blk", out_blk, torch.int32)):
-        if t.device != msgs.device:
-            raise ValueError(f"sorted_scatter: {name} is on {t.device}, "
-                             f"msgs on {msgs.device}")
+def expand_sub(v: torch.Tensor, mod: torch.Tensor, k: int,
+               L: int) -> torch.Tensor:
+    """Per-edge sub-row placement ``(E, d) -> (E, L)``: ``v`` lands in lane
+    slot ``mod`` (of width ``L // k``), every other lane is zero."""
+    E, d = v.shape
+    sub = L // k
+    out = v.new_zeros(E, k, sub)
+    rows = torch.arange(E, device=v.device)
+    out[rows, mod.long() if k > 1 else 0, :d] = v
+    return out.reshape(E, k * sub)
+
+
+def fused_place_scatter_reference(V: torch.Tensor, place_mod: torch.Tensor,
+                                  norm: torch.Tensor, local: torch.Tensor,
+                                  out_blk: torch.Tensor, out_rows: int,
+                                  k: int, L: int, row_block: int,
+                                  edge_block: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_place_scatter`: scale, expand
+    every edge to its ``L``-lane line, then ``index_add_``."""
+    msgs = expand_sub(V * norm[:, None], place_mod, k, L)
+    return sorted_scatter_reference(msgs, local, out_blk, out_rows,
+                                    row_block, edge_block)
+
+
+def fused_scatter_dot_reference(dvn: torch.Tensor, w: torch.Tensor,
+                                local: torch.Tensor, out_blk: torch.Tensor,
+                                table: torch.Tensor, out_rows: int,
+                                row_block: int, edge_block: int):
+    """Plain PyTorch version of :func:`fused_scatter_dot`: a scatter pass
+    and a row-gather pass (the XLA branch of
+    ``pallas_gather.fused_scatter_dot``)."""
+    L, Lv = table.shape[1], dvn.shape[1]
+    msgs = torch.nn.functional.pad(dvn * w[:, None], (0, L - Lv))
+    out = sorted_scatter_reference(msgs, local, out_blk, out_rows,
+                                   row_block, edge_block)
+    rows, valid = _edge_rows(local, out_blk, row_block, out_rows)
+    safe = torch.where(valid, rows, torch.zeros_like(rows))
+    dots = (table[safe][:, :Lv] * dvn).sum(dim=1) * valid
+    return out, dots
+
+
+# --------------------------------------------------------------------------
+# argument checks shared by the CUDA launches
+# --------------------------------------------------------------------------
+
+def _check_tensors(fn: str, tensors) -> None:
+    """Dtype and contiguity of ``(name, tensor, dtype, contiguous)``
+    entries against the kernel's contract (the devices agree already)."""
+    for name, t, dtype, contiguous in tensors:
         if t.dtype != dtype:
-            raise TypeError(f"sorted_scatter: {name} must be {dtype}, "
-                            f"got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"sorted_scatter: {name} must be contiguous")
-    if msgs.dim() != 2 or local.dim() != 2 or out_blk.dim() != 1:
-        raise ValueError("sorted_scatter: expected msgs (E, L), local "
-                         "(nslab, EB) and out_blk (nslab,)")
+            raise TypeError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
+        if contiguous and not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def _check_stream(fn: str, num_edges: int, local: torch.Tensor,
+                  blk: torch.Tensor, row_block: int, edge_block: int,
+                  max_edge_block: int) -> int:
+    """Shape agreement of a slab stream; returns the slab count."""
+    if local.dim() != 2 or blk.dim() != 1:
+        raise ValueError(f"{fn}: expected local (nslab, EB) and block ids "
+                         "(nslab,)")
     nslab, eb = local.shape
-    L = msgs.shape[1]
-    if eb != edge_block or out_blk.shape[0] != nslab \
-            or msgs.shape[0] != nslab * edge_block:
+    if eb != edge_block or blk.shape[0] != nslab \
+            or num_edges != nslab * edge_block:
         raise ValueError(
-            f"sorted_scatter: shapes disagree: msgs {tuple(msgs.shape)}, "
-            f"local {tuple(local.shape)}, out_blk {tuple(out_blk.shape)}, "
+            f"{fn}: shapes disagree: {num_edges} edges, local "
+            f"{tuple(local.shape)}, block ids {tuple(blk.shape)}, "
             f"edge_block {edge_block}")
-    lanes = lib.mrgcn_sorted_scatter_lane_tile()
-    if L == 0 or L % lanes:
-        raise ValueError(f"sorted_scatter: the kernel takes L a positive "
-                         f"multiple of {lanes}, got {L}")
-    if not 0 < edge_block <= lib.mrgcn_sorted_scatter_max_edge_block():
-        raise ValueError(f"sorted_scatter: edge_block {edge_block} out of "
-                         "the kernel's range")
-    if row_block <= 0 or lib.mrgcn_sorted_scatter_smem_bytes(
-            row_block, edge_block) > _build.SMEM_LIMIT:
-        raise ValueError(f"sorted_scatter: row_block {row_block} needs "
-                         "more shared memory than a thread block has")
+    if not 0 < edge_block <= max_edge_block:
+        raise ValueError(f"{fn}: edge_block {edge_block} out of the "
+                         "kernel's range")
+    if row_block <= 0:
+        raise ValueError(f"{fn}: row_block must be positive")
+    return nslab
+
+
+def _check_lanes(fn: str, L: int, lanes: int) -> None:
+    if L <= 0 or L % lanes:
+        raise ValueError(f"{fn}: the kernel takes L a positive multiple of "
+                         f"{lanes}, got {L}")
+
+
+def _check_smem(fn: str, needed: int, row_block: int) -> None:
+    if needed > _build.SMEM_LIMIT:
+        raise ValueError(f"{fn}: row_block {row_block} needs more shared "
+                         "memory than a thread block has")
+
+
+def _device_of(fn: str, first: torch.Tensor, others) -> str:
+    """The device type all tensors share (``cpu`` or ``cuda``)."""
+    for name, t in others:
+        if t.device != first.device:
+            raise ValueError(f"{fn}: {name} is on {t.device}, expected "
+                             f"{first.device}")
+    if first.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: no kernel for device {first.device}")
+    return first.device.type
+
+
+def _raise_on(fn: str, lib, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{fn}: kernel launch failed: "
+                           + lib.mrgcn_cuda_error_string(rc).decode())
+
+
+def _cuda_stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# --------------------------------------------------------------------------
+# sorted_scatter / sorted_gather: each the transpose of the other
+# --------------------------------------------------------------------------
+
+def _scatter(msgs, local, out_blk, out_rows, row_block, edge_block):
+    fn = "sorted_scatter"
+    if _device_of(fn, msgs, (("local", local), ("out_blk", out_blk))) \
+            == "cpu":
+        return sorted_scatter_reference(msgs, local, out_blk, out_rows,
+                                        row_block, edge_block)
+    lib = _library("sorted_scatter")
+    _check_tensors(fn, (("msgs", msgs, torch.float32, True),
+                        ("local", local, torch.int32, True),
+                        ("out_blk", out_blk, torch.int32, True)))
+    if msgs.dim() != 2:
+        raise ValueError(f"{fn}: expected msgs (E, L)")
+    nslab = _check_stream(fn, msgs.shape[0], local, out_blk, row_block,
+                          edge_block,
+                          lib.mrgcn_sorted_scatter_max_edge_block())
+    L = msgs.shape[1]
+    _check_lanes(fn, L, lib.mrgcn_sorted_scatter_lane_tile())
+    _check_smem(fn, lib.mrgcn_sorted_scatter_smem_bytes(row_block,
+                                                        edge_block),
+                row_block)
     if msgs.data_ptr() % 16:
-        raise ValueError("sorted_scatter: msgs must be 16-byte aligned")
+        raise ValueError(f"{fn}: msgs must be 16-byte aligned")
     if out_rows < 0:
-        raise ValueError("sorted_scatter: out_rows must be >= 0")
+        raise ValueError(f"{fn}: out_rows must be >= 0")
+    out = torch.zeros(out_rows, L, dtype=torch.float32, device=msgs.device)
+    if nslab == 0 or out_rows == 0:
+        return out
+    with torch.cuda.device(msgs.device):
+        rc = lib.mrgcn_sorted_scatter_f32(
+            msgs.data_ptr(), local.data_ptr(), out_blk.data_ptr(),
+            out.data_ptr(), nslab, edge_block, row_block, out_rows, L,
+            _cuda_stream(msgs))
+    _raise_on(fn, lib, rc)
+    sorted_scatter.launches += 1
+    return out
+
+
+def _gather(table, local, tbl_idx, row_block, edge_block):
+    fn = "sorted_gather"
+    if _device_of(fn, table, (("local", local), ("tbl_idx", tbl_idx))) \
+            == "cpu":
+        return sorted_gather_reference(table, local, tbl_idx, row_block,
+                                       edge_block)
+    lib = _library("sorted_gather")
+    _check_tensors(fn, (("table", table, torch.float32, True),
+                        ("local", local, torch.int32, True),
+                        ("tbl_idx", tbl_idx, torch.int32, True)))
+    if table.dim() != 2:
+        raise ValueError(f"{fn}: expected table (T, L)")
+    nslab = _check_stream(fn, local.numel(), local, tbl_idx, row_block,
+                          edge_block,
+                          lib.mrgcn_sorted_gather_max_edge_block())
+    L = table.shape[1]
+    _check_lanes(fn, L, 4)
+    if table.data_ptr() % 16:
+        raise ValueError(f"{fn}: table must be 16-byte aligned")
+    out = torch.empty(nslab * edge_block, L, dtype=torch.float32,
+                      device=table.device)
+    if nslab == 0:
+        return out
+    with torch.cuda.device(table.device):
+        rc = lib.mrgcn_sorted_gather_f32(
+            table.data_ptr(), local.data_ptr(), tbl_idx.data_ptr(),
+            out.data_ptr(), nslab, edge_block, row_block, table.shape[0],
+            L, _cuda_stream(table))
+    _raise_on(fn, lib, rc)
+    sorted_gather.launches += 1
+    return out
+
+
+class _SortedScatter(torch.autograd.Function):
+    """The transpose of the scatter-add is the gather on the same stream
+    (``pallas_gather._sorted_scatter_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, msgs, local, out_blk, out_rows, row_block, edge_block):
+        ctx.save_for_backward(local, out_blk)
+        ctx.blocks = (row_block, edge_block)
+        return _scatter(msgs, local, out_blk, out_rows, row_block,
+                        edge_block)
+
+    @staticmethod
+    def backward(ctx, g):
+        local, out_blk = ctx.saved_tensors
+        return (_gather(g.contiguous(), local, out_blk, *ctx.blocks),
+                None, None, None, None, None)
+
+
+class _SortedGather(torch.autograd.Function):
+    """The transpose of the gather is a scatter-add into the table: a
+    segment sum (``index_add_``), as ``pallas_gather._sorted_gather_bwd``
+    has it, because the gather's block ids need not be sorted."""
+
+    @staticmethod
+    def forward(ctx, table, local, tbl_idx, row_block, edge_block):
+        ctx.save_for_backward(local, tbl_idx)
+        ctx.args = (table.shape[0], row_block, edge_block)
+        return _gather(table, local, tbl_idx, row_block, edge_block)
+
+    @staticmethod
+    def backward(ctx, g):
+        local, tbl_idx = ctx.saved_tensors
+        return (sorted_scatter_reference(g, local, tbl_idx, *ctx.args),
+                None, None, None, None)
 
 
 def sorted_scatter(msgs: torch.Tensor, local: torch.Tensor,
@@ -108,38 +336,156 @@ def sorted_scatter(msgs: torch.Tensor, local: torch.Tensor,
     raise; there is no fallback. ``sorted_scatter.launches`` counts the
     kernel launches.
 
-    Not differentiable: the layer ops that call it carry their own
-    backward, which calls it again on a differently sorted stream.
+    Differentiable in ``msgs``: the backward is :func:`sorted_gather` on
+    the same stream. (The layer ops that call it under their own backward
+    call it again on a differently sorted stream instead.)
     """
-    for name, t in (("local", local), ("out_blk", out_blk)):
-        if t.device != msgs.device:
-            raise ValueError(f"sorted_scatter: {name} is on {t.device}, "
-                             f"msgs on {msgs.device}")
-    if msgs.device.type == "cpu":
-        return sorted_scatter_reference(msgs, local, out_blk, out_rows,
-                                        row_block, edge_block)
-    if msgs.device.type != "cuda":
-        raise ValueError(f"sorted_scatter: no kernel for device "
-                         f"{msgs.device}")
-    lib = _library()
-    _check_cuda_args(msgs, local, out_blk, out_rows, row_block,
-                     edge_block, lib)
-    out = torch.zeros(out_rows, msgs.shape[1], dtype=torch.float32,
-                      device=msgs.device)
-    nslab = local.shape[0]
-    if nslab == 0 or out_rows == 0:
+    return _SortedScatter.apply(msgs, local, out_blk, out_rows, row_block,
+                                edge_block)
+
+
+def sorted_gather(table: torch.Tensor, local: torch.Tensor,
+                  tbl_idx: torch.Tensor, row_block: int,
+                  edge_block: int) -> torch.Tensor:
+    """``G[e] = table[tbl_idx[e // EB] * RB + local[e]]`` with zero rows
+    where ``local == row_block`` (padding). Exact in f32 (a copy).
+
+    ``table``: ``(T, L)`` f32; returns ``(nslab * EB, L)`` f32. CPU tensors
+    take :func:`sorted_gather_reference`; CUDA tensors launch the kernel or
+    raise. ``sorted_gather.launches`` counts the kernel launches.
+
+    Differentiable in ``table``: the backward scatter-adds into it with
+    ``index_add_`` (the block ids may come in any order).
+    """
+    return _SortedGather.apply(table, local, tbl_idx, row_block, edge_block)
+
+
+# --------------------------------------------------------------------------
+# fused forms
+# --------------------------------------------------------------------------
+
+def fused_place_scatter(V: torch.Tensor, place_mod: torch.Tensor,
+                        norm: torch.Tensor, local: torch.Tensor,
+                        out_blk: torch.Tensor, out_rows: int, k: int,
+                        L: int, row_block: int,
+                        edge_block: int) -> torch.Tensor:
+    """``out[out_blk * RB + local] += place(norm * V, place_mod)`` in one
+    pass: edge ``e``'s ``Lv`` values land in lanes ``[place_mod[e] * L/k,
+    ... + Lv)`` of its row of the packed ``(out_rows, L)`` result, without
+    an ``(E, L)`` temporary. Blocks no slab visits are zero.
+
+    ``V``: ``(E_pad, Lv)`` f32 with ``Lv <= L // k`` (rows may be strided);
+    ``place_mod`` int32 and ``norm`` f32: ``(E_pad,)``. Not differentiable:
+    the layer ops carry their own backward. CPU tensors take
+    :func:`fused_place_scatter_reference`; CUDA tensors launch the kernel
+    or raise. ``fused_place_scatter.launches`` counts the launches.
+    """
+    fn = "fused_place_scatter"
+    if V.dim() != 2 or k <= 0 or L % k or V.shape[1] > L // k:
+        raise ValueError(f"{fn}: V {tuple(V.shape)} does not fit slots of "
+                         f"{L}/{k} lanes")
+    if _device_of(fn, V, (("place_mod", place_mod), ("norm", norm),
+                          ("local", local), ("out_blk", out_blk))) == "cpu":
+        return fused_place_scatter_reference(
+            V, place_mod, norm, local, out_blk, out_rows, k, L, row_block,
+            edge_block)
+    lib = _library("fused_place_scatter")
+    _check_tensors(fn, (("V", V, torch.float32, False),
+                        ("place_mod", place_mod, torch.int32, True),
+                        ("norm", norm, torch.float32, True),
+                        ("local", local, torch.int32, True),
+                        ("out_blk", out_blk, torch.int32, True)))
+    E, Lv = V.shape
+    if Lv > 1 and V.stride(1) != 1:
+        raise ValueError(f"{fn}: V must be contiguous along its rows")
+    nslab = _check_stream(fn, E, local, out_blk, row_block, edge_block,
+                          lib.mrgcn_fused_place_scatter_max_edge_block())
+    if place_mod.shape != (E,) or norm.shape != (E,):
+        raise ValueError(f"{fn}: place_mod and norm must be ({E},)")
+    _check_lanes(fn, L, lib.mrgcn_fused_place_scatter_lane_tile())
+    _check_smem(fn, lib.mrgcn_fused_place_scatter_smem_bytes(
+        row_block, edge_block), row_block)
+    if out_rows < 0:
+        raise ValueError(f"{fn}: out_rows must be >= 0")
+    out = torch.empty(out_rows, L, dtype=torch.float32, device=V.device)
+    if out_rows == 0:
         return out
-    with torch.cuda.device(msgs.device):
-        stream = torch.cuda.current_stream(msgs.device).cuda_stream
-        rc = lib.mrgcn_sorted_scatter_f32(
-            msgs.data_ptr(), local.data_ptr(), out_blk.data_ptr(),
-            out.data_ptr(), nslab, edge_block, row_block, out_rows,
-            msgs.shape[1], stream)
-    if rc != 0:
-        raise RuntimeError("sorted_scatter: kernel launch failed: "
-                           + lib.mrgcn_cuda_error_string(rc).decode())
-    sorted_scatter.launches += 1
+    with torch.cuda.device(V.device):
+        rc = lib.mrgcn_fused_place_scatter_f32(
+            V.data_ptr(), V.stride(0), Lv, place_mod.data_ptr(),
+            norm.data_ptr(), local.data_ptr(), out_blk.data_ptr(),
+            out.data_ptr(), nslab, edge_block, row_block, out_rows, L, k,
+            _cuda_stream(V))
+    _raise_on(fn, lib, rc)
+    fused_place_scatter.launches += 1
     return out
 
 
-sorted_scatter.launches = 0
+def fused_scatter_dot(dvn: torch.Tensor, w: torch.Tensor,
+                      local: torch.Tensor, out_blk: torch.Tensor,
+                      table: torch.Tensor, out_rows: int, row_block: int,
+                      edge_block: int):
+    """``out[blk * RB + local_e] += w_e * dvn_e`` and
+    ``dots_e = <table[blk * RB + local_e], dvn_e>`` in one pass over a
+    block-sorted stream: the scatter and the gather visit the same rows.
+    Padding edges (``local == row_block``) add nothing and read zero.
+
+    ``dvn``: ``(E_pad, Lv)`` f32 at its real width ``Lv <= L`` (rows may be
+    strided); ``w``: ``(E_pad,)`` f32; ``table``: ``(out_rows, L)`` f32.
+    Returns ``(out (out_rows, L), dots (E_pad,))``, lanes ``>= Lv`` of
+    ``out`` zero. Not differentiable. CPU tensors take
+    :func:`fused_scatter_dot_reference`; CUDA tensors launch the kernel or
+    raise. ``fused_scatter_dot.launches`` counts the launches.
+    """
+    fn = "fused_scatter_dot"
+    if dvn.dim() != 2 or table.dim() != 2 or table.shape[0] != out_rows \
+            or dvn.shape[1] > table.shape[1]:
+        raise ValueError(f"{fn}: dvn {tuple(dvn.shape)} and table "
+                         f"{tuple(table.shape)} do not fit {out_rows} rows")
+    if _device_of(fn, dvn, (("w", w), ("local", local),
+                            ("out_blk", out_blk), ("table", table))) \
+            == "cpu":
+        return fused_scatter_dot_reference(dvn, w, local, out_blk, table,
+                                           out_rows, row_block, edge_block)
+    lib = _library("scatter_dot")
+    _check_tensors(fn, (("dvn", dvn, torch.float32, False),
+                        ("w", w, torch.float32, True),
+                        ("local", local, torch.int32, True),
+                        ("out_blk", out_blk, torch.int32, True),
+                        ("table", table, torch.float32, True)))
+    E, Lv = dvn.shape
+    L = table.shape[1]
+    if Lv > 1 and dvn.stride(1) != 1:
+        raise ValueError(f"{fn}: dvn must be contiguous along its rows")
+    nslab = _check_stream(fn, E, local, out_blk, row_block, edge_block,
+                          lib.mrgcn_scatter_dot_max_edge_block())
+    if w.shape != (E,):
+        raise ValueError(f"{fn}: w must be ({E},)")
+    lanes = lib.mrgcn_scatter_dot_lane_tile()
+    _check_lanes(fn, L, lanes)
+    _check_smem(fn, lib.mrgcn_scatter_dot_smem_bytes(row_block, edge_block),
+                row_block)
+    if table.data_ptr() % 16:
+        raise ValueError(f"{fn}: table must be 16-byte aligned")
+    out = torch.empty(out_rows, L, dtype=torch.float32, device=dvn.device)
+    dots = torch.empty(E, dtype=torch.float32, device=dvn.device)
+    if out_rows == 0 and E == 0:
+        return out, dots
+    # per-lane-tile partial dots, summed in tile order by the launch
+    partial = torch.empty(max(1, -(-Lv // lanes)) * max(E, 1),
+                          dtype=torch.float32, device=dvn.device)
+    with torch.cuda.device(dvn.device):
+        rc = lib.mrgcn_scatter_dot_f32(
+            dvn.data_ptr(), dvn.stride(0), Lv, w.data_ptr(),
+            local.data_ptr(), out_blk.data_ptr(), table.data_ptr(),
+            out.data_ptr(), dots.data_ptr(), partial.data_ptr(), nslab,
+            edge_block, row_block, out_rows, L, _cuda_stream(dvn))
+    _raise_on(fn, lib, rc)
+    fused_scatter_dot.launches += 1
+    return out, dots
+
+
+for _wrapper in (sorted_scatter, sorted_gather, fused_place_scatter,
+                 fused_scatter_dot):
+    _wrapper.launches = 0
+del _wrapper

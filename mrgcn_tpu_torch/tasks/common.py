@@ -2,8 +2,8 @@
 
 Counterpart of :mod:`mrgcn_tpu.tasks.common`. The artifact format, the
 feature pipeline (``setup_features``, ``densify``, the tokenizer's pad id)
-and the graph structure are the JAX package's own host modules, imported
-as they are (none of them imports JAX).
+and the graph structure are the port's own copies of the JAX package's
+host modules, under the same relative names.
 """
 
 from __future__ import annotations
@@ -15,11 +15,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from mrgcn_tpu.data.artifact import Artifact
-from mrgcn_tpu.encodings.features import (densify, getDatatypeConfig,
-                                          isDatatypeIncluded, setup_features)
-from mrgcn_tpu.encodings.structure import group_by_relation
-from mrgcn_tpu.encodings.xsd.string import ByteTokenizer, pad_symbol_for
+from mrgcn_tpu_torch.data.artifact import Artifact
+from mrgcn_tpu_torch.encodings.features import (densify, getDatatypeConfig,
+                                                isDatatypeIncluded,
+                                                setup_features)
+from mrgcn_tpu_torch.encodings.structure import group_by_relation
+from mrgcn_tpu_torch.encodings.xsd.string import (ByteTokenizer,
+                                                  pad_symbol_for)
 from mrgcn_tpu_torch.models.mrgcn import TODO_ENCODERS, module_names
 from mrgcn_tpu_torch.models.rgcn import EdgeBlock
 from mrgcn_tpu_torch.ops import relational as rl

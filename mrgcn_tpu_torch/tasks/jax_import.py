@@ -6,8 +6,10 @@ The JAX package's parameters are a nested dict (``params["rgcn"]
 and layouts as module paths (``rgcn.layer_0.comp_i``,
 ``xsd_string_0._TextBlock_0.qkv.kernel``, ``gate_weights``). The bridge
 maps one onto the other by path, so both packages can run the same
-weights: the R-GCN, every encoder and the gates. Arrays travel as numpy;
-nothing here imports JAX.
+weights: the R-GCN (with the DistMult ``rgcn.relations`` of a link
+predictor, the unpacked ``weight_i`` of a wide input layer and the basis
+coefficients ``comp_i``/``comp_f``), every encoder and the gates. Arrays
+travel as numpy; nothing here imports JAX.
 """
 
 from __future__ import annotations

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mrgcn_tpu.data.artifact import Artifact
+from mrgcn_tpu_torch.data.artifact import Artifact
 from mrgcn_tpu_torch.models.mrgcn import MRGCN
 from mrgcn_tpu_torch.tasks import utils as tutils
 from mrgcn_tpu_torch.tasks.common import (RunInputs, hidden_dims_from_config,

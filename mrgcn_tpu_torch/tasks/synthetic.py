@@ -1,4 +1,5 @@
-"""Synthetic node-classification datasets written as artifacts.
+"""Synthetic node-classification and link-prediction datasets written as
+artifacts.
 
 Stands in for a real dataset at its full width: the graph arrays come from
 the caller (e.g. ``benchmarks/torch_baseline.build_workload``, the
@@ -7,16 +8,17 @@ validation and test labels are drawn from the remaining nodes with a
 seeded generator. :func:`multimodal_features` draws literal features in
 the artifact's encoding-set layout (``[encodings, node_idx,
 seq_lengths]`` per set): numbers, years at the temporal encoder's width
-and byte-token strings.
+and byte-token strings. :func:`save_lp_artifact` draws a link-prediction
+graph at FB15k-237's published sizes.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from mrgcn_tpu.data import artifact as artifact_io
-from mrgcn_tpu.encodings.structure import GraphStructure
-from mrgcn_tpu.encodings.xsd.string import ByteTokenizer
+from mrgcn_tpu_torch.data import artifact as artifact_io
+from mrgcn_tpu_torch.encodings.structure import GraphStructure, compute_norm
+from mrgcn_tpu_torch.encodings.xsd.string import ByteTokenizer
 
 # feature width of an encoded xsd:gYear
 # (mrgcn_tpu/encodings/xsd/temporal.py: sign, century, decade and year
@@ -86,3 +88,48 @@ def save_nc_artifact(path: str, num_nodes: int, num_relations: int,
                   for split, y in Y.items()}
     artifact_io.save(path, structure, F or {}, Y=Y, sample_map=sample_map,
                      class_map=[f"class{c}" for c in range(num_classes)])
+
+
+# FB15k-237's published sizes (Toutanova and Chen 2015): entities,
+# properties, and train / valid / test triples
+FB15K237 = {"num_nodes": 14_541, "num_props": 237, "train": 272_115,
+            "valid": 17_535, "test": 20_466}
+
+
+def save_lp_artifact(path: str, num_nodes: int = FB15K237["num_nodes"],
+                     num_props: int = FB15K237["num_props"],
+                     num_train: int = FB15K237["train"],
+                     num_valid: int = FB15K237["valid"],
+                     num_test: int = FB15K237["test"],
+                     seed: int = 0) -> None:
+    """Write a link-prediction artifact of uniformly random triples at
+    FB15k-237's sizes (the defaults) from a seeded numpy generator.
+
+    The graph is built from the train triples as the ETL builds it: one
+    relation per property, then the inverses, then the self-loop, so
+    ``num_relations = 2 * num_props + 1`` (475), with the per-relation
+    row normalisation. Valid and test triples are drawn the same way and
+    stay out of the graph."""
+    rng = np.random.default_rng(seed)
+
+    def triples(count):
+        return np.stack([rng.integers(0, num_nodes, count),
+                         rng.integers(0, num_props, count),
+                         rng.integers(0, num_nodes, count)],
+                        axis=1).astype(np.int32)
+
+    data = {"train": triples(num_train), "valid": triples(num_valid),
+            "test": triples(num_test)}
+    s, p, o = data["train"].T
+    loops = np.arange(num_nodes, dtype=np.int32)
+    num_relations = 2 * num_props + 1
+    src = np.concatenate([s, o, loops]).astype(np.int32)
+    dst = np.concatenate([o, s, loops]).astype(np.int32)
+    rel = np.concatenate([p, p + num_props,
+                          np.full(num_nodes, 2 * num_props)]
+                         ).astype(np.int32)
+    structure = GraphStructure(
+        num_nodes=int(num_nodes), num_relations=num_relations, src=src,
+        dst=dst, rel=rel,
+        norm=compute_norm(src, rel, num_nodes, num_relations))
+    artifact_io.save(path, structure, {}, data=data)

@@ -140,6 +140,17 @@ def _to_host(obj):
     return obj
 
 
+def dead_encoders(model: nn.Module) -> Tuple[str, ...]:
+    """Encoder instances whose gate is exactly zero: the reference skips
+    their forward at run time (reference: mrgcn.py:263-268); here they go
+    into ``MRGCN.skip_encoders``."""
+    gates = getattr(model, "gate_weights", None)
+    if gates is None:
+        return ()
+    return tuple(name for name, g in zip(model.names, gates.tolist())
+                 if abs(g) < 1e-12)
+
+
 class EarlyStop:
     """Patience/tolerance early stopping with a warm-up delay, keeping the
     best state in host memory."""

@@ -90,13 +90,16 @@ def test_dense_aggregate_fwd_and_grads_match_jax(case):
 def test_dense_aggregate_runs_one_scatter_each_way(monkeypatch):
     mine, _, H, W, cot = dense_case(*CASES["rel_const_k4"][:7])
     calls = []
-    real = rl.sorted_scatter
+    real = rl.fused_place_scatter
 
-    def spy(msgs, local, blk, out_rows, row_block, edge_block):
+    def spy(V, place_mod, norm, local, blk, out_rows, *rest):
         calls.append((local.data_ptr(), out_rows))
-        return real(msgs, local, blk, out_rows, row_block, edge_block)
+        return real(V, place_mod, norm, local, blk, out_rows, *rest)
 
-    monkeypatch.setattr(rl, "sorted_scatter", spy)
+    # the scatter of these ops is the fused place-scatter; the plain
+    # sorted_scatter must not run beside it
+    monkeypatch.setattr(rl, "fused_place_scatter", spy)
+    monkeypatch.setattr(rl, "sorted_scatter", None)
     h = torch.tensor(H, requires_grad=True)
     w = torch.tensor(W, requires_grad=True)
     rl.dense_aggregate(h, w, mine, 21, 16).backward(torch.from_numpy(cot))

@@ -6,11 +6,12 @@ without JAX (the repository's conftest imports JAX, hence
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu --noconftest
 
-Elsewhere they skip. Tolerances: ``sorted_scatter`` atol 1e-4 / rtol
-1e-5 (the kernel and ``index_add_`` sum the same f32 values in different
-orders). The bf16 encoder kernels (fused attention, fused MLP) against
-their plain versions: element by element, ``|got - want| <= 2^-6 (|want|
-+ scale) + 1e-6``, where ``scale`` is the element's product taken over
+Elsewhere they skip. Tolerances: ``sorted_scatter``,
+``fused_place_scatter`` and ``fused_scatter_dot`` atol 1e-4 / rtol 1e-5
+(the kernel and ``index_add_`` sum the same f32 values in different
+orders); ``sorted_gather`` bit for bit (a copy). The bf16 encoder kernels
+(fused attention, fused MLP) against their plain versions: element by
+element, ``|got - want| <= 2^-6 (|want| + scale) + 1e-6``, where ``scale`` is the element's product taken over
 absolute values (``mrgcn_tpu_torch.ops.kernel_bounds``). Both sides sum
 in f32 in different orders, so an intermediate that is rounded to bf16
 (the probabilities, the hidden activations, the outputs) can land one
@@ -100,6 +101,143 @@ def test_featureless_aggregate_on_card_matches_cpu(cuda):
     (o_cpu, g_cpu), (o_gpu, g_gpu) = results
     torch.testing.assert_close(o_gpu, o_cpu, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(g_gpu, g_cpu, rtol=1e-5, atol=1e-4)
+
+
+def stream_case(cuda, rb, eb, L, k, d, seed):
+    """A sorted stream with an all-padding slab and a run of one slab,
+    values ``d`` wide cut from wider rows, slots, norms and a table."""
+    nslab, n_blocks = 9, 10
+    msgs, local, blk = make_stream(seed, nslab, rb, eb, n_blocks, L)
+    local[4] = rb
+    blk[-1] = n_blocks
+    rng = np.random.default_rng(seed)
+    E, out_rows = nslab * eb, (n_blocks + 1) * rb - 3
+    place = rng.integers(0, k, E).astype(np.int32)
+    norm = rng.random(E).astype(np.float32)
+    table = rng.standard_normal((out_rows, L)).astype(np.float32)
+    m, lo, bl, pl, nm, tb = (torch.from_numpy(x).to(cuda) for x in (
+        msgs, local, blk, place, norm, table))
+    return m[:, 1:1 + d], lo, bl, pl, nm, tb, out_rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rb,eb,L,k,d", [(16, 8, 128, 8, 16),
+                                         (512, 256, 256, 1, 200),
+                                         (64, 40, 96, 4, 21),
+                                         (512, 256, 128, 8, 11)])
+def test_fused_place_scatter_kernel_matches_plain(cuda, rb, eb, L, k, d):
+    from mrgcn_tpu_torch.ops import sorted_stream as ss
+    V, lo, bl, pl, nm, _, out_rows = stream_case(cuda, rb, eb, L, k, d,
+                                                 rb + d)
+    args = (V, pl, nm, lo, bl, out_rows, k, L, rb, eb)
+    before = ss.fused_place_scatter.launches
+    got, again = ss.fused_place_scatter(*args), ss.fused_place_scatter(*args)
+    want = ss.fused_place_scatter_reference(*args)
+    torch.cuda.synchronize()
+    assert ss.fused_place_scatter.launches == before + 2
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, again)
+    # no slabs at all: every block is zero-filled
+    empty = ss.fused_place_scatter(V[:0], pl[:0], nm[:0], lo[:0], bl[:0],
+                                   out_rows, k, L, rb, eb)
+    assert empty.shape == (out_rows, L) and not empty.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rb,eb,L,d", [(16, 8, 128, 128),
+                                       (512, 256, 256, 200),
+                                       (64, 40, 96, 21)])
+def test_fused_scatter_dot_kernel_matches_plain(cuda, rb, eb, L, d):
+    from mrgcn_tpu_torch.ops import sorted_stream as ss
+    dvn, lo, bl, _, w, table, out_rows = stream_case(cuda, rb, eb, L, 1,
+                                                     min(d, L - 1), rb + d)
+    args = (dvn, w, lo, bl, table, out_rows, rb, eb)
+    before = ss.fused_scatter_dot.launches
+    got, again = ss.fused_scatter_dot(*args), ss.fused_scatter_dot(*args)
+    want = ss.fused_scatter_dot_reference(*args)
+    torch.cuda.synchronize()
+    assert ss.fused_scatter_dot.launches == before + 2
+    for g, a, w_ in zip(got, again, want):
+        torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-4)
+        assert torch.equal(g, a)
+    assert not got[1][(lo.reshape(-1) == rb)].any()    # padding: zero dot
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rb,eb,L", [(16, 8, 128), (512, 256, 256),
+                                     (64, 40, 96)])
+def test_sorted_gather_kernel_is_exact_and_pairs_with_scatter(cuda, rb, eb,
+                                                              L):
+    from mrgcn_tpu_torch.ops import sorted_stream as ss
+    _, lo, bl, _, _, table, _ = stream_case(cuda, rb, eb, L, 1, 8, rb + L)
+    before = ss.sorted_gather.launches
+    got = ss.sorted_gather(table, lo, bl, rb, eb)
+    want = ss.sorted_gather_reference(table, lo, bl, rb, eb)
+    torch.cuda.synchronize()
+    assert ss.sorted_gather.launches == before + 1
+    assert torch.equal(got, want)
+    # the gather's backward is a segment sum into the table; the
+    # scatter's backward launches the gather kernel
+    t = table.clone().requires_grad_()
+    cot = torch.randn_like(got) * (lo.reshape(-1, 1) < rb)
+    ss.sorted_gather(t, lo, bl, rb, eb).backward(cot)
+    torch.testing.assert_close(
+        t.grad, ss.sorted_scatter_reference(cot, lo, bl, table.shape[0], rb,
+                                            eb), rtol=1e-5, atol=1e-4)
+    m = cot.clone().requires_grad_()
+    gathers = ss.sorted_gather.launches
+    ss.sorted_scatter(m, lo, bl, table.shape[0], rb, eb).backward(table)
+    assert ss.sorted_gather.launches == gathers + 1
+    assert torch.equal(m.grad, want)
+
+
+@pytest.mark.gpu
+def test_stream_kernels_reject_bad_arguments(cuda):
+    from mrgcn_tpu_torch.ops import sorted_stream as ss
+    V, lo, bl, pl, nm, table, out_rows = stream_case(cuda, 16, 8, 128, 8,
+                                                     16, 3)
+    with pytest.raises(TypeError, match="place_mod must be torch.int32"):
+        ss.fused_place_scatter(V, pl.long(), nm, lo, bl, out_rows, 8, 128,
+                               16, 8)
+    with pytest.raises(ValueError, match="contiguous along its rows"):
+        ss.fused_place_scatter(V.T.contiguous().T, pl, nm, lo, bl, out_rows,
+                               8, 128, 16, 8)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ss.fused_scatter_dot(V, nm, lo, bl, table[:, :100].contiguous(),
+                             out_rows, 16, 8)
+    with pytest.raises(ValueError, match="shapes disagree"):
+        ss.sorted_gather(table, lo, bl[:-1], 16, 8)
+    with pytest.raises(ValueError, match="table must be contiguous"):
+        ss.sorted_gather(table[:, ::2], lo, bl, 16, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dim,B", [(16, 2), (200, 2)])
+def test_featureless_basis_on_card_matches_cpu(cuda, out_dim, B):
+    from mrgcn_tpu_torch.ops import relational as rl
+    from mrgcn_tpu_torch.ops.rspmm import packing_factor
+    rng = np.random.default_rng(1)
+    n, R, E = 300, 5, 2000
+    src, dst, rel = (rng.integers(0, hi, E) for hi in (n, n, R))
+    norm = rng.random(E).astype(np.float32)
+    k = packing_factor(out_dim)
+    plans = rl.build_layer_plans(src, dst, rel, norm, n, k, k,
+                                 row_block=64, edge_block=32,
+                                 kind="identity_basis")
+    comp = rng.standard_normal((R, B)).astype(np.float32)
+    packed = rng.standard_normal(
+        (B, plans.n_in_rows, rl.line_width(k, out_dim))).astype(np.float32)
+    cot = torch.from_numpy(
+        rng.standard_normal((n, out_dim)).astype(np.float32))
+    results = []
+    for device in (torch.device("cpu"), cuda):
+        c = torch.tensor(comp, device=device, requires_grad=True)
+        p = torch.tensor(packed, device=device, requires_grad=True)
+        out = rl.featureless_basis(c, p, plans.to(device), out_dim)
+        out.backward(cot.to(device))
+        results.append([t.detach().cpu() for t in (out, c.grad, p.grad)])
+    for got, want in zip(results[1], results[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
 def assert_bf16_close(got, want, scale, what):

@@ -140,13 +140,16 @@ def test_featureless_aggregate_fwd_and_grad_match_jax(out_dim, rect):
 def test_featureless_aggregate_launches_one_scatter_each_way(monkeypatch):
     mine, _, table, cot = _featureless_case(16, False, seed=1)
     calls = []
-    real = rl.sorted_scatter
+    real = rl.fused_place_scatter
 
-    def spy(msgs, local, blk, out_rows, row_block, edge_block):
+    def spy(V, place_mod, norm, local, blk, out_rows, *rest):
         calls.append((local.data_ptr(), out_rows))
-        return real(msgs, local, blk, out_rows, row_block, edge_block)
+        return real(V, place_mod, norm, local, blk, out_rows, *rest)
 
-    monkeypatch.setattr(rl, "sorted_scatter", spy)
+    # the scatter of these ops is the fused place-scatter; the plain
+    # sorted_scatter must not run beside it
+    monkeypatch.setattr(rl, "fused_place_scatter", spy)
+    monkeypatch.setattr(rl, "sorted_scatter", None)
     t = torch.tensor(table, requires_grad=True)
     rl.featureless_aggregate(t, mine, 16).backward(torch.from_numpy(cot))
     assert calls == [(mine.fwd.scatter_local.data_ptr(), mine.n_out_rows),

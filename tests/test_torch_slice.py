@@ -39,7 +39,8 @@ from mrgcn_tpu_torch.tasks.common import prepare_inputs
 from mrgcn_tpu_torch.tasks.jax_import import (load_jax_params,
                                               params_to_state_dict,
                                               state_dict_to_params)
-from mrgcn_tpu_torch.tasks.synthetic import save_nc_artifact
+from mrgcn_tpu_torch.tasks.synthetic import (save_lp_artifact,
+                                             save_nc_artifact)
 from mrgcn_tpu_torch.utils import device as port_device
 
 from tests.test_torch_layers import assert_plans_equal
@@ -179,7 +180,7 @@ def test_node_dropout_keeps_or_rescales_rows():
     assert torch.equal(model._node_dropout(X, False, None), X)
 
 
-def test_unported_paths_raise(small_artifact, tmp_path):
+def test_unported_paths_raise(small_artifact, tmp_path, monkeypatch):
     config = make_config()
     tin = prepare_inputs(small_artifact, config, True, CPU)
     Y_train = np.asarray(small_artifact.Y["train"]).reshape(-1, 2)
@@ -196,10 +197,19 @@ def test_unported_paths_raise(small_artifact, tmp_path):
             torch_run.main(["-c", "c.toml", "-i", "a.npz", flag])
     with pytest.raises(NotImplementedError, match="tar"):
         torch_run.main(["-c", "c.toml", "-i", "a.tar"])
+    # link prediction is ported for full-graph batches; its node-sliced
+    # batches still name their item
     cfg = tmp_path / "lp.toml"
-    cfg.write_text('name = "LP"\n[task]\ntype = "link prediction"\n')
-    with pytest.raises(NotImplementedError, match="link prediction"):
-        torch_run.main(["-c", str(cfg), "-i", "a.npz"])
+    cfg.write_text('name = "LP"\n[task]\ntype = "link prediction"\n'
+                   'seed = 0\ngcn_batchsize = 8\n[model]\nepoch = 1\n'
+                   '[[model.layers]]\nhidden_nodes = 8\n'
+                   '[[model.layers]]\ntype = "mrgcn"\n')
+    art = tmp_path / "lp.npz"
+    save_lp_artifact(str(art), num_nodes=60, num_props=3, num_train=200,
+                     num_valid=30, num_test=30)
+    monkeypatch.setenv("MRGCN_PLATFORM", "cpu")
+    with pytest.raises(NotImplementedError, match="node-sliced LP batches"):
+        torch_run.main(["-c", str(cfg), "-i", str(art), "--dry_run"])
 
 
 def test_cuda_without_card_raises(monkeypatch):
