@@ -4,10 +4,11 @@
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, the CUDA toolkit (``nvcc``) and no network, and it fails (exit code
 other than 0, no result line) where CUDA is absent or the repository is not
-beside it. ``--only a,b`` runs some phases alone (``stream``, ``nc``,
-``lp``, ``encoders``, ``agree``, and ``profile``: a ``torch.profiler``
-breakdown of the link-prediction step, never part of the whole run) and
-then prints no result line. Phases, each printing its own lines:
+beside it. ``--only a,b`` runs some phases alone (``stream``, ``compose``,
+``nc``, ``minibatch``, ``lp``, ``encoders``, ``agree``, and ``profile`` /
+``profile_mb``: ``torch.profiler`` breakdowns of the link-prediction step
+and of a mini-batch NC step, never part of the whole run) and then prints
+no result line. Phases, each printing its own lines:
 
 1. the card, as ``nvidia-smi`` and torch see it;
 2. the kernels, built from ``mrgcn_tpu_torch/csrc`` (one ``nvcc`` per
@@ -24,11 +25,26 @@ then prints no result line. Phases, each printing its own lines:
    sizes, hidden 200: ``fwd`` and the dst-sorted ``bwd_h``); and all four
    on small adversarial streams (padding, a run of one slab, all-padding
    slabs, repeated and unvisited blocks, ragged output rows, ``k`` 1 and
-   8, values narrower than their slot);
-4. the featureless NC path: ``mrgcn_tpu_torch.run`` trains the featureless
-   full-batch NC model (``configs/dmg.toml``'s ``[model]``: 2 layers,
-   hidden 16, 40 bases) for 5 epochs on the DMG-scale graph with random
-   weights from seed 0, then evaluates on the test split;
+   8, values narrower than their slot). Then the compose kernels
+   (``compose_grad_pass``, ``compose_table``, ``canonical_copy``) at DMG
+   width (R=121, B=40, 12,800 packed rows of 128 lanes; the cotangent
+   table taken from a real ``bwd_table`` scatter) and at ragged shapes
+   (R=5, B=3, rows=8; R=475, B=2; rows no multiple of 32 or of 8; lines
+   20, 36 and 256 wide). ``d_comp`` sums 1,638,400 products per entry, so it is held to
+   1e-4 + 1e-5 of the sum of their absolute values and both sides are
+   printed against an f64 contraction; the copy is exact. Then the
+   featureless layer's forward with each compose variant (the model's
+   library matmul, the table given, ``compose_table``, a
+   ``canonical_copy`` of the table), whose launches are the two
+   micro-kernels' path;
+4. the featureless NC path, twice: ``mrgcn_tpu_torch.run`` trains the
+   featureless full-batch NC model (``configs/dmg.toml``'s ``[model]``: 2
+   layers, hidden 16, 40 bases) for 5 epochs on the DMG-scale graph with
+   random weights from seed 0, then evaluates on the test split; on the
+   default route and with ``MRGCN_FUSED_COMPOSE_BWD=1``, where the
+   composed identity layer's backward is one ``compose_grad_pass`` (5
+   launches there, none elsewhere). The two routes' losses must agree
+   within 1e-5 relative per epoch; both epoch medians are printed;
 5. the multimodal NC path: the same CLI and model over DMG's numeric (4),
    gYear (1) and string (16, the from-scratch text encoder: d=128, one
    head, two blocks, bf16 body) features, drawn from seed 0 at
@@ -46,7 +62,18 @@ then prints no result line. Phases, each printing its own lines:
    the final filtered ranking of the test split. The losses must be
    finite, never rise above the first, and end at least 0.01 below it (at
    this width the f32 loss stays at ln 2 until about epoch 20, then
-   falls fast).
+   falls fast). Before it, mini-batch training through the same CLI at
+   DMG width: featureless NC with ``batchsize = 32``
+   (``configs/dmg_reference.toml``), 2 epochs; the same with
+   ``neighbor_fanout = 10`` and ``neighbor_fanout_rounds = 2``; the
+   multimodal model with ``batchsize = 512``, 1 epoch (the encoder kernels
+   run on each batch's outer-hop rows); the losses must be finite and
+   fall. And node-sliced link prediction at FB15k-237's width, again
+   through the CLI with ``configs/fb15k-237.toml``'s own ``gcn_batchsize
+   = 32``, ``test_batchsize = 500``: one whole epoch of some 900 batches
+   (the cut: 1 epoch), the ranking of the training batches and the sliced
+   ranking of the test split; build, epoch and ranking seconds are
+   printed.
    Each path's kernel launch counts are set to 0 just before it and read
    just after: every kernel it runs must have launched. The paths run
    before phase 7: run after it, the featureless epoch measured about
@@ -82,8 +109,16 @@ then prints no result line. Phases, each printing its own lines:
    step's loss agrees within 1e-4 relative and every parameter's gradient
    within 1e-4 of its largest entry, on a small graph for three steps
    (the losses fall; test ranks equal except where near-equal scores
-   change order: at most 2 % of them, the count is printed) and on the
-   FB15k-237-size graph at full width for one step.
+   change order: at most 2 % of them, the count is printed), on the same
+   small graph in node-sliced batches (the unplanned layers; each step
+   from the CPU side's parameters, and a step where a ReLU input within
+   rounding of zero changes side, which is counted and printed, holds the
+   gradients by norm, 1e-2), and on the FB15k-237-size graph at full
+   width for one step. Mini-batch NC
+   (``batchsize = 32``) on the small graph: losses within 1e-4 relative
+   over 3 epochs. ``featureless_composed``'s output and gradients on the
+   card (``fused_place_scatter``, ``compose_grad_pass``) within 1e-4 of
+   their largest entry of the CPU's.
 
 Every kernel comparison checks bit identity across two runs, and the
 slice-shape ones time the kernel, the plain version and, where one PyTorch
@@ -125,7 +160,7 @@ TIMED_CALLS = 20
 # runs, with the weights the CPU side's training ends at
 ENCODER_RTOL = {"mlp": (1e-4, 1e-4), "text": (1e-2, 1e-1)}
 KERNEL_SOURCES = ("sorted_scatter", "sorted_gather", "fused_place_scatter",
-                  "scatter_dot", "fused_attention", "fused_mlp")
+                  "scatter_dot", "compose", "fused_attention", "fused_mlp")
 # configs/fb15k-237.toml trains 20 epochs and ranks every 10. The f32 loss
 # sits at ln 2 until epoch 20 (the scores start near 1e-5 and the mean
 # BCE's gradient entries below Adam's eps, so the parameters creep) and
@@ -220,11 +255,14 @@ def nbytes(*tensors) -> int:
 
 
 def compare_stream(name, label, kernel, plain, library=None, work=None,
-                   exact=False, shape=None) -> dict:
+                   exact=False, shape=None, scales=None) -> dict:
     """One stream kernel against its plain version: shapes, finiteness,
     tolerance (or bit equality with ``exact``), two bit-identical runs;
     with ``work`` (bytes, f32 operations) also the timings and the
-    bound."""
+    bound. An output is held to ``ATOL + RTOL |want|`` element by element;
+    where ``scales`` gives it a tensor (a long reduction: the sum of its
+    terms' absolute values), to ``ATOL + RTOL scale``, since an entry near
+    zero of such a sum carries the rounding of its large terms."""
     import torch
     got, again, want = kernel(), kernel(), plain()
     torch.cuda.synchronize()
@@ -236,8 +274,9 @@ def compare_stream(name, label, kernel, plain, library=None, work=None,
         check(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
         e = float((g - w).abs().max()) if g.numel() else 0.0
         err = max(err, e)
+        scale = scales[i] if scales and scales[i] is not None else w.abs()
         ok = torch.equal(g, w) if exact \
-            else torch.allclose(g, w, atol=ATOL, rtol=RTOL)
+            else bool(((g - w).abs() <= ATOL + RTOL * scale).all())
         check(ok, f"{what}: kernel disagrees with plain (max abs err {e})")
         check(torch.equal(g, a), f"{what}: two runs differ")
     row = {"label": label, **(shape or {}), "max_abs_err": err}
@@ -337,15 +376,12 @@ def scatter_cases(names, label, stream, place, out_rows, L, k, d, gen,
     return out
 
 
-def nc_stream_phase(work, device, rows) -> None:
-    """``sorted_scatter`` and ``fused_place_scatter`` on every stream the
-    NC paths' layer 0 scatters (the identity half's ``fwd`` and
-    ``bwd_table``; with features, the dense half's ``fwd`` and
-    ``bwd_h``)."""
+def nc_layer0_plans(work, device):
+    """The identity (``8:8:id``) and dense (``4:8``) plans of the NC paths'
+    frontier-restricted layer 0 on the DMG-scale graph."""
     import numpy as np
     import torch
     from mrgcn_tpu_torch.models.rgcn import EdgeBlock
-    from mrgcn_tpu_torch.ops.relational import line_width
     from mrgcn_tpu_torch.tasks.common import restricted_layer_edges
 
     n = work["n"]
@@ -357,14 +393,26 @@ def nc_stream_phase(work, device, rows) -> None:
                      rel=torch.as_tensor(work["rel"]),
                      norm=torch.as_tensor(work["norm"]), num_out=n)
     t0 = time.perf_counter()
-    x_width, hidden = multimodal_width(), work["hidden"]
     chain = restricted_layer_edges(structure, np.unique(work["labels_idx"]),
-                                   2, full, first_dim=hidden,
-                                   X_width=x_width, featureless=False,
-                                   device=device)
+                                   2, full, first_dim=work["hidden"],
+                                   X_width=multimodal_width(),
+                                   featureless=False, device=device)
     ident, dense = chain[0].plans["8:8:id"], chain[0].plans["4:8"]
     print(f"[kernel] NC layer-0 plans built in "
           f"{time.perf_counter() - t0:.1f} s: {ident.out_nodes} output nodes")
+    return ident, dense
+
+
+def nc_stream_phase(work, device, rows) -> None:
+    """``sorted_scatter`` and ``fused_place_scatter`` on every stream the
+    NC paths' layer 0 scatters (the identity half's ``fwd`` and
+    ``bwd_table``; with features, the dense half's ``fwd`` and
+    ``bwd_h``)."""
+    import torch
+    from mrgcn_tpu_torch.ops.relational import line_width
+
+    x_width, hidden = multimodal_width(), work["hidden"]
+    ident, dense = nc_layer0_plans(work, device)
 
     gen = torch.Generator(device=device).manual_seed(0)
     # one training step's four scatters, in the order the step makes them:
@@ -450,6 +498,127 @@ def lp_stream_phase(plan, device, rows) -> None:
         exact=True, shape=stream_shape(f, T, L)))
     del table, padded
     torch.cuda.empty_cache()
+
+
+def compose_phase(work, device, rows) -> dict:
+    """Kernels ``compose_grad_pass``, ``compose_table`` and
+    ``canonical_copy`` against their plain versions at DMG width (the
+    cotangent table taken from a real ``bwd_table`` scatter) and at ragged
+    shapes; then the stage split of the featureless layer's forward with
+    each compose variant, whose launches are counted as the two
+    micro-kernels' path."""
+    import torch
+    from mrgcn_tpu_torch.models.rgcn import _identity_planned
+    from mrgcn_tpu_torch.ops import compose_kernels as ck
+    from mrgcn_tpu_torch.ops import relational as rl
+    from mrgcn_tpu_torch.ops import sorted_stream as ss
+    gen = torch.Generator(device=device).manual_seed(3)
+    ident, _ = nc_layer0_plans(work, device)
+    R, B, hidden = work["R"], work["num_bases"], work["hidden"]
+    n_rows, L = ident.n_in_rows, rl.line_width(ident.k_in, hidden)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    def grad_case(label, d_t, packed, comp, timed):
+        R_, B_ = comp.shape
+        K = d_t.numel() // R_
+        args = (d_t, packed, comp, R_, B_)
+        d_flat, p_flat = d_t.reshape(R_, -1), packed.reshape(B_, -1)
+        # d_comp sums K products: its entries are held to the sum of their
+        # terms' absolute values, and both sides are shown against an f64
+        # contraction
+        exact = d_flat.double() @ p_flat.double().T
+        scale = d_flat.abs() @ p_flat.abs().T
+        f64 = {side: float((fn()[0].double() - exact).abs().max())
+               for side, fn in (
+                   ("kernel", lambda: ss.compose_grad_pass(*args)),
+                   ("plain", lambda: ss.compose_grad_pass_reference(*args)))}
+        print(f"[kernel] compose_grad_pass {label} d_comp: largest entry "
+              f"{float(exact.abs().max()):.6g}, max abs err against f64 "
+              f"{json.dumps(f64)}, smallest tolerance "
+              f"{ATOL + RTOL * float(scale.min()):.3g}")
+        del exact
+        rows["compose_grad_pass"].append(compare_stream(
+            "compose_grad_pass", label, lambda: ss.compose_grad_pass(*args),
+            lambda: ss.compose_grad_pass_reference(*args),
+            # the two contractions of the unfused compose backward
+            (lambda: (d_flat @ p_flat.T, comp.T @ d_flat)) if timed else None,
+            (nbytes(d_t, packed, comp) + nbytes(packed) + R_ * B_ * 4,
+             4.0 * R_ * B_ * K) if timed else None,
+            shape={"R": R_, "B": B_, "rows": d_t.shape[0] // R_,
+                   "L": d_t.shape[1]}, scales=(scale, None)))
+
+    def table_case(label, comp, pk_flat, timed):
+        R_, B_ = comp.shape
+        rows["compose_table"].append(compare_stream(
+            "compose_table", label, lambda: ck.compose_table(comp, pk_flat),
+            lambda: ck.compose_table_reference(comp, pk_flat),
+            (lambda: torch.matmul(comp, pk_flat)) if timed else None,
+            (nbytes(comp, pk_flat) + R_ * pk_flat.shape[1] * 4,
+             2.0 * R_ * B_ * pk_flat.shape[1]) if timed else None,
+            shape={"R": R_, "B": B_, "cols": pk_flat.shape[1]}))
+
+    def copy_case(label, x, timed):
+        rows["canonical_copy"].append(compare_stream(
+            "canonical_copy", label, lambda: ck.canonical_copy(x),
+            lambda: ck.canonical_copy_reference(x),
+            (lambda: x.clone()) if timed else None,
+            (2 * nbytes(x), 0) if timed else None, exact=True,
+            shape={"rows": x.shape[0], "L": x.shape[1]}))
+
+    comp, packed = rnd(R, B), rnd(B, n_rows, L)
+    b = ident.bwd_table
+    d_t = rl._place_scatter(rnd(b.num_padded_edges, hidden), b.in_mod, b,
+                            R * n_rows, ident.k_in, hidden, L)
+    print(f"[kernel] compose at DMG width: R {R}, B {B}, rows {n_rows}, "
+          f"L {L}; {int((d_t != 0).any(dim=1).sum())} of {d_t.shape[0]} "
+          "cotangent rows are not zero")
+    grad_case("dmg", d_t, packed.reshape(-1, L), comp, True)
+    table_case("dmg", comp, packed.reshape(B, -1), True)
+    copy_case("dmg", d_t, True)
+    del d_t
+    # ragged: tiny, many relations with two bases, rows no multiple of 32
+    # or of 8, lines of other widths; dense random cotangents
+    for label, (R_, B_, rows_, L_) in {"ragged_5x3x8": (5, 3, 8, 128),
+                                       "ragged_475x2x40": (475, 2, 40, 256),
+                                       "ragged_7x4x24": (7, 4, 24, 128),
+                                       "ragged_33x17x72": (33, 17, 72, 36),
+                                       "ragged_4x3x12": (4, 3, 12, 128),
+                                       "ragged_9x5x7": (9, 5, 7, 20)
+                                       }.items():
+        c_, p_ = rnd(R_, B_), rnd(B_ * rows_, L_)
+        grad_case(label, rnd(R_ * rows_, L_), p_, c_, False)
+        table_case(label, c_, p_.reshape(B_, -1), False)
+        copy_case(label, rnd(R_ * rows_ + 1, 3), False)
+
+    # the stage split of the featureless layer's forward: the model's
+    # compose (a library matmul), the table given, and the two
+    # micro-kernels feeding the same aggregate
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    pk_flat = packed.reshape(B, -1)
+    with torch.no_grad():
+        table = torch.matmul(comp, pk_flat).reshape(-1, L)
+        stages = {
+            "whole_ms": time_ms(lambda: _identity_planned(
+                packed, comp, ident, hidden)),
+            "precomposed_ms": time_ms(lambda: rl.featureless_aggregate(
+                table, ident, hidden)),
+            "kernel_whole_ms": time_ms(lambda: rl.featureless_aggregate(
+                ck.compose_table(comp, pk_flat).reshape(-1, L), ident,
+                hidden)),
+            "copy_whole_ms": time_ms(lambda: rl.featureless_aggregate(
+                ck.canonical_copy(torch.matmul(comp, pk_flat)
+                                  .reshape(-1, L)), ident, hidden))}
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(launches["compose_table"] > 0 and launches["canonical_copy"] > 0,
+          f"compose stages: launches {launches}")
+    summary = {"path": "compose_stages", **stages, "launches": launches}
+    print(f"[compose] {json.dumps(summary)}")
+    torch.cuda.empty_cache()
+    return summary
 
 
 def adversarial_phase(device, rows) -> None:
@@ -659,18 +828,22 @@ def encoder_kernel_phase(device) -> dict:
 
 
 def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
-                 features=()) -> None:
+                 features=(), task=None) -> None:
     """``configs/dmg.toml``'s model section; of its features, the
     datatypes in ``features`` are included as DMG configures them (the
     string feature without its pretrained ``model`` and ``tokenizer``
-    keys: the from-scratch text encoder), all others excluded."""
+    keys: the from-scratch text encoder), all others excluded. ``task``
+    adds ``[task]`` entries to the full-batch default (``batchsize``,
+    ``neighbor_fanout``, ``neighbor_fanout_rounds``)."""
     with open(ROOT / "configs" / "dmg.toml", "rb") as f:
         dmg = tomllib.load(f)
     model = dict(dmg["model"], epoch=epochs, num_bases=num_bases)
     layers = model.pop("layers")
-    lines = ['name = "DMG_SYNTH"', "", "[task]",
-             'type = "node classification"', "seed = 0", "batchsize = -1",
-             "", "[model]"]
+    task = {"type": "node classification", "seed": 0, "batchsize": -1,
+            **(task or {})}
+    lines = ['name = "DMG_SYNTH"', "", "[task]"]
+    lines += [f"{k} = {json.dumps(v)}" for k, v in task.items()]
+    lines += ["", "[model]"]
     lines += [f"{k} = {json.dumps(v)}" for k, v in model.items()]
     for layer in layers:
         lines += ["", "[[model.layers]]"]
@@ -688,12 +861,15 @@ def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
 
 
 def train_via_cli(tmp: Path, tag: str, work, epochs, num_bases,
-                  platform=None, F=None):
+                  platform=None, F=None, task=None, graph=None, env=None):
     """``run.run_cli`` on ``work``'s graph; with ``F`` (literal features)
-    the config includes the ``MULTIMODAL`` datatypes."""
+    the config includes the ``MULTIMODAL`` datatypes. The config is
+    ``<tag>.toml`` (``task``: extra ``[task]`` entries), the artifact
+    ``<graph or tag>.npz``, so runs on one graph share its file; ``env``
+    is set for the run alone."""
     from mrgcn_tpu_torch import run
     from mrgcn_tpu_torch.tasks.synthetic import save_nc_artifact
-    art = tmp / f"{tag}.npz"
+    art = tmp / f"{graph or tag}.npz"
     cfg = tmp / f"{tag}.toml"
     if not art.exists():
         save_nc_artifact(str(art), work["n"], work["R"], work["src"],
@@ -701,47 +877,77 @@ def train_via_cli(tmp: Path, tag: str, work, epochs, num_bases,
                          work["labels_idx"], work["labels_cls"],
                          work["num_classes"], seed=0,
                          num_eval=min(1000, work["n"] // 20), F=F)
+    if not cfg.exists():
         write_config(cfg, epochs, num_bases, work["hidden"],
-                     features=MULTIMODAL if F else ())
-    if platform is None:
-        os.environ.pop("MRGCN_PLATFORM", None)
-    else:
-        os.environ["MRGCN_PLATFORM"] = platform
+                     features=MULTIMODAL if F else (), task=task)
+    env = dict(env or {})
+    if platform is not None:
+        env["MRGCN_PLATFORM"] = platform
+    os.environ.pop("MRGCN_PLATFORM", None)
+    os.environ.update(env)
     try:
         return run.run_cli(["-c", str(cfg), "-i", str(art), "-o",
                             str(tmp) + os.sep, "--dry_run", "--test"])
     finally:
-        os.environ.pop("MRGCN_PLATFORM", None)
+        for key in env:
+            os.environ.pop(key, None)
 
 
 def kernel_counters() -> dict:
     """Each kernel wrapper, whose ``launches`` counts its launches."""
     from mrgcn_tpu_torch.ops import attention as att
+    from mrgcn_tpu_torch.ops import compose_kernels as ck
     from mrgcn_tpu_torch.ops import fused_mlp as fm
     from mrgcn_tpu_torch.ops import sorted_stream as ss
     return {"sorted_scatter": ss.sorted_scatter,
             "sorted_gather": ss.sorted_gather,
             "fused_place_scatter": ss.fused_place_scatter,
             "fused_scatter_dot": ss.fused_scatter_dot,
+            "compose_grad_pass": ss.compose_grad_pass,
+            "compose_table": ck.compose_table,
+            "canonical_copy": ck.canonical_copy,
             "attention_fwd": att.attention_fwd,
             "attention_bwd": att.attention_bwd,
             "mlp_fwd": fm.mlp_fwd, "mlp_bwd": fm.mlp_bwd}
 
 
-def slice_phase(work, tmp: Path, tag: str, kernels, F=None) -> dict:
-    """Train ``EPOCHS`` NC epochs through the CLI with every launch count
-    set to 0 just before and read just after; ``kernels`` names each
-    kernel the path runs with its least launch count per epoch."""
+def start_path() -> dict:
+    """The kernel counters with every launch count set to 0, and the
+    card's peak-memory reading started afresh, what an earlier path left
+    in reference cycles collected first (a mini-batch run's model: 262 MB
+    that showed in the next path's peak)."""
+    import gc
     import torch
-    counters = kernel_counters()
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
+    return counters
+
+
+def slice_phase(work, tmp: Path, tag: str, kernels, F=None,
+                fused: bool = False) -> dict:
+    """Train ``EPOCHS`` NC epochs through the CLI with every launch count
+    set to 0 just before and read just after; ``kernels`` names each
+    kernel the path runs with its least launch count per epoch. ``fused``
+    sets ``MRGCN_FUSED_COMPOSE_BWD=1`` for the run (the composed identity
+    layer's single-pass backward, ``compose_grad_pass``: once a step there
+    and never on the default route)."""
+    import torch
+    counters = start_path()
     t0 = time.perf_counter()
-    res = train_via_cli(tmp, tag, work, EPOCHS, work["num_bases"], F=F)
+    res = train_via_cli(tmp, tag, work, EPOCHS, work["num_bases"], F=F,
+                        env={"MRGCN_FUSED_COMPOSE_BWD": "1"} if fused
+                        else None)
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
+    tag += "_fused" if fused else ""
+    check(launches["compose_grad_pass"] == (EPOCHS if fused else 0),
+          f"{tag}: compose_grad_pass launched "
+          f"{launches['compose_grad_pass']} times")
 
     losses = [h["train_loss"] for h in res.history]
     check(len(losses) == EPOCHS, f"{tag}: trained {len(losses)} epochs")
@@ -766,18 +972,124 @@ def slice_phase(work, tmp: Path, tag: str, kernels, F=None) -> dict:
     return summary
 
 
+def minibatch_phase(work, tmp: Path, F) -> dict:
+    """Mini-batch training through the CLI at DMG width, each run with the
+    launch counts set to 0 just before and read just after: featureless NC
+    with ``batchsize = 32`` (``configs/dmg_reference.toml``), 2 epochs; the
+    same with ``neighbor_fanout = 10`` and two sampled rounds; the
+    multimodal model with ``batchsize = 512``, 1 epoch (the encoder kernels
+    run on each batch's outer-hop rows). Then node-sliced link prediction
+    at FB15k-237's width with ``configs/fb15k-237.toml``'s own
+    ``gcn_batchsize = 32``, ``test_batchsize = 500``: one whole epoch
+    (every batch's 2-hop neighbourhood is the whole graph), the ranking of
+    the training batches and the sliced ranking of the test split."""
+    import torch
+    from mrgcn_tpu_torch import run
+    out = {}
+    for tag, graph, task, epochs, feats in (
+            ("mb_nc", "dmg_synth", {"batchsize": 32}, 2, None),
+            ("mb_nc_fanout", "dmg_synth",
+             {"batchsize": 32, "neighbor_fanout": 10,
+              "neighbor_fanout_rounds": 2}, 2, None),
+            ("mb_nc_multimodal", "dmg_synth_multimodal",
+             {"batchsize": 512}, 1, F)):
+        counters = start_path()
+        t0 = time.perf_counter()
+        res = train_via_cli(tmp, tag, work, epochs, work["num_bases"],
+                            F=feats, task=task, graph=graph)
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        losses = [h["train_loss"] for h in res.history]
+        check(len(losses) == epochs, f"{tag}: trained {len(losses)} epochs")
+        check(all(math.isfinite(x) for x in losses + [res.loss]),
+              f"{tag}: non-finite loss: {losses}, test {res.loss}")
+        check(epochs == 1 or losses[-1] < losses[0],
+              f"{tag}: the loss did not fall: {losses}")
+        # --test merges the validation labels into the training split
+        check(res.batches["train"] >= -(-len(work["labels_idx"])
+                                        // task["batchsize"]),
+              f"{tag}: {res.batches} batches")
+        check({p.device.type for p in res.model.parameters()} == {"cuda"},
+              f"{tag}: parameters not on the card")
+        if feats is not None:
+            for name in ENCODER_KERNELS:
+                check(launches[name] >= res.batches["train"],
+                      f"{tag}: {name} launched {launches[name]} times")
+        out[tag] = {
+            "path": tag, "task": task, "epochs": epochs,
+            "train_loss": losses, "test_loss": res.loss,
+            "test_acc": res.acc, "batches": res.batches,
+            "epoch_s": [h["seconds"] for h in res.history],
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "cli_wall_s": wall, "launches": launches}
+        print(f"[minibatch] {json.dumps(out[tag])}")
+        del res
+        torch.cuda.empty_cache()
+
+    # node-sliced link prediction: the toml's own batches, one epoch with
+    # the train ranking, then the sliced test ranking
+    cfg = tmp / "lp_sliced.toml"
+    write_lp_config(cfg, 1, LP_HIDDEN, 1, full_graph=False)
+    sizes = run.load_config(str(cfg))["task"]
+    counters = start_path()
+    t0 = time.perf_counter()
+    res = run.run_cli(["-c", str(cfg), "-i", str(tmp / "lp.npz"), "-o",
+                       str(tmp) + os.sep, "--dry_run", "--test"])
+    wall = time.perf_counter() - t0
+    h, = res.history
+    check(math.isfinite(h["loss"]) and 0.0 < h["loss"] < 2.0,
+          f"lp_sliced: loss {h['loss']}")
+    check({p.device.type for p in res.model.parameters()} == {"cuda"},
+          "lp_sliced: parameters not on the card")
+    check(all(bool(torch.isfinite(p).all())
+              for p in res.model.parameters()),
+          "lp_sliced: a parameter is not finite")
+    # a slice of 32 nodes, its triples in subsets of about 500
+    check(res.batches["train"] >= 14_541 // 32
+          and res.batches["test"] >= 14_541 // 64,
+          f"lp_sliced: {res.batches} batches")
+    for kind in ("raw", "flt"):
+        ranks = res.ranks[kind]
+        # a triple is ranked in its head's slice and in its tail's;
+        # candidates are a batch's own nodes, far fewer than the graph's
+        check(len(ranks) >= 2 * 20_466 and min(ranks) >= 1
+              and max(ranks) <= 2048, f"lp_sliced: {kind} ranks out of "
+              f"range ({min(ranks)} to {max(ranks)})")
+        check(0.0 < res.mrr[kind] <= 1.0,
+              f"lp_sliced: {kind} MRR {res.mrr[kind]}")
+    out["lp_sliced"] = {
+        "path": "lp_sliced", "epochs": 1,
+        "gcn_batchsize": sizes["gcn_batchsize"],
+        "test_batchsize": sizes["test_batchsize"], "batches": res.batches,
+        "loss": h["loss"], "epoch_s": h["seconds"],
+        "ms_per_batch": h["seconds"] / res.batches["train"] * 1e3,
+        "train_eval_s": h["eval_seconds"], "train_mrr_raw": h["train_mrr"],
+        "test_s": res.test_seconds, "test_mrr": res.mrr,
+        "test_hits_at_1_3_10": res.hits,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "cli_wall_s": wall,
+        "launches": {name: fn.launches for name, fn in counters.items()}}
+    print(f"[minibatch] {json.dumps(out['lp_sliced'])}")
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
 def write_lp_config(path: Path, epochs: int, hidden: int, eval_interval: int,
-                    name: str = "FB15K237_SYNTH") -> None:
+                    name: str = "FB15K237_SYNTH", full_graph: bool = True,
+                    ) -> None:
     """``configs/fb15k-237.toml``'s model section (2 bases, lr 0.01) with
     two ``hidden``-wide R-GCN layers (the link-prediction task reads all
     but the last ``[[model.layers]]`` entry, so the file gets three), on
-    the full graph: ``gcn_batchsize`` and ``test_batchsize`` -1."""
+    the full graph (``gcn_batchsize`` and ``test_batchsize`` -1) or, with
+    ``full_graph`` off, in the file's own node-sliced batches (32, 500)."""
     with open(ROOT / "configs" / "fb15k-237.toml", "rb") as f:
         fb = tomllib.load(f)
     model = dict(fb["model"], epoch=epochs)
     layer = dict(model.pop("layers")[0], hidden_nodes=hidden)
-    task = dict(fb["task"], seed=0, eval_interval=eval_interval,
-                gcn_batchsize=-1, test_batchsize=-1)
+    task = dict(fb["task"], seed=0, eval_interval=eval_interval)
+    if full_graph:
+        task.update(gcn_batchsize=-1, test_batchsize=-1)
     stop = task.pop("early_stopping")
     lines = [f"name = {json.dumps(name)}", "", "[task]"]
     lines += [f"{k} = {json.dumps(v)}" for k, v in task.items()]
@@ -847,10 +1159,7 @@ def lp_slice_phase(tmp: Path, plan, num_relations: int, device) -> dict:
     from mrgcn_tpu_torch import run
     cfg = tmp / "lp.toml"
     write_lp_config(cfg, LP_EPOCHS, LP_HIDDEN, LP_EVAL_INTERVAL)
-    counters = kernel_counters()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = start_path()
     t0 = time.perf_counter()
     res = run.run_cli(["-c", str(cfg), "-i", str(tmp / "lp.npz"), "-o",
                        str(tmp) + os.sep, "--dry_run", "--test"])
@@ -916,7 +1225,6 @@ def profile_phase(tmp: Path, device, steps: int = 3) -> None:
     time."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from mrgcn_tpu_torch import run
     from mrgcn_tpu_torch.tasks import link_prediction as lp
     from mrgcn_tpu_torch.tasks import utils as tutils
@@ -941,6 +1249,15 @@ def profile_phase(tmp: Path, device, steps: int = 3) -> None:
     def step():
         lp.train_step(model, optimizer, batch, corrupt, 0.0, 0.0, 0.0, gen)
 
+    profile_steps("LP step", step, steps)
+
+
+def profile_steps(label: str, step, steps: int) -> None:
+    """``torch.profiler`` over ``steps`` calls of ``step`` after three
+    warm-up calls: host time per call, device time by kernel name, and the
+    card's busy share of the synchronised host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -956,13 +1273,16 @@ def profile_phase(tmp: Path, device, steps: int = 3) -> None:
         return getattr(event, "self_device_time_total",
                        getattr(event, "self_cuda_time_total", 0.0))
 
-    # kernels only: an operator's device time repeats its kernels'
+    # kernels only: an operator's device time repeats its kernels', and so
+    # does a user annotation's device-side range (``Optimizer.step#...``)
     events = sorted((e for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)
+                     and not e.key.startswith("Optimizer.")),
                     key=device_us, reverse=True)
     busy_ms = sum(device_us(e) for e in events) / 1e3 / steps
     check(busy_ms > 0, "profile: the trace shows no device time")
-    print(f"[profile] LP step {wall_ms:.3f} ms by host clock, device busy "
+    print(f"[profile] {label} {wall_ms:.3f} ms by host clock, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %), "
           f"{sum(e.count for e in events if device_us(e) > 0) // steps} "
           "kernels per step")
@@ -972,8 +1292,75 @@ def profile_phase(tmp: Path, device, steps: int = 3) -> None:
                   f"x{e.count / steps:5.1f}  {e.key[:90]}")
 
 
+def profile_minibatch_phase(work, tmp: Path, device, steps: int = 40) -> None:
+    """Where a mini-batch NC epoch's time goes (``--only profile_mb``, not
+    part of the default run): the DMG-width featureless model at
+    ``batchsize = 32``; the host seconds to build and move ``steps``
+    batches, then ``torch.profiler`` over one training step on each."""
+    import itertools
+    import numpy as np
+    import torch
+    from mrgcn_tpu_torch import run
+    from mrgcn_tpu_torch.tasks import node_classification as nc
+    from mrgcn_tpu_torch.tasks import utils as tutils
+    from mrgcn_tpu_torch.tasks.common import prepare_inputs
+    from mrgcn_tpu_torch.tasks.synthetic import save_nc_artifact
+    art, cfg = tmp / "dmg_synth.npz", tmp / "profile_mb.toml"
+    if not art.exists():
+        save_nc_artifact(str(art), work["n"], work["R"], work["src"],
+                         work["dst"], work["rel"], work["norm"],
+                         work["labels_idx"], work["labels_cls"],
+                         work["num_classes"], seed=0, num_eval=1000)
+    write_config(cfg, 1, work["num_bases"], work["hidden"],
+                 task={"batchsize": 32})
+    config = run.load_config(str(cfg))
+    artifact = run.artifact_io.load(str(art))
+    inputs = prepare_inputs(artifact, config, True, device)
+    model = nc.build_model(inputs, config, work["num_classes"],
+                           torch.Generator().manual_seed(0))
+    optimizer = tutils.build_optimizer(model, config,
+                                       inputs.optimizer_config, True)
+    Y = np.asarray(artifact.Y["train"]).reshape(-1, 2)[:32 * steps]
+    t0 = time.perf_counter()
+    batches = nc.make_batches(inputs, Y, 32, 2)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    moved = sum(t.numel() * t.element_size() for b in batches
+                for e in b.edges for t in vars(e).values()
+                if isinstance(t, torch.Tensor))
+    print(f"[profile] {len(batches)} mini-batches built and moved in "
+          f"{build_s:.3f} s ({build_s / len(batches) * 1e3:.2f} ms each, "
+          f"{moved / len(batches) / 1e3:.1f} kB of edge arrays each)")
+    # the move alone, for a whole training split's edge arrays
+    from mrgcn_tpu_torch.data import batching
+    index = batching.EdgeIndex(inputs.structure)
+    labelled = np.asarray(artifact.Y["train"]).reshape(-1, 2)[:, 0]
+    t0 = time.perf_counter()
+    payloads = [batching.sample_minibatch(
+        index, np.unique(labelled[b:b + 32]), 2).layer_edges
+        for b in range(0, len(labelled), 32)]
+    sample_s = time.perf_counter() - t0
+    moves = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        put = batching.device_put_batches(payloads, device)
+        torch.cuda.synchronize()
+        moves.append(time.perf_counter() - t0)
+        del put
+    print(f"[profile] {len(payloads)} mini-batches' edge arrays: sampled "
+          f"on the host in {sample_s:.3f} s; moved to the card "
+          f"(device_put_batches) in {json.dumps(moves)} s")
+    del payloads
+
+    cycle = itertools.cycle(batches)
+    profile_steps("mini-batch NC step",
+                  lambda: nc.train_step(model, optimizer, next(cycle), 0.0,
+                                        0.0), steps)
+
+
 def lp_agreement(tmp: Path, tag: str, steps: int, budget=None,
-                 ranks: bool = False) -> None:
+                 ranks: bool = False, sliced=None) -> None:
     """Link prediction on the graph ``<tag>.npz``, card (kernels) against
     CPU (plain versions), on the basis-stream path: ``steps`` training
     steps with the same corrupted triples on both sides (drawn on the
@@ -981,7 +1368,19 @@ def lp_agreement(tmp: Path, tag: str, steps: int, budget=None,
     gradient within 1e-4 of its largest entry. With ``ranks`` the losses
     must also fall and the test split's ranks be equal except where
     near-equal scores change order. ``budget`` lowers the composed-table
-    budget so that a small graph takes the basis-stream path."""
+    budget so that a small graph takes the basis-stream path. ``sliced``
+    (``gcn_batchsize``, ``test_batchsize``) takes node-sliced batches
+    instead (the unplanned layers): step ``i`` trains on batch ``i``, and
+    the ranking is over the sliced test batches. There, after both
+    optimizers have stepped, the parameters' drift is printed and the
+    card's take the CPU side's values again, so every step compares
+    gradients from equal parameters, entry by entry. One exception is
+    measured, not assumed: forward hooks keep what each layer hands its
+    ReLU, and a step in which some such value lies on the other side of
+    zero on the card than on the CPU (sums taken in another order, a value
+    within rounding of zero) is printed with the count and the largest
+    such value, must have all of them below 1e-5 of the layer's largest,
+    and holds the gradients by norm (1e-2) instead."""
     import numpy as np
     import torch
     from mrgcn_tpu_torch import run
@@ -989,6 +1388,8 @@ def lp_agreement(tmp: Path, tag: str, steps: int, budget=None,
     from mrgcn_tpu_torch.tasks import link_prediction as lp
     from mrgcn_tpu_torch.tasks import utils as tutils
     from mrgcn_tpu_torch.tasks.common import prepare_inputs
+    sizes = sliced or (-1, -1)
+    what = f"{tag} sliced {sliced}" if sliced else tag
     cfg = tmp / f"{tag}_agree.toml"
     write_lp_config(cfg, steps, LP_HIDDEN, eval_interval=steps,
                     name=tag.upper())
@@ -1002,18 +1403,29 @@ def lp_agreement(tmp: Path, tag: str, steps: int, budget=None,
         sides = []
         for device in (torch.device("cuda", 0), torch.device("cpu")):
             inputs = prepare_inputs(artifact, config, True, device)
-            check(inputs.identity_basis, f"{tag}: no basis-stream plans")
+            check(sliced or inputs.identity_basis,
+                  f"{tag}: no basis-stream plans")
             model = lp.build_model(inputs, config,
                                    torch.Generator().manual_seed(0))
             sides.append((inputs, model, tutils.build_optimizer(
                 model, config, inputs.optimizer_config, True)))
-        train = [lp.make_lp_batches(inputs, np.asarray(
-            artifact.data["train"]), -1, -1, 2)[0] for inputs, _, _ in sides]
+        batches = [lp.make_lp_batches(inputs, np.asarray(
+            artifact.data["train"]), *sizes, 2) for inputs, _, _ in sides]
+        check(len(batches[0]) >= (steps if sliced else 1),
+              f"{what}: {len(batches[0])} train batches")
         corrupt = lp.make_corruptor(0.2)
         gen = torch.Generator().manual_seed(0)
         losses = ([], [])
-        grad_err = {}
-        for _ in range(steps):
+        grad_err, norm_err = {}, {}
+        relu_in = [{}, {}]
+        if sliced:
+            for seen, (_, model, _) in zip(relu_in, sides):
+                for i, layer in enumerate(model.rgcn.layers()):
+                    layer.register_forward_hook(
+                        lambda _m, _a, out, seen=seen, i=i:
+                        seen.__setitem__(i, out.detach().cpu()))
+        for step in range(steps):
+            train = [b[step if sliced else 0] for b in batches]
             drawn = corrupt(torch.as_tensor(train[1].data),
                             train[1].num_triples,
                             torch.as_tensor(train[1].corrupt_pool),
@@ -1022,38 +1434,75 @@ def lp_agreement(tmp: Path, tag: str, steps: int, budget=None,
                 losses[side].append(float(lp.loss_and_grads(
                     model, train[side],
                     *(t.to(inputs.device) for t in drawn))))
+            # values on the other side of a ReLU's zero on the card
+            crossed = 0
+            for i, cpu_out in relu_in[1].items():
+                other = (relu_in[0][i] > 0) != (cpu_out > 0)
+                if bool(other.any()):
+                    worst = float(cpu_out[other].abs().max()
+                                  / cpu_out.abs().max())
+                    crossed += int(other.sum())
+                    print(f"[agree] {what} step {step}: {int(other.sum())} "
+                          f"of {other.numel()} values entering layer {i}'s "
+                          f"ReLU lie on the other side of zero on the card, "
+                          f"the largest {worst:.3g} of the layer's largest")
+                    check(worst <= 1e-5, f"{what}: a ReLU input of "
+                          f"relative size {worst} changed side")
             for (name, p), q in zip(sides[0][1].named_parameters(),
                                     sides[1][1].parameters()):
                 check(float(q.grad.abs().max()) > 0,
                       f"{tag}: {name} got no gradient")
-                err = float((p.grad.cpu() - q.grad).abs().max()
-                            / q.grad.abs().max())
-                grad_err[name] = max(grad_err.get(name, 0.0), err)
+                diff = p.grad.cpu() - q.grad
+                if crossed:
+                    err = float(torch.linalg.vector_norm(diff)
+                                / torch.linalg.vector_norm(q.grad))
+                    norm_err[name] = max(norm_err.get(name, 0.0), err)
+                else:
+                    err = float(diff.abs().max() / q.grad.abs().max())
+                    grad_err[name] = max(grad_err.get(name, 0.0), err)
             for _, _, optimizer in sides:
                 optimizer.step()
+            if sliced:
+                with torch.no_grad():
+                    drift = 0.0
+                    for p, q in zip(sides[0][1].parameters(),
+                                    sides[1][1].parameters()):
+                        drift = max(drift, float((p.cpu() - q).abs().max()
+                                                 / q.abs().max()))
+                        p.copy_(q)
+                print(f"[agree] {what} step {step}: parameters after the "
+                      f"optimizer step differ by at most {drift:.3g} of "
+                      "their largest entry; the card takes the CPU's")
         err = max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(*losses))
-        print(f"[agree] {tag} losses cuda {losses[0]} cpu {losses[1]} "
+        print(f"[agree] {what} losses cuda {losses[0]} cpu {losses[1]} "
               f"(max rel err {err:.3g}, bound 1e-4); gradients, error over "
-              f"the largest entry: {json.dumps(grad_err)} (bound 1e-4); "
-              f"{time.perf_counter() - t0:.1f} s")
+              f"the largest entry: {json.dumps(grad_err)} (bound 1e-4)"
+              + (f"; in steps where a ReLU input changed side, error "
+                 f"norm over the gradient's norm: {json.dumps(norm_err)} "
+                 "(bound 1e-2)" if norm_err else "")
+              + f"; {time.perf_counter() - t0:.1f} s")
         check(err <= 1e-4, f"{tag}: cuda and cpu losses differ ({err})")
-        check(max(grad_err.values()) <= 1e-4,
-              f"{tag}: cuda and cpu gradients differ ({grad_err})")
+        check(max(grad_err.values(), default=0.0) <= 1e-4
+              and max(norm_err.values(), default=0.0) <= 1e-2,
+              f"{tag}: cuda and cpu gradients differ ({grad_err}, "
+              f"{norm_err})")
         if not ranks:
             return
-        check(losses[0][-1] < losses[0][0],
+        # sliced steps train on different batches: their losses are not
+        # one falling sequence
+        check(sliced or losses[0][-1] < losses[0][0],
               f"{tag}: the loss did not fall: {losses[0]}")
         found = []
         for inputs, model, _ in sides:
             test = lp.make_lp_batches(inputs, np.asarray(
-                artifact.data["test"]), -1, -1, 2)
+                artifact.data["test"]), *sizes, 2)
             found.append(lp.evaluate(test, model, -1, True)[2])
     finally:
         rl.COMPOSED_TABLE_MAX_ELEMS = kept
     for kind in ("raw", "flt"):
         a, b = (np.asarray(r[kind]) for r in found)
         differ = int((a != b).sum())
-        print(f"[agree] {tag} {kind} ranks: {differ} of {a.size} differ "
+        print(f"[agree] {what} {kind} ranks: {differ} of {a.size} differ "
               f"between card and CPU (largest gap "
               f"{int(np.abs(a - b).max())}; bound 2 %)")
         check(differ <= 0.02 * a.size,
@@ -1120,10 +1569,16 @@ def agreement_phase(tmp: Path) -> None:
                            num_labeled=300, seed=0)
     F = multimodal_features(small["n"], seed=0, num_numeric=600,
                             num_years=300, num_strings=240, max_len=128)
-    for tag, feats, rtol in (("small", None, 1e-4),
-                             ("small_mm", F, 1e-3)):
-        gpu = train_via_cli(tmp, tag, small, 3, 4, F=feats)
-        cpu = train_via_cli(tmp, tag, small, 3, 4, platform="cpu", F=feats)
+    # small_mb: the featureless graph again in mini-batches of 32 labels
+    # (10 a training epoch), whose layers take the unplanned paths
+    for tag, graph, feats, rtol, task in (
+            ("small", "small", None, 1e-4, None),
+            ("small_mb", "small", None, 1e-4, {"batchsize": 32}),
+            ("small_mm", "small_mm", F, 1e-3, None)):
+        gpu = train_via_cli(tmp, tag, small, 3, 4, F=feats, task=task,
+                            graph=graph)
+        cpu = train_via_cli(tmp, tag, small, 3, 4, platform="cpu", F=feats,
+                            task=task, graph=graph)
         a = [h["train_loss"] for h in gpu.history] + [gpu.loss]
         b = [h["train_loss"] for h in cpu.history] + [cpu.loss]
         err = max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b))
@@ -1132,6 +1587,37 @@ def agreement_phase(tmp: Path) -> None:
         check(err <= rtol, f"{tag}: cuda and cpu losses differ (rel {err})")
         if feats is not None:
             encoder_agreement(tmp, tag, gpu.model, cpu.model)
+    fused_gradient_agreement(small)
+
+
+def fused_gradient_agreement(work) -> None:
+    """``featureless_composed`` on the small graph's layer-0 identity
+    plan, card (``fused_place_scatter`` then ``compose_grad_pass``) against
+    CPU (their plain versions), same inputs and cotangent: the output and
+    both gradients within 1e-4 of their largest entry."""
+    import torch
+    from mrgcn_tpu_torch.ops import relational as rl
+    gen = torch.Generator().manual_seed(4)
+    R, B, hidden = work["R"], 4, work["hidden"]
+    found = []
+    for device in (torch.device("cuda", 0), torch.device("cpu")):
+        ident, _ = nc_layer0_plans(work, device)
+        if not found:
+            L = rl.line_width(ident.k_in, hidden)
+            comp = torch.randn(R, B, generator=gen)
+            packed = torch.randn(B, ident.n_in_rows, L, generator=gen)
+            cot = torch.randn(ident.out_nodes, hidden, generator=gen)
+        c = comp.to(device).requires_grad_()
+        p = packed.to(device).requires_grad_()
+        out = rl.featureless_composed(c, p, ident, hidden)
+        out.backward(cot.to(device))
+        found.append([t.detach().cpu() for t in (out, c.grad, p.grad)])
+    errs = {name: float((g - w).abs().max() / w.abs().max())
+            for name, g, w in zip(("out", "d_comp", "d_packed"), *found)}
+    print(f"[agree] featureless_composed card vs CPU, error over the "
+          f"largest entry: {json.dumps(errs)} (bound 1e-4)")
+    check(max(errs.values()) <= 1e-4,
+          f"featureless_composed differs on the card and the CPU ({errs})")
 
 
 # kernel -> (source, the TPU kernel it replaces, the timed row that goes
@@ -1145,6 +1631,12 @@ SOURCES = {
                           "mrgcn_tpu/ops/pallas_gather.py:379", "lp_bwd_h"),
     "fused_place_scatter": ("mrgcn_tpu_torch/csrc/fused_place_scatter.cu",
                             "mrgcn_tpu/ops/pallas_gather.py:712", "lp_fwd"),
+    "compose_grad_pass": ("mrgcn_tpu_torch/csrc/compose.cu",
+                          "mrgcn_tpu/ops/pallas_gather.py:621", "dmg"),
+    "compose_table": ("mrgcn_tpu_torch/csrc/compose.cu",
+                      "benchmarks/micro_compose_kernel.py:43", "dmg"),
+    "canonical_copy": ("mrgcn_tpu_torch/csrc/compose.cu",
+                       "benchmarks/micro_compose_fusion.py:94", "dmg"),
     "attention_fwd": ("mrgcn_tpu_torch/csrc/fused_attention.cu",
                       "mrgcn_tpu/ops/attention.py:44", "slice"),
     "attention_bwd": ("mrgcn_tpu_torch/csrc/fused_attention.cu",
@@ -1157,8 +1649,8 @@ SOURCES = {
 STREAM_KERNELS = ("sorted_scatter", "sorted_gather", "fused_scatter_dot",
                   "fused_place_scatter")
 ENCODER_KERNELS = ("attention_fwd", "attention_bwd", "mlp_fwd", "mlp_bwd")
-PHASES = ("stream", "nc", "lp", "encoders", "agree")
-EXTRA_PHASES = ("profile",)     # only with --only
+PHASES = ("stream", "compose", "nc", "minibatch", "lp", "encoders", "agree")
+EXTRA_PHASES = ("profile", "profile_mb")     # only with --only
 
 
 def main(argv=None) -> None:
@@ -1196,24 +1688,43 @@ def main(argv=None) -> None:
             nc_stream_phase(work, device, rows)
             lp_stream_phase(plan, device, rows)
             adversarial_phase(device, rows)
+        if "compose" in phases:
+            paths["compose_stages"] = compose_phase(work, device, rows)
+        F = multimodal_features(work["n"], seed=0) \
+            if {"nc", "minibatch"} & set(phases) else None
         if "nc" in phases:
             # per step: layer 0's forward and backward place-scatters
             # (with features, twice: identity and relation-constant dense
             # half); the dense half's per-edge bwd_h stream still takes
             # sorted_scatter; two text blocks, forward and backward
-            paths["nc_featureless"] = slice_phase(
+            default = paths["nc_featureless"] = slice_phase(
                 work, tmp, "dmg_synth", {"fused_place_scatter": 2})
+            fused = paths["nc_featureless_fused"] = slice_phase(
+                work, tmp, "dmg_synth", {"fused_place_scatter": 2},
+                fused=True)
+            err = max(abs(a - b) / abs(b) for a, b in zip(
+                fused["train_loss"], default["train_loss"]))
+            print(f"[slice] featureless epoch median: default route "
+                  f"{default['epoch_s_median_after_first'] * 1e3:.3f} ms, "
+                  f"fused compose backward "
+                  f"{fused['epoch_s_median_after_first'] * 1e3:.3f} ms; "
+                  f"losses agree within {err:.3g} rel (bound 1e-5)")
+            check(err <= 1e-5, f"fused and default routes' losses differ: "
+                  f"{fused['train_loss']} vs {default['train_loss']}")
             paths["nc_multimodal"] = slice_phase(
                 work, tmp, "dmg_synth_multimodal",
                 {"sorted_scatter": 1, "fused_place_scatter": 3,
-                 **dict.fromkeys(ENCODER_KERNELS, 2)},
-                F=multimodal_features(work["n"], seed=0))
+                 **dict.fromkeys(ENCODER_KERNELS, 2)}, F=F)
+        if "minibatch" in phases:
+            paths.update(minibatch_phase(work, tmp, F))
         if "lp" in phases:
             paths["lp"] = lp_slice_phase(tmp, plan, num_relations, device)
         del plan
         torch.cuda.empty_cache()
         if "profile" in phases:
             profile_phase(tmp, device)
+        if "profile_mb" in phases:
+            profile_minibatch_phase(work, tmp, device)
         if "encoders" in phases:
             rows.update(encoder_kernel_phase(device))
         if "agree" in phases:
@@ -1222,6 +1733,7 @@ def main(argv=None) -> None:
                              num_props=12, num_train=20_000, num_valid=1000,
                              num_test=1500, seed=0)
             lp_agreement(tmp, "lp_small", 3, budget=2 ** 20, ranks=True)
+            lp_agreement(tmp, "lp_small", 3, ranks=True, sliced=(256, 500))
             lp_agreement(tmp, "lp", 1)     # full width: one step
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -1,6 +1,6 @@
 """Relational Graph Convolutional Network (R-GCN) in PyTorch.
 
-Counterpart of :mod:`mrgcn_tpu.models.rgcn` for the full-batch path. The
+Counterpart of :mod:`mrgcn_tpu.models.rgcn`. The
 layer math is the reference's ``A [I F] W = A I W_I + A F W_F`` with basis
 decomposition, over the relation-partitioned COO edge list: the identity
 half of the input layer runs on the sorted-stream engine
@@ -9,8 +9,15 @@ half of the input layer runs on the sorted-stream engine
 budget); a layer over features
 runs :func:`..ops.relational.dense_aggregate` where the edges carry a plan
 for its shape, else the relation-grouped path
-(:func:`..ops.rspmm.transform_aggregate_grouped`). Branches not ported yet
-raise ``NotImplementedError`` naming their ROADMAP item.
+(:func:`..ops.rspmm.transform_aggregate_grouped`). Mini-batch blocks carry
+no plans (their ``dst_global`` is set): their identity half runs
+:func:`..ops.rspmm.gather_aggregate_packed` or
+:func:`..ops.rspmm.gather_aggregate` on the global node ids, an ungrouped
+feature layer :func:`..ops.rspmm.transform_aggregate`.
+``MRGCN_FUSED_COMPOSE_BWD=1`` (default off, as in the JAX package) routes
+the composed identity layer through
+:func:`..ops.relational.featureless_composed`, whose backward reads the
+cotangent table once.
 
 Parameter names match the JAX package's (``layer_0.comp_i``,
 ``layer_0.weight_i_packed``, ``layer_1.weight_f``, ...), so
@@ -19,6 +26,7 @@ Parameter names match the JAX package's (``layer_0.comp_i``,
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -29,15 +37,15 @@ from mrgcn_tpu_torch.models import init as tinit
 from mrgcn_tpu_torch.ops import relational as rl
 from mrgcn_tpu_torch.ops import rspmm
 
-TODO_UNPLANNED = "ROADMAP Queue 1, item 5 (unplanned fallbacks)"
-
 
 @dataclass
 class EdgeBlock:
     """Edge arrays for one propagation step.
 
     ``src`` indexes output rows, ``dst`` input rows, ``rel`` the relation,
-    ``norm`` the D^-1 weight (0 on padding). The ``grp_*`` arrays are the relation-grouped layout
+    ``norm`` the D^-1 weight (0 on padding). ``dst_global`` indexes the
+    global node space for the identity-weight gather of a mini-batch block
+    (None in full-batch mode, where ``dst`` does). The ``grp_*`` arrays are the relation-grouped layout
     (``structure.group_by_relation``); ``plans`` the sorted-stream
     :class:`..ops.relational.LayerPlans` keyed ``"kin:kout[:id]"``.
     """
@@ -48,6 +56,7 @@ class EdgeBlock:
     norm: torch.Tensor
     num_out: int
     num_in: Optional[int] = None
+    dst_global: Optional[torch.Tensor] = None
     grp_src: Optional[torch.Tensor] = None
     grp_dst: Optional[torch.Tensor] = None
     grp_norm: Optional[torch.Tensor] = None
@@ -57,8 +66,9 @@ class EdgeBlock:
 
     def plan_for(self, in_width: int, out_width: int,
                  identity: bool = False):
-        """LayerPlans matching a layer shape, or None."""
-        if not self.plans:
+        """LayerPlans matching a layer shape, or None. Plans are built for
+        full-batch edges only: a block with ``dst_global`` has none."""
+        if not self.plans or self.dst_global is not None:
             return None
         k_in = rspmm.packing_factor(in_width)
         k_out = rspmm.packing_factor(out_width)
@@ -67,6 +77,10 @@ class EdgeBlock:
                 or self.plans.get(f"{k_in}:{k_out}:idb") \
                 or self.plans.get(f"{k_in}:{k_out}")
         return self.plans.get(f"{k_in}:{k_out}")
+
+    @property
+    def identity_dst(self) -> torch.Tensor:
+        return self.dst if self.dst_global is None else self.dst_global
 
     @property
     def grouped(self) -> bool:
@@ -92,6 +106,11 @@ def _identity_planned(packed: torch.Tensor, comp: Optional[torch.Tensor],
     relation-major packed table (one matmul) and aggregate it."""
     lw = packed.shape[2]
     pk = _fit_rows(packed, plan)
+    if comp is not None \
+            and os.environ.get("MRGCN_FUSED_COMPOSE_BWD", "0") != "0":
+        # single-pass backward over the cotangent table: d_comp and
+        # d_packed come from one read of it
+        return rl.featureless_composed(comp, pk, plan, out_dim)
     flat = rspmm.compose_packed(comp, pk) if comp is not None else pk
     return rl.featureless_aggregate(flat.reshape(-1, lw), plan, out_dim)
 
@@ -154,30 +173,42 @@ class RGCNLayer(nn.Module):
         if self.input_layer:
             plan_i = edges.plan_for(self.out_dim, self.out_dim,
                                     identity=True)
-            if plan_i is None:
-                raise NotImplementedError(
-                    "featureless layer without sorted-stream plans "
-                    f"(gather_aggregate_packed): {TODO_UNPLANNED}")
+            weight_i = getattr(self, self.weight_i_name)
             # the planned op gathers from the composed (R * rows, lanes)
             # table; where that table is over budget (link prediction:
             # hundreds of relations, wide rows) the basis-stream op
             # composes per edge instead, on plans that carry its
-            # dst-sorted bwd_h stream
+            # dst-sorted bwd_h stream; without such plans the layer falls
+            # back to the unplanned gather
             use_basis = False
-            if self.comp_i is not None and rl.composed_table_elems(
-                    self.num_relations, self.num_nodes, self.out_dim,
-                    n_in_rows=plan_i.n_in_rows) \
+            if plan_i is not None and self.comp_i is not None \
+                    and rl.composed_table_elems(
+                        self.num_relations, self.num_nodes, self.out_dim,
+                        n_in_rows=plan_i.n_in_rows) \
                     > rl.COMPOSED_TABLE_MAX_ELEMS:
-                if plan_i.kind != "identity_basis" or not \
-                        0 < self.num_bases <= rl.MAX_BASIS_STREAMS:
-                    raise NotImplementedError(
-                        "composed identity table over budget without "
-                        "basis-stream plans (gather_aggregate): "
-                        f"{TODO_UNPLANNED}")
-                use_basis = True
-            layer_fn = _basis_planned if use_basis else _identity_planned
-            out = layer_fn(getattr(self, self.weight_i_name), self.comp_i,
-                           plan_i, self.out_dim)
+                if plan_i.kind == "identity_basis" \
+                        and 0 < self.num_bases <= rl.MAX_BASIS_STREAMS:
+                    use_basis = True
+                else:
+                    plan_i = None
+            k = rspmm.packing_factor(self.out_dim)
+            if use_basis:
+                out = _basis_planned(weight_i, self.comp_i, plan_i,
+                                     self.out_dim)
+            elif plan_i is not None:
+                out = _identity_planned(weight_i, self.comp_i, plan_i,
+                                        self.out_dim)
+            elif k > 1:
+                out = rspmm.gather_aggregate_packed(
+                    weight_i, edges.src, edges.identity_dst, edges.rel,
+                    edges.norm, edges.num_out, self.out_dim, k,
+                    comp=self.comp_i)
+            else:
+                # the unplanned wide path takes logical (S, n, out) rows
+                out = rspmm.gather_aggregate(
+                    weight_i[:, :self.num_nodes, :self.out_dim], edges.src,
+                    edges.identity_dst, edges.rel, edges.norm,
+                    edges.num_out, comp=self.comp_i)
             if self.featureless:
                 return out if self.bias is None else out + self.bias
 
@@ -198,9 +229,9 @@ class RGCNLayer(nn.Module):
                 edges.group_rel, edges.group_size, edges.num_out,
                 self.weight_f, comp=self.comp_f)
         else:
-            raise NotImplementedError(
-                f"ungrouped dense layer (transform_aggregate): "
-                f"{TODO_UNPLANNED}")
+            agg = rspmm.transform_aggregate(
+                H, edges.src, edges.dst, edges.rel, edges.norm,
+                edges.num_out, self.weight_f, comp=self.comp_f)
         out = out + agg
         return out if self.bias is None else out + self.bias
 
@@ -256,7 +287,8 @@ class RGCN(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """``edges``: one EdgeBlock (full batch) or one per layer (the
-        frontier-restricted chain)."""
+        frontier-restricted chain, or a mini-batch, whose layer ``l``
+        takes the edges of hop ``L - 1 - l``)."""
         per_layer = isinstance(edges, (tuple, list))
         for i, layer in enumerate(self.layers()):
             X = layer(X, edges[i] if per_layer else edges)

@@ -1,11 +1,18 @@
 """Relational sparse-dense products for R-GCN layers (PyTorch).
 
-Counterpart of :mod:`mrgcn_tpu.ops.rspmm` for the featureless full-batch
-path: the packed identity-weight layout, its relation-major compose, and
-the relation-grouped dense aggregation the restricted output layer runs.
+Counterpart of :mod:`mrgcn_tpu.ops.rspmm`: the packed identity-weight
+layout, its relation-major compose, the relation-grouped dense aggregation
+the restricted output layer runs, and the unplanned paths that layers
+without sorted-stream plans take (mini-batch blocks):
+:func:`transform_aggregate`, :func:`gather_aggregate_packed` and
+:func:`gather_aggregate`. The unplanned paths choose between a direct
+``(R * n, out)`` table and the fused-basis gather by the same padded-size
+budgets as the JAX package, so both take the same branch.
 
 Edge semantics: ``out[s] = sum_e norm_e * (H[dst_e] @ W[rel_e])`` with
-basis decomposition ``W[r] = sum_b comp[r, b] * basis[b]``.
+basis decomposition ``W[r] = sum_b comp[r, b] * basis[b]``. Padding edges
+(``norm == 0``, out-of-range ``src``) contribute nothing. Row gathers use
+``index_select``: its backward is one ``index_add_``.
 """
 
 from __future__ import annotations
@@ -15,8 +22,19 @@ from typing import Optional
 import torch
 
 
+# budgets in padded f32 elements (rows to 8, the minor dimension to 128),
+# as the JAX package counts them
+DIRECT_BUDGET_ELEMS = 2 ** 27   # the (R * n, out) buffer
+MESSAGE_BUDGET_ELEMS = 2 ** 28  # the (E, B * out) gather buffer
+
+
 def _pad128(x: int) -> int:
     return -(-x // 128) * 128
+
+
+def _padded_elems(rows: int, minor: int) -> int:
+    pad_rows = -(-rows // 8) * 8
+    return pad_rows * _pad128(minor)
 
 
 def segment_sum(messages: torch.Tensor, src: torch.Tensor,
@@ -28,6 +46,112 @@ def segment_sum(messages: torch.Tensor, src: torch.Tensor,
     idx = torch.where(valid, src, num_nodes)
     out = messages.new_zeros((num_nodes + 1,) + messages.shape[1:])
     return out.index_add(0, idx, messages)[:num_nodes]
+
+
+class _ChunkMessages(torch.autograd.Function):
+    """Per-edge messages of one edge chunk,
+    ``m_e = sum_b (comp[rel_e, b] norm_e) flat[dst_e, b]``, keeping only the
+    chunk's index arrays: the backward gathers ``flat`` again instead of
+    storing the ``(C, B, out)`` rows."""
+
+    @staticmethod
+    def forward(ctx, flat, comp, dst, rel, norm, out_dim):
+        ctx.save_for_backward(flat, comp, dst, rel, norm)
+        ctx.out_dim = out_dim
+        return _chunk_messages(flat, comp, dst, rel, norm, out_dim)
+
+    @staticmethod
+    def backward(ctx, d_m):
+        flat, comp, dst, rel, norm = ctx.saved_tensors
+        B = comp.shape[1]
+        g = flat.index_select(0, dst).reshape(-1, B, ctx.out_dim)
+        w = comp.index_select(0, rel) * norm[:, None]
+        d_w = torch.einsum("eo,ebo->eb", d_m, g)
+        d_g = (w[:, :, None] * d_m[:, None, :]).reshape(-1, flat.shape[1])
+        d_flat = torch.zeros_like(flat).index_add_(0, dst, d_g)
+        d_comp = torch.zeros_like(comp).index_add_(0, rel,
+                                                   d_w * norm[:, None])
+        return d_flat, d_comp, None, None, None, None
+
+
+def _chunk_messages(flat, comp, dst, rel, norm, out_dim):
+    B = comp.shape[1]
+    g = flat.index_select(0, dst).reshape(-1, B, out_dim)     # (C, B, out)
+    w = comp.index_select(0, rel) * norm[:, None]             # (C, B)
+    return torch.einsum("eb,ebo->eo", w, g)                   # (C, out)
+
+
+def _fused_basis_aggregate(flat: torch.Tensor, src: torch.Tensor,
+                           dst: torch.Tensor, rel: torch.Tensor,
+                           norm: torch.Tensor, comp: torch.Tensor,
+                           num_nodes: int, out_dim: int,
+                           budget_elems: int) -> torch.Tensor:
+    """``out[s] = sum_e sum_b (comp[rel_e, b] norm_e) flat[dst_e, b * out :
+    (b + 1) * out]``.
+
+    ``flat``: ``(n_cols, B * out)``. When the ``(E, B * out)`` gather is over
+    the budget the edges go in chunks whose messages are gathered again in
+    the backward (:class:`_ChunkMessages`) instead of being kept.
+    """
+    E = src.shape[0]
+    B = comp.shape[1]
+    dst, rel = dst.long(), rel.long()
+    chunk = max(8, budget_elems // _pad128(B * out_dim))
+    if E <= chunk:
+        return segment_sum(_chunk_messages(flat, comp, dst, rel, norm,
+                                           out_dim), src, num_nodes)
+    acc = flat.new_zeros(num_nodes, out_dim)
+    for lo in range(0, E, chunk):
+        part = slice(lo, lo + chunk)
+        msgs = _ChunkMessages.apply(flat, comp, dst[part], rel[part],
+                                    norm[part], out_dim)
+        acc = acc + segment_sum(msgs, src[part], num_nodes)
+    return acc
+
+
+def _flat_gather_aggregate(table: torch.Tensor, n_cols: int,
+                           src: torch.Tensor, dst: torch.Tensor,
+                           rel: torch.Tensor, norm: torch.Tensor,
+                           num_nodes: int) -> torch.Tensor:
+    """One gather from the relation-major ``(R * n_cols, out)`` table and
+    one segment sum."""
+    flat_idx = rel.long() * n_cols + dst.long()
+    messages = table.index_select(0, flat_idx) * norm[:, None]
+    return segment_sum(messages, src, num_nodes)
+
+
+def transform_aggregate(H: torch.Tensor, src: torch.Tensor,
+                        dst: torch.Tensor, rel: torch.Tensor,
+                        norm: torch.Tensor, num_nodes: int,
+                        basis: torch.Tensor,
+                        comp: Optional[torch.Tensor] = None,
+                        budget_elems: int = DIRECT_BUDGET_ELEMS,
+                        message_budget_elems: int = MESSAGE_BUDGET_ELEMS
+                        ) -> torch.Tensor:
+    """Dense-feature aggregation without a plan or a grouping:
+    ``out[s] = sum_e norm_e H[dst_e] W[rel_e]``.
+
+    ``H``: ``(n_cols, in)``; ``basis``: ``(B, in, out)``; ``comp``:
+    ``(R, B)`` or None (then relations index the basis directly). Returns
+    ``(num_nodes, out)``.
+    """
+    n_cols = H.shape[0]
+    B, _, out_dim = basis.shape
+    R = B if comp is None else comp.shape[0]
+
+    if comp is None and _padded_elems(R * n_cols, out_dim) <= budget_elems:
+        HW = torch.einsum("ni,rio->rno", H, basis)
+        return _flat_gather_aggregate(HW.reshape(R * n_cols, out_dim),
+                                      n_cols, src, dst, rel, norm,
+                                      num_nodes)
+
+    # fused-basis path: flat = H @ basis laid out (n, B * out)
+    flat = torch.einsum("ni,bio->nbo", H, basis).reshape(n_cols,
+                                                         B * out_dim)
+    comp_eff = torch.eye(B, dtype=H.dtype, device=H.device) \
+        if comp is None else comp
+    return _fused_basis_aggregate(flat, src, dst, rel, norm, comp_eff,
+                                  num_nodes, out_dim, message_budget_elems)
 
 
 def transform_aggregate_grouped(H: torch.Tensor, grp_src: torch.Tensor,
@@ -112,3 +236,63 @@ def packed_identity_shape(S: int, num_nodes: int, out_dim: int,
     n_rows = -(-n_rows // row_multiple) * row_multiple
     lanes = 128 if k > 1 else _pad128(out_dim)
     return (S, n_rows, lanes), k
+
+
+def gather_aggregate_packed(packed: torch.Tensor, src: torch.Tensor,
+                            dst: torch.Tensor, rel: torch.Tensor,
+                            norm: torch.Tensor, num_nodes: int, out_dim: int,
+                            k: int, comp: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Featureless aggregation over a packed identity weight, without a
+    plan: one 128-lane line per edge, then the sub-row select.
+
+    ``packed``: ``(S, n_rows, 128)`` with logical row ``d`` at
+    ``packed[s, d // k, (d % k) * (128 // k) : ...]``; ``dst`` indexes the
+    global node space.
+    """
+    S, n_rows, _ = packed.shape
+    sub = 128 // k
+    if comp is not None:
+        flat = compose_packed(comp, packed)
+        R = comp.shape[0]
+    else:
+        flat = packed
+        R = S
+    flat = flat.reshape(R * n_rows, 128)
+    dst = dst.long()
+    packed_idx = rel.long() * n_rows + dst // k
+    g = flat.index_select(0, packed_idx).reshape(-1, k, sub)   # (E, k, sub)
+    sel = torch.nn.functional.one_hot(dst % k, k).to(g.dtype)  # (E, k)
+    messages = torch.einsum("ek,eks->es", sel, g)[:, :out_dim]
+    return segment_sum(messages * norm[:, None], src, num_nodes)
+
+
+def gather_aggregate(node_weights: torch.Tensor, src: torch.Tensor,
+                     dst: torch.Tensor, rel: torch.Tensor,
+                     norm: torch.Tensor, num_nodes: int,
+                     comp: Optional[torch.Tensor] = None,
+                     budget_elems: int = DIRECT_BUDGET_ELEMS,
+                     message_budget_elems: int = MESSAGE_BUDGET_ELEMS
+                     ) -> torch.Tensor:
+    """Featureless input layer without a plan:
+    ``out[s] = sum_e norm_e W_I[rel_e, dst_e, :]``.
+
+    ``node_weights``: ``(S, n_cols, out)`` with ``S`` the basis or relation
+    count; ``comp``: ``(R, S)`` or None.
+    """
+    S, n_cols, out_dim = node_weights.shape
+    if comp is None:
+        return _flat_gather_aggregate(
+            node_weights.reshape(S * n_cols, out_dim), n_cols, src, dst,
+            rel, norm, num_nodes)
+
+    R = comp.shape[0]
+    if _padded_elems(R * n_cols, out_dim) <= budget_elems:
+        W = torch.einsum("rb,bno->rno", comp, node_weights)
+        return _flat_gather_aggregate(W.reshape(R * n_cols, out_dim),
+                                      n_cols, src, dst, rel, norm,
+                                      num_nodes)
+
+    flat = node_weights.permute(1, 0, 2).reshape(n_cols, S * out_dim)
+    return _fused_basis_aggregate(flat, src, dst, rel, norm, comp,
+                                  num_nodes, out_dim, message_budget_elems)

@@ -17,6 +17,9 @@ need no atomics. The gather (``csrc/sorted_gather.cu``) copies rows.
 Each wrapper takes its plain PyTorch version (``*_reference``) for CPU
 tensors and launches its kernel for CUDA tensors, or raises: there is no
 fallback. ``<wrapper>.launches`` counts the kernel launches.
+
+:func:`compose_grad_pass` (``csrc/compose.cu``) is the backward of the
+relation-major compose in one read of the cotangent table.
 """
 
 from __future__ import annotations
@@ -57,6 +60,14 @@ _SIGNATURES = {
         "mrgcn_scatter_dot_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "mrgcn_scatter_dot_lane_tile": ([], _I),
         "mrgcn_scatter_dot_max_edge_block": ([], _I), **_ERR},
+    "compose": {
+        "mrgcn_compose_grad_f32": (
+            [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _P], _I),
+        "mrgcn_compose_grad_chunk": ([_I, _I], _I),
+        "mrgcn_compose_grad_ctas": ([_I, _I, _LL], _I),
+        "mrgcn_compose_table_f32": ([_P, _P, _P, _I, _I, _LL, _P], _I),
+        "mrgcn_compose_table_chunk": ([_I, _I], _I),
+        "mrgcn_canonical_copy_f32": ([_P, _P, _LL, _P], _I), **_ERR},
 }
 
 
@@ -485,7 +496,76 @@ def fused_scatter_dot(dvn: torch.Tensor, w: torch.Tensor,
     return out, dots
 
 
+# --------------------------------------------------------------------------
+# single-pass compose gradient: d_comp and d_packed from one read of d_t
+# --------------------------------------------------------------------------
+
+def compose_grad_pass_reference(d_t: torch.Tensor, packed: torch.Tensor,
+                                comp: torch.Tensor, R: int, B: int):
+    """Plain PyTorch version of :func:`compose_grad_pass`: the two
+    contractions of ``pallas_gather.compose_grad_pass``'s XLA branch."""
+    L = d_t.shape[1]
+    d_flat = d_t.reshape(R, -1)
+    d_comp = d_flat @ packed.reshape(B, -1).T           # rql,bql->rb
+    d_packed = comp.T @ d_flat                          # rb,rql->bql
+    return d_comp, d_packed.reshape(-1, L)
+
+
+def compose_grad_pass(d_t: torch.Tensor, packed: torch.Tensor,
+                      comp: torch.Tensor, R: int, B: int):
+    """Backward of the relation-major compose in one pass over ``d_t``:
+    ``d_comp = einsum('rql,bql->rb', d_t, packed)`` and
+    ``d_packed = einsum('rb,rql->bql', comp, d_t)``, reading the
+    ``(R * rows, L)`` cotangent table once.
+
+    ``d_t``: ``(R * rows, L)``; ``packed``: ``(B * rows, L)``; ``comp``:
+    ``(R, B)``, all f32. Returns ``(d_comp (R, B), d_packed (B * rows, L))``.
+    CPU tensors take :func:`compose_grad_pass_reference`. CUDA tensors
+    launch the kernel for any ``rows`` (``d_comp`` from per-block partials
+    summed in a fixed order: no atomics, the same bits every time) or
+    raise; the kernel masks R, B and the last chunk, and needs only ``L``
+    a multiple of 4.
+    ``compose_grad_pass.launches`` counts the launches.
+    """
+    fn = "compose_grad_pass"
+    if d_t.dim() != 2 or packed.dim() != 2 or R <= 0 or B <= 0 \
+            or comp.shape != (R, B) or d_t.shape[0] % R \
+            or packed.shape != (d_t.shape[0] // R * B, d_t.shape[1]):
+        raise ValueError(f"{fn}: d_t {tuple(d_t.shape)}, packed "
+                         f"{tuple(packed.shape)} and comp "
+                         f"{tuple(comp.shape)} do not fit R={R}, B={B}")
+    rows, L = d_t.shape[0] // R, d_t.shape[1]
+    if _device_of(fn, d_t, (("packed", packed), ("comp", comp))) == "cpu":
+        return compose_grad_pass_reference(d_t, packed, comp, R, B)
+    lib = _library("compose")
+    _check_tensors(fn, (("d_t", d_t, torch.float32, True),
+                        ("packed", packed, torch.float32, True),
+                        ("comp", comp, torch.float32, True)))
+    _check_lanes(fn, L, 4)
+    if d_t.data_ptr() % 16 or packed.data_ptr() % 16:
+        raise ValueError(f"{fn}: d_t and packed must be 16-byte aligned")
+    if lib.mrgcn_compose_grad_chunk(R, B) == 0:
+        raise ValueError(f"{fn}: R={R}, B={B} need more shared memory than "
+                         "a thread block has")
+    K = rows * L
+    d_comp = torch.empty(R, B, dtype=torch.float32, device=d_t.device)
+    d_packed = torch.empty(B * rows, L, dtype=torch.float32,
+                           device=d_t.device)
+    with torch.cuda.device(d_t.device):
+        # one (R, B) partial per thread block, summed in block order
+        partial = torch.empty(
+            lib.mrgcn_compose_grad_ctas(R, B, K) * R * B,
+            dtype=torch.float32, device=d_t.device)
+        rc = lib.mrgcn_compose_grad_f32(
+            d_t.data_ptr(), packed.data_ptr(), comp.data_ptr(),
+            d_packed.data_ptr(), d_comp.data_ptr(), partial.data_ptr(), R,
+            B, K, _cuda_stream(d_t))
+    _raise_on(fn, lib, rc)
+    compose_grad_pass.launches += 1
+    return d_comp, d_packed
+
+
 for _wrapper in (sorted_scatter, sorted_gather, fused_place_scatter,
-                 fused_scatter_dot):
+                 fused_scatter_dot, compose_grad_pass):
     _wrapper.launches = 0
 del _wrapper

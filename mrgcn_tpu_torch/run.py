@@ -2,12 +2,14 @@
 
 Same flags as ``python -m mrgcn_tpu.run``
 (``-c/-i/-o/-v/--dry_run/--load_checkpoint/--save_output/--save_checkpoint/
---test/--version``). Full-batch node classification and full-graph link
-prediction are supported, featureless or over numeric, boolean, temporal
-and string features (the from-scratch text encoder); image and WKT
-features, mini-batches and node-sliced link-prediction batches, reference
-``.tar`` input and checkpoints raise a "not yet ported" error naming
-their ROADMAP item.
+--test/--version``). Node classification, full batch or in mini-batches
+(``[task] batchsize``), and link prediction, on the full graph or in
+node-sliced batches (``gcn_batchsize``, ``test_batchsize``), both with
+neighbour sampling (``neighbor_fanout``, ``neighbor_fanout_rounds``), are
+supported, featureless or over numeric, boolean, temporal and string
+features (the from-scratch text encoder); image and WKT features,
+reference ``.tar`` input and checkpoints raise a "not yet ported" error
+naming their ROADMAP item.
 
 The device comes from ``MRGCN_PLATFORM`` (``cpu``, else CUDA; see
 :mod:`mrgcn_tpu_torch.utils.device`). Example::

@@ -44,6 +44,9 @@ class RunInputs:
     identity_basis: bool = False          # featureless plan kind decision
     # encoder name -> (data, node_idx, rows) on the device
     features: Dict[str, Tuple] = field(default_factory=dict)
+    # the same (data, node_idx) as numpy arrays on the host: what
+    # mini-batches cut their feature subsets from
+    features_host: Dict[str, Tuple] = field(default_factory=dict)
     modules_config: Tuple = ()            # sorted by datatype
     X_width: int = 0
     featureless: bool = True
@@ -80,7 +83,8 @@ def _layer_shapes(dims, X_width: int, featureless: bool):
 def _feature_tensors(X, modules_config, num_nodes: int, device,
                      text_vocab: int):
     """Encoder name -> (data, node_idx, rows) tensors for every non-empty
-    encoding set, and the text vocabulary size they need."""
+    encoding set, the same (data, node_idx) as host arrays, and the text
+    vocabulary size they need."""
     flat_sets: List = []
     for datatype, sets in sorted(X[1:], key=lambda e: e[0]):
         flat_sets.extend((datatype, s) for s in sets)
@@ -89,17 +93,18 @@ def _feature_tensors(X, modules_config, num_nodes: int, device,
         raise ValueError(f"{len(flat_sets)} encoding sets vs {len(names)} "
                          "modules")
     features: Dict[str, Tuple] = {}
+    host: Dict[str, Tuple] = {}
     for name, (datatype, (enc, node_idx, _)) in zip(names, flat_sets):
         if len(enc) == 0:
             continue
         if datatype in _TEXT:
             text_vocab = max(text_vocab, int(np.max(enc)) + 1)
         idx = np.asarray(node_idx)
+        host[name] = (np.asarray(enc), idx.astype(np.int32))
         features[name] = tuple(
             torch.as_tensor(a, device=device)
-            for a in (np.asarray(enc), idx.astype(np.int32),
-                      build_rows(idx, num_nodes)))
-    return features, text_vocab
+            for a in (*host[name], build_rows(idx, num_nodes)))
+    return features, host, text_vocab
 
 
 def prepare_inputs(artifact: Artifact, config: Dict, featureless: bool,
@@ -131,8 +136,8 @@ def prepare_inputs(artifact: Artifact, config: Dict, featureless: bool,
                 getDatatypeConfig(config, datatype) or {})
             text_pad_id = pad_symbols[datatype]
     X = densify(X, pad_symbols=pad_symbols)
-    features, text_vocab = _feature_tensors(X, modules_config, n, device,
-                                            ByteTokenizer.VOCAB_SIZE)
+    features, features_host, text_vocab = _feature_tensors(
+        X, modules_config, n, device, ByteTokenizer.VOCAB_SIZE)
 
     task = config.get("task", {}).get("type", "")
     out_final = len(artifact.class_map) \
@@ -150,6 +155,7 @@ def prepare_inputs(artifact: Artifact, config: Dict, featureless: bool,
                      num_nodes=n, num_relations=structure.num_relations,
                      structure=structure, hidden_dims=dims, device=device,
                      identity_basis=basis, features=features,
+                     features_host=features_host,
                      modules_config=modules_config, X_width=X_width,
                      featureless=featureless, text_vocab_size=text_vocab,
                      text_pad_id=text_pad_id)

@@ -1,7 +1,7 @@
 """Link prediction: DistMult training + full-entity ranking (PyTorch).
 
 Counterpart of :mod:`mrgcn_tpu.tasks.link_prediction` (reference:
-mrgcn/tasks/link_prediction.py) for full-graph batches. A training step
+mrgcn/tasks/link_prediction.py). A training step
 corrupts the batch's triples (:func:`make_corruptor`), scores positives and
 corruptions with DistMult over the R-GCN's node embeddings, and takes one
 clipped Adam step on the weighted BCE plus penalties; evaluation embeds
@@ -12,6 +12,14 @@ Semantics kept from the reference and the JAX package:
   * ``test_batchsize`` sub-splits the triples into subsets; ranking
     candidates are the whole graph, corruption draws from the subset's own
     nodes; per-subset MRR/hits are averaged over subsets;
+  * ``gcn_batchsize`` below the split's node count slices the split's
+    nodes: each slice's triples, sub-split by ``test_batchsize``, become a
+    batch on the L-hop neighbourhood of their own nodes
+    (:mod:`..data.batching`), with batch-local triple ids, and both the
+    ranking candidates and the corruption pool are the batch's nodes;
+    ``neighbor_fanout`` caps each hop's expansion for the training batches
+    only and ``neighbor_fanout_rounds`` cycles independent samples across
+    epochs; the batches run in order, one optimizer step each;
   * negative sampling corrupts ``negative_sampling_ratio`` (default 1/5) of
     each subset's triples, half heads / half tails;
     ``negative_adversarial_temperature`` reweights the negatives;
@@ -20,9 +28,8 @@ Semantics kept from the reference and the JAX package:
 
 Corruption and the update are separate functions (:func:`make_corruptor`'s
 ``corrupt`` and :func:`loss_and_grads`), so the same corrupted triples can
-be fed to both packages. Node-sliced batches (``gcn_batchsize`` below the
-split's node count), ``neighbor_fanout``, a device mesh and checkpoints
-raise ``NotImplementedError`` naming their ROADMAP item.
+be fed to both packages. A device mesh and checkpoints raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,19 +44,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mrgcn_tpu_torch.data import batching
 from mrgcn_tpu_torch.data.artifact import Artifact
 from mrgcn_tpu_torch.models.mrgcn import MRGCN
 from mrgcn_tpu_torch.ops import distmult
 from mrgcn_tpu_torch.tasks import utils as tutils
 from mrgcn_tpu_torch.tasks.common import (RunInputs, hidden_dims_from_config,
                                           prepare_inputs)
-from mrgcn_tpu_torch.tasks.node_classification import bucket
 
 logger = logging.getLogger(__name__)
 
 K = (1, 3, 10)
 
-TODO_SLICED = "ROADMAP Queue 1, item 2 (mini-batches: data/batching.py)"
 TODO_MESH = "ROADMAP Queue 1, item 6 (multi-device)"
 
 
@@ -76,11 +82,12 @@ class LPBatch:
     """One (graph slice, triple subset) pair."""
 
     features: Dict
-    edges: object            # EdgeBlock
-    data: np.ndarray         # (M, 3) triple ids, bucket-padded; rows >=
-    #                          num_triples are zero padding with weight 0
+    edges: object            # EdgeBlock or tuple of per-layer EdgeBlocks
+    data: np.ndarray         # (M, 3) triple ids, bucket-padded (batch-local
+    #                          in node-sliced mode); rows >= num_triples are
+    #                          zero padding with weight 0
     corrupt_pool: np.ndarray  # node ids to draw corruptions from (padded)
-    num_valid: int           # ranking candidate count
+    num_valid: int           # ranking candidate count (graph or batch local)
     num_triples: int = 0     # real triple count (== len(data) if unpadded)
     num_pool: int = 0        # real corrupt_pool length (rest is padding)
     # cached (RankPlan, boundaries, fingerprint): the batch's facts are
@@ -94,23 +101,89 @@ class LPBatch:
         return self.data[:self.num_triples]
 
 
+def node_slices(data: np.ndarray, gcn_batchsize: int, test_batchsize: int):
+    """The node-sliced branch's triple subsets, in order: the split's nodes
+    in slices of ``gcn_batchsize``, each slice's triples (a head or a tail
+    in it) sub-split by ``test_batchsize``. Yields ``(triples, nodes)``:
+    ``nodes`` the subset's own sorted node ids, ``triples`` with head and
+    tail as positions in ``nodes`` (reference: lp.py:528-532)."""
+    sample_nodes = np.union1d(data[:, 0], data[:, 2])
+    for begin in range(0, len(sample_nodes), gcn_batchsize):
+        batch_node_idx = sample_nodes[begin:begin + gcn_batchsize]
+        mask = (np.isin(data[:, 0], batch_node_idx)
+                | np.isin(data[:, 2], batch_node_idx))
+        batch_data = data[mask]
+        num_samples = batch_data.shape[0]
+        if num_samples == 0:
+            continue
+        for subset in np.array_split(np.arange(num_samples),
+                                     max(num_samples // test_batchsize, 1)):
+            data_subset = np.copy(batch_data[subset])
+            subset_nodes = np.union1d(data_subset[:, 0],
+                                      data_subset[:, 2]).astype(np.int32)
+            data_subset[:, 0] = np.searchsorted(subset_nodes,
+                                                data_subset[:, 0])
+            data_subset[:, 2] = np.searchsorted(subset_nodes,
+                                                data_subset[:, 2])
+            yield data_subset.astype(np.int32), subset_nodes
+
+
+def sliced_batch(inputs: RunInputs, index, data_subset: np.ndarray,
+                 subset_nodes: np.ndarray, num_layers: int, fanout=None,
+                 rng: Optional[np.random.Generator] = None) -> "LPBatch":
+    """One node-sliced batch, its arrays on the host: the L-hop
+    neighbourhood of ``subset_nodes``, whose positions are both the ranking
+    candidates and the corruption pool."""
+    mb = batching.sample_minibatch(index, subset_nodes, num_layers,
+                                   fanout=fanout, rng=rng)
+    feats = batching.subset_features(inputs.features_host, mb.outer_nodes,
+                                     num_rows=mb.layer_edges[0].num_in)
+    data_pad, pool_pad = _pad_lp_arrays(
+        data_subset, np.arange(len(subset_nodes), dtype=np.int32))
+    return LPBatch(features=feats, edges=mb.layer_edges, data=data_pad,
+                   corrupt_pool=pool_pad, num_valid=len(subset_nodes),
+                   num_triples=len(data_subset), num_pool=len(subset_nodes))
+
+
 def make_lp_batches(inputs: RunInputs, data: np.ndarray,
                     gcn_batchsize: int, test_batchsize: int,
-                    num_layers: int) -> List[LPBatch]:
-    """Reference batching (reference: lp.py:477-548), full-graph branch:
-    one graph slice, the triples sub-split into subsets of at most
-    ``test_batchsize``."""
-    del num_layers
+                    num_layers: int, fanout=None,
+                    rng: Optional[np.random.Generator] = None
+                    ) -> List[LPBatch]:
+    """Reference batching (reference: lp.py:477-548).
+
+    ``fanout`` (``[task] neighbor_fanout``, normalized or raw, see
+    :func:`..data.batching.normalize_fanout`) caps each hop's per-node
+    expansion with importance-rescaled norms in the node-sliced branch,
+    drawing from ``rng``. Pass it for training batches only: ranking must
+    ride exact full-expansion embeddings."""
     sample_nodes = np.union1d(data[:, 0], data[:, 2])
-    if 0 < gcn_batchsize < len(sample_nodes):
-        raise NotImplementedError(
-            f"node-sliced LP batches (gcn_batchsize {gcn_batchsize} < "
-            f"{len(sample_nodes)} nodes): {TODO_SLICED}")
-    num_samples = data.shape[0]
+    num_nodes = len(sample_nodes)
+    if gcn_batchsize <= 0:
+        gcn_batchsize = num_nodes
     if test_batchsize <= 0:
-        test_batchsize = num_samples
+        test_batchsize = data.shape[0]
 
     batches: List[LPBatch] = []
+    if gcn_batchsize < num_nodes:
+        index = batching.EdgeIndex(inputs.structure)
+        for data_subset, subset_nodes in node_slices(data, gcn_batchsize,
+                                                     test_batchsize):
+            batches.append(sliced_batch(inputs, index, data_subset,
+                                        subset_nodes, num_layers, fanout,
+                                        rng))
+        # the whole split moves at once, after the host has built it
+        put = batching.device_put_batches(
+            [(b.features, b.edges) for b in batches], inputs.device)
+        for b, (features, edges) in zip(batches, put):
+            b.features, b.edges = features, edges
+        return batches
+
+    if fanout is not None:
+        logger.warning("neighbor_fanout is ignored in full-graph LP mode "
+                       "(set [task] gcn_batchsize below the split's node "
+                       "count to enable sampling)")
+    num_samples = data.shape[0]
     for subset in np.array_split(np.arange(num_samples),
                                  max(num_samples // test_batchsize, 1)):
         data_subset = np.copy(data[subset]).astype(np.int32)
@@ -131,9 +204,9 @@ def _pad_lp_arrays(data: np.ndarray, pool: np.ndarray):
     the JAX package pads them, so corruption counts agree). Padding triples
     are (0, 0, 0) rows with weight 0 in the loss; padding pool entries are
     never drawn (draws index < num_pool)."""
-    data_pad = np.zeros((bucket(len(data), 64), 3), dtype=np.int32)
+    data_pad = np.zeros((batching.bucket(len(data), 64), 3), dtype=np.int32)
     data_pad[:len(data)] = data
-    pool_pad = np.zeros(bucket(len(pool), 64), dtype=np.int32)
+    pool_pad = np.zeros(batching.bucket(len(pool), 64), dtype=np.int32)
     pool_pad[:len(pool)] = pool
     return data_pad, pool_pad
 
@@ -439,6 +512,10 @@ class LPResult:
     # the synchronised seconds of training and of evaluation
     history: List[Dict] = field(default_factory=list)
     test_seconds: float = 0.0
+    # batch counts per split, fan-out rounds, and the seconds spent
+    # building and moving the training (and validation) batches and the
+    # test batches
+    batches: Dict = field(default_factory=dict)
 
 
 def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
@@ -457,9 +534,6 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
     mesh = str(task.get("mesh", "")).strip().lower()
     if mesh and mesh not in ("0", "1", "none", "off"):
         raise NotImplementedError(f"device mesh {mesh!r}: {TODO_MESH}")
-    if task.get("neighbor_fanout") not in (None, -1):
-        raise NotImplementedError(
-            f"neighbor_fanout for link prediction: {TODO_SLICED}")
 
     inputs = prepare_inputs(artifact, config, featureless, device)
     featureless = inputs.featureless
@@ -492,13 +566,44 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
     early_stop = tutils.EarlyStop(patience, tolerance) \
         if patience > 0 else None
 
-    train_batches = make_lp_batches(inputs, data["train"], gcn_batchsize,
-                                    test_batchsize, num_layers)
+    # neighbour-sampled training batches: [task] neighbor_fanout caps each
+    # hop's per-node expansion with importance-rescaled norms;
+    # neighbor_fanout_rounds builds R independent samples cycled across
+    # epochs. Only the train split samples: valid and test batches and the
+    # final ranking always expand fully, so reported metrics stay exact.
+    # Train MRR is computed on the sampled train batches (a training
+    # estimator)
+    fanout_cfg = task.get("neighbor_fanout")
+    fanout = None
+    if fanout_cfg not in (None, -1):
+        num_train_nodes = len(np.union1d(data["train"][:, 0],
+                                         data["train"][:, 2]))
+        if 0 < gcn_batchsize < num_train_nodes:
+            fanout = batching.normalize_fanout(fanout_cfg, num_layers)
+        else:
+            logger.warning("neighbor_fanout is ignored in full-graph LP "
+                           "mode (set [task] gcn_batchsize below the "
+                           "split's node count to enable sampling)")
+    rounds = max(1, int(task.get("neighbor_fanout_rounds", 1))) \
+        if fanout is not None else 1
+    sample_rng = np.random.default_rng(seed)
+
+    t_build = perf_counter()
+    train_rounds = [make_lp_batches(inputs, data["train"], gcn_batchsize,
+                                    test_batchsize, num_layers, fanout,
+                                    sample_rng)
+                    for _ in range(rounds)]
+    train_batches = train_rounds[0]
     valid_batches = make_lp_batches(inputs, data["valid"], gcn_batchsize,
                                     test_batchsize, num_layers) \
         if data["valid"] is not None else []
     model.skip_encoders = tutils.dead_encoders(model)
-    train_dev = to_device(train_batches, device)
+    train_dev_rounds = [to_device(b, device) for b in train_rounds]
+    train_dev = train_dev_rounds[0]
+    _synchronize(device)
+    batch_info = {"train": len(train_batches), "valid": len(valid_batches),
+                  "rounds": rounds,
+                  "build_seconds": perf_counter() - t_build}
 
     logger.info("Training for %d epoch (%d batch(es)) on %s", nepoch,
                 len(train_batches), device)
@@ -516,6 +621,9 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
             break
         final_epoch = ep
         t_ep = perf_counter()
+        if rounds > 1:
+            train_batches = train_rounds[(ep - 1) % rounds]
+            train_dev = train_dev_rounds[(ep - 1) % rounds]
         progress = tutils.BatchProgress(len(train_dev), label="TRAIN")
         losses = []
         for bi, dev_batch in enumerate(train_dev, 1):
@@ -565,6 +673,9 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
     t0 = perf_counter()
     test_batches = make_lp_batches(inputs, data[test_split], gcn_batchsize,
                                    test_batchsize, num_layers)
+    _synchronize(device)
+    batch_info.update(test=len(test_batches),
+                      test_build_seconds=perf_counter() - t0)
     test_mrr, test_hits, test_ranks = evaluate(
         test_batches, model, mrr_batchsize, filter_ranks)
     test_seconds = perf_counter() - t0
@@ -574,4 +685,4 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
     return LPResult(model=model, optimizer=optimizer, epoch=final_epoch,
                     loss=loss, mrr=test_mrr, hits=test_hits,
                     ranks=test_ranks, history=history,
-                    test_seconds=test_seconds)
+                    test_seconds=test_seconds, batches=batch_info)

@@ -1,12 +1,18 @@
-"""Node classification: full-batch training and evaluation (PyTorch).
+"""Node classification: training and evaluation (PyTorch).
 
-Counterpart of :mod:`mrgcn_tpu.tasks.node_classification` for the
-full-batch path, featureless or over encoded node features:
-frontier-restricted layer edges (or the full edge set when the labels
-cover every node), CE loss with L1/L2 penalties, global-norm clip and
-Adam, early stopping on validation loss, and the reference's evaluation
-semantics (train and validation labels merge in test mode; loss and
-accuracy are per-batch means).
+Counterpart of :mod:`mrgcn_tpu.tasks.node_classification`, featureless or
+over encoded node features. Full batch (``[task] batchsize`` <= 0):
+frontier-restricted layer edges, or the full edge set when the labels
+cover every node. Mini-batches (``batchsize`` > 0): L-hop BFS
+neighbourhoods built once on the host (:mod:`..data.batching`), moved to
+the device a split at a time and run in dataset order, one
+optimizer step each; ``neighbor_fanout`` caps each hop's expansion for
+the training batches and ``neighbor_fanout_rounds`` cycles independent
+samples across epochs, while evaluation batches always expand fully.
+CE loss with L1/L2 penalties, global-norm clip and Adam, early stopping
+on validation loss, and the reference's evaluation semantics (train and
+validation labels merge in test mode; loss and accuracy are per-batch
+means). Losses stay on the device and are read once per epoch.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mrgcn_tpu_torch.data import batching
 from mrgcn_tpu_torch.data.artifact import Artifact
 from mrgcn_tpu_torch.models.mrgcn import MRGCN
 from mrgcn_tpu_torch.tasks import utils as tutils
@@ -28,8 +35,6 @@ from mrgcn_tpu_torch.tasks.common import (RunInputs, hidden_dims_from_config,
                                           restricted_layer_edges)
 
 logger = logging.getLogger(__name__)
-
-TODO_MINIBATCH = "ROADMAP Queue 1, item 2 (mini-batch NC)"
 
 
 def build_model(inputs: RunInputs, config: Dict, num_classes: int,
@@ -73,51 +78,72 @@ class NCBatch:
     num_real: int = 0
 
 
-def bucket(n: int, minimum: int = 64) -> int:
-    """Next power of two >= n (>= minimum)."""
-    size = minimum
-    while size < n:
-        size *= 2
-    return size
-
-
-def _pad_labels(idx, targets, device, bucket_min: int = 64):
+def _pad_labels(idx, targets, bucket_min: int = 64):
+    """Label rows padded to a power-of-two bucket, as host arrays."""
     m = len(idx)
-    pad = bucket(m, bucket_min) - m
+    pad = batching.bucket(m, bucket_min) - m
     idx = np.concatenate([idx, np.zeros(pad, dtype=np.int32)])
     targets = np.concatenate([targets, np.zeros(pad, dtype=np.int32)])
     weights = np.concatenate([np.ones(m, dtype=np.float32),
                               np.zeros(pad, dtype=np.float32)])
-    return (torch.as_tensor(idx.astype(np.int64), device=device),
-            torch.as_tensor(targets.astype(np.int64), device=device),
-            torch.as_tensor(weights, device=device))
+    return idx.astype(np.int64), targets.astype(np.int64), weights
 
 
 def make_batches(inputs: RunInputs, label_rows: np.ndarray, batchsize: int,
-                 num_layers: int) -> List[NCBatch]:
-    """The full batch. On frontier-restricted layer edges, where every
+                 num_layers: int, fanout=None,
+                 rng: Optional[np.random.Generator] = None) -> List[NCBatch]:
+    """Full batch when ``batchsize <= 0`` or everything fits one slice;
+    otherwise L-hop BFS mini-batches built once and reused every epoch
+    (reference: node_classification.py:127-143, 329-351).
+
+    The full batch runs on frontier-restricted layer edges, where every
     layer aggregates only at the rows the loss (transitively) reads; when
     the labels cover every node, on the full edge set and its planned
-    layers."""
+    layers. ``fanout`` (``[task] neighbor_fanout``) caps each hop's
+    per-node expansion of a mini-batch with importance-rescaled norms
+    (:meth:`..data.batching.EdgeIndex.hop_sampled`), drawing from ``rng``.
+    """
     num_samples = label_rows.shape[0]
-    if 0 < batchsize < num_samples:
-        raise NotImplementedError(f"batchsize > 0: {TODO_MINIBATCH}")
-    uniq, inverse = np.unique(label_rows[:, 0], return_inverse=True)
-    if len(uniq) < inputs.num_nodes:
-        edges = restricted_layer_edges(
-            inputs.structure, uniq, num_layers, inputs.edges,
-            first_dim=inputs.hidden_dims[0], X_width=inputs.X_width,
-            featureless=inputs.featureless,
-            identity_basis=inputs.identity_basis, device=inputs.device)
-        idx = inverse.astype(np.int32)
-    else:
-        edges = inputs.edges
-        idx = label_rows[:, 0]
-    idx, targets, weights = _pad_labels(idx, label_rows[:, 1],
-                                        inputs.device)
-    return [NCBatch(features=inputs.features, edges=edges, idx=idx,
-                    targets=targets, weights=weights,
-                    num_real=num_samples)]
+    if batchsize <= 0 or batchsize >= num_samples:
+        uniq, inverse = np.unique(label_rows[:, 0], return_inverse=True)
+        if len(uniq) < inputs.num_nodes:
+            edges = restricted_layer_edges(
+                inputs.structure, uniq, num_layers, inputs.edges,
+                first_dim=inputs.hidden_dims[0], X_width=inputs.X_width,
+                featureless=inputs.featureless,
+                identity_basis=inputs.identity_basis, device=inputs.device)
+            idx = inverse.astype(np.int32)
+        else:
+            edges = inputs.edges
+            idx = label_rows[:, 0]
+        idx, targets, weights = (
+            torch.as_tensor(a, device=inputs.device)
+            for a in _pad_labels(idx, label_rows[:, 1]))
+        return [NCBatch(features=inputs.features, edges=edges, idx=idx,
+                        targets=targets, weights=weights,
+                        num_real=num_samples)]
+
+    index = batching.EdgeIndex(inputs.structure)
+    payloads, num_real = [], []
+    for begin in range(0, num_samples, batchsize):
+        rows = label_rows[begin:begin + batchsize]
+        # a node may carry several labels (multi-label target triples);
+        # sample its neighbourhood once and point every label row at the
+        # same local output row
+        uniq_nodes, inverse = np.unique(rows[:, 0], return_inverse=True)
+        mb = batching.sample_minibatch(index, uniq_nodes, num_layers,
+                                       fanout=fanout, rng=rng)
+        feats = batching.subset_features(inputs.features_host,
+                                         mb.outer_nodes,
+                                         num_rows=mb.layer_edges[0].num_in)
+        payloads.append((feats, mb.layer_edges,
+                         *_pad_labels(inverse.astype(np.int32), rows[:, 1])))
+        num_real.append(len(rows))
+    # the whole split moves at once, after the host has built it
+    put = batching.device_put_batches(payloads, inputs.device)
+    return [NCBatch(features=f, edges=e, idx=i, targets=t, weights=w,
+                    num_real=n)
+            for (f, e, i, t, w), n in zip(put, num_real)]
 
 
 def train_step(model: MRGCN, optimizer: tutils.ClippedAdam, batch: NCBatch,
@@ -144,17 +170,27 @@ def eval_step(model: MRGCN, batch: NCBatch):
     return _loss_and_metrics(out, batch.idx, batch.targets, batch.weights)
 
 
+def _epoch_means(losses, accs):
+    """Means of per-batch 0-dim tensors, read with one copy to the host."""
+    loss, acc = torch.stack([torch.stack(losses).mean(),
+                             torch.stack(accs).mean()]).tolist()
+    return loss, acc
+
+
 def eval_batches(model: MRGCN, batches: List[NCBatch]):
-    """Per-batch means averaged over batches."""
+    """Per-batch means averaged over batches
+    (reference: node_classification.py:229-310). Every batch is launched
+    before the first value is read."""
     losses, accs, labels_all, targets_all = [], [], [], []
     for b in batches:
         loss, acc, labels, targets = eval_step(model, b)
-        losses.append(float(loss))
-        accs.append(float(acc))
-        labels_all.append(labels[:b.num_real].cpu().numpy())
-        targets_all.append(targets[:b.num_real].cpu().numpy())
-    return (float(np.mean(losses)), float(np.mean(accs)),
-            np.concatenate(labels_all), np.concatenate(targets_all))
+        losses.append(loss)
+        accs.append(acc)
+        labels_all.append(labels[:b.num_real])
+        targets_all.append(targets[:b.num_real])
+    return (*_epoch_means(losses, accs),
+            torch.cat(labels_all).cpu().numpy(),
+            torch.cat(targets_all).cpu().numpy())
 
 
 def _synchronize(device: torch.device) -> None:
@@ -173,6 +209,9 @@ class NCResult:
     targets: np.ndarray
     # per epoch: epoch, train/val loss and accuracy, seconds (synchronised)
     history: List[Dict] = field(default_factory=list)
+    # how the batches were made: counts per split, the sampled rounds and
+    # the host seconds spent building and moving them
+    batches: Dict = field(default_factory=dict)
 
 
 def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
@@ -209,9 +248,36 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
     early_stop = tutils.EarlyStop(patience, tolerance) \
         if patience > 0 else None
 
-    train_batches = make_batches(inputs, Y_train, batchsize, num_layers)
+    # neighbour-sampled training: [task] neighbor_fanout caps each hop's
+    # per-node expansion with importance-rescaled norms;
+    # neighbor_fanout_rounds R > 1 builds R independent samples and cycles
+    # them across epochs (GraphSAGE-style variance reduction)
+    fanout_cfg = config["task"].get("neighbor_fanout")
+    fanout = None
+    if batchsize > 0 and Y_train.shape[0] > batchsize:
+        fanout = batching.normalize_fanout(fanout_cfg, num_layers)
+    elif fanout_cfg not in (None, -1):
+        logger.warning("neighbor_fanout is ignored in full-batch mode "
+                       "(set [task] batchsize > 0 to enable sampling)")
+    rounds = max(1, int(config["task"].get("neighbor_fanout_rounds", 1))) \
+        if fanout is not None else 1
+    sample_rng = np.random.default_rng(seed)
+
+    # batches are built once and reused every epoch
+    # (reference: node_classification.py:127-143); evaluation batches
+    # always expand fully: metrics stay exact, sampling is a training
+    # estimator
+    t_build = perf_counter()
+    train_rounds = [make_batches(inputs, Y_train, batchsize, num_layers,
+                                 fanout=fanout, rng=sample_rng)
+                    for _ in range(rounds)]
+    train_batches = train_rounds[0]
     valid_batches = make_batches(inputs, Y_valid, batchsize, num_layers) \
         if Y_valid is not None else []
+    _synchronize(device)
+    batch_info = {"train": len(train_batches), "valid": len(valid_batches),
+                  "rounds": rounds,
+                  "build_seconds": perf_counter() - t_build}
 
     logger.info("Training for %d epoch (%d batch(es)) on %s", nepoch,
                 len(train_batches), device)
@@ -228,15 +294,18 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
             break
         final_epoch = ep
         t_ep = perf_counter()
+        if rounds > 1:
+            train_batches = train_rounds[(ep - 1) % rounds]
         progress = tutils.BatchProgress(len(train_batches), label="TRAIN")
         losses, accs = [], []
         for bi, b in enumerate(train_batches, 1):
             progress.update(bi)
             loss, acc = train_step(model, optimizer, b, l1, l2, dropout_rng)
-            losses.append(float(loss))
-            accs.append(float(acc))
+            losses.append(loss)
+            accs.append(acc)
         progress.done()
-        train_loss, train_acc = float(np.mean(losses)), float(np.mean(accs))
+        # the batches' 0-dim tensors are read here, once per epoch
+        train_loss, train_acc = _epoch_means(losses, accs)
 
         val_loss, val_acc = -1.0, -1.0
         if valid_batches:
@@ -265,4 +334,4 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
     tsv_writer.writerow(["-1", "-1", "-1", "-1", "-1", str(loss), str(acc)])
     return NCResult(model=model, optimizer=optimizer, epoch=final_epoch,
                     loss=loss, acc=acc, labels=labels, targets=targets,
-                    history=history)
+                    history=history, batches=batch_info)

@@ -9,7 +9,10 @@ without JAX (the repository's conftest imports JAX, hence
 Elsewhere they skip. Tolerances: ``sorted_scatter``,
 ``fused_place_scatter`` and ``fused_scatter_dot`` atol 1e-4 / rtol 1e-5
 (the kernel and ``index_add_`` sum the same f32 values in different
-orders); ``sorted_gather`` bit for bit (a copy). The bf16 encoder kernels
+orders); ``sorted_gather`` and ``canonical_copy`` bit for bit (copies);
+``compose_table`` and ``compose_grad_pass``'s ``d_packed`` the same atol
+and rtol, its ``d_comp`` (a sum over the whole table) 1e-4 + 1e-5 of the
+sum of its terms' absolute values. The bf16 encoder kernels
 (fused attention, fused MLP) against their plain versions: element by
 element, ``|got - want| <= 2^-6 (|want| + scale) + 1e-6``, where ``scale`` is the element's product taken over
 absolute values (``mrgcn_tpu_torch.ops.kernel_bounds``). Both sides sum
@@ -369,3 +372,130 @@ def test_encoder_kernels_reject_bad_arguments(cuda):
     w1 = torch.zeros(24, 64, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="multiple of 16"):
         fm.mlp_fwd(x, w1, w1[0], w1.t(), x[0])
+
+
+# --------------------------------------------------------------------------
+# the compose kernels (csrc/compose.cu)
+# --------------------------------------------------------------------------
+
+def compose_case(R, B, rows, L, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(shape)
+                                  .astype(np.float32)).to(device)
+                 for shape in ((R * rows, L), (B * rows, L), (R, B)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,B,rows,L", [(5, 3, 8, 128), (121, 40, 64, 128),
+                                        (475, 2, 40, 256), (33, 17, 72, 36),
+                                        (7, 4, 24, 4), (4, 3, 12, 128),
+                                        (9, 5, 7, 20), (3, 2, 1, 4)])
+def test_compose_grad_pass_kernel_matches_plain(cuda, R, B, rows, L):
+    """Ragged R and B (masked, never padded), chunk widths 128 and 64
+    (R = 475 fits only the narrower one), a last chunk that is not full,
+    ``rows`` that are no multiple of 8 (12, 7, 1): the kernel takes any.
+    ``d_comp`` sums ``rows * L`` products per entry: it is held to
+    1e-4 + 1e-5 of the sum of their absolute values, ``d_packed`` to the
+    stream kernels' atol 1e-4 / rtol 1e-5; two launches give the same
+    bits (per-block partials summed in a fixed order, no atomics)."""
+    from mrgcn_tpu_torch.ops.sorted_stream import (
+        compose_grad_pass, compose_grad_pass_reference)
+    d_t, packed, comp = compose_case(R, B, rows, L, cuda, seed=R)
+    before = compose_grad_pass.launches
+    got = compose_grad_pass(d_t, packed, comp, R, B)
+    again = compose_grad_pass(d_t, packed, comp, R, B)
+    want = compose_grad_pass_reference(d_t, packed, comp, R, B)
+    torch.cuda.synchronize()
+    assert compose_grad_pass.launches == before + 2
+    scale = d_t.reshape(R, -1).abs() @ packed.reshape(B, -1).abs().T
+    assert bool(((got[0] - want[0]).abs() <= 1e-4 + 1e-5 * scale).all())
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,B,cols", [(5, 3, 1024), (121, 40, 8192),
+                                      (475, 2, 10240), (33, 17, 2592),
+                                      (1, 1, 4)])
+def test_compose_table_kernel_matches_plain(cuda, R, B, cols):
+    from mrgcn_tpu_torch.ops.compose_kernels import (compose_table,
+                                                     compose_table_reference)
+    rng = np.random.default_rng(cols)
+    comp, pk = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                .to(cuda) for s in ((R, B), (B, cols)))
+    before = compose_table.launches
+    got, again = compose_table(comp, pk), compose_table(comp, pk)
+    torch.cuda.synchronize()
+    assert compose_table.launches == before + 2
+    torch.testing.assert_close(got, compose_table_reference(comp, pk),
+                               rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(41, 3), (1548, 128), (7,), (0, 128)])
+def test_canonical_copy_kernel_is_exact(cuda, shape):
+    from mrgcn_tpu_torch.ops.compose_kernels import canonical_copy
+    x = torch.randn(shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(0))
+    before = canonical_copy.launches
+    got = canonical_copy(x)
+    torch.cuda.synchronize()
+    assert canonical_copy.launches == before + (1 if x.numel() else 0)
+    assert got.data_ptr() != x.data_ptr() or not x.numel()
+    assert torch.equal(got, x)
+
+
+@pytest.mark.gpu
+def test_compose_kernels_reject_bad_arguments(cuda):
+    from mrgcn_tpu_torch.ops.compose_kernels import (canonical_copy,
+                                                     compose_table)
+    from mrgcn_tpu_torch.ops.sorted_stream import compose_grad_pass
+    d_t, packed, comp = compose_case(5, 3, 8, 128, cuda)
+    with pytest.raises(TypeError, match="torch.float32"):
+        compose_grad_pass(d_t.double(), packed, comp, 5, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        compose_grad_pass(d_t, packed, comp.T.contiguous().T, 5, 3)
+    with pytest.raises(ValueError, match="is on cpu"):
+        compose_grad_pass(d_t, packed.cpu(), comp, 5, 3)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        compose_table(comp, torch.zeros(3, 6, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        canonical_copy(d_t[:, ::2])
+    with pytest.raises(ValueError, match="shared memory"):
+        compose_table(torch.zeros(3000, 40, device=cuda),
+                      torch.zeros(40, 128, device=cuda))
+
+
+@pytest.mark.gpu
+def test_featureless_composed_on_card_matches_cpu(cuda):
+    """The fused backward on the card (``fused_place_scatter`` then
+    ``compose_grad_pass``) against the CPU's plain versions: output and
+    both gradients within 1e-5 of the largest value."""
+    from mrgcn_tpu_torch.ops import relational as rl
+    from mrgcn_tpu_torch.ops.sorted_stream import compose_grad_pass
+    rng = np.random.default_rng(2)
+    n, R, E, B, out_dim = 300, 6, 2000, 3, 16
+    src, dst = (rng.integers(0, n, E).astype(np.int32) for _ in range(2))
+    rel = rng.integers(0, R, E).astype(np.int32)
+    norm = rng.random(E).astype(np.float32)
+    comp = rng.standard_normal((R, B)).astype(np.float32)
+    cot = rng.standard_normal((n, out_dim)).astype(np.float32)
+    found = []
+    for device in (cuda, torch.device("cpu")):
+        plans = rl.build_layer_plans(src, dst, rel, norm, n, 8, 8,
+                                     row_block=64, edge_block=32,
+                                     kind="identity", device=device)
+        if not found:
+            packed = rng.standard_normal(
+                (B, plans.n_in_rows, 128)).astype(np.float32)
+        c = torch.from_numpy(comp).to(device).requires_grad_()
+        p = torch.from_numpy(packed).to(device).requires_grad_()
+        before = compose_grad_pass.launches
+        out = rl.featureless_composed(c, p, plans, out_dim)
+        out.backward(torch.from_numpy(cot).to(device))
+        assert compose_grad_pass.launches == before + (device.type == "cuda")
+        found.append([t.detach().cpu() for t in (out, c.grad, p.grad)])
+    for got, want in zip(*found):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)

@@ -401,10 +401,12 @@ def test_cli_writes_the_26_column_tsv_and_the_ranks(lp_artifact, tmp_path,
 def test_unported_lp_paths_raise(lp_artifact):
     art = artifact_io.load(lp_artifact)
     tin = prepare_inputs(art, make_config(), True, CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        lp.make_lp_batches(tin, np.asarray(art.data["train"]), 32, -1, 2)
-    for task, item in ((dict(neighbor_fanout=4), "item 2"),
-                       (dict(mesh="4"), "item 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            lp.run(art, make_config(**task), TSV("", "w", dry_run=True),
-                   True, "test", 0, CPU)
+    # node-sliced batches are ported: the slice's nodes become the batch's
+    # ranking candidates
+    sliced = lp.make_lp_batches(tin, np.asarray(art.data["train"]), 32, -1,
+                                2)
+    assert len(sliced) > 1 and all(b.num_valid < tin.num_nodes
+                                   for b in sliced)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        lp.run(art, make_config(mesh="4"), TSV("", "w", dry_run=True),
+               True, "test", 0, CPU)

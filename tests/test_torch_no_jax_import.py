@@ -3,8 +3,10 @@
 Every ``.py`` of ``mrgcn_tpu_torch/`` and ``chip_smoke.py`` is parsed with
 ``ast`` and must hold no ``import jax``, ``import mrgcn_tpu`` or
 ``from mrgcn_tpu... import`` (at any depth: inside functions too); and the
-CLI module imports, and a link-prediction run trains, in a subprocess in
-which both names are blocked (``sys.modules[name] = None``).
+CLI module imports, a link-prediction run trains and a mini-batch NC run
+trains one epoch (the host batch sampler and its native library
+included), in a subprocess in which both names are blocked
+(``sys.modules[name] = None``).
 """
 
 import ast
@@ -35,6 +37,9 @@ def test_the_walk_finds_the_port():
             "mrgcn_tpu_torch/data/artifact.py",
             "mrgcn_tpu_torch/encodings/xsd/string.py",
             "mrgcn_tpu_torch/tasks/link_prediction.py",
+            "mrgcn_tpu_torch/data/batching.py",
+            "mrgcn_tpu_torch/data/native.py",
+            "mrgcn_tpu_torch/ops/compose_kernels.py",
             "chip_smoke.py"} <= names
 
 
@@ -69,6 +74,30 @@ with tempfile.TemporaryDirectory() as tmp:
                 '[[model.layers]]\\ntype = "mrgcn"\\n')
     res = run.run_cli(["-c", cfg, "-i", art, "-o", tmp, "--dry_run"])
     assert len(res.ranks["raw"]) == 60
+
+    # one mini-batch NC epoch: 40 labels in batches of 16
+    import numpy as np
+    from mrgcn_tpu_torch.data import batching, native
+    from mrgcn_tpu_torch.ops import compose_kernels
+    from mrgcn_tpu_torch.tasks.synthetic import save_nc_artifact
+    rng = np.random.default_rng(0)
+    n, R, E = 80, 5, 400
+    art = os.path.join(tmp, "nc.npz")
+    save_nc_artifact(art, n, R, rng.integers(0, n, E), rng.integers(0, n, E),
+                     rng.integers(0, R, E), rng.random(E).astype("float32"),
+                     rng.choice(n, 40, replace=False),
+                     rng.integers(0, 3, 40), 3, num_eval=10)
+    cfg = os.path.join(tmp, "nc.toml")
+    with open(cfg, "w") as f:
+        f.write('name = "NC"\\n[task]\\ntype = "node classification"\\n'
+                'seed = 0\\nbatchsize = 16\\nneighbor_fanout = 4\\n'
+                '[model]\\nepoch = 1\\nnum_bases = 2\\n'
+                '[[model.layers]]\\nhidden_nodes = 8\\n'
+                '[[model.layers]]\\ntype = "mrgcn"\\n')
+    res = run.run_cli(["-c", cfg, "-i", art, "-o", tmp, "--dry_run"])
+    assert res.batches["train"] == 3 and len(res.history) == 1
+    lib = native.get_sampler_lib()
+    assert lib is None or "mrgcn_tpu_torch" in native._SAMPLER_SO
 loaded = [m for m in sys.modules if m.split(".")[0] in
           ("jax", "jaxlib", "flax", "optax", "mrgcn_tpu")
           and sys.modules[m] is not None]

@@ -184,8 +184,8 @@ def test_unported_paths_raise(small_artifact, tmp_path, monkeypatch):
     config = make_config()
     tin = prepare_inputs(small_artifact, config, True, CPU)
     Y_train = np.asarray(small_artifact.Y["train"]).reshape(-1, 2)
-    with pytest.raises(NotImplementedError, match="mini-batch"):
-        nc.make_batches(tin, Y_train, 8, 2)
+    # mini-batches are ported: eight label rows a batch
+    assert len(nc.make_batches(tin, Y_train, 8, 2)) == -(-len(Y_train) // 8)
     for datatype, args in (("blob.image", (None, {}, 16, 0.0)),
                            ("ogc.wktLiteral", (9, 16, "S", 0.0))):
         with pytest.raises(NotImplementedError, match="item 3"):
@@ -197,18 +197,18 @@ def test_unported_paths_raise(small_artifact, tmp_path, monkeypatch):
             torch_run.main(["-c", "c.toml", "-i", "a.npz", flag])
     with pytest.raises(NotImplementedError, match="tar"):
         torch_run.main(["-c", "c.toml", "-i", "a.tar"])
-    # link prediction is ported for full-graph batches; its node-sliced
-    # batches still name their item
+    # link prediction is ported, node-sliced batches too; a device mesh
+    # still names its item
     cfg = tmp_path / "lp.toml"
     cfg.write_text('name = "LP"\n[task]\ntype = "link prediction"\n'
-                   'seed = 0\ngcn_batchsize = 8\n[model]\nepoch = 1\n'
+                   'seed = 0\ngcn_batchsize = 8\nmesh = "4"\n[model]\nepoch = 1\n'
                    '[[model.layers]]\nhidden_nodes = 8\n'
                    '[[model.layers]]\ntype = "mrgcn"\n')
     art = tmp_path / "lp.npz"
     save_lp_artifact(str(art), num_nodes=60, num_props=3, num_train=200,
                      num_valid=30, num_test=30)
     monkeypatch.setenv("MRGCN_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match="node-sliced LP batches"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         torch_run.main(["-c", str(cfg), "-i", str(art), "--dry_run"])
 
 
