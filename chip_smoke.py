@@ -6,9 +6,9 @@ card, the CUDA toolkit (``nvcc``) and no network, and it fails (exit code
 other than 0, no result line) where CUDA is absent or the repository is not
 beside it. ``--only a,b`` runs some phases alone (``stream``, ``compose``,
 ``nc``, ``minibatch``, ``lp``, ``encoders``, ``agree``, and ``profile`` /
-``profile_mb``: ``torch.profiler`` breakdowns of the link-prediction step
-and of a mini-batch NC step, never part of the whole run) and then prints
-no result line. Phases, each printing its own lines:
+``profile_mb`` / ``profile_att``: ``torch.profiler`` breakdowns of the
+link-prediction step, of a mini-batch NC step and of the attention
+kernels, never part of the whole run) and then prints no result line. Phases, each printing its own lines:
 
 1. the card, as ``nvidia-smi`` and torch see it;
 2. the kernels, built from ``mrgcn_tpu_torch/csrc`` (one ``nvcc`` per
@@ -90,9 +90,14 @@ no result line. Phases, each printing its own lines:
    against their plain versions at the multimodal slice's shapes
    (attention N=8,000, L=128, d=128; MLP 1,024,000 rows, 128 -> 512 ->
    128, bf16) and on adversarial ones (N not a multiple of 8, L=37, a
-   sequence that is all padding, one of length 1, L=300 and 512 on the
-   long-sequence kernels, rows not a multiple of the row block), and
-   the long-sequence kernels timed at N=2,000, L=512. Each element is
+   sequence that is all padding, one of length 1, L=300 and 512, d=64
+   and 8, rows not a multiple of the row block); attention also timed at
+   N=2,000, L=512 and at the slice's shape with every key valid (no key
+   tile to skip), and held on masks with holes (whole key tiles of
+   padding inside a sequence). Each kernel's registers, spills and
+   static shared memory are printed from the ``ptxas`` log, and a timer
+   that needs no stream to finish ends the run if the attention cases
+   hang. Each element is
    held to ``|got - want| <= 2^-6 (|want| + scale) + 1e-6``, ``scale``
    being its product over absolute values
    (``mrgcn_tpu_torch.ops.kernel_bounds``: bf16 intermediates rounded
@@ -133,6 +138,7 @@ JSON line with every kernel's numbers, and last the result line
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import math
 import os
@@ -683,21 +689,66 @@ def check_bf16(got, want, scale, label: str):
     return err, ratio
 
 
-def attention_case(gen, N, L, d, device):
+def attention_case(gen, N, L, d, device, mask="ragged"):
     """q (scaled), k, v as the text encoder hands them over (k and v
-    slices of one fused (N, L, 3d) bf16 tensor), ragged key masks with a
-    length-1 sequence and an all-padding one, and a cotangent."""
+    slices of one fused (N, L, 3d) bf16 tensor), a key mask and a
+    cotangent. ``mask``: ``ragged`` (a random length per sequence, with a
+    length-1 sequence and an all-padding one), ``holes`` (the same with
+    about a third of each sequence's keys knocked out at random, so whole
+    key tiles inside a sequence may be padding) or ``all`` (every key
+    valid)."""
     import torch
     qkv = torch.randn(N, L, 3 * d, generator=gen, device=device,
                       dtype=torch.bfloat16)
     q = qkv[..., :d] * torch.tensor(d ** -0.5, dtype=torch.bfloat16)
-    lengths = torch.randint(1, L + 1, (N,), generator=gen, device=device)
-    lengths[0] = 1
-    lengths[1] = 0
-    valid = torch.arange(L, device=device)[None, :] < lengths[:, None]
+    if mask == "all":
+        valid = torch.ones(N, L, dtype=torch.bool, device=device)
+    else:
+        lengths = torch.randint(1, L + 1, (N,), generator=gen, device=device)
+        lengths[0] = 1
+        lengths[1] = 0
+        valid = torch.arange(L, device=device)[None, :] < lengths[:, None]
+        if mask == "holes":
+            keep = torch.rand(N, L, generator=gen, device=device) < 0.67
+            keep[0, 0] = True
+            # a few sequences whose first key tile is all padding
+            keep[2::7, :min(L, 64)] = False
+            valid = valid & keep
     do = torch.randn(N, L, d, generator=gen, device=device,
                      dtype=torch.bfloat16)
     return q, qkv[..., d:2 * d], qkv[..., 2 * d:], valid, do
+
+
+def ptxas_report(name: str) -> dict:
+    """Registers, spill bytes and static shared memory of each kernel of
+    ``csrc/<name>.cu``, from the ``ptxas -v`` log its build kept."""
+    import re
+    from mrgcn_tpu_torch.ops import _build
+    report, entry = {}, None
+    for line in _build.load(name).ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            plain = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?",
+                              m.group(1))
+            entry = m.group(1) if plain is None else plain.group(1) + (
+                f"<{plain.group(2)}>" if plain.group(2) else "")
+            report[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            report[entry].update(stack_bytes=int(m.group(1)),
+                                 spill_store_bytes=int(m.group(2)),
+                                 spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            report[entry].update(registers=int(m.group(1)),
+                                 static_smem_bytes=int(smem.group(1))
+                                 if smem else 0)
+    return report
 
 
 def mlp_case(gen, M, d, hd, device):
@@ -761,24 +812,40 @@ def encoder_kernel_phase(device) -> dict:
             return torch.autograd.grad(out, leaves, do[:, None])
         return both
 
-    for label, (N, L, d), timed in (("slice", (8000, 128, 128), True),
-                                    ("adversarial_13x37", (13, 37, 128),
-                                     False),
-                                    ("adversarial_9x1", (9, 1, 128), False),
-                                    ("adversarial_5x128x64", (5, 128, 64),
-                                     False),
-                                    ("adversarial_7x300", (7, 300, 128),
-                                     False),
-                                    ("adversarial_3x512", (3, 512, 128),
-                                     False),
-                                    ("long_2000x512", (2000, 512, 128),
-                                     True)):
-        q, k, v, valid, do = attention_case(gen, N, L, d, device)
+    for kernel_name, used in ptxas_report("fused_attention").items():
+        print(f"[kernel] fused_attention.cu {kernel_name}: "
+              f"{json.dumps(used)}")
+    # a hung kernel shows no launch error and never lets a synchronize
+    # return: a timer that does not wait for the stream ends the process
+    # (with every thread's traceback) if the attention cases take 400 s
+    faulthandler.dump_traceback_later(400, exit=True)
+    # the new cases draw from a generator of their own, so the cases before
+    # them and the MLP cases after keep their numbers
+    gen_masks = torch.Generator(device=device).manual_seed(1)
+    for label, (N, L, d), timed, mask in (
+            ("slice", (8000, 128, 128), True, "ragged"),
+            ("adversarial_13x37", (13, 37, 128), False, "ragged"),
+            ("adversarial_9x1", (9, 1, 128), False, "ragged"),
+            ("adversarial_5x128x64", (5, 128, 64), False, "ragged"),
+            ("adversarial_7x300", (7, 300, 128), False, "ragged"),
+            ("adversarial_3x512", (3, 512, 128), False, "ragged"),
+            ("long_2000x512", (2000, 512, 128), True, "ragged"),
+            ("slice_all_valid", (8000, 128, 128), True, "all"),
+            ("slice_holes", (8000, 128, 128), False, "holes"),
+            ("adversarial_holes_300x512x8", (300, 512, 8), False, "holes")):
+        q, k, v, valid, do = attention_case(
+            gen if mask == "ragged" else gen_masks, N, L, d, device, mask)
         scales = attention_scales(q, k, v, valid, do)
         # operations on the real keys only: each of the L query rows meets
-        # sum(len) keys; forward 2 products, backward 5
-        pairs = float(valid.sum()) * L * d
-        qkv_bytes = 3 * N * L * d * 2 + valid.numel()
+        # sum(len) keys; forward 2 products, backward 5. Bytes likewise: k
+        # and v rows at the real keys only (a sequence without one needs
+        # all L: its softmax is uniform), every q and do row, every row of
+        # every output (zeros at padding keys' dk and dv are written too)
+        real = valid.sum(dim=1)
+        pairs = float(real.sum()) * L * d
+        kv_rows = int(torch.where(real > 0, real, torch.full_like(real, L))
+                      .sum())
+        qkv_bytes = (N * L + 2 * kv_rows) * d * 2 + valid.numel()
         compare("attention_fwd", label,
                 lambda: att.attention_fwd(q, k, v, valid),
                 lambda: att.attention_fwd_reference(q, k, v, valid),
@@ -797,13 +864,17 @@ def encoder_kernel_phase(device) -> dict:
             bwd["library_ms"] = bwd["library_ms"] - fwd["library_ms"]
             print(f"[kernel] attention_bwd {label}: library backward alone "
                   f"{bwd['library_ms']:.3f} ms")
-        out = att.attention_fwd(q, k, v, valid)
-        v1 = v[1].float()
-        check_bf16(out[1], v1.mean(0, keepdim=True).expand(L, d),
-                   v1.abs().mean(0, keepdim=True).expand(L, d),
-                   f"attention {label}: the all-padding sequence (a uniform"
-                   " average of v)")
-        del q, k, v, valid, do, out, scales
+        if mask != "all":
+            out = att.attention_fwd(q, k, v, valid)
+            v1 = v[1].float()
+            check_bf16(out[1], v1.mean(0, keepdim=True).expand(L, d),
+                       v1.abs().mean(0, keepdim=True).expand(L, d),
+                       f"attention {label}: the all-padding sequence (a "
+                       "uniform average of v)")
+            del out
+        torch.cuda.synchronize()
+        del q, k, v, valid, do, scales
+    faulthandler.cancel_dump_traceback_later()
     for label, (M, d, hd), timed in (("slice", (1_024_000, 128, 512), True),
                                      ("adversarial_1000", (1000, 128, 512),
                                       False),
@@ -1292,6 +1363,33 @@ def profile_steps(label: str, step, steps: int) -> None:
                   f"x{e.count / steps:5.1f}  {e.key[:90]}")
 
 
+def profile_attention_phase(device, steps: int = 10) -> None:
+    """Where the attention kernels' time goes (``--only profile_att``, not
+    part of the default run): device time by kernel of one forward and
+    one backward at the slice's shape (ragged masks and every key valid)
+    and at N=2,000, L=512."""
+    import torch
+    from mrgcn_tpu_torch.ops import attention as att
+    gen = torch.Generator(device=device).manual_seed(0)
+    for label, (N, L, d), mask in (("slice", (8000, 128, 128), "ragged"),
+                                   ("slice_all_valid", (8000, 128, 128),
+                                    "all"),
+                                   ("long_2000x512", (2000, 512, 128),
+                                    "ragged")):
+        q, k, v, valid, do = attention_case(gen, N, L, d, device, mask)
+        walked = att.live_key_tiles(valid)
+        print(f"[profile] attention {label}: {int(valid.sum())} of "
+              f"{valid.numel()} keys valid, {int(walked.sum())} of "
+              f"{walked.numel()} key tiles walked")
+
+        def step():
+            att.attention_fwd(q, k, v, valid)
+            att.attention_bwd(q, k, v, valid, do)
+
+        profile_steps(f"attention {label} forward + backward", step, steps)
+        del q, k, v, valid, do
+
+
 def profile_minibatch_phase(work, tmp: Path, device, steps: int = 40) -> None:
     """Where a mini-batch NC epoch's time goes (``--only profile_mb``, not
     part of the default run): the DMG-width featureless model at
@@ -1650,7 +1748,7 @@ STREAM_KERNELS = ("sorted_scatter", "sorted_gather", "fused_scatter_dot",
                   "fused_place_scatter")
 ENCODER_KERNELS = ("attention_fwd", "attention_bwd", "mlp_fwd", "mlp_bwd")
 PHASES = ("stream", "compose", "nc", "minibatch", "lp", "encoders", "agree")
-EXTRA_PHASES = ("profile", "profile_mb")     # only with --only
+EXTRA_PHASES = ("profile", "profile_mb", "profile_att")   # only with --only
 
 
 def main(argv=None) -> None:
@@ -1725,6 +1823,8 @@ def main(argv=None) -> None:
             profile_phase(tmp, device)
         if "profile_mb" in phases:
             profile_minibatch_phase(work, tmp, device)
+        if "profile_att" in phases:
+            profile_attention_phase(device)
         if "encoders" in phases:
             rows.update(encoder_kernel_phase(device))
         if "agree" in phases:

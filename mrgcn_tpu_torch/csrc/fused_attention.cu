@@ -6,7 +6,7 @@
 //   s[i, j] = q[i] . k[j]            (bf16 inputs, f32 sums)
 //   s[i, j] = -1e9 where key j is padding (valid[n, j] == 0)
 //   p = softmax_j(s)                 (f32)
-//   out[i] = sum_j bf16(p[i, j]) v[j] (f32 sums, stored bf16)
+//   out[i] = sum_j p[i, j] v[j]      (p through bf16, f32 sums, stored bf16)
 // Backward recomputes p, then
 //   dv = bf16(p)^T do, dp = do v^T, ds = p (dp - rowsum(dp p)),
 //   ds = 0 at padding keys, dq = bf16(ds) k, dk = bf16(ds)^T q.
@@ -26,823 +26,1062 @@
 // sequences, L = d = 128, bf16) the forward moves 3 x 32 KB in and 32 KB
 // out per sequence for 8.4 MFLOP, about 64 FLOP per byte, below the
 // H100's ~295 FLOP/byte ridge: memory and latency bound, not tensor bound.
+// So the design spends tensor work (scores are recomputed, nine products
+// in the backward where five would do) to keep every (L, L) tensor on
+// the chip, and its first concern is how the bytes reach shared memory.
 //
-// What the design does about it:
-//  * Up to L = 128 (the DMG-width slice's strings): one CTA per sequence,
-//    8 warps, each owning 16 query rows. The whole sequence's K and V
-//    (and, backward, Q and dO) sit in shared memory, so every input byte
-//    is read from device memory once and the (L, L) scores never leave
-//    the chip: the forward keeps them in registers, the backward puts bf16
-//    P^T and dS^T in shared memory for dK and dV, which are then whole
-//    products in the same CTA. Shared memory is 102 KB forward at
-//    L = d = 128 (two CTAs per SM), 205 KB backward (one).
-//  * Longer sequences (up to 512, the text encoder's limit): one CTA
-//    per (sequence, 128 rows), the other side walked in chunks of 64 rows.
-//    The softmax statistics come from exact passes (row max, then row
-//    sum) so p is the same exp(s - max) / sum; the backward's dq kernel
-//    also stores each row's (max, sum, D = rowsum(dp p)) in f32 scratch,
-//    and a second kernel over key tiles sums dK and dV over query chunks
-//    in order. Scores are recomputed per pass: more tensor work, still no
-//    (L, L) tensor in device memory, no atomics.
-//  * Products are mma.sync m16n8k16 bf16 -> f32 tensor-core instructions
-//    with fragments loaded from shared memory rows padded by 16 bytes.
-//    Scores become the A operand of the next product without leaving
-//    registers (the accumulator layout of one product is the operand
-//    layout of the next).
+// The design: one tiled family for every 1 <= L <= 512, three kernels.
+// No second family remains: the kernels that held a whole sequence of
+// L <= 128 in one block (synchronous loads, mma.sync from 16- and 32-bit
+// shared loads) took 0.98-1.02 ms forward / 4.4-4.8 ms backward at
+// N = 8,000, L = d = 128 where this family takes 0.35-0.39 / 1.04-1.09, and
+// the exact-pass kernels for 128 < L <= 512 took 7.1 / 23.7-24.0 ms at
+// N = 2,000, L = 512 where it takes 0.48-0.52 / 2.0 (H100 80GB HBM3, 700 W).
+//  * Tiles of 64 rows x 128 columns arrive by TMA (cp.async.bulk.tensor,
+//    two boxes of 64 columns a tile, issued by one thread, completing on
+//    an mbarrier): the copy engine computes the addresses, writes the
+//    128-byte swizzle the tensor cores read, and fills rows past L and
+//    columns past d with zeros. Loads issued by the threads themselves
+//    (cp.async, 16 bytes a thread) filled shared memory at no more than
+//    about 2.5 TB/s whatever the source, device memory or L2, and held
+//    the forward at 0.51 ms where TMA gives 0.35 (H100 80GB HBM3, 700 W).
+//    The tensor maps are built on the host per call
+//    (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint: no -lcuda).
+//  * A thread block owns 64 rows of one sequence a warpgroup and walks
+//    the other side in tiles of 64 rows through a two-stage ring: tile
+//    i + 1 (and i + 2, once tile i's stage is free) is in flight while
+//    tile i is multiplied. Two blocks (about 98 KB each) share an SM.
+//  * Products are wgmma.mma_async m64nNk16 bf16 -> f32: the tensor cores
+//    read both operands of s = q k^T (and of dp = do v^T, s^T = k q^T, dp^T
+//    = v do^T) from shared memory once a warpgroup; the second product of
+//    each chain (p v, ds k, p^T do, ds^T q) takes its A operand from
+//    registers, where the first product's accumulator already has the
+//    layout, and its B operand from the same tile read MN-major
+//    (transposed by the descriptor, not by the threads).
+//  * Key tiles whose keys are all padding are not loaded, scored or
+//    multiplied: a block finds the tiles with a valid key from the mask
+//    (a ballot per 32 keys). Their probabilities are exactly 0 wherever
+//    the sequence has one valid key. A sequence with no valid key walks
+//    every tile (the uniform softmax). In the backward, the dk / dv rows
+//    of a skipped key tile are written as zeros. A tile whose 64 keys are
+//    all valid skips the masking arithmetic.
+//  * Forward: two warpgroups (128 query rows) a block, also where L <= 64
+//    (the second then multiplies nothing; a 64-row block was no faster
+//    there); online softmax over the key tiles (running max and sum in log2
+//    units: ex2 on logits scaled by log2 e, one reciprocal a row).
+//  * Backward, dq kernel: one warpgroup; it walks the live key tiles
+//    twice. Walk 1 sums each row's max, sum and D = rowsum(dp p) online;
+//    walk 2 forms ds and dq += ds k. With at most two live tiles (every
+//    L <= 128) both stay in the ring and walk 2 loads nothing. D is summed
+//    from the same dp the second walk meets, so a row with one valid key
+//    has ds = 0 exactly, as the plain version has. Each row's (max,
+//    1 / sum, D) goes to f32 scratch (3, N, L).
+//  * Backward, dk / dv kernel: key-major. It owns 64 key rows and walks
+//    all query tiles with their rows' statistics, recomputes s^T = k q^T
+//    and dp^T = v do^T 32 queries at a time, and so holds p^T and ds^T in
+//    registers in the layout dv += p^T do and dk += ds^T q take as their A
+//    operand: nothing is transposed through shared memory.
+//  * Output tiles are staged in shared memory (over an operand tile, XOR
+//    swizzled) and stored 16 bytes a thread along d.
 //  * Deterministic: every output element is summed by one thread in a
-//    fixed order.
+//    fixed order; no atomics on device memory.
 //  * Limits: L <= 512, d <= 128 and a multiple of 8 (the wrapper checks).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 4;              // one warpgroup
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxL = 128;            // longest sequence run in one CTA
-constexpr int kMaxD = 128;
-constexpr int kPad = 8;               // bf16 elements added to each row
-constexpr int kMaxKeyTiles = kMaxL / 8;
-constexpr int kMaxDimTiles = kMaxD / 8;
-constexpr float kMasked = -1e9f;
-
-__host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
+constexpr int kTile = 64;              // rows of a tile
+constexpr int kStages = 2;             // tile pairs in the ring
+constexpr int kMaxL = 512;             // the text encoder's max_len
+constexpr int kMaxTiles = kMaxL / kTile;
+constexpr int kMaxD = 128;             // columns of a tile
+constexpr int kDimTiles = kMaxD / 8;
+// A tile in shared memory is two boxes of 64 rows x 64 columns (128 bytes
+// a row), each in the 128-byte swizzle: the 16-byte chunk c of row r sits
+// at chunk c ^ (r % 8). Eight rows are 1 KB.
+constexpr int kBoxBytes = kTile * 128;
+constexpr int kTileBytes = 2 * kBoxBytes;
+constexpr int kRowGroup = 8 * 128;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kMasked = -1e9f * kLog2e;   // a padding key's logit, log2 units
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// two consecutive bf16 (lower address in the low half)
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t shared_address(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// two bf16 from separate addresses
-__device__ __forceinline__ uint32_t ld_split(const bf16* lo, const bf16* hi) {
-    const uint32_t a = *reinterpret_cast<const uint16_t*>(lo);
-    const uint32_t b = *reinterpret_cast<const uint16_t*>(hi);
-    return a | (b << 16);
+// ---- mbarriers and TMA loads ----------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(shared_address(bar)), "r"(count) : "memory");
 }
 
-// c += a b for one 16x16 (a, row-major) by 16x8 (b, col-major) bf16 tile
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                    uint32_t b0, uint32_t b1) {
+// makes the initialised barriers visible to the copy engine
+__device__ __forceinline__ void mbar_init_fence() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival, and `bytes` more to wait for in the barrier's current phase
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(shared_address(bar)), "r"(bytes) : "memory");
+}
+
+// until the barrier's phase of the given parity is complete
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
     asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+        "{\n.reg .pred P1;\nLAB_WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+        "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n"
+        :: "r"(shared_address(bar)), "r"(parity) : "memory");
 }
 
-// A fragment of the 16x16 block at (i0, k0) of a row-major matrix
-__device__ __forceinline__ void ld_a(uint32_t a[4], const bf16* base,
-                                     int ld, int i0, int k0, int g, int t) {
-    const bf16* p = base + (i0 + g) * ld + k0 + 2 * t;
-    a[0] = ld_pair(p);
-    a[1] = ld_pair(p + 8 * ld);
-    a[2] = ld_pair(p + 8);
-    a[3] = ld_pair(p + 8 * ld + 8);
-}
-
-// Rows [0, Lp) x cols [0, Dp) of an (L, d) matrix with row stride `sl`
-// into shared memory (row stride `ld`), zero outside (L, d). 16-byte loads.
-__device__ void load_rows(bf16* dst, int ld, const bf16* src, long long sl,
-                          int L, int d, int Lp, int Dp) {
-    const int vecs = Dp / 8;
-    for (int i = threadIdx.x; i < Lp * vecs; i += kThreads) {
-        const int r = i / vecs;
-        const int c = (i % vecs) * 8;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (r < L && c < d)
-            v = __ldg(reinterpret_cast<const uint4*>(src + r * sl + c));
-        *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-    }
-}
-
-// key_ok[j]: 1 valid key, 0 padding key, -1 past the end of the sequence
-__device__ void load_keys(int* key_ok, const uint8_t* valid, int L, int Lp) {
-    for (int j = threadIdx.x; j < Lp; j += kThreads)
-        key_ok[j] = j < L ? (valid[j] ? 1 : 0) : -1;
-}
-
-// Scores of the warp's 16 query rows against every key, masked and turned
-// into f32 probabilities in place. Thread (g, t) holds, per key tile nt,
-// rows g (s[nt][0..1]) and g + 8 (s[nt][2..3]) at keys nt*8 + 2t + {0, 1}.
-__device__ __forceinline__ void softmax_rows(
-        float s[kMaxKeyTiles][4], const bf16* Qs, const bf16* Ks, int ld,
-        const int* key_ok, int r0, int Lp, int Dp, int g, int t) {
+// Rows row.. (64) x all 128 columns of sequence n of a mapped (N, L, d)
+// tensor into a shared tile; the bytes count on `bar`. Zeros outside
+// (L, d). One thread calls it.
+__device__ __forceinline__ void load_tile(char* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int row, int n) {
 #pragma unroll
-    for (int nt = 0; nt < kMaxKeyTiles; ++nt)
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    for (int box = 0; box < 2; ++box)
+        asm volatile(
+            "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier"
+            "::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+            :: "r"(shared_address(dst + box * kBoxBytes)),
+               "l"((uint64_t)map), "r"(shared_address(bar)),
+               "r"(box * 64), "r"(row), "r"(n)
+            : "memory");
+}
+
+// ---- wgmma ------------------------------------------------------------------
+
+// Shared-memory matrix descriptors (128-byte swizzle). An operand whose k
+// index runs along the tile's columns (K-major: q, k, v, do in the score
+// products): rows row0.. (a multiple of 8), columns 16 kk.. .
+__device__ __forceinline__ uint64_t desc_k_major(const char* tile, int row0,
+                                                 int kk) {
+    const uint32_t at = shared_address(tile) + (kk >> 2) * kBoxBytes
+                      + (row0 >> 3) * kRowGroup + (kk & 3) * 32;
+    return (uint64_t)((at & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+         | ((uint64_t)(kRowGroup >> 4) << 32)     // next 8 of m / n
+         | ((uint64_t)1 << 62);
+}
+
+// The B operand of the second products, whose k index runs along the
+// tile's rows k0.. and whose n index along all its columns (MN-major).
+__device__ __forceinline__ uint64_t desc_mn_major(const char* tile, int k0) {
+    const uint32_t at = shared_address(tile) + (k0 >> 3) * kRowGroup;
+    return (uint64_t)((at & 0x3FFFF) >> 4)
+         | ((uint64_t)(kBoxBytes >> 4) << 16)     // next 64 of n
+         | ((uint64_t)(kRowGroup >> 4) << 32)     // next 8 of k
+         | ((uint64_t)1 << 62);
+}
+
+// d (+)= a b over one k step of 16, for the warpgroup's 64 rows. Thread
+// (warp w, g = lane / 4, t = lane % 4) holds rows 16 w + g (d[nt][0..1])
+// and 16 w + g + 8 (d[nt][2..3]) at columns 8 nt + 2 t + {0, 1}: the layout
+// of mma.sync's accumulator, a warp at a time.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t a,
+        uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+        " %16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[4][4], uint64_t a,
+        uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+        : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
+        const uint32_t (&a)[4], uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+        " %16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+        " %32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+        " %48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait for every product issued, then pin the accumulators so that no
+// read of them moves above the wait.
+template <int NT>
+__device__ __forceinline__ void wgmma_wait(float (&d)[NT][4]) {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            asm volatile("" : "+f"(d[nt][e]) :: "memory");
+}
+
+// s = X[rows 0..63] Y[rows y0..y0+8 NT-1]^T over the tiles' 128 columns
+template <int NT>
+__device__ __forceinline__ void issue_scores(float (&s)[NT][4], const char* X,
+                                             const char* Y, int y0) {
+    static_assert(NT == 8 || NT == 4, "64 or 32 columns");
 #pragma unroll
     for (int kk = 0; kk < kMaxD / 16; ++kk) {
-        if (kk * 16 >= Dp) break;
-        uint32_t a[4];
-        ld_a(a, Qs, ld, r0, kk * 16, g, t);
-#pragma unroll
-        for (int nt = 0; nt < kMaxKeyTiles; ++nt) {
-            if (nt * 8 >= Lp) break;
-            const bf16* kb = Ks + (nt * 8 + g) * ld + kk * 16 + 2 * t;
-            mma(s[nt], a, ld_pair(kb), ld_pair(kb + 8));
+        if constexpr (NT == 8)
+            wgmma_ss_n64(s, desc_k_major(X, 0, kk), desc_k_major(Y, y0, kk),
+                         kk > 0);
+        else
+            wgmma_ss_n32(s, desc_k_major(X, 0, kk), desc_k_major(Y, y0, kk),
+                         kk > 0);
+    }
+}
+
+// accumulator tiles 2 kk and 2 kk + 1 -> the bf16 A fragment over columns
+// 16 kk .. 16 kk + 15
+template <int NT>
+__device__ __forceinline__ void to_a(uint32_t (&a)[4],
+                                     const float (&s)[NT][4], int kk) {
+    a[0] = pack2(s[2 * kk][0], s[2 * kk][1]);
+    a[1] = pack2(s[2 * kk][2], s[2 * kk][3]);
+    a[2] = pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    a[3] = pack2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+}
+
+// ---- softmax pieces -----------------------------------------------------------
+
+__device__ __forceinline__ float quad_max(float x) {
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// 2^x, the hardware's approximation (2 ulp; 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// What a block knows of its sequence's keys
+struct KeyPlan {
+    int count;          // key tiles to walk: tiles[0..count)
+    unsigned walked;    // the same as a bit mask
+    unsigned full;      // tiles whose 64 keys are all valid
+};
+
+// key_ok[j] for the keys of one sequence, rounded up to whole tiles: 1
+// valid, 0 padding, -1 past the end. tiles[] lists the key tiles to walk,
+// in order: those with a valid key, or all of them where the sequence has
+// none. bits[0] and bits[1] are scratch. Every thread of the block calls
+// it (it synchronises).
+__device__ __forceinline__ KeyPlan plan_key_tiles(signed char* key_ok,
+                                                  int* tiles, unsigned* bits,
+                                                  const uint8_t* valid,
+                                                  int L) {
+    if (threadIdx.x == 0) {
+        bits[0] = 0u;
+        bits[1] = 0xffffffffu;
+    }
+    __syncthreads();
+    const int T = (L + kTile - 1) / kTile;
+    for (int j = threadIdx.x; j < T * kTile; j += blockDim.x) {
+        const int ok = j < L ? (valid[j] ? 1 : 0) : -1;
+        key_ok[j] = (signed char)ok;
+        const unsigned any = __ballot_sync(0xffffffffu, ok > 0);
+        if ((threadIdx.x & 31) == 0) {
+            if (any) atomicOr(&bits[0], 1u << (j / kTile));
+            if (~any) atomicAnd(&bits[1], ~(1u << (j / kTile)));
         }
     }
-    float m0 = -INFINITY, m1 = -INFINITY;
+    __syncthreads();
+    KeyPlan plan;
+    plan.walked = bits[0] ? bits[0] : (1u << T) - 1u;
+    plan.full = bits[1];
+    plan.count = __popc(plan.walked);
+    if (threadIdx.x == 0) {
+        int count = 0;
+        for (int t = 0; t < T; ++t)
+            if ((plan.walked >> t) & 1u) tiles[count++] = t;
+    }
+    __syncthreads();
+    return plan;
+}
+
+// Logit in log2 units of score x at a key whose status is ok: a padding
+// key's is -1e9 (scaled), a key's past the end -inf.
+__device__ __forceinline__ float logit2(float x, int ok) {
+    return ok > 0 ? x * kLog2e : (ok == 0 ? kMasked : -INFINITY);
+}
+
+// Scores of a 64-key tile -> what prob() takes, and the rows' maxima in
+// log2 units into mt. Full (every key valid): the scores stay as they
+// are. Else they become masked logits in log2 units, so that a row of
+// padding keys alone has the same logit at each and a uniform softmax.
+// `ok` points at the status of the key of this thread's first column.
+template <bool Full, int NT>
+__device__ __forceinline__ void tile_logits(float (&s)[NT][4],
+                                            const signed char* ok,
+                                            float (&mt)[2]) {
+    mt[0] = mt[1] = -INFINITY;
 #pragma unroll
-    for (int nt = 0; nt < kMaxKeyTiles; ++nt) {
-        if (nt * 8 >= Lp) break;
+    for (int nt = 0; nt < NT; ++nt) {
+        int ok0 = 1, ok1 = 1;
+        if (!Full) {
+            ok0 = ok[nt * 8];
+            ok1 = ok[nt * 8 + 1];
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            const int ok = key_ok[nt * 8 + 2 * t + (e & 1)];
-            const float x = ok > 0 ? s[nt][e] : (ok == 0 ? kMasked : -INFINITY);
-            s[nt][e] = x;
-            if (e < 2) m0 = fmaxf(m0, x); else m1 = fmaxf(m1, x);
+            if (!Full) s[nt][e] = logit2(s[nt][e], e & 1 ? ok1 : ok0);
+            mt[e >> 1] = fmaxf(mt[e >> 1], s[nt][e]);
         }
     }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    if (Full) {
+        mt[0] *= kLog2e;
+        mt[1] *= kLog2e;
     }
-    float l0 = 0.f, l1 = 0.f;
+}
+
+// exp2(logit - m) from what tile_logits left
+template <bool Full>
+__device__ __forceinline__ float prob(float x, float m) {
+    return Full ? ex2(fmaf(x, kLog2e, -m)) : ex2(x - m);
+}
+
+// The warpgroup's 64 rows of acc (each times scale[row half]) as bf16 into
+// a shared tile no product reads any more (rows of 256 bytes, the 16-byte
+// chunk c of row r at chunk c ^ (r % 8)), then to rows row0.. of a
+// contiguous (L, d) matrix, 16 bytes a thread. A warp writes and reads
+// back only its own 16 rows.
+__device__ __forceinline__ void store_rows(bf16* dst, char* S,
+                                           const float (&acc)[kDimTiles][4],
+                                           float scale0, float scale1,
+                                           int row0, int L, int d) {
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    char* mine = S + 16 * warp * 256;          // rows 16 warp .. + 15
 #pragma unroll
-    for (int nt = 0; nt < kMaxKeyTiles; ++nt) {
-        if (nt * 8 >= Lp) break;
+    for (int dt = 0; dt < kDimTiles; ++dt) {
+        char* p = mine + g * 256 + ((dt ^ g) << 4) + t * 4;
+        *reinterpret_cast<uint32_t*>(p) =
+            pack2(acc[dt][0] * scale0, acc[dt][1] * scale0);
+        *reinterpret_cast<uint32_t*>(p + 8 * 256) =
+            pack2(acc[dt][2] * scale1, acc[dt][3] * scale1);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = lane; i < 16 * kDimTiles; i += 32) {
+        const int rl = ((i >> 7) << 3) + (i & 7);
+        const int c = (i >> 3) & 15;
+        const int r = row0 + 16 * warp + rl;
+        if (r < L && c * 8 < d)
+            *reinterpret_cast<uint4*>(dst + (long long)r * d + c * 8) =
+                *reinterpret_cast<const uint4*>(
+                    mine + rl * 256 + ((c ^ (rl & 7)) << 4));
+    }
+}
+
+// One key tile of the forward for a warpgroup's 64 query rows (tile Qw):
+// scores against Ks, the online softmax update of (m, l) and of the
+// accumulator o, then o += p Vs. First: nothing is accumulated yet.
+template <bool Full>
+__device__ __forceinline__ void forward_tile(float (&o)[kDimTiles][4],
+                                             float (&m)[2], float (&l)[2],
+                                             const char* Qw, const char* Ks,
+                                             const char* Vs,
+                                             const signed char* ok,
+                                             bool first) {
+    float s[kTile / 8][4];
+    wgmma_fence();
+    issue_scores<kTile / 8>(s, Qw, Ks, 0);
+    wgmma_commit();
+    wgmma_wait(s);
+    float mt[2];
+    tile_logits<Full>(s, ok, mt);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        // every walked tile has a key inside the sequence, so the new max
+        // is finite
+        const float mn = fmaxf(m[h], quad_max(mt[h]));
+        if (!first) {
+            const float alpha = ex2(m[h] - mn);
+            l[h] *= alpha;
+#pragma unroll
+            for (int dt = 0; dt < kDimTiles; ++dt) {
+                o[dt][2 * h] *= alpha;
+                o[dt][2 * h + 1] *= alpha;
+            }
+        }
+        m[h] = mn;
+    }
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            const float p = expf(s[nt][e] - (e < 2 ? m0 : m1));
+            const float p = prob<Full>(s[nt][e], m[e >> 1]);
             s[nt][e] = p;
-            if (e < 2) l0 += p; else l1 += p;
+            l[e >> 1] += p;
         }
     }
+    uint32_t pa[kTile / 16][4];
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    }
+    for (int kk = 0; kk < kTile / 16; ++kk) to_a(pa[kk], s, kk);
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < kMaxKeyTiles; ++nt) {
-        if (nt * 8 >= Lp) break;
-        s[nt][0] /= l0;
-        s[nt][1] /= l0;
-        s[nt][2] /= l1;
-        s[nt][3] /= l1;
-    }
+    for (int kk = 0; kk < kTile / 16; ++kk)
+        wgmma_rs_n128(o, pa[kk], desc_mn_major(Vs, kk * 16), 1);
+    wgmma_commit();
+    wgmma_wait(o);
 }
 
-// Accumulator tiles (key-tile layout) -> bf16 A fragments over keys
-__device__ __forceinline__ void to_a(uint32_t a[kMaxL / 16][4],
-                                     const float s[kMaxKeyTiles][4], int Lp) {
-#pragma unroll
-    for (int kk = 0; kk < kMaxL / 16; ++kk) {
-        if (kk * 16 >= Lp) break;
-        a[kk][0] = pack2(s[2 * kk][0], s[2 * kk][1]);
-        a[kk][1] = pack2(s[2 * kk][2], s[2 * kk][3]);
-        a[kk][2] = pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        a[kk][3] = pack2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
-}
-
-// acc[dt] (rows r0+g, r0+g+8; cols dt*8+2t+{0,1}) -> bf16 rows of a
-// contiguous (L, d) matrix
-__device__ __forceinline__ void store_rows(bf16* dst,
-                                           const float acc[kMaxDimTiles][4],
-                                           int r0, int L, int d, int g, int t) {
-    const int row0 = r0 + g;
-    const int row1 = row0 + 8;
-#pragma unroll
-    for (int dt = 0; dt < kMaxDimTiles; ++dt) {
-        const int col = dt * 8 + 2 * t;
-        if (col >= d) break;
-        if (row0 < L)
-            *reinterpret_cast<uint32_t*>(dst + row0 * d + col) =
-                pack2(acc[dt][0], acc[dt][1]);
-        if (row1 < L)
-            *reinterpret_cast<uint32_t*>(dst + row1 * d + col) =
-                pack2(acc[dt][2], acc[dt][3]);
-    }
-}
-
-// acc[dt] += A (16 x Lp, given as fragments) times B (Lp x Dp, row-major
-// in shared memory: B(k, n) = base[k * ld + n])
-__device__ __forceinline__ void mma_rowmajor_b(
-        float acc[kMaxDimTiles][4], const uint32_t a[kMaxL / 16][4],
-        const bf16* base, int ld, int Lp, int Dp, int g, int t) {
-#pragma unroll
-    for (int dt = 0; dt < kMaxDimTiles; ++dt)
-        acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kMaxL / 16; ++kk) {
-        if (kk * 16 >= Lp) break;
-#pragma unroll
-        for (int dt = 0; dt < kMaxDimTiles; ++dt) {
-            if (dt * 8 >= Dp) break;
-            const bf16* b = base + (kk * 16 + 2 * t) * ld + dt * 8 + g;
-            mma(acc[dt], a[kk], ld_split(b, b + ld),
-                ld_split(b + 8 * ld, b + 9 * ld));
-        }
-    }
-}
-
-__global__ void __launch_bounds__(kThreads)
-attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
+// ---------------------------------------------------------------------------
+// Forward: a block of two warpgroups owns 128 query rows of one sequence
+// (64 a warpgroup) and walks the live key tiles with an online softmax.
+// ---------------------------------------------------------------------------
+constexpr int kFwdWarpgroups = 2;
+__global__ void __launch_bounds__(kFwdWarpgroups * kThreads, 2)
+attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
                      const uint8_t* __restrict__ valid,
-                     bf16* __restrict__ out, int L, int d,
-                     long long q_sn, long long q_sl, long long k_sn,
-                     long long k_sl, long long v_sn, long long v_sl) {
-    const long long n = blockIdx.x;
-    const int Lp = round16(L), Dp = round16(d);
-    const int ld = Dp + kPad;
-    extern __shared__ uint4 smem_u4[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem_u4);
-    bf16* Ks = Qs + Lp * ld;
-    bf16* Vs = Ks + Lp * ld;
-    int* key_ok = reinterpret_cast<int*>(Vs + Lp * ld);
+                     bf16* __restrict__ out, int L, int d, int row_tiles) {
+    const int n = blockIdx.x / row_tiles;
+    const int q0 = (blockIdx.x % row_tiles) * (kFwdWarpgroups * kTile);
+    extern __shared__ __align__(1024) char smem[];
+    char* Qs = smem;                   // a tile a warpgroup
+    // stage s of the ring: a K tile, then a V tile
+    char* ring = Qs + kFwdWarpgroups * kTileBytes;
+    signed char* key_ok =
+        reinterpret_cast<signed char*>(ring + kStages * 2 * kTileBytes);
+    __shared__ int tiles[kMaxTiles];
+    __shared__ unsigned bits[2];
+    __shared__ __align__(8) uint64_t bars[1 + kStages];   // Q, the stages
 
-    load_rows(Qs, ld, q + n * q_sn, q_sl, L, d, Lp, Dp);
-    load_rows(Ks, ld, k + n * k_sn, k_sl, L, d, Lp, Dp);
-    load_rows(Vs, ld, v + n * v_sn, v_sl, L, d, Lp, Dp);
-    load_keys(key_ok, valid + n * L, L, Lp);
-    __syncthreads();
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int b = 0; b < 1 + kStages; ++b) mbar_init(&bars[b], 1);
+        mbar_init_fence();
+        mbar_expect(&bars[0], kFwdWarpgroups * kTileBytes);
+#pragma unroll
+        for (int w = 0; w < kFwdWarpgroups; ++w)
+            load_tile(Qs + w * kTileBytes, &map_q, &bars[0], q0 + w * kTile,
+                      n);
+    }
+    // (its barriers order the other threads after the initialisation)
+    const KeyPlan plan =
+        plan_key_tiles(key_ok, tiles, bits, valid + (long long)n * L, L);
+    // step i takes stage i % 2, that stage's use i / 2
+    auto issue = [&](int i) {
+        if (i < plan.count && threadIdx.x == 0) {
+            char* Ks = ring + (i & 1) * 2 * kTileBytes;
+            uint64_t* bar = &bars[1 + (i & 1)];
+            mbar_expect(bar, 2 * kTileBytes);
+            load_tile(Ks, &map_k, bar, tiles[i] * kTile, n);
+            load_tile(Ks + kTileBytes, &map_v, bar, tiles[i] * kTile, n);
+        }
+    };
+    issue(0);
+    issue(1);
 
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int r0 = warp * 16;
-    if (r0 >= Lp) return;
+    const int t = threadIdx.x & 3;
+    const int wg = threadIdx.x / kThreads;
+    char* Qw = Qs + wg * kTileBytes;
+    // a warpgroup whose rows are all past L multiplies nothing
+    const bool active = q0 + wg * kTile < L;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};
+    float o[kDimTiles][4];
+#pragma unroll
+    for (int dt = 0; dt < kDimTiles; ++dt)
+        o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
 
-    float s[kMaxKeyTiles][4];
-    softmax_rows(s, Qs, Ks, ld, key_ok, r0, Lp, Dp, g, t);
-    uint32_t pa[kMaxL / 16][4];
-    to_a(pa, s, Lp);
-    float o[kMaxDimTiles][4];
-    mma_rowmajor_b(o, pa, Vs, ld, Lp, Dp, g, t);
-    store_rows(out + n * L * d, o, r0, L, d, g, t);
+    mbar_wait(&bars[0], 0);
+    for (int i = 0; i < plan.count; ++i) {
+        mbar_wait(&bars[1 + (i & 1)], (i >> 1) & 1);
+        if (active) {
+            const char* Ks = ring + (i & 1) * 2 * kTileBytes;
+            const signed char* ok = key_ok + tiles[i] * kTile + 2 * t;
+            if ((plan.full >> tiles[i]) & 1u)
+                forward_tile<true>(o, m, l, Qw, Ks, Ks + kTileBytes, ok,
+                                   i == 0);
+            else
+                forward_tile<false>(o, m, l, Qw, Ks, Ks + kTileBytes, ok,
+                                    i == 0);
+        }
+        __syncthreads();               // the stage is free
+        issue(i + 2);
+    }
+    if (!active) return;
+    const float inv0 = 1.f / quad_sum(l[0]);
+    const float inv1 = 1.f / quad_sum(l[1]);
+    store_rows(out + (long long)n * L * d, Qw, o, inv0, inv1,
+               q0 + wg * kTile, L, d);
 }
 
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
-                     const uint8_t* __restrict__ valid,
-                     const bf16* __restrict__ dout, bf16* __restrict__ dq,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int L,
-                     int d, long long q_sn, long long q_sl, long long k_sn,
-                     long long k_sl, long long v_sn, long long v_sl) {
-    const long long n = blockIdx.x;
-    const int Lp = round16(L), Dp = round16(d);
-    const int ld = Dp + kPad;
-    const int lt = Lp + kPad;
-    extern __shared__ uint4 smem_u4[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem_u4);
-    bf16* Ks = Qs + Lp * ld;
-    bf16* Vs = Ks + Lp * ld;
-    bf16* dOs = Vs + Lp * ld;
-    bf16* Pt = dOs + Lp * ld;          // Pt[key][query] = bf16(p)
-    bf16* dSt = Pt + Lp * lt;          // dSt[key][query] = bf16(ds)
-    int* key_ok = reinterpret_cast<int*>(dSt + Lp * lt);
-
-    const long long base = n * L * d;
-    load_rows(Qs, ld, q + n * q_sn, q_sl, L, d, Lp, Dp);
-    load_rows(Ks, ld, k + n * k_sn, k_sl, L, d, Lp, Dp);
-    load_rows(Vs, ld, v + n * v_sn, v_sl, L, d, Lp, Dp);
-    load_rows(dOs, ld, dout + base, d, L, d, Lp, Dp);
-    load_keys(key_ok, valid + n * L, L, Lp);
-    __syncthreads();
-
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int r0 = warp * 16;
-
-    // query rows r0..r0+15: p, dp, ds; P^T and dS^T to shared; dq
-    if (r0 < Lp) {
-        float s[kMaxKeyTiles][4];
-        softmax_rows(s, Qs, Ks, ld, key_ok, r0, Lp, Dp, g, t);
-        float dp[kMaxKeyTiles][4];
+// One key tile of the dq kernel's first walk: the rows' running max, sum
+// and D = sum of p dp, online
+template <bool Full>
+__device__ __forceinline__ void stats_tile(float (&m)[2], float (&l)[2],
+                                           float (&D)[2],
+                                           float (&sc)[kTile / 8][4],
+                                           const float (&dp)[kTile / 8][4],
+                                           const signed char* ok,
+                                           bool first) {
+    float mt[2];
+    tile_logits<Full>(sc, ok, mt);
 #pragma unroll
-        for (int nt = 0; nt < kMaxKeyTiles; ++nt)
-            dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < kMaxD / 16; ++kk) {
-            if (kk * 16 >= Dp) break;
-            uint32_t a[4];
-            ld_a(a, dOs, ld, r0, kk * 16, g, t);
-#pragma unroll
-            for (int nt = 0; nt < kMaxKeyTiles; ++nt) {
-                if (nt * 8 >= Lp) break;
-                const bf16* vb = Vs + (nt * 8 + g) * ld + kk * 16 + 2 * t;
-                mma(dp[nt], a, ld_pair(vb), ld_pair(vb + 8));
-            }
+    for (int h = 0; h < 2; ++h) {
+        const float mn = fmaxf(m[h], quad_max(mt[h]));
+        if (!first) {
+            const float alpha = ex2(m[h] - mn);
+            l[h] *= alpha;
+            D[h] *= alpha;
         }
-        float D0 = 0.f, D1 = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < kMaxKeyTiles; ++nt) {
-            if (nt * 8 >= Lp) break;
-            D0 += s[nt][0] * dp[nt][0] + s[nt][1] * dp[nt][1];
-            D1 += s[nt][2] * dp[nt][2] + s[nt][3] * dp[nt][3];
-        }
-#pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-            D0 += __shfl_xor_sync(0xffffffffu, D0, off);
-            D1 += __shfl_xor_sync(0xffffffffu, D1, off);
-        }
-#pragma unroll
-        for (int nt = 0; nt < kMaxKeyTiles; ++nt) {
-            if (nt * 8 >= Lp) break;
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int j = nt * 8 + 2 * t + (e & 1);
-                const int i = r0 + g + (e >> 1) * 8;
-                const float p = s[nt][e];
-                const float ds = key_ok[j] > 0
-                    ? p * (dp[nt][e] - (e < 2 ? D0 : D1)) : 0.f;
-                dp[nt][e] = ds;
-                Pt[j * lt + i] = __float2bfloat16_rn(p);
-                dSt[j * lt + i] = __float2bfloat16_rn(ds);
-            }
-        }
-        uint32_t da[kMaxL / 16][4];
-        to_a(da, dp, Lp);
-        float acc[kMaxDimTiles][4];
-        mma_rowmajor_b(acc, da, Ks, ld, Lp, Dp, g, t);
-        store_rows(dq + base, acc, r0, L, d, g, t);
+        m[h] = mn;
     }
-    __syncthreads();
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float p = prob<Full>(sc[nt][e], m[e >> 1]);
+            l[e >> 1] += p;
+            D[e >> 1] += p * dp[nt][e];
+        }
+    }
+}
 
-    // key rows r0..r0+15: dv = P^T dO, dk = dS^T Q
-    if (r0 < Lp) {
-        uint32_t a[kMaxL / 16][4];
-        float acc[kMaxDimTiles][4];
+// ds = p (dp - D), 0 at padding keys, into dp. Rows: m, inv, D belong to
+// the accumulator's rows (dq kernel). The scores are consumed.
+template <bool Full>
+__device__ __forceinline__ void ds_tile_rows(float (&sc)[kTile / 8][4],
+                                             float (&dp)[kTile / 8][4],
+                                             const float (&m)[2],
+                                             const float (&inv)[2],
+                                             const float (&D)[2],
+                                             const signed char* ok) {
 #pragma unroll
-        for (int kk = 0; kk < kMaxL / 16; ++kk)
-            if (kk * 16 < Lp) ld_a(a[kk], Pt, lt, r0, kk * 16, g, t);
-        mma_rowmajor_b(acc, a, dOs, ld, Lp, Dp, g, t);
-        store_rows(dv + base, acc, r0, L, d, g, t);
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+        int ok0 = 1, ok1 = 1;
+        if (!Full) {
+            ok0 = ok[nt * 8];
+            ok1 = ok[nt * 8 + 1];
+        }
 #pragma unroll
-        for (int kk = 0; kk < kMaxL / 16; ++kk)
-            if (kk * 16 < Lp) ld_a(a[kk], dSt, lt, r0, kk * 16, g, t);
-        mma_rowmajor_b(acc, a, Qs, ld, Lp, Dp, g, t);
-        store_rows(dk + base, acc, r0, L, d, g, t);
+        for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;
+            const int oke = e & 1 ? ok1 : ok0;
+            const float x = Full ? sc[nt][e] : logit2(sc[nt][e], oke);
+            const float p = prob<Full>(x, m[h]) * inv[h];
+            dp[nt][e] = oke > 0 ? p * (dp[nt][e] - D[h]) : 0.f;
+        }
     }
 }
 
 // ---------------------------------------------------------------------------
-// Sequences longer than kMaxL: one CTA per (sequence, tile of 128 rows),
-// the other side walked in chunks of 64 rows through shared memory.
-// Forward and dq take the softmax statistics in exact passes (row max,
-// then row sum, then the product) rather than an online rescale, so p is
-// exp(s - max) / sum as in the short kernels. dk and dv come from a second
-// kernel over key tiles that reads the rows' (max, sum, D) from scratch.
+// Backward, dq: a block owns 64 query rows and walks the live key tiles
+// twice: first each row's max, sum and D, then ds and dq. The rows'
+// (max, 1 / sum, D) go to stats (3, N, L) for the dk / dv kernel.
 // ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do,
+                        const uint8_t* __restrict__ valid,
+                        bf16* __restrict__ dq, float* __restrict__ stats,
+                        int N, int L, int d, int row_tiles) {
+    const int n = blockIdx.x / row_tiles;
+    const int q0 = (blockIdx.x % row_tiles) * kTile;
+    extern __shared__ __align__(1024) char smem[];
+    char* Qs = smem;
+    char* dOs = Qs + kTileBytes;
+    char* ring = dOs + kTileBytes;     // stage s: K tile, then V tile
+    signed char* key_ok =
+        reinterpret_cast<signed char*>(ring + kStages * 2 * kTileBytes);
+    __shared__ int tiles[kMaxTiles];
+    __shared__ unsigned bits[2];
+    __shared__ __align__(8) uint64_t bars[1 + kStages];   // Q and dO, stages
 
-constexpr int kTile = kWarps * 16;     // rows per CTA: 16 per warp
-constexpr int kChunk = 64;             // keys (or queries) per chunk
-constexpr int kChunkTiles = kChunk / 8;
-constexpr int kMaxLongL = 512;     // the text encoder's max_len
-
-__host__ __device__ inline int round64(int x) { return (x + 63) & ~63; }
-
-// logit of score x at a key whose status is ok (1 valid, 0 padding, -1
-// past the end of the sequence)
-__device__ __forceinline__ float masked(float x, int ok) {
-    return ok > 0 ? x : (ok == 0 ? kMasked : -INFINITY);
-}
-
-// s[nt] = rows r0..r0+15 of X times rows 0..63 of Y, transposed: X Y^T
-// over d (both row-major in shared memory, row stride ld)
-__device__ __forceinline__ void chunk_scores(float s[kChunkTiles][4],
-                                             const bf16* X, const bf16* Y,
-                                             int ld, int r0, int Dp, int g,
-                                             int t) {
+    if (threadIdx.x == 0) {
 #pragma unroll
-    for (int nt = 0; nt < kChunkTiles; ++nt)
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kMaxD / 16; ++kk) {
-        if (kk * 16 >= Dp) break;
-        uint32_t a[4];
-        ld_a(a, X, ld, r0, kk * 16, g, t);
-#pragma unroll
-        for (int nt = 0; nt < kChunkTiles; ++nt) {
-            const bf16* yb = Y + (nt * 8 + g) * ld + kk * 16 + 2 * t;
-            mma(s[nt], a, ld_pair(yb), ld_pair(yb + 8));
+        for (int b = 0; b < 1 + kStages; ++b) mbar_init(&bars[b], 1);
+        mbar_init_fence();
+        mbar_expect(&bars[0], 2 * kTileBytes);
+        load_tile(Qs, &map_q, &bars[0], q0, n);
+        load_tile(dOs, &map_do, &bars[0], q0, n);
+    }
+    const KeyPlan plan =
+        plan_key_tiles(key_ok, tiles, bits, valid + (long long)n * L, L);
+    const int count = plan.count;
+    // step s of the two walks meets tile s % count; up to kStages tiles
+    // stay where the first walk put them
+    const int steps = 2 * count;
+    const bool resident = count <= kStages;
+    auto loads = [&](int s) { return s < steps && (!resident || s < count); };
+    // a loading step s takes stage s % 2, that stage's use s / 2
+    auto issue = [&](int s) {
+        if (loads(s) && threadIdx.x == 0) {
+            const int i = s < count ? s : s - count;
+            char* Ks = ring + (s & 1) * 2 * kTileBytes;
+            uint64_t* bar = &bars[1 + (s & 1)];
+            mbar_expect(bar, 2 * kTileBytes);
+            load_tile(Ks, &map_k, bar, tiles[i] * kTile, n);
+            load_tile(Ks + kTileBytes, &map_v, bar, tiles[i] * kTile, n);
         }
-    }
-}
+    };
+    issue(0);
+    issue(1);
 
-__device__ __forceinline__ void chunk_to_a(uint32_t a[kChunk / 16][4],
-                                           const float s[kChunkTiles][4]) {
-#pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk) {
-        a[kk][0] = pack2(s[2 * kk][0], s[2 * kk][1]);
-        a[kk][1] = pack2(s[2 * kk][2], s[2 * kk][3]);
-        a[kk][2] = pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        a[kk][3] = pack2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
-}
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
 
-// acc[dt] += A (16 x 64, fragments) times rows 0..63 of B (row-major)
-__device__ __forceinline__ void chunk_mma(float acc[kMaxDimTiles][4],
-                                          const uint32_t a[kChunk / 16][4],
-                                          const bf16* base, int ld, int Dp,
-                                          int g, int t) {
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};           // the sum, then its reciprocal
+    float D[2] = {0.f, 0.f};
+    float acc[kDimTiles][4];
 #pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk) {
-#pragma unroll
-        for (int dt = 0; dt < kMaxDimTiles; ++dt) {
-            if (dt * 8 >= Dp) break;
-            const bf16* b = base + (kk * 16 + 2 * t) * ld + dt * 8 + g;
-            mma(acc[dt], a[kk], ld_split(b, b + ld),
-                ld_split(b + 8 * ld, b + 9 * ld));
-        }
-    }
-}
-
-__device__ __forceinline__ void zero_acc(float acc[kMaxDimTiles][4]) {
-#pragma unroll
-    for (int dt = 0; dt < kMaxDimTiles; ++dt)
+    for (int dt = 0; dt < kDimTiles; ++dt)
         acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-}
 
-// Row max (m) and row sum (l) of the softmax of the warp's 16 query rows
-// in Qs against every key, the keys loaded chunk by chunk into Ks. Every
-// thread of the CTA calls it (it synchronises).
-__device__ __forceinline__ void row_stats(
-        float m[2], float l[2], const bf16* Qs, bf16* Ks,
-        const bf16* kn, long long k_sl, const int* key_ok, int L, int d,
-        int Dp, int ld, int r0, int g, int t) {
-    const int Lk = round64(L);
-    m[0] = m[1] = -INFINITY;
-    for (int pass = 0; pass < 2; ++pass) {
-        l[0] = l[1] = 0.f;
-        for (int c0 = 0; c0 < Lk; c0 += kChunk) {
-            __syncthreads();
-            load_rows(Ks, ld, kn + c0 * k_sl, k_sl, L - c0, d, kChunk, Dp);
-            __syncthreads();
-            float s[kChunkTiles][4];
-            chunk_scores(s, Qs, Ks, ld, r0, Dp, g, t);
-#pragma unroll
-            for (int nt = 0; nt < kChunkTiles; ++nt) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const float x = masked(
-                        s[nt][e], key_ok[c0 + nt * 8 + 2 * t + (e & 1)]);
-                    if (pass == 0) m[e >> 1] = fmaxf(m[e >> 1], x);
-                    else l[e >> 1] += expf(x - m[e >> 1]);
-                }
-            }
-        }
-#pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
+    mbar_wait(&bars[0], 0);
+    for (int s = 0; s < steps; ++s) {
+        if (loads(s)) mbar_wait(&bars[1 + (s & 1)], (s >> 1) & 1);
+        if (s == count) {
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-                if (pass == 0)
-                    m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], off));
-                else
-                    l[h] += __shfl_xor_sync(0xffffffffu, l[h], off);
+                l[h] = 1.f / quad_sum(l[h]);
+                D[h] = quad_sum(D[h]) * l[h];
             }
         }
+        const int i = s < count ? s : s - count;
+        const int stage = resident ? i : (s & 1);
+        const char* Ks = ring + stage * 2 * kTileBytes;
+        const char* Vs = Ks + kTileBytes;
+        const signed char* ok = key_ok + tiles[i] * kTile + 2 * t;
+        const bool full = (plan.full >> tiles[i]) & 1u;
+        float sc[kTile / 8][4], dp[kTile / 8][4];
+        wgmma_fence();
+        issue_scores<kTile / 8>(sc, Qs, Ks, 0);
+        issue_scores<kTile / 8>(dp, dOs, Vs, 0);
+        wgmma_commit();
+        wgmma_wait(sc);
+        wgmma_wait(dp);
+        if (s < count) {
+            if (full) stats_tile<true>(m, l, D, sc, dp, ok, s == 0);
+            else stats_tile<false>(m, l, D, sc, dp, ok, s == 0);
+        } else {
+            if (full) ds_tile_rows<true>(sc, dp, m, l, D, ok);
+            else ds_tile_rows<false>(sc, dp, m, l, D, ok);
+            uint32_t da[kTile / 16][4];
+#pragma unroll
+            for (int kk = 0; kk < kTile / 16; ++kk) to_a(da[kk], dp, kk);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < kTile / 16; ++kk)
+                wgmma_rs_n128(acc, da[kk], desc_mn_major(Ks, kk * 16), 1);
+            wgmma_commit();
+            wgmma_wait(acc);
+        }
+        __syncthreads();               // the stage is free
+        issue(s + 2);
     }
-}
-
-__global__ void __launch_bounds__(kThreads)
-attention_fwd_long_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const uint8_t* __restrict__ valid,
-                          bf16* __restrict__ out, int L, int d,
-                          long long q_sn, long long q_sl, long long k_sn,
-                          long long k_sl, long long v_sn, long long v_sl) {
-    const long long n = blockIdx.x;
-    const int q0 = blockIdx.y * kTile;
-    const int Lk = round64(L), Dp = round16(d), ld = Dp + kPad;
-    extern __shared__ uint4 smem_u4[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem_u4);
-    bf16* Ks = Qs + kTile * ld;
-    bf16* Vs = Ks + kChunk * ld;
-    int* key_ok = reinterpret_cast<int*>(Vs + kChunk * ld);
-    const bf16* kn = k + n * k_sn;
-    const bf16* vn = v + n * v_sn;
-
-    load_rows(Qs, ld, q + n * q_sn + q0 * q_sl, q_sl, L - q0, d, kTile, Dp);
-    load_keys(key_ok, valid + n * L, L, Lk);
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int r0 = warp * 16;
-    float m[2], l[2];
-    row_stats(m, l, Qs, Ks, kn, k_sl, key_ok, L, d, Dp, ld, r0, g, t);
-
-    float o[kMaxDimTiles][4];
-    zero_acc(o);
-    for (int c0 = 0; c0 < Lk; c0 += kChunk) {
-        __syncthreads();
-        load_rows(Ks, ld, kn + c0 * k_sl, k_sl, L - c0, d, kChunk, Dp);
-        load_rows(Vs, ld, vn + c0 * v_sl, v_sl, L - c0, d, kChunk, Dp);
-        __syncthreads();
-        float s[kChunkTiles][4];
-        chunk_scores(s, Qs, Ks, ld, r0, Dp, g, t);
-#pragma unroll
-        for (int nt = 0; nt < kChunkTiles; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int ok = key_ok[c0 + nt * 8 + 2 * t + (e & 1)];
-                s[nt][e] = expf(masked(s[nt][e], ok) - m[e >> 1]) / l[e >> 1];
-            }
-        }
-        uint32_t pa[kChunk / 16][4];
-        chunk_to_a(pa, s);
-        chunk_mma(o, pa, Vs, ld, Dp, g, t);
-    }
-    store_rows(out + n * L * d + (long long)q0 * d, o, r0, L - q0, d, g, t);
-}
-
-// dq for a tile of 128 query rows, and the rows' (max, sum, D) into
-// stats (3, N, L) for the dk/dv kernel
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_long_kernel(const bf16* __restrict__ q,
-                             const bf16* __restrict__ k,
-                             const bf16* __restrict__ v,
-                             const uint8_t* __restrict__ valid,
-                             const bf16* __restrict__ dout,
-                             bf16* __restrict__ dq, float* __restrict__ stats,
-                             int N, int L, int d, long long q_sn,
-                             long long q_sl, long long k_sn, long long k_sl,
-                             long long v_sn, long long v_sl) {
-    const long long n = blockIdx.x;
-    const int q0 = blockIdx.y * kTile;
-    const int Lk = round64(L), Dp = round16(d), ld = Dp + kPad;
-    extern __shared__ uint4 smem_u4[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem_u4);
-    bf16* dOs = Qs + kTile * ld;
-    bf16* Ks = dOs + kTile * ld;
-    bf16* Vs = Ks + kChunk * ld;
-    int* key_ok = reinterpret_cast<int*>(Vs + kChunk * ld);
-    const bf16* kn = k + n * k_sn;
-    const bf16* vn = v + n * v_sn;
-    const long long base = n * L * d + (long long)q0 * d;
-
-    load_rows(Qs, ld, q + n * q_sn + q0 * q_sl, q_sl, L - q0, d, kTile, Dp);
-    load_rows(dOs, ld, dout + base, d, L - q0, d, kTile, Dp);
-    load_keys(key_ok, valid + n * L, L, Lk);
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int r0 = warp * 16;
-    float m[2], l[2];
-    row_stats(m, l, Qs, Ks, kn, k_sl, key_ok, L, d, Dp, ld, r0, g, t);
-
-    // pass D (the rows' sum of p dp), then pass dq
-    float D[2] = {0.f, 0.f};
-    float acc[kMaxDimTiles][4];
-    zero_acc(acc);
-    for (int pass = 0; pass < 2; ++pass) {
-        for (int c0 = 0; c0 < Lk; c0 += kChunk) {
-            __syncthreads();
-            load_rows(Ks, ld, kn + c0 * k_sl, k_sl, L - c0, d, kChunk, Dp);
-            load_rows(Vs, ld, vn + c0 * v_sl, v_sl, L - c0, d, kChunk, Dp);
-            __syncthreads();
-            float s[kChunkTiles][4], dp[kChunkTiles][4];
-            chunk_scores(s, Qs, Ks, ld, r0, Dp, g, t);
-            chunk_scores(dp, dOs, Vs, ld, r0, Dp, g, t);
-#pragma unroll
-            for (int nt = 0; nt < kChunkTiles; ++nt) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int h = e >> 1;
-                    const int ok = key_ok[c0 + nt * 8 + 2 * t + (e & 1)];
-                    const float p = expf(masked(s[nt][e], ok) - m[h]) / l[h];
-                    if (pass == 0) D[h] += p * dp[nt][e];
-                    else dp[nt][e] = ok > 0 ? p * (dp[nt][e] - D[h]) : 0.f;
-                }
-            }
-            if (pass == 1) {
-                uint32_t da[kChunk / 16][4];
-                chunk_to_a(da, dp);
-                chunk_mma(acc, da, Ks, ld, Dp, g, t);
-            }
-        }
-        if (pass == 0) {
-#pragma unroll
-            for (int off = 1; off < 4; off <<= 1) {
-                D[0] += __shfl_xor_sync(0xffffffffu, D[0], off);
-                D[1] += __shfl_xor_sync(0xffffffffu, D[1], off);
-            }
-        }
-    }
-    store_rows(dq + base, acc, r0, L - q0, d, g, t);
     if (t == 0) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-            const int row = q0 + r0 + g + 8 * h;
+            const int row = q0 + 16 * warp + g + 8 * h;
             if (row < L) {
-                const long long i = n * L + row;
+                const long long i = (long long)n * L + row;
                 stats[i] = m[h];
                 stats[(long long)N * L + i] = l[h];
                 stats[2LL * N * L + i] = D[h];
             }
         }
     }
+    store_rows(dq + (long long)n * L * d, Qs, acc, 1.f, 1.f, q0, L, d);
 }
 
-// dv = P^T dO and dk = dS^T Q for a tile of 128 key rows, walking the
-// queries in chunks with their (max, sum, D) from stats
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dkv_long_kernel(const bf16* __restrict__ q,
-                              const bf16* __restrict__ k,
-                              const bf16* __restrict__ v,
-                              const uint8_t* __restrict__ valid,
-                              const bf16* __restrict__ dout,
-                              const float* __restrict__ stats,
-                              bf16* __restrict__ dk, bf16* __restrict__ dv,
-                              int N, int L, int d, long long q_sn,
-                              long long q_sl, long long k_sn,
-                              long long k_sl, long long v_sn,
-                              long long v_sl) {
-    const long long n = blockIdx.x;
-    const int k0 = blockIdx.y * kTile;
-    const int Lq = round64(L), Dp = round16(d), ld = Dp + kPad;
-    extern __shared__ uint4 smem_u4[];
-    bf16* Ks = reinterpret_cast<bf16*>(smem_u4);
-    bf16* Vs = Ks + kTile * ld;
-    bf16* Qs = Vs + kTile * ld;
-    bf16* dOs = Qs + kChunk * ld;
-    float* sm = reinterpret_cast<float*>(dOs + kChunk * ld);
-    float* sl = sm + kChunk;
-    float* sD = sl + kChunk;
-    int* q_ok = reinterpret_cast<int*>(sD + kChunk);
-    const bf16* qn = q + n * q_sn;
-    const long long seq = n * L * d;
+// p^T into sc and ds^T into dp for 32 query columns of the key-major
+// kernel: the statistics st (max, 1 / sum, D of the tile's 64 query
+// rows; a row past L has max 0 and 1 / sum 0) belong to the columns, the
+// key status ok0 / ok1 to this thread's two rows.
+template <bool Full>
+__device__ __forceinline__ void ds_tile_columns(float (&sc)[4][4],
+                                                float (&dp)[4][4],
+                                                const float* st, int ok0,
+                                                int ok1) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+        const float2 mj = *reinterpret_cast<const float2*>(st + nt * 8);
+        const float2 ij =
+            *reinterpret_cast<const float2*>(st + kTile + nt * 8);
+        const float2 Dj =
+            *reinterpret_cast<const float2*>(st + 2 * kTile + nt * 8);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int oke = e >> 1 ? ok1 : ok0;
+            const float x = Full ? sc[nt][e] : logit2(sc[nt][e], oke);
+            const float p = prob<Full>(x, e & 1 ? mj.y : mj.x)
+                          * (e & 1 ? ij.y : ij.x);
+            sc[nt][e] = p;
+            dp[nt][e] =
+                oke > 0 ? p * (dp[nt][e] - (e & 1 ? Dj.y : Dj.x)) : 0.f;
+        }
+    }
+}
 
-    load_rows(Ks, ld, k + n * k_sn + k0 * k_sl, k_sl, L - k0, d, kTile, Dp);
-    load_rows(Vs, ld, v + n * v_sn + k0 * v_sl, v_sl, L - k0, d, kTile, Dp);
+// ---------------------------------------------------------------------------
+// Backward, dk and dv: key-major. A block owns 64 key rows and walks all
+// query tiles with their (max, 1 / sum, D) from stats: s^T = k q^T and
+// dp^T = v do^T give p^T and ds^T in registers, the A operands of
+// dv += p^T do and dk += ds^T q. A key tile without a valid key (in a
+// sequence that has one) gets zeros.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_do,
+                         const uint8_t* __restrict__ valid,
+                         const float* __restrict__ stats,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         int N, int L, int d, int row_tiles) {
+    const int n = blockIdx.x / row_tiles;
+    const int kt = blockIdx.x % row_tiles;
+    const int k0 = kt * kTile;
+    extern __shared__ __align__(1024) char smem[];
+    char* Ks = smem;
+    char* Vs = Ks + kTileBytes;
+    char* ring = Vs + kTileBytes;      // stage s: Q tile, then dO tile
+    float* rowstats =                  // stage s: max, 1 / sum, D of 64 rows
+        reinterpret_cast<float*>(ring + kStages * 2 * kTileBytes);
+    signed char* key_ok =
+        reinterpret_cast<signed char*>(rowstats + kStages * 3 * kTile);
+    __shared__ int tiles[kMaxTiles];
+    __shared__ unsigned bits[2];
+    __shared__ __align__(8) uint64_t bars[1 + kStages];   // K and V, stages
+
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int b = 0; b < 1 + kStages; ++b) mbar_init(&bars[b], 1);
+        mbar_init_fence();
+    }
+    const KeyPlan plan =
+        plan_key_tiles(key_ok, tiles, bits, valid + (long long)n * L, L);
+    const long long base = (long long)n * L * d;
+    if (!((plan.walked >> kt) & 1u)) {
+        const int vecs = d >> 3;
+        const int rows = min(kTile, L - k0);
+        const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+        for (int i = threadIdx.x; i < rows * vecs; i += kThreads) {
+            const long long at = base + (long long)k0 * d + (long long)i * 8;
+            *reinterpret_cast<uint4*>(dk + at) = zero;
+            *reinterpret_cast<uint4*>(dv + at) = zero;
+        }
+        return;
+    }
+
+    // step s takes stage s % 2, that stage's use s / 2
+    auto issue = [&](int s) {
+        if (s < row_tiles && threadIdx.x == 0) {
+            char* Qt = ring + (s & 1) * 2 * kTileBytes;
+            uint64_t* bar = &bars[1 + (s & 1)];
+            mbar_expect(bar, 2 * kTileBytes);
+            load_tile(Qt, &map_q, bar, s * kTile, n);
+            load_tile(Qt + kTileBytes, &map_do, bar, s * kTile, n);
+        }
+    };
+    if (threadIdx.x == 0) {
+        mbar_expect(&bars[0], 2 * kTileBytes);
+        load_tile(Ks, &map_k, &bars[0], k0, n);
+        load_tile(Vs, &map_v, &bars[0], k0, n);
+    }
+    issue(0);
+    issue(1);
+    // The query rows' statistics go through registers a step ahead of
+    // their use: thread i carries values i and i + 128 of a tile's 3 x 64
+    // (0 for rows past L).
+    float ahead[2];
+    auto read_stats = [&](int s) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int i = threadIdx.x + r * kThreads;
+            const int row = s * kTile + (i & (kTile - 1));
+            ahead[r] = i < 3 * kTile && s < row_tiles && row < L
+                ? stats[(long long)(i / kTile) * N * L + (long long)n * L + row]
+                : 0.f;
+        }
+    };
+    auto write_stats = [&](int s) {
+        float* st = rowstats + (s & 1) * 3 * kTile;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int i = threadIdx.x + r * kThreads;
+            if (i < 3 * kTile) st[i] = ahead[r];
+        }
+    };
+    read_stats(0);
+    write_stats(0);
+    read_stats(1);
+
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
-    const int r0 = warp * 16;
-    int key_ok[2];
+    const int ok0 = key_ok[k0 + 16 * warp + g];
+    const int ok1 = key_ok[k0 + 16 * warp + g + 8];
+    const bool full = (plan.full >> kt) & 1u;
+
+    float dva[kDimTiles][4], dka[kDimTiles][4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const int j = k0 + r0 + g + 8 * h;
-        key_ok[h] = j < L ? (valid[n * L + j] ? 1 : 0) : -1;
+    for (int dt = 0; dt < kDimTiles; ++dt) {
+        dva[dt][0] = dva[dt][1] = dva[dt][2] = dva[dt][3] = 0.f;
+        dka[dt][0] = dka[dt][1] = dka[dt][2] = dka[dt][3] = 0.f;
     }
 
-    for (int pass = 0; pass < 2; ++pass) {      // 0: dv, 1: dk
-        float acc[kMaxDimTiles][4];
-        zero_acc(acc);
-        for (int c0 = 0; c0 < Lq; c0 += kChunk) {
-            __syncthreads();
-            load_rows(Qs, ld, qn + c0 * q_sl, q_sl, L - c0, d, kChunk, Dp);
-            load_rows(dOs, ld, dout + seq + (long long)c0 * d, d, L - c0, d,
-                      kChunk, Dp);
-            for (int j = threadIdx.x; j < kChunk; j += kThreads) {
-                const int row = c0 + j;
-                const bool in = row < L;
-                const long long i = n * L + row;
-                sm[j] = in ? stats[i] : 0.f;
-                sl[j] = in ? stats[(long long)N * L + i] : 1.f;
-                sD[j] = in ? stats[2LL * N * L + i] : 0.f;
-                q_ok[j] = in;
-            }
-            __syncthreads();
-            // keys (rows) x queries (columns) of this chunk
-            float s[kChunkTiles][4], dp[kChunkTiles][4];
-            chunk_scores(s, Ks, Qs, ld, r0, Dp, g, t);
-            if (pass == 1) chunk_scores(dp, Vs, dOs, ld, r0, Dp, g, t);
+    __syncthreads();                   // the first tile's statistics
+    mbar_wait(&bars[0], 0);
+    for (int s = 0; s < row_tiles; ++s) {
+        mbar_wait(&bars[1 + (s & 1)], (s >> 1) & 1);
+        const char* Qt = ring + (s & 1) * 2 * kTileBytes;
+        const char* dOt = Qt + kTileBytes;
+        const float* st = rowstats + (s & 1) * 3 * kTile + 2 * t;
+        // 32 query rows at a time: keys (rows) x queries (columns)
+#pragma unroll 1
+        for (int c0 = 0; c0 < kTile; c0 += 32) {
+            float sc[4][4], dp[4][4];
+            wgmma_fence();
+            issue_scores<4>(sc, Ks, Qt, c0);
+            issue_scores<4>(dp, Vs, dOt, c0);
+            wgmma_commit();
+            wgmma_wait(sc);
+            wgmma_wait(dp);
+            if (full) ds_tile_columns<true>(sc, dp, st + c0, ok0, ok1);
+            else ds_tile_columns<false>(sc, dp, st + c0, ok0, ok1);
+            uint32_t pa[2][4], da[2][4];
 #pragma unroll
-            for (int nt = 0; nt < kChunkTiles; ++nt) {
+            for (int kk = 0; kk < 2; ++kk) {
+                to_a(pa[kk], sc, kk);
+                to_a(da[kk], dp, kk);
+            }
+            wgmma_fence();
 #pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int ok = key_ok[e >> 1];
-                    const int j = nt * 8 + 2 * t + (e & 1);
-                    const float p = ok >= 0 && q_ok[j]
-                        ? expf(masked(s[nt][e], ok) - sm[j]) / sl[j] : 0.f;
-                    if (pass == 0) s[nt][e] = p;
-                    else dp[nt][e] = ok > 0 ? p * (dp[nt][e] - sD[j]) : 0.f;
-                }
+            for (int kk = 0; kk < 2; ++kk) {
+                wgmma_rs_n128(dva, pa[kk],
+                              desc_mn_major(dOt, c0 + kk * 16), 1);
+                wgmma_rs_n128(dka, da[kk],
+                              desc_mn_major(Qt, c0 + kk * 16), 1);
             }
-            uint32_t a[kChunk / 16][4];
-            if (pass == 0) {
-                chunk_to_a(a, s);
-                chunk_mma(acc, a, dOs, ld, Dp, g, t);
-            } else {
-                chunk_to_a(a, dp);
-                chunk_mma(acc, a, Qs, ld, Dp, g, t);
-            }
+            wgmma_commit();
+            wgmma_wait(dva);
+            wgmma_wait(dka);
         }
-        store_rows((pass == 0 ? dv : dk) + seq + (long long)k0 * d, acc, r0,
-                   L - k0, d, g, t);
+        write_stats(s + 1);            // the other stage's: read a step ago
+        read_stats(s + 2);
+        __syncthreads();               // the stage is free
+        issue(s + 2);
     }
+    store_rows(dv + base, Vs, dva, 1.f, 1.f, k0, L, d);
+    store_rows(dk + base, Ks, dka, 1.f, 1.f, k0, L, d);
 }
 
-size_t fwd_long_smem(int L, int d) {
-    return (size_t)(kTile + 2 * kChunk) * (round16(d) + kPad) * sizeof(bf16)
-         + (size_t)round64(L) * sizeof(int);
+// Shared memory of a block: `resident` resident tiles, the ring of kStages
+// pairs of tiles, `extra` bytes, the keys' status.
+size_t block_smem(int resident, int extra) {
+    return (size_t)(resident + kStages * 2) * kTileBytes + extra + kMaxL;
 }
 
-size_t bwd_long_smem(int L, int d) {
-    const size_t tiles = (size_t)(2 * kTile + 2 * kChunk)
-                       * (round16(d) + kPad) * sizeof(bf16);
-    const size_t dq = tiles + (size_t)round64(L) * sizeof(int);
-    const size_t dkv = tiles + (size_t)kChunk * 4 * sizeof(float);
-    return dq > dkv ? dq : dkv;
+// Lets `kernel` use `smem` bytes of dynamic shared memory on the current
+// device; asked for once per kernel and device (`done`). Also binds the
+// device's context to the calling thread, which the tensor-map encoder (a
+// libcuda call, not a runtime one) needs and a thread that has only
+// launched through the runtime may lack (the autograd engine's workers).
+int allow_smem(const void* kernel, size_t smem, bool (&done)[64]) {
+    int device = 0;
+    int err = (int)cudaGetDevice(&device);
+    if (err) return err;
+    err = (int)cudaFree(nullptr);
+    if (err) return err;
+    if (device < 64 && done[device]) return 0;
+    err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err) return err;
+    err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+    if (err) return err;
+    if (device < 64) done[device] = true;
+    return 0;
+}
+
+// the kernels' limits (the wrapper raises on them with a message)
+bool shape_ok(int N, int L, int d) {
+    return N > 0 && L > 0 && L <= kMaxL && d > 0 && d <= kMaxD && d % 8 == 0;
+}
+
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// The tensor map of an (N, L, d) bf16 tensor with element strides
+// (sn, sl, 1): boxes of 64 rows x 64 columns of one sequence in the
+// 128-byte swizzle, zeros outside the tensor. libcuda's encoder is taken
+// through the runtime, so nothing links against libcuda.
+int make_map(CUtensorMap* map, const void* base, int N, int L, int d,
+             long long sn, long long sl) {
+    static EncodeTiled encode = nullptr;
+    if (!encode) {
+        void* fn = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        int err = (int)cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                               cudaEnableDefault, &found);
+        if (err) return err;
+        if (found != cudaDriverEntryPointSuccess || !fn)
+            return (int)cudaErrorSymbolNotFound;
+        encode = (EncodeTiled)fn;
+    }
+    const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)L, (cuuint64_t)N};
+    const cuuint64_t strides[2] = {(cuuint64_t)sl * 2, (cuuint64_t)sn * 2};
+    const cuuint32_t box[3] = {64, kTile, 1};
+    const cuuint32_t steps[3] = {1, 1, 1};
+    const CUresult rc = encode(
+        map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+        dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-int mrgcn_attention_max_len() { return kMaxLongL; }
-int mrgcn_attention_max_dim() { return kMaxD; }
-
-size_t mrgcn_attention_fwd_smem_bytes(int L, int d) {
-    if (L > kMaxL) return fwd_long_smem(L, d);
-    const int Lp = round16(L), Dp = round16(d);
-    return (size_t)3 * Lp * (Dp + kPad) * sizeof(bf16) + Lp * sizeof(int);
-}
-
-size_t mrgcn_attention_bwd_smem_bytes(int L, int d) {
-    if (L > kMaxL) return bwd_long_smem(L, d);
-    const int Lp = round16(L), Dp = round16(d);
-    return (size_t)4 * Lp * (Dp + kPad) * sizeof(bf16)
-         + (size_t)2 * Lp * (Lp + kPad) * sizeof(bf16) + Lp * sizeof(int);
-}
-
-// f32 scratch the backward needs: the rows' (max, sum, D) past kMaxL
+// f32 scratch the backward needs: each row's (max, 1 / sum, D)
 long long mrgcn_attention_bwd_scratch_floats(int N, int L) {
-    return L > kMaxL ? 3LL * N * L : 0;
+    return 3LL * N * L;
 }
 
-static int set_smem(const void* kernel, size_t smem) {
-    return (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-// q, k, v: (N, L, d) bf16 with the given element strides over N and L and
-// a contiguous last dim; valid: (N, L) uint8; out: contiguous (N, L, d).
-// L <= kMaxL: one CTA per sequence; longer: one per (sequence, 128 rows).
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
+// q, k, v: (N, L, d) bf16 with the given element strides over N and L
+// (multiples of 8), a contiguous last dim and a 16-byte aligned start;
+// valid: (N, L) uint8; out: contiguous (N, L, d). One block of two
+// warpgroups per (sequence, 128 query rows). Launches on `stream`; returns
+// a cudaError_t (0 on success).
 int mrgcn_attention_fwd_bf16(const void* q, const void* k, const void* v,
                              const void* valid, void* out, int N, int L,
                              int d, long long q_sn, long long q_sl,
                              long long k_sn, long long k_sl, long long v_sn,
                              long long v_sl, void* stream) {
-    const size_t smem = mrgcn_attention_fwd_smem_bytes(L, d);
-    cudaStream_t s = (cudaStream_t)stream;
-    if (L <= kMaxL) {
-        int err = set_smem((const void*)attention_fwd_kernel, smem);
-        if (err) return err;
-        attention_fwd_kernel<<<N, kThreads, smem, s>>>(
-            (const bf16*)q, (const bf16*)k, (const bf16*)v,
-            (const uint8_t*)valid, (bf16*)out, L, d, q_sn, q_sl, k_sn, k_sl,
-            v_sn, v_sl);
-    } else {
-        int err = set_smem((const void*)attention_fwd_long_kernel, smem);
-        if (err) return err;
-        const dim3 grid(N, (L + kTile - 1) / kTile);
-        attention_fwd_long_kernel<<<grid, kThreads, smem, s>>>(
-            (const bf16*)q, (const bf16*)k, (const bf16*)v,
-            (const uint8_t*)valid, (bf16*)out, L, d, q_sn, q_sl, k_sn, k_sl,
-            v_sn, v_sl);
-    }
+    static bool done[64];
+    if (!shape_ok(N, L, d)) return (int)cudaErrorInvalidValue;
+    const size_t smem = block_smem(kFwdWarpgroups, 0);
+    int err = allow_smem((const void*)attention_fwd_kernel, smem, done);
+    if (err) return err;
+    CUtensorMap mq, mk, mv;
+    if ((err = make_map(&mq, q, N, L, d, q_sn, q_sl))) return err;
+    if ((err = make_map(&mk, k, N, L, d, k_sn, k_sl))) return err;
+    if ((err = make_map(&mv, v, N, L, d, v_sn, v_sl))) return err;
+    const int rows = kFwdWarpgroups * kTile;
+    const int row_tiles = (L + rows - 1) / rows;
+    attention_fwd_kernel<<<(unsigned)N * row_tiles,
+                           kFwdWarpgroups * kThreads, smem,
+                           (cudaStream_t)stream>>>(
+        mq, mk, mv, (const uint8_t*)valid, (bf16*)out, L, d, row_tiles);
     return (int)cudaGetLastError();
 }
 
 // As the forward, plus dout (contiguous (N, L, d)) in and dq, dk, dv
 // (contiguous (N, L, d) bf16) out; stats: f32 scratch of
-// mrgcn_attention_bwd_scratch_floats(N, L) (unused up to kMaxL).
+// mrgcn_attention_bwd_scratch_floats(N, L). Two launches: dq (and the
+// rows' statistics), then dk and dv, one block per (sequence, 64 rows).
 int mrgcn_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              const void* valid, const void* dout, void* dq,
                              void* dk, void* dv, void* stats, int N, int L,
                              int d, long long q_sn, long long q_sl,
                              long long k_sn, long long k_sl, long long v_sn,
                              long long v_sl, void* stream) {
-    const size_t smem = mrgcn_attention_bwd_smem_bytes(L, d);
+    static bool done[2][64];
+    if (!shape_ok(N, L, d)) return (int)cudaErrorInvalidValue;
+    const size_t smem = block_smem(2, kStages * 3 * kTile * sizeof(float));
+    int err = allow_smem((const void*)attention_bwd_dq_kernel, smem, done[0]);
+    if (err) return err;
+    err = allow_smem((const void*)attention_bwd_dkv_kernel, smem, done[1]);
+    if (err) return err;
+    CUtensorMap mq, mk, mv, mdo;
+    if ((err = make_map(&mq, q, N, L, d, q_sn, q_sl))) return err;
+    if ((err = make_map(&mk, k, N, L, d, k_sn, k_sl))) return err;
+    if ((err = make_map(&mv, v, N, L, d, v_sn, v_sl))) return err;
+    if ((err = make_map(&mdo, dout, N, L, d, (long long)L * d, d)))
+        return err;
     cudaStream_t s = (cudaStream_t)stream;
-    if (L <= kMaxL) {
-        int err = set_smem((const void*)attention_bwd_kernel, smem);
-        if (err) return err;
-        attention_bwd_kernel<<<N, kThreads, smem, s>>>(
-            (const bf16*)q, (const bf16*)k, (const bf16*)v,
-            (const uint8_t*)valid, (const bf16*)dout, (bf16*)dq, (bf16*)dk,
-            (bf16*)dv, L, d, q_sn, q_sl, k_sn, k_sl, v_sn, v_sl);
-        return (int)cudaGetLastError();
-    }
-    int err = set_smem((const void*)attention_bwd_dq_long_kernel, smem);
-    if (err) return err;
-    err = set_smem((const void*)attention_bwd_dkv_long_kernel, smem);
-    if (err) return err;
-    const dim3 grid(N, (L + kTile - 1) / kTile);
-    attention_bwd_dq_long_kernel<<<grid, kThreads, smem, s>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v,
-        (const uint8_t*)valid, (const bf16*)dout, (bf16*)dq, (float*)stats,
-        N, L, d, q_sn, q_sl, k_sn, k_sl, v_sn, v_sl);
+    const int row_tiles = (L + kTile - 1) / kTile;
+    const unsigned grid = (unsigned)N * row_tiles;
+    attention_bwd_dq_kernel<<<grid, kThreads, smem, s>>>(
+        mq, mk, mv, mdo, (const uint8_t*)valid, (bf16*)dq, (float*)stats, N,
+        L, d, row_tiles);
     err = (int)cudaGetLastError();
     if (err) return err;
-    attention_bwd_dkv_long_kernel<<<grid, kThreads, smem, s>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v,
-        (const uint8_t*)valid, (const bf16*)dout, (const float*)stats,
-        (bf16*)dk, (bf16*)dv, N, L, d, q_sn, q_sl, k_sn, k_sl, v_sn, v_sl);
+    attention_bwd_dkv_kernel<<<grid, kThreads, smem, s>>>(
+        mq, mk, mv, mdo, (const uint8_t*)valid, (const float*)stats,
+        (bf16*)dk, (bf16*)dv, N, L, d, row_tiles);
     return (int)cudaGetLastError();
 }
 

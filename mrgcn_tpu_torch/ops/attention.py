@@ -10,15 +10,25 @@ the core computes
     s = q k^T (f32), s = -1e9 at padding keys, p = softmax(s) (f32),
     out = bf16(p) v   (f32 sums, cast to the input type)
 
-and its backward recomputes ``p`` (``csrc/fused_attention.cu``). A padding
-key's logit is replaced by -1e9, as the plain chain
-(``xla_attention``) does, so a sequence whose keys are all padding gets a
-uniform softmax and no logit gradient at its padding keys.
+and its backward recomputes ``p``. A padding key's logit is replaced by
+-1e9, as the plain chain (``xla_attention``) does, so a sequence whose keys
+are all padding gets a uniform softmax and no logit gradient at its padding
+keys.
+
+The kernels (``csrc/fused_attention.cu``) are one tiled family for every
+``1 <= L <= 512``: a thread block owns ``KEY_TILE`` rows of one sequence a
+warpgroup and streams the other side through shared memory in tiles of
+``KEY_TILE`` rows, loaded by TMA and multiplied by ``wgmma``. The forward
+runs an online softmax over the key tiles; the backward is two launches,
+``dq`` with each row's softmax statistics, then the key-major ``dk`` /
+``dv``. Key tiles without a valid key are skipped; tiling and launch
+geometry live in the CUDA source alone. :func:`live_key_tiles` states the
+skipping rule in plain PyTorch, for the tests that hold the kernels to it.
 
 CPU tensors take the plain version (:func:`attention_fwd_reference`,
 :func:`attention_bwd_reference`); CUDA tensors launch the kernels or
 raise. ``attention_fwd.launches`` and ``attention_bwd.launches`` count the
-kernel launches.
+calls that launched.
 """
 
 from __future__ import annotations
@@ -31,6 +41,11 @@ import torch
 from mrgcn_tpu_torch.ops import _build
 
 MASKED = -1e9
+# the kernels' limits, raised on here with a message (the C entry points
+# refuse the same shapes), and the rows of a key tile
+MAX_LEN = 512          # the text encoder's tokenizer limit
+MAX_DIM = 128
+KEY_TILE = 64
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -39,10 +54,6 @@ _SIGNATURES = {
     "mrgcn_attention_bwd_bf16": (
         [_P] * 9 + [_I, _I, _I] + [_LL] * 6 + [_P], _I),
     "mrgcn_attention_bwd_scratch_floats": ([_I, _I], _LL),
-    "mrgcn_attention_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
-    "mrgcn_attention_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
-    "mrgcn_attention_max_len": ([], _I),
-    "mrgcn_attention_max_dim": ([], _I),
     "mrgcn_attention_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -85,6 +96,27 @@ def attention_bwd_reference(q, k, v, keys_valid, d_out):
 
 
 # --------------------------------------------------------------------------
+# the key tiles the kernels walk
+# --------------------------------------------------------------------------
+
+def live_key_tiles(keys_valid: torch.Tensor) -> torch.Tensor:
+    """``(N, ceil(L / KEY_TILE))`` bool: the key tiles the kernels load,
+    score and multiply. A tile is walked if one of its keys is valid; a
+    sequence with no valid key at all walks every tile (its softmax is
+    uniform over all ``L`` keys). Every other tile's probabilities are
+    exactly 0 in f32, so dropping it changes nothing; its ``dk`` / ``dv``
+    rows are zeros. The kernels find the tiles themselves; this is the
+    rule they follow."""
+    N, L = keys_valid.shape
+    tiles = -(-L // KEY_TILE)
+    padded = torch.zeros((N, tiles * KEY_TILE), dtype=torch.bool,
+                         device=keys_valid.device)
+    padded[:, :L] = keys_valid
+    has_key = padded.view(N, tiles, KEY_TILE).any(dim=-1)
+    return has_key | ~has_key.any(dim=-1, keepdim=True)
+
+
+# --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
 
@@ -99,7 +131,7 @@ def _strides(t: torch.Tensor, name: str):
     return t.stride(0), t.stride(1)
 
 
-def _check_cuda_args(q, k, v, keys_valid, lib, smem_fn):
+def _check_cuda_args(q, k, v, keys_valid):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"fused_attention: {name} is on {t.device}, "
@@ -117,18 +149,13 @@ def _check_cuda_args(q, k, v, keys_valid, lib, smem_fn):
             or not keys_valid.is_contiguous():
         raise ValueError("fused_attention: keys_valid must be a contiguous "
                          f"(N, L) bool tensor on {q.device}")
-    if not 0 < L <= lib.mrgcn_attention_max_len():
+    if not 0 < L <= MAX_LEN:
         raise NotImplementedError(
-            f"fused_attention: the kernels take 1 <= L <= "
-            f"{lib.mrgcn_attention_max_len()}, got {L} (longer sequences: "
-            "ROADMAP Queue 2, kernels #6/#7)")
-    if d % 8 or not 0 < d <= lib.mrgcn_attention_max_dim():
+            f"fused_attention: the kernels take 1 <= L <= {MAX_LEN} (the "
+            f"text encoder's tokenizer limit), got {L}")
+    if d % 8 or not 0 < d <= MAX_DIM:
         raise ValueError(f"fused_attention: the kernel takes d a multiple "
-                         f"of 8 up to {lib.mrgcn_attention_max_dim()}, "
-                         f"got {d}")
-    if smem_fn(L, d) > _build.SMEM_LIMIT:
-        raise ValueError(f"fused_attention: L={L}, d={d} needs more shared "
-                         "memory than a thread block has")
+                         f"of 8 up to {MAX_DIM}, got {d}")
 
 
 def _raise_on(rc: int, lib, what: str) -> None:
@@ -146,9 +173,8 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_fwd_reference(q, k, v, keys_valid)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: no kernel for device {q.device}")
+    _check_cuda_args(q, k, v, keys_valid)
     lib = _library()
-    _check_cuda_args(q, k, v, keys_valid, lib,
-                     lib.mrgcn_attention_fwd_smem_bytes)
     N, L, d = q.shape
     out = torch.empty((N, L, d), dtype=q.dtype, device=q.device)
     if N == 0:
@@ -173,9 +199,8 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_bwd_reference(q, k, v, keys_valid, d_out)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: no kernel for device {q.device}")
+    _check_cuda_args(q, k, v, keys_valid)
     lib = _library()
-    _check_cuda_args(q, k, v, keys_valid, lib,
-                     lib.mrgcn_attention_bwd_smem_bytes)
     N, L, d = q.shape
     do = d_out.to(q.dtype).contiguous()
     if do.shape != q.shape or do.data_ptr() % 16:
@@ -184,17 +209,15 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   for _ in range(3))
     if N == 0:
         return dq, dk, dv
-    # past 128 tokens the backward keeps each row's softmax statistics
-    # between its two kernels
-    scratch = lib.mrgcn_attention_bwd_scratch_floats(N, L)
-    stats = torch.empty(scratch, dtype=torch.float32, device=q.device) \
-        if scratch else None
+    # each row's softmax statistics, from the dq kernel to the dk / dv one
+    stats = torch.empty(lib.mrgcn_attention_bwd_scratch_floats(N, L),
+                        dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.mrgcn_attention_bwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), keys_valid.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            None if stats is None else stats.data_ptr(), N, L, d,
+            stats.data_ptr(), N, L, d,
             *_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"),
             stream)
     _raise_on(rc, lib, "attention_bwd")

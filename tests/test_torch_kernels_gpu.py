@@ -250,10 +250,12 @@ def assert_bf16_close(got, want, scale, what):
     assert ratio <= 1.0, f"{what}: max abs err {err}, {ratio} x the bound"
 
 
-def attention_inputs(cuda, N, L, d, seed, strided=True):
+def attention_inputs(cuda, N, L, d, seed, strided=True, holes=False):
     """q, k, v (bf16, k and v as slices of one fused (N, L, 3d) tensor as
     the text encoder hands them over) and a key mask with ragged lengths,
-    one sequence of length 1 and one that is all padding."""
+    one sequence of length 1 and one that is all padding. ``holes``
+    knocks out a third of the keys at random and, in every third
+    sequence, the whole first key tile."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     qkv = torch.randn(N, L, 3 * d, generator=gen).to(cuda, torch.bfloat16)
     q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
@@ -263,21 +265,37 @@ def attention_inputs(cuda, N, L, d, seed, strided=True):
     lengths[0] = 1
     if N > 1:
         lengths[1] = 0
-    valid = (torch.arange(L)[None, :] < lengths[:, None]).to(cuda)
+    valid = torch.arange(L)[None, :] < lengths[:, None]
+    if holes:
+        keep = torch.rand(N, L, generator=gen) < 0.67
+        keep[0, 0] = True
+        keep[2::3, :64] = False
+        valid = valid & keep
+    valid = valid.to(cuda)
     do = torch.randn(N, L, d, generator=gen).to(cuda, torch.bfloat16)
     return q * (1.0 / d ** 0.5), k, v, valid, do
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("N,L,d", [(13, 37, 128), (16, 128, 128),
-                                   (9, 1, 128), (5, 128, 64),
-                                   (3, 16, 16), (6, 200, 128),
-                                   (3, 512, 128), (4, 129, 64),
-                                   (2, 300, 16)])
-def test_attention_kernels_match_plain(cuda, N, L, d):
+@pytest.mark.parametrize("N,L,d,strided,holes", [
+    (13, 37, 128, True, False), (16, 128, 128, True, False),
+    (9, 1, 128, True, False), (5, 128, 64, True, False),
+    (3, 16, 16, True, False), (6, 200, 128, True, False),
+    (3, 512, 128, True, False), (4, 129, 64, True, False),
+    (2, 300, 16, True, False),
+    # past 128 tokens, narrow heads, fewer and more thread blocks than the
+    # card runs at once, masks with holes, contiguous inputs
+    (7, 129, 128, False, True), (5, 256, 64, True, True),
+    (6, 512, 8, False, True), (900, 128, 128, True, True),
+    (700, 256, 8, False, False), (40, 64, 128, False, True),
+    (33, 65, 24, True, True)])
+def test_attention_kernels_match_plain(cuda, N, L, d, strided, holes):
     from mrgcn_tpu_torch.ops import attention as att
     from mrgcn_tpu_torch.ops.kernel_bounds import attention_scales
-    q, k, v, valid, do = attention_inputs(cuda, N, L, d, seed=N * L + d)
+    q, k, v, valid, do = attention_inputs(cuda, N, L, d, seed=N * L + d,
+                                          strided=strided, holes=holes)
+    if not strided:
+        q = q.contiguous()
     scales = attention_scales(q, k, v, valid, do)
     f0, b0 = att.attention_fwd.launches, att.attention_bwd.launches
     out = att.attention_fwd(q, k, v, valid)
@@ -301,6 +319,10 @@ def test_attention_kernels_match_plain(cuda, N, L, d):
                           v1.abs().mean(0, keepdim=True).expand(L, d),
                           "uniform")
         assert not grads[0][1].any() and not grads[1][1].any()
+    # key tiles the kernels skip get zero dk and dv rows
+    walked = att.live_key_tiles(valid).repeat_interleave(
+        att.KEY_TILE, dim=1)[:, :L]
+    assert not grads[1][~walked].any() and not grads[2][~walked].any()
 
 
 @pytest.mark.gpu
@@ -364,7 +386,7 @@ def test_encoder_kernels_reject_bad_arguments(cuda):
     q, k, v, valid, do = attention_inputs(cuda, 2, 8, 16, seed=0)
     with pytest.raises(TypeError, match="bf16"):
         att.attention_fwd(q.float(), k, v, valid)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
+    with pytest.raises(NotImplementedError, match="tokenizer limit"):
         long = torch.zeros(1, 513, 16, dtype=torch.bfloat16, device=cuda)
         att.attention_fwd(long, long, long,
                           torch.ones(1, 513, dtype=torch.bool, device=cuda))
