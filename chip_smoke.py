@@ -8,7 +8,12 @@ beside it. ``--only a,b`` runs some phases alone (``stream``, ``compose``,
 ``nc``, ``minibatch``, ``lp``, ``encoders``, ``agree``, and ``profile`` /
 ``profile_mb`` / ``profile_att``: ``torch.profiler`` breakdowns of the
 link-prediction step, of a mini-batch NC step and of the attention
-kernels, never part of the whole run) and then prints no result line. Phases, each printing its own lines:
+kernels, never part of the whole run; ``profile`` also settles two route
+forks by device time per step in alternated windows: the basis layer's
+backward through ``fused_scatter_dot`` or through ``fused_place_scatter``
+and a gathered dot, and the featureless NC step with and without
+``MRGCN_FUSED_COMPOSE_BWD=1``) and then prints no result line. Phases,
+each printing its own lines:
 
 1. the card, as ``nvidia-smi`` and torch see it;
 2. the kernels, built from ``mrgcn_tpu_torch/csrc`` (one ``nvcc`` per
@@ -22,10 +27,16 @@ kernels, never part of the whole run) and then prints no result line. Phases, ea
    half's ``fwd`` and ``bwd_table``, the dense feature half's ``fwd`` and
    ``bwd_h``; ``fused_place_scatter``, ``fused_scatter_dot`` and
    ``sorted_gather`` on the link-prediction graph's streams (FB15k-237's
-   sizes, hidden 200: ``fwd`` and the dst-sorted ``bwd_h``); and all four
-   on small adversarial streams (padding, a run of one slab, all-padding
-   slabs, repeated and unvisited blocks, ragged output rows, ``k`` 1 and
-   8, values narrower than their slot). Then the compose kernels
+   sizes, hidden 200: ``fwd`` and the dst-sorted ``bwd_h``;
+   ``fused_scatter_dot`` there through its row-segmented kernel, as the
+   layer calls it, with its block-walk kernel and the layer's other route,
+   ``fused_place_scatter`` and a gathered dot, timed beside it); and all
+   four on small adversarial streams (padding, a run of one slab,
+   all-padding slabs, repeated and unvisited blocks, ragged output rows,
+   ``k`` 1 and 8, values narrower than their slot), then
+   ``fused_scatter_dot``'s two kernels on row-sorted adversarial streams
+   (strided and contiguous values, a hub row of more than 20,000 edges
+   split by an all-padding slab, timed). Then the compose kernels
    (``compose_grad_pass``, ``compose_table``, ``canonical_copy``) at DMG
    width (R=121, B=40, 12,800 packed rows of 128 lanes; the cotangent
    table taken from a real ``bwd_table`` scatter) and at ragged shapes
@@ -78,8 +89,10 @@ kernels, never part of the whole run) and then prints no result line. Phases, ea
    just after: every kernel it runs must have launched. The paths run
    before phase 7: run after it, the featureless epoch measured about
    15 % slower than in a fresh process (H100 80GB HBM3, 700 W).
-   Then, counted apart from every path, the gradient of
-   ``featureless_basis`` from its own backward (``fused_scatter_dot``)
+   On this path every ``fused_scatter_dot`` launch must be its
+   row-segmented kernel (two a step). Then, counted apart from every
+   path, the gradient of ``featureless_basis`` from its own backward
+   (``fused_scatter_dot``)
    against autograd through the same forward written with differentiable
    gathers and the differentiable ``sorted_scatter`` (whose backward
    launches ``sorted_gather``), at full width: within 1e-4 of the largest
@@ -312,6 +325,39 @@ def adversarial_stream(rng, nslab, rb, eb, n_blocks, L, device):
     return t(msgs, torch.float32), t(local, torch.int32), t(blk, torch.int32)
 
 
+def sorted_adversarial_stream(rng, n_edges, rb, eb, n_blocks, hub):
+    """A row-sorted stream (``Stream.rows_sorted``), laid out as the
+    planner lays out ``bwd_h`` (``relational._segment_layout``): rows
+    drawn from the even blocks (the odd ones are never visited), one hub
+    row with ``hub`` more edges over many slabs, each block's run padded
+    to whole slabs; then a tenth of the real edges turned into padding and
+    one all-padding slab put inside the hub's run. Returns numpy ``local``
+    ``(nslab, eb)``, ``blk`` ``(nslab,)`` and a per-edge scale, 1 over the
+    degree of the edge's row (the layer's norm): a row's sum then stays
+    near 1 in size however long the row."""
+    import numpy as np
+    from mrgcn_tpu_torch.ops.relational import _segment_layout
+    rows = (rng.choice(np.arange(0, n_blocks, 2), n_edges) * rb
+            + rng.integers(0, rb, n_edges))
+    rows = np.concatenate([rows, np.full(hub, rows[n_edges // 2])])
+    order, slots, E_pad, slab_blk = _segment_layout(rows, rows, rows // rb,
+                                                    eb)
+    local = np.full(E_pad, rb, np.int64)
+    local[slots] = rows[order] % rb
+    local[rng.random(E_pad) < 0.1] = rb
+    # the all-padding slab goes where the middle of the hub's edges lies
+    mid = int(slots[np.searchsorted(rows[order], rows[n_edges // 2])
+                    + hub // 2]) // eb
+    local = np.insert(local.reshape(-1, eb), mid, rb, axis=0)
+    blk = np.insert(slab_blk, mid, slab_blk[mid])
+    row = blk[:, None] * rb + np.minimum(local, rb - 1)
+    real = local < rb
+    deg = np.bincount(row[real], minlength=int(row.max()) + 1)
+    scale = np.where(real, 1.0 / np.maximum(deg[row], 1), 1.0)
+    return (local.astype(np.int32), blk.astype(np.int32),
+            scale.reshape(-1).astype(np.float32))
+
+
 def multimodal_width() -> int:
     """``X_width`` of the multimodal path: the summed embedding widths of
     ``configs/dmg.toml``'s ``MULTIMODAL`` features (4 + 1 + 16)."""
@@ -460,7 +506,12 @@ def lp_stream_phase(plan, device, rows) -> None:
     """``fused_place_scatter`` on the LP ``fwd`` stream,
     ``fused_scatter_dot`` on its dst-sorted ``bwd_h`` stream and
     ``sorted_gather`` on the ``fwd`` stream (the backward of the
-    differentiable ``sorted_scatter``), at hidden 200 in 256-lane rows."""
+    differentiable ``sorted_scatter``), at hidden 200 in 256-lane rows.
+    ``fused_scatter_dot`` takes the row-segmented kernel there, as the
+    layer does (the planner marks ``bwd_h`` ``rows_sorted``); the
+    block-walk kernel and the layer's other route for the same gradients
+    (``fused_place_scatter``, then a dot with the gathered table rows) are
+    timed beside it on the same inputs."""
     import torch
     from mrgcn_tpu_torch.ops import sorted_stream as ss
     from mrgcn_tpu_torch.ops.relational import line_width
@@ -473,25 +524,22 @@ def lp_stream_phase(plan, device, rows) -> None:
     rows["fused_place_scatter"].append(got["fused_place_scatter"])
 
     h = plan.bwd_h
+    check(h.rows_sorted, "the planner did not mark LP's bwd_h rows_sorted")
     local, blk, rb, eb = h.scatter_local, h.scatter_blk, h.row_block, \
         h.edge_block
     E, T = h.num_padded_edges, plan.n_in_rows
     dvn = torch.randn(E, d, generator=gen, device=device) * h.norm[:, None]
     w = torch.randn(E, generator=gen, device=device)
     table = torch.randn(T, L, generator=gen, device=device)
-    hrows = edge_rows(local, blk, rb, T)
-    real = int((hrows < T).sum())
-    msgs = torch.nn.functional.pad(dvn * w[:, None], (0, L - d))
-    args = (dvn, w, local, blk, table, T, rb, eb)
-    rows["fused_scatter_dot"].append(compare_stream(
-        "fused_scatter_dot", "lp_bwd_h",
-        lambda: ss.fused_scatter_dot(*args),
-        lambda: ss.fused_scatter_dot_reference(*args),
-        lambda: torch.zeros(T + 1, L, device=device)
-        .index_add_(0, hrows, msgs),     # the scatter half alone
-        (nbytes(dvn, w, local, blk, table) + T * L * 4 + E * 4,
-         4 * real * d), shape={**stream_shape(h, T, L), "Lv": d}))
-    del dvn, w, msgs
+    gathered = h.gather_row.long()
+    placed = (lambda: (
+        ss.fused_place_scatter(dvn, h.in_mod, w, local, blk, T, 1, L, rb,
+                               eb),
+        (dvn * table[gathered][:, :d]).sum(dim=1)))
+    rows["fused_scatter_dot"].append(scatter_dot_cases(
+        "lp_bwd_h", (dvn, w, local, blk, table, T, rb, eb),
+        stream_shape(h, T, L), placed))
+    del dvn, w
 
     local, blk = f.scatter_local, f.scatter_blk
     frows = edge_rows(local, blk, rb, T)
@@ -504,6 +552,95 @@ def lp_stream_phase(plan, device, rows) -> None:
         exact=True, shape=stream_shape(f, T, L)))
     del table, padded
     torch.cuda.empty_cache()
+
+
+def scatter_dot_cases(label, args, shape, placed=None) -> dict:
+    """``fused_scatter_dot`` on a row-sorted stream: its row-segmented
+    kernel (the row returned, timed against the plain version and the
+    ``index_add_`` of the scatter half alone), then its block-walk kernel
+    on the same inputs, held and timed the same way (its times go into the
+    row as ``general_*``). ``placed`` (the layer's other route, returning
+    the same pair) is held to the plain version and timed too."""
+    import torch
+    from mrgcn_tpu_torch.ops import sorted_stream as ss
+    dvn, w, local, blk, table, T, rb, eb = args
+    E, d = dvn.shape
+    L = table.shape[1]
+    hrows = edge_rows(local, blk, rb, T)
+    visited = hrows < T
+    real = int(visited.sum())
+    degree = torch.bincount(hrows[visited], minlength=T)
+    msgs = torch.nn.functional.pad(dvn * w[:, None], (0, L - d))
+    # bytes the function must move: dvn and w at the real edges, the table
+    # at the visited rows' first Lv lanes, local and blk whole (the walk
+    # reads every slot), out whole (every row is written) and every dot
+    work = (real * (d + 1) * 4 + nbytes(local, blk)
+            + int((degree > 0).sum()) * d * 4 + T * L * 4 + E * 4,
+            4 * real * d)
+    shape = {**shape, "Lv": d, "real_edges": real,
+             "longest_row": int(degree.max()) if real else 0}
+    row = compare_stream(
+        "fused_scatter_dot", label,
+        lambda: ss.fused_scatter_dot(*args, rows_sorted=True),
+        lambda: ss.fused_scatter_dot_reference(*args),
+        lambda: torch.zeros(T + 1, L, device=dvn.device)
+        .index_add_(0, hrows, msgs),     # the scatter half alone
+        work, shape=shape)
+    general = compare_stream(
+        "fused_scatter_dot", label + "_general",
+        lambda: ss.fused_scatter_dot(*args),
+        lambda: ss.fused_scatter_dot_reference(*args), None, work,
+        shape=shape)
+    row.update(general_ms=general["ms"], general_ms_runs=general["ms_runs"],
+               general_max_abs_err=general["max_abs_err"])
+    if real:
+        row["longest_row_rel_err"] = longest_row_check(label, args, hrows,
+                                                       degree)
+    if placed is not None:
+        got, want = placed(), ss.fused_scatter_dot_reference(*args)
+        for g, w_ in zip(got, want):
+            check(bool(((g - w_).abs() <= ATOL + RTOL * w_.abs()).all()),
+                  f"fused_scatter_dot {label}: the place-scatter route "
+                  "disagrees with plain")
+        row["place_dot_ms"] = time_ms(placed)
+    print(f"[kernel] fused_scatter_dot {label}: row-segmented "
+          f"{row['ms']:.3f} ms, block walk {row['general_ms']:.3f} ms, "
+          f"plain {row['plain_ms']:.3f} ms, index_add_ (scatter half) "
+          f"{row['library_ms']:.3f} ms"
+          + (f", fused_place_scatter + gathered dot "
+             f"{row['place_dot_ms']:.3f} ms" if placed else "")
+          + f"; bound {row['bound_ms']:.3f} ms"
+          + (f"; longest row ({row['longest_row']} edges) off a float64 "
+             f"sum by {row['longest_row_rel_err']:.3g} of its magnitude"
+             if real else ""))
+    del msgs
+    return row
+
+
+def longest_row_check(label, args, hrows, degree) -> float:
+    """The row-segmented kernel's longest row (``out`` and its edges'
+    dots) against a float64 sum, held to 1e-3 of the row's largest
+    magnitude: values scaled by 1/degree leave a hub row's entries far
+    below ``ATOL``, where a dropped or doubled piece would still pass the
+    element-wise check. Returns the larger of the two relative errors."""
+    import torch
+    from mrgcn_tpu_torch.ops import sorted_stream as ss
+    dvn, w, _, _, table, _, _, _ = args
+    d = dvn.shape[1]
+    hub = int(degree.argmax())
+    on_hub = hrows == hub
+    out, dots = ss.fused_scatter_dot(*args, rows_sorted=True)
+    v = dvn[on_hub].double()
+    worst = 0.0
+    for what, got, want in (
+            ("row", out[hub, :d], (v * w[on_hub].double()[:, None]).sum(0)),
+            ("dots", dots.reshape(-1)[on_hub], v @ table[hub, :d].double())):
+        rel = float((got.double() - want).abs().max() / want.abs().max())
+        check(rel <= 1e-3, f"fused_scatter_dot {label}: the longest row's "
+              f"{what} ({int(degree[hub])} edges) is {rel:.3g} of its "
+              "magnitude off a float64 sum (bound 1e-3)")
+        worst = max(worst, rel)
+    return worst
 
 
 def compose_phase(work, device, rows) -> dict:
@@ -628,7 +765,8 @@ def compose_phase(work, device, rows) -> dict:
 
 
 def adversarial_phase(device, rows) -> None:
-    """All four stream kernels on small hostile streams."""
+    """All four stream kernels on small hostile streams; then
+    ``fused_scatter_dot``'s two kernels on row-sorted ones."""
     import numpy as np
     import torch
     from mrgcn_tpu_torch.ops import sorted_stream as ss
@@ -673,6 +811,47 @@ def adversarial_phase(device, rows) -> None:
         rows["sorted_gather"].append(compare_stream(
             "sorted_gather", label, lambda: ss.sorted_gather(*gargs),
             lambda: ss.sorted_gather_reference(*gargs), exact=True))
+    # row-sorted streams through fused_scatter_dot's row-segmented kernel
+    # (and its block walk on the same inputs): dvn cut from wider rows at
+    # an odd offset (4-byte loads) or contiguous (16-byte loads); the last
+    # has a hub row of more than 20,000 edges over some 80 slabs, split by
+    # an all-padding slab
+    for label, (n_edges, rb, eb, n_blocks, L, d, hub, strided) in {
+            "sorted_16x8": (200, 16, 8, 10, 128, 128, 300, False),
+            "sorted_64x40_strided": (600, 64, 40, 20, 96, 21, 400, True),
+            "sorted_512x256_strided": (3000, 512, 256, 14, 256, 200, 1500,
+                                       True),
+            "sorted_hub": (30_000, 512, 256, 14, 256, 200, 23_000,
+                           False)}.items():
+        local, blk, scale = sorted_adversarial_stream(rng, n_edges, rb, eb,
+                                                      n_blocks, hub)
+        E, out_rows = local.size, (n_blocks + 1) * rb - 37
+        wide = torch.as_tensor(rng.standard_normal((E, d + 4)) * scale[:, None],
+                               dtype=torch.float32, device=device)
+        dvn = wide[:, 1:1 + d] if strided else wide[:, :d].contiguous()
+        args = (dvn, torch.as_tensor(rng.random(E), dtype=torch.float32,
+                                     device=device),
+                torch.as_tensor(local, device=device),
+                torch.as_tensor(blk, device=device),
+                torch.as_tensor(rng.standard_normal((out_rows, L)),
+                                dtype=torch.float32, device=device),
+                out_rows, rb, eb)
+        shape = {"E_pad": E, "slabs": local.shape[0], "out_rows": out_rows,
+                 "L": L, "strided": strided}
+        if label == "sorted_hub":
+            rows["fused_scatter_dot"].append(scatter_dot_cases(
+                label, args, shape))
+            check(rows["fused_scatter_dot"][-1]["longest_row"] >= 20_000,
+                  "sorted_hub: the hub row is shorter than 20,000 edges")
+            continue
+        rows["fused_scatter_dot"].append(compare_stream(
+            "fused_scatter_dot", label,
+            lambda: ss.fused_scatter_dot(*args, rows_sorted=True),
+            lambda: ss.fused_scatter_dot_reference(*args), shape=shape))
+        rows["fused_scatter_dot"].append(compare_stream(
+            "fused_scatter_dot", label + "_general",
+            lambda: ss.fused_scatter_dot(*args),
+            lambda: ss.fused_scatter_dot_reference(*args), shape=shape))
 
 
 def check_bf16(got, want, scale, label: str):
@@ -964,8 +1143,27 @@ def train_via_cli(tmp: Path, tag: str, work, epochs, num_bases,
             os.environ.pop(key, None)
 
 
+class SecondCount:
+    """A wrapper's second launch count (``attr``), read and set as
+    ``launches`` like the others."""
+
+    def __init__(self, fn, attr: str):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        setattr(self.fn, self.attr, value)
+
+
 def kernel_counters() -> dict:
-    """Each kernel wrapper, whose ``launches`` counts its launches."""
+    """Each kernel's launch count: the wrapper, whose ``launches`` counts
+    its launches; ``fused_scatter_dot`` has two kernels, the block walk
+    (``fused_scatter_dot``) and the row-segmented one
+    (``fused_scatter_dot_rows``)."""
     from mrgcn_tpu_torch.ops import attention as att
     from mrgcn_tpu_torch.ops import compose_kernels as ck
     from mrgcn_tpu_torch.ops import fused_mlp as fm
@@ -974,6 +1172,8 @@ def kernel_counters() -> dict:
             "sorted_gather": ss.sorted_gather,
             "fused_place_scatter": ss.fused_place_scatter,
             "fused_scatter_dot": ss.fused_scatter_dot,
+            "fused_scatter_dot_rows": SecondCount(ss.fused_scatter_dot,
+                                                  "launches_sorted"),
             "compose_grad_pass": ss.compose_grad_pass,
             "compose_table": ck.compose_table,
             "canonical_copy": ck.canonical_copy,
@@ -1247,7 +1447,7 @@ def lp_slice_phase(tmp: Path, plan, num_relations: int, device) -> dict:
                       if fn.launches}
     check(check_launches.get("sorted_gather", 0) >= 1
           and check_launches.get("sorted_scatter", 0) >= 1
-          and check_launches.get("fused_scatter_dot", 0) >= 2,
+          and check_launches.get("fused_scatter_dot_rows", 0) >= 2,
           f"lp: the gradient check launched {check_launches}")
 
     losses = [h["loss"] for h in res.history]
@@ -1264,9 +1464,12 @@ def lp_slice_phase(tmp: Path, plan, num_relations: int, device) -> dict:
               and max(ranks) <= 14_541, f"lp: {kind} ranks out of range")
         check(0.0 < res.mrr[kind] <= 1.0, f"lp: {kind} MRR {res.mrr[kind]}")
     # per training step: one fused_place_scatter forward, one
-    # fused_scatter_dot per basis backward; the evaluations add forwards
+    # fused_scatter_dot per basis backward, every one the row-segmented
+    # kernel (the planner marks bwd_h rows_sorted); the evaluations add
+    # forwards
     check(launches["fused_place_scatter"] >= LP_EPOCHS
-          and launches["fused_scatter_dot"] == 2 * LP_EPOCHS,
+          and launches["fused_scatter_dot_rows"] == 2 * LP_EPOCHS
+          and launches["fused_scatter_dot"] == 0,
           f"lp: launches {launches}")
     secs = [h["seconds"] for h in res.history]
     summary = {"path": "lp_fb15k237_synth", "epochs": LP_EPOCHS,
@@ -1288,12 +1491,13 @@ def lp_slice_phase(tmp: Path, plan, num_relations: int, device) -> dict:
     return summary
 
 
-def profile_phase(tmp: Path, device, steps: int = 3) -> None:
+def profile_phase(work, tmp: Path, device, steps: int = 3) -> None:
     """Where a link-prediction training step's time goes
     (``--only profile``, not part of the default run): ``torch.profiler``
     over ``steps`` full-graph steps after three warm-up steps, device time
     by kernel name, and the card's busy share of the synchronised host
-    time."""
+    time. Then the two route forks by device time per step, each in
+    alternated windows (``route_fork_basis``, ``route_fork_compose``)."""
     import numpy as np
     import torch
     from mrgcn_tpu_torch import run
@@ -1321,12 +1525,122 @@ def profile_phase(tmp: Path, device, steps: int = 3) -> None:
         lp.train_step(model, optimizer, batch, corrupt, 0.0, 0.0, 0.0, gen)
 
     profile_steps("LP step", step, steps)
+    route_fork_basis(step, steps)
+    del model, optimizer, batch, inputs
+    torch.cuda.empty_cache()
+    route_fork_compose(work, tmp, device, steps)
 
 
-def profile_steps(label: str, step, steps: int) -> None:
+def route_fork_basis(step, steps: int) -> dict:
+    """Fork (a): the basis layer's backward at ``k == 1`` through
+    ``fused_scatter_dot`` (its row-segmented kernel, the layer's route)
+    against ``fused_place_scatter`` plus a dot with the gathered table
+    rows (the route of packed rows, ``_basis_grads_placed``), one LP step
+    per call of ``step``. Device time per step in four windows, order A,
+    B, B, A; each window's launches are checked to be its route's."""
+    from mrgcn_tpu_torch.ops import relational as rl
+    fused = rl._basis_grads_fused
+
+    def placed(d_vh, w_h, h, packed, n_rows):
+        return rl._basis_grads_placed(d_vh, w_h, h, packed, 1, n_rows,
+                                      d_vh.shape[1])
+
+    routes = {"fused_scatter_dot": fused, "place_scatter_dot": placed}
+    order = ["fused_scatter_dot", "place_scatter_dot", "place_scatter_dot",
+             "fused_scatter_dot"]
+    busy = {name: [] for name in routes}
+    try:
+        for name in order:
+            rl._basis_grads_fused = routes[name]
+            counters = kernel_counters()
+            for fn in counters.values():
+                fn.launches = 0
+            busy[name].append(profile_steps(
+                f"LP step, basis backward via {name}", step, steps,
+                top=6)[0])
+            calls = 3 + steps
+            rows_launched = counters["fused_scatter_dot_rows"].launches
+            check(rows_launched == (2 * calls if name == "fused_scatter_dot"
+                                    else 0),
+                  f"fork (a) {name}: row-segmented kernel launched "
+                  f"{rows_launched} times in {calls} steps")
+    finally:
+        rl._basis_grads_fused = fused
+    result = {name: {"device_ms_per_step": v,
+                     "median": statistics.median(v)}
+              for name, v in busy.items()}
+    print(f"[fork] basis backward (k == 1), device ms per LP step "
+          f"(order {order}): {json.dumps(result)}")
+    return result
+
+
+def route_fork_compose(work, tmp: Path, device, steps: int,
+                       pairs: int = 2) -> dict:
+    """Fork (b): the featureless full-batch NC step (DMG width, the
+    frontier-restricted layers) on the default compose-backward route and
+    with ``MRGCN_FUSED_COMPOSE_BWD=1`` (``compose_grad_pass``), device
+    time per step in ``pairs`` alternated pairs of windows, order default,
+    fused, fused, default; each window's ``compose_grad_pass`` launches
+    are checked to be its route's."""
+    import numpy as np
+    import torch
+    from mrgcn_tpu_torch import run
+    from mrgcn_tpu_torch.tasks import node_classification as nc
+    from mrgcn_tpu_torch.tasks import utils as tutils
+    from mrgcn_tpu_torch.tasks.common import prepare_inputs
+    from mrgcn_tpu_torch.tasks.synthetic import save_nc_artifact
+    art, cfg = tmp / "dmg_synth.npz", tmp / "profile_nc.toml"
+    if not art.exists():
+        save_nc_artifact(str(art), work["n"], work["R"], work["src"],
+                         work["dst"], work["rel"], work["norm"],
+                         work["labels_idx"], work["labels_cls"],
+                         work["num_classes"], seed=0,
+                         num_eval=min(1000, work["n"] // 20))
+    write_config(cfg, 1, work["num_bases"], work["hidden"])
+    config = run.load_config(str(cfg))
+    artifact = run.artifact_io.load(str(art))
+    inputs = prepare_inputs(artifact, config, True, device)
+    model = nc.build_model(inputs, config, work["num_classes"],
+                           torch.Generator().manual_seed(0))
+    optimizer = tutils.build_optimizer(model, config,
+                                       inputs.optimizer_config, True)
+    batch, = nc.make_batches(inputs, np.asarray(artifact.Y["train"])
+                             .reshape(-1, 2), -1, 2)
+
+    def step():
+        nc.train_step(model, optimizer, batch, 0.0, 0.0)
+
+    busy = {"default": [], "fused": []}
+    order = ["default", "fused", "fused", "default"] * pairs
+    try:
+        for name in order:
+            os.environ["MRGCN_FUSED_COMPOSE_BWD"] = \
+                "1" if name == "fused" else "0"
+            counters = kernel_counters()
+            for fn in counters.values():
+                fn.launches = 0
+            busy[name].append(profile_steps(
+                f"featureless NC step, {name} compose backward", step,
+                steps, top=6)[0])
+            launched = counters["compose_grad_pass"].launches
+            check(launched == (3 + steps if name == "fused" else 0),
+                  f"fork (b) {name}: compose_grad_pass launched "
+                  f"{launched} times")
+    finally:
+        os.environ.pop("MRGCN_FUSED_COMPOSE_BWD", None)
+    result = {name: {"device_ms_per_step": v,
+                     "median": statistics.median(v)}
+              for name, v in busy.items()}
+    print(f"[fork] compose backward, device ms per featureless NC step "
+          f"(order {order}): {json.dumps(result)}")
+    return result
+
+
+def profile_steps(label: str, step, steps: int, top: int = 25):
     """``torch.profiler`` over ``steps`` calls of ``step`` after three
-    warm-up calls: host time per call, device time by kernel name, and the
-    card's busy share of the synchronised host time."""
+    warm-up calls: host time per call, device time by kernel name (the
+    ``top`` largest), and the card's busy share of the synchronised host
+    time. Returns (device busy ms, host ms) per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -1357,10 +1671,11 @@ def profile_steps(label: str, step, steps: int) -> None:
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %), "
           f"{sum(e.count for e in events if device_us(e) > 0) // steps} "
           "kernels per step")
-    for e in events[:25]:
+    for e in events[:top]:
         if device_us(e) > 0:
             print(f"[profile] {device_us(e) / 1e3 / steps:9.3f} ms/step  "
                   f"x{e.count / steps:5.1f}  {e.key[:90]}")
+    return busy_ms, wall_ms
 
 
 def profile_attention_phase(device, steps: int = 10) -> None:
@@ -1744,6 +2059,11 @@ SOURCES = {
     "mlp_bwd": ("mrgcn_tpu_torch/csrc/fused_mlp.cu",
                 "mrgcn_tpu/ops/fused_mlp.py:48", "slice"),
 }
+# a wrapper with two kernels: kernel name -> its launch count's key in
+# kernel_counters()
+SECOND_KERNELS = {"fused_scatter_dot": {
+    "scatter_dot_rows_kernel": "fused_scatter_dot_rows",
+    "scatter_dot_kernel": "fused_scatter_dot"}}
 STREAM_KERNELS = ("sorted_scatter", "sorted_gather", "fused_scatter_dot",
                   "fused_place_scatter")
 ENCODER_KERNELS = ("attention_fwd", "attention_bwd", "mlp_fwd", "mlp_bwd")
@@ -1820,7 +2140,7 @@ def main(argv=None) -> None:
         del plan
         torch.cuda.empty_cache()
         if "profile" in phases:
-            profile_phase(tmp, device)
+            profile_phase(work, tmp, device)
         if "profile_mb" in phases:
             profile_minibatch_phase(work, tmp, device)
         if "profile_att" in phases:
@@ -1845,7 +2165,13 @@ def main(argv=None) -> None:
     kernels = []
     for name, (source, replaces, record) in SOURCES.items():
         timed = next(r for r in rows[name] if r["label"] == record)
-        by_path = {p: summary["launches"][name]
+        # fused_scatter_dot counts both its kernels; each also apart
+        counted = SECOND_KERNELS.get(name, {name: name})
+        by_kernel = {kernel: sum(summary["launches"][key]
+                                 for summary in paths.values())
+                     for kernel, key in counted.items()}
+        by_path = {p: sum(summary["launches"][key]
+                          for key in counted.values())
                    for p, summary in paths.items()}
         # sorted_gather is the autograd backward of sorted_scatter, which
         # no entry point of the port differentiates (the layer ops carry
@@ -1857,13 +2183,17 @@ def main(argv=None) -> None:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "gradient_check_launches":
-                paths["lp"]["gradient_check_launches"].get(name, 0),
+            **({"launches_by_kernel": by_kernel} if len(counted) > 1
+               else {}),
+            "gradient_check_launches": sum(
+                paths["lp"]["gradient_check_launches"].get(key, 0)
+                for key in counted.values()),
             "shape": record,
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             **{key: timed[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "bytes", "flops")}})
+                "bytes", "flops", "general_ms", "place_dot_ms")
+               if key in timed}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,7 +43,15 @@
 //    full f32 precision.
 //  * compose_table: the same 4 x 4 thread tile with comp transposed in
 //    shared memory, persistent CTAs over column chunks.
-//  * canonical_copy: 16 bytes a thread, grid-stride.
+//  * canonical_copy: bound by bytes alone (read once, write once), so the
+//    design keeps bytes in flight: each thread issues kCopyDepth
+//    independent 16-byte loads before its first store, and every block
+//    copies one whole tile (16 KB): the grid covers the table, as
+//    PyTorch's own copy does; the ragged rest (vectors past the last whole
+//    tile, then the last n % 4 floats) goes one element a thread across
+//    the grid. A persistent grid of 8 blocks an SM with 8 loads a thread
+//    and evict-first hints on loads and stores measured slower than both
+//    PR 4's one-load grid-stride kernel and clone() (PERF.md, PR 6).
 
 #include <cuda_runtime.h>
 
@@ -55,6 +63,7 @@ constexpr int kGradThreads = 384;
 constexpr int kGradWarps = kGradThreads / 32;
 constexpr int kTableThreads = 256;
 constexpr int kCopyThreads = 256;
+constexpr int kCopyDepth = 4;          // 16-byte loads in flight a thread
 constexpr int kPad = 4;                    // floats added to a shared row
 constexpr size_t kSmemLimit = 227 * 1024;  // one thread block's, on Hopper
 
@@ -273,13 +282,27 @@ compose_table_kernel(const float* __restrict__ comp,
 __global__ void __launch_bounds__(kCopyThreads)
 copy_kernel(const float* __restrict__ x, float* __restrict__ out,
             long long n) {
+    constexpr long long kTile = (long long)kCopyThreads * kCopyDepth;
     const long long n4 = n / 4;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long tiles = n4 / kTile;
     const float4* x4 = reinterpret_cast<const float4*>(x);
     float4* o4 = reinterpret_cast<float4*>(out);
-    for (long long i = t; i < n4; i += stride) o4[i] = __ldg(x4 + i);
-    for (long long i = n4 * 4 + t; i < n; i += stride) out[i] = x[i];
+    if (blockIdx.x < tiles) {
+        const long long base = blockIdx.x * kTile + threadIdx.x;
+        float4 v[kCopyDepth];
+#pragma unroll
+        for (int k = 0; k < kCopyDepth; ++k)
+            v[k] = __ldg(x4 + base + k * kCopyThreads);
+#pragma unroll
+        for (int k = 0; k < kCopyDepth; ++k)
+            o4[base + k * kCopyThreads] = v[k];
+    }
+    // the ragged rest, one element a thread over the whole grid
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    for (long long i = tiles * kTile + t0; i < n4; i += stride)
+        o4[i] = __ldg(x4 + i);
+    for (long long i = n4 * 4 + t0; i < n; i += stride) out[i] = x[i];
 }
 
 int sm_count() {
@@ -415,17 +438,17 @@ int mrgcn_compose_table_f32(const float* comp, const float* pk, float* out,
     return (int)err;
 }
 
-// out[i] = x[i] for i < n: 16 bytes a thread where both pointers are
-// 16-byte aligned (the caller checks), the last n % 4 values one by one.
+// out[i] = x[i] for i < n: kCopyDepth 16-byte loads a thread in flight
+// where both pointers are 16-byte aligned (the caller checks), the last
+// n % 4 values one by one.
 int mrgcn_canonical_copy_f32(const float* x, float* out, long long n,
                              void* stream) {
     if (n <= 0) return 0;
-    long long blocks = (n / 4 + kCopyThreads - 1) / kCopyThreads;
-    const long long most = 16LL * sm_count();
-    if (blocks > most) blocks = most;
-    if (blocks < 1) blocks = 1;
-    copy_kernel<<<(unsigned)blocks, kCopyThreads, 0,
-                  (cudaStream_t)stream>>>(x, out, n);
+    const long long tile = (long long)kCopyThreads * kCopyDepth;
+    long long blocks = n / 4 / tile;          // one whole tile a block
+    if (blocks < 1) blocks = 1;               // and the rest
+    copy_kernel<<<(unsigned)blocks, kCopyThreads, 0, (cudaStream_t)stream>>>(
+        x, out, n);
     return (int)cudaGetLastError();
 }
 

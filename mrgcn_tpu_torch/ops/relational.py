@@ -80,6 +80,12 @@ class Stream:
     ``src_row``/``out_mod`` (packed output row of the edge),
     ``gather_row`` (packed input row without the relation offset),
     ``in_mod``, ``rel`` and ``norm`` (0 on padding).
+
+    ``rows_sorted``: the real edges' scatter rows never decrease along the
+    stream (within every run of equal block ids; across runs the block ids
+    rise), so all edges of one scatter row are contiguous. The planner
+    computes it; :func:`..sorted_stream.fused_scatter_dot` takes its
+    row-segmented kernel on such a stream.
     """
 
     scatter_local: torch.Tensor  # (nslab, EB) int32; row_block on padding
@@ -94,6 +100,7 @@ class Stream:
     edge_block: int
     row_block: int
     rel_const: bool = False
+    rows_sorted: bool = False
 
     @property
     def num_padded_edges(self) -> int:
@@ -214,6 +221,7 @@ def build_layer_plans(src, dst, rel, norm, num_nodes: int, k_in: int,
             return torch.from_numpy(out)
 
         relp = place(rel, 0)
+        rows = np.asarray(scatter_row)[order]
         return Stream(
             scatter_local=place(scatter_row % row_block,
                                 row_block).reshape(nslab, edge_block),
@@ -226,7 +234,8 @@ def build_layer_plans(src, dst, rel, norm, num_nodes: int, k_in: int,
             norm=place(norm, 0.0, np.float32),
             slab_rel=relp.reshape(nslab, edge_block)[:, 0].clone(),
             edge_block=edge_block, row_block=row_block,
-            rel_const=rel_const)
+            rel_const=rel_const,
+            rows_sorted=bool(np.all(rows[1:] >= rows[:-1])))
 
     R_num = int(rel.max()) + 1 if len(rel) else 1
     bwd_table = mk(rel, dst, flat_row)
@@ -493,7 +502,7 @@ class _FeaturelessBasis(torch.autograd.Function):
         comp, packed = ctx.saved_tensors
         plans, out_dim = ctx.plans, ctx.out_dim
         R, B = comp.shape
-        k, L = plans.k_in, packed.shape[2]
+        k = plans.k_in
         d_out_p = pack_rows(d_out.contiguous(), plans.k_out,
                             plans.n_out_rows)
         # both gradients on the dst-sorted bwd_h stream: the d_packed
@@ -502,33 +511,52 @@ class _FeaturelessBasis(torch.autograd.Function):
         d_vh = _gather_sub(d_out_p, h.src_row, h.out_mod, plans.k_out,
                            out_dim)                         # (E, out)
         w_h = comp[h.rel.long()]                            # (E, B)
-        dvn = d_vh * h.norm[:, None]
-        planes, cols = [], []
         if k == 1:
-            # one fused pass per basis: scatter w * dvn into d_packed[b]
-            # and dot dvn with the packed row at the same address
-            for b in range(B):
-                plane, dots = fused_scatter_dot(
-                    dvn, w_h[:, b].contiguous(), h.scatter_local,
-                    h.scatter_blk, packed[b], plans.n_in_rows, h.row_block,
-                    h.edge_block)
-                planes.append(plane)
-                cols.append(dots)
+            planes, cols = _basis_grads_fused(d_vh, w_h, h, packed,
+                                              plans.n_in_rows)
         else:
-            # packed rows: the scatter places sub-rows, the dot gathers them
-            for b in range(B):
-                planes.append(_place_scatter(
-                    d_vh * w_h[:, b:b + 1], h.in_mod, h, plans.n_in_rows, k,
-                    out_dim, L))
-                g_hb = _gather_sub(packed[b], h.gather_row, h.in_mod, k,
-                                   out_dim)
-                cols.append((dvn * g_hb).sum(dim=1))
+            planes, cols = _basis_grads_placed(d_vh, w_h, h, packed, k,
+                                               plans.n_in_rows, out_dim)
         d_packed = torch.stack(planes, dim=0)               # (B, rows, L)
         per_edge = torch.stack(cols, dim=1)                 # (E, B)
         d_comp = torch.zeros(R, B, dtype=per_edge.dtype,
                              device=per_edge.device
                              ).index_add_(0, h.rel.long(), per_edge)
         return d_comp.to(comp.dtype), d_packed.to(packed.dtype), None, None
+
+
+def _basis_grads_fused(d_vh, w_h, h: Stream, packed, n_rows: int):
+    """Per basis ``b``, one :func:`fused_scatter_dot` pass on the
+    ``bwd_h`` stream: scatter ``w_h[:, b] * dvn`` into ``d_packed[b]`` and
+    dot ``dvn`` with the unpacked row at the same address. Returns the
+    planes and the per-edge dot columns. The planner's ``rows_sorted``
+    picks the row-segmented kernel."""
+    dvn = d_vh * h.norm[:, None]
+    planes, cols = [], []
+    for b in range(w_h.shape[1]):
+        plane, dots = fused_scatter_dot(
+            dvn, w_h[:, b].contiguous(), h.scatter_local, h.scatter_blk,
+            packed[b], n_rows, h.row_block, h.edge_block,
+            rows_sorted=h.rows_sorted)
+        planes.append(plane)
+        cols.append(dots)
+    return planes, cols
+
+
+def _basis_grads_placed(d_vh, w_h, h: Stream, packed, k: int, n_rows: int,
+                        out_dim: int):
+    """The same gradients for packed rows (any ``k``): per basis a
+    :func:`fused_place_scatter` of ``w_h[:, b] * d_vh`` (the norm applied
+    inside) and a dot with the gathered sub-rows."""
+    dvn = d_vh * h.norm[:, None]
+    L = packed.shape[2]
+    planes, cols = [], []
+    for b in range(w_h.shape[1]):
+        planes.append(_place_scatter(d_vh * w_h[:, b:b + 1], h.in_mod, h,
+                                     n_rows, k, out_dim, L))
+        g_hb = _gather_sub(packed[b], h.gather_row, h.in_mod, k, out_dim)
+        cols.append((dvn * g_hb).sum(dim=1))
+    return planes, cols
 
 
 def featureless_basis(comp: torch.Tensor, packed: torch.Tensor,
@@ -549,7 +577,8 @@ def featureless_basis(comp: torch.Tensor, packed: torch.Tensor,
     ``d_packed[b] += comp[rel_e, b] norm_e d_out[src_e]`` and
     ``d_comp[r, b] = sum_e norm_e <d_out[src_e], packed[b, dst_e]>``. For
     unpacked rows (``k == 1``) each basis is one
-    :func:`..sorted_stream.fused_scatter_dot` pass; for packed rows a
+    :func:`..sorted_stream.fused_scatter_dot` pass (its row-segmented
+    kernel: the planner marks ``bwd_h`` ``rows_sorted``); for packed rows a
     :func:`fused_place_scatter` and a gathered dot.
     """
     if plans.kind != "identity_basis":

@@ -12,11 +12,15 @@ padding). For the scatters the block ids never decrease along the stream:
 the CUDA kernels (``csrc/sorted_scatter.cu``, ``fused_place_scatter.cu``,
 ``scatter_dot.cu``) give each run of equal block ids to one thread block
 that accumulates it in shared memory, so the sums are deterministic and
-need no atomics. The gather (``csrc/sorted_gather.cu``) copies rows.
+need no atomics; on a stream whose scatter rows never decrease,
+:func:`fused_scatter_dot` instead sums each row's contiguous edges in one
+warp's registers. The gather (``csrc/sorted_gather.cu``) copies rows.
 
 Each wrapper takes its plain PyTorch version (``*_reference``) for CPU
 tensors and launches its kernel for CUDA tensors, or raises: there is no
-fallback. ``<wrapper>.launches`` counts the kernel launches.
+fallback. ``<wrapper>.launches`` counts the kernel launches
+(:func:`fused_scatter_dot` has two kernels, and a second count,
+``launches_sorted``, for its row-segmented one).
 
 :func:`compose_grad_pass` (``csrc/compose.cu``) is the backward of the
 relation-major compose in one read of the cotangent table.
@@ -59,7 +63,12 @@ _SIGNATURES = {
              _P], _I),
         "mrgcn_scatter_dot_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "mrgcn_scatter_dot_lane_tile": ([], _I),
-        "mrgcn_scatter_dot_max_edge_block": ([], _I), **_ERR},
+        "mrgcn_scatter_dot_max_edge_block": ([], _I),
+        "mrgcn_scatter_dot_rows_f32": (
+            [_P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+             _I, _I, _P], _I),
+        "mrgcn_scatter_dot_rows_chunk": ([], _I),
+        "mrgcn_scatter_dot_rows_max_width": ([], _I), **_ERR},
     "compose": {
         "mrgcn_compose_grad_f32": (
             [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _P], _I),
@@ -435,7 +444,7 @@ def fused_place_scatter(V: torch.Tensor, place_mod: torch.Tensor,
 def fused_scatter_dot(dvn: torch.Tensor, w: torch.Tensor,
                       local: torch.Tensor, out_blk: torch.Tensor,
                       table: torch.Tensor, out_rows: int, row_block: int,
-                      edge_block: int):
+                      edge_block: int, rows_sorted: bool = False):
     """``out[blk * RB + local_e] += w_e * dvn_e`` and
     ``dots_e = <table[blk * RB + local_e], dvn_e>`` in one pass over a
     block-sorted stream: the scatter and the gather visit the same rows.
@@ -444,9 +453,14 @@ def fused_scatter_dot(dvn: torch.Tensor, w: torch.Tensor,
     ``dvn``: ``(E_pad, Lv)`` f32 at its real width ``Lv <= L`` (rows may be
     strided); ``w``: ``(E_pad,)`` f32; ``table``: ``(out_rows, L)`` f32.
     Returns ``(out (out_rows, L), dots (E_pad,))``, lanes ``>= Lv`` of
-    ``out`` zero. Not differentiable. CPU tensors take
-    :func:`fused_scatter_dot_reference`; CUDA tensors launch the kernel or
-    raise. ``fused_scatter_dot.launches`` counts the launches.
+    ``out`` zero. Not differentiable.
+
+    CPU tensors take :func:`fused_scatter_dot_reference`, whatever
+    ``rows_sorted`` says. CUDA tensors launch a kernel or raise: with
+    ``rows_sorted`` (the stream's real scatter rows never decrease, as the
+    planner's ``Stream.rows_sorted`` records) the row-segmented kernel
+    (``Lv <= 512``; counted in ``fused_scatter_dot.launches_sorted``),
+    else the general block-walk kernel (``fused_scatter_dot.launches``).
     """
     fn = "fused_scatter_dot"
     if dvn.dim() != 2 or table.dim() != 2 or table.shape[0] != out_rows \
@@ -474,10 +488,13 @@ def fused_scatter_dot(dvn: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"{fn}: w must be ({E},)")
     lanes = lib.mrgcn_scatter_dot_lane_tile()
     _check_lanes(fn, L, lanes)
-    _check_smem(fn, lib.mrgcn_scatter_dot_smem_bytes(row_block, edge_block),
-                row_block)
     if table.data_ptr() % 16:
         raise ValueError(f"{fn}: table must be 16-byte aligned")
+    if rows_sorted:
+        return _scatter_dot_rows(lib, dvn, w, local, out_blk, table,
+                                 out_rows, row_block, edge_block, nslab)
+    _check_smem(fn, lib.mrgcn_scatter_dot_smem_bytes(row_block, edge_block),
+                row_block)
     out = torch.empty(out_rows, L, dtype=torch.float32, device=dvn.device)
     dots = torch.empty(E, dtype=torch.float32, device=dvn.device)
     if out_rows == 0 and E == 0:
@@ -493,6 +510,46 @@ def fused_scatter_dot(dvn: torch.Tensor, w: torch.Tensor,
             edge_block, row_block, out_rows, L, _cuda_stream(dvn))
     _raise_on(fn, lib, rc)
     fused_scatter_dot.launches += 1
+    return out, dots
+
+
+def _scatter_dot_rows(lib, dvn, w, local, out_blk, table, out_rows,
+                      row_block, edge_block, nslab):
+    """The row-segmented launch of :func:`fused_scatter_dot` (arguments
+    checked by the caller, except what only this kernel needs)."""
+    fn = "fused_scatter_dot"
+    E, Lv = dvn.shape
+    L = table.shape[1]
+    if Lv > lib.mrgcn_scatter_dot_rows_max_width():
+        raise ValueError(f"{fn}: the row-segmented kernel takes dvn rows of "
+                         f"at most {lib.mrgcn_scatter_dot_rows_max_width()} "
+                         f"values, got {Lv}")
+    chunk = lib.mrgcn_scatter_dot_rows_chunk()
+    if E >= 2 ** 31 - chunk or out_rows >= 2 ** 31:
+        raise ValueError(f"{fn}: {E} edges or {out_rows} rows exceed the "
+                         "row-segmented kernel's 32-bit indices")
+    # 16-byte loads where dvn's pointer, row stride and width allow them
+    vec = 4 if (dvn.data_ptr() % 16 == 0 and dvn.stride(0) % 4 == 0
+                and Lv % 4 == 0) else 1
+    out = torch.empty(out_rows, L, dtype=torch.float32, device=dvn.device)
+    dots = torch.empty(E, dtype=torch.float32, device=dvn.device)
+    # one line of Lv floats per chunk of edges for the rows that cross a
+    # chunk boundary (`head`: the row continues from an earlier chunk;
+    # `tail`: it starts here), one 3-int record per chunk
+    nchunks = max(1, -(-E // chunk))
+    head = torch.empty(nchunks * max(Lv, 1), dtype=torch.float32,
+                       device=dvn.device)
+    tail = torch.empty_like(head)
+    meta = torch.empty(3 * nchunks, dtype=torch.int32, device=dvn.device)
+    with torch.cuda.device(dvn.device):
+        rc = lib.mrgcn_scatter_dot_rows_f32(
+            dvn.data_ptr(), dvn.stride(0), Lv, w.data_ptr(),
+            local.data_ptr(), out_blk.data_ptr(), table.data_ptr(),
+            out.data_ptr(), dots.data_ptr(), head.data_ptr(),
+            tail.data_ptr(), meta.data_ptr(), nslab, edge_block, row_block,
+            out_rows, L, vec, _cuda_stream(dvn))
+    _raise_on(fn, lib, rc)
+    fused_scatter_dot.launches_sorted += 1
     return out, dots
 
 
@@ -569,3 +626,4 @@ for _wrapper in (sorted_scatter, sorted_gather, fused_place_scatter,
                  fused_scatter_dot, compose_grad_pass):
     _wrapper.launches = 0
 del _wrapper
+fused_scatter_dot.launches_sorted = 0

@@ -9,6 +9,7 @@ host modules, under the same relative names.
 from __future__ import annotations
 
 import logging
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -30,6 +31,22 @@ from mrgcn_tpu_torch.ops.placement import build_rows
 logger = logging.getLogger(__name__)
 
 _TEXT = ("xsd.string", "xsd.anyURI")
+
+TODO_MESH = "ROADMAP Queue 1, item 6 (multi-device)"
+# mesh specs that ask for no mesh (one device)
+NO_MESH = ("", "0", "1", "none", "off")
+
+
+def reject_mesh(config: Dict) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP item 6 where a device
+    mesh is asked for: ``MRGCN_MESH`` first, then ``[task] mesh``, as the
+    JAX package reads them (``parallel/mesh.mesh_from_config``). The port
+    trains on one device."""
+    spec = os.environ.get("MRGCN_MESH") \
+        or config.get("task", {}).get("mesh", "")
+    spec = str(spec).strip().lower()
+    if spec not in NO_MESH:
+        raise NotImplementedError(f"device mesh {spec!r}: {TODO_MESH}")
 
 
 @dataclass

@@ -50,13 +50,11 @@ from mrgcn_tpu_torch.models.mrgcn import MRGCN
 from mrgcn_tpu_torch.ops import distmult
 from mrgcn_tpu_torch.tasks import utils as tutils
 from mrgcn_tpu_torch.tasks.common import (RunInputs, hidden_dims_from_config,
-                                          prepare_inputs)
+                                          prepare_inputs, reject_mesh)
 
 logger = logging.getLogger(__name__)
 
 K = (1, 3, 10)
-
-TODO_MESH = "ROADMAP Queue 1, item 6 (multi-device)"
 
 
 def build_model(inputs: RunInputs, config: Dict,
@@ -531,9 +529,7 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
     tsv_writer.writerow(header)
 
     task = config["task"]
-    mesh = str(task.get("mesh", "")).strip().lower()
-    if mesh and mesh not in ("0", "1", "none", "off"):
-        raise NotImplementedError(f"device mesh {mesh!r}: {TODO_MESH}")
+    reject_mesh(config)
 
     inputs = prepare_inputs(artifact, config, featureless, device)
     featureless = inputs.featureless

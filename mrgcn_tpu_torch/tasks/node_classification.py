@@ -31,7 +31,7 @@ from mrgcn_tpu_torch.data.artifact import Artifact
 from mrgcn_tpu_torch.models.mrgcn import MRGCN
 from mrgcn_tpu_torch.tasks import utils as tutils
 from mrgcn_tpu_torch.tasks.common import (RunInputs, hidden_dims_from_config,
-                                          prepare_inputs,
+                                          prepare_inputs, reject_mesh,
                                           restricted_layer_edges)
 
 logger = logging.getLogger(__name__)
@@ -216,7 +216,9 @@ class NCResult:
 
 def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
         test_split: str, seed: int, device: torch.device) -> NCResult:
-    """Full training + final evaluation on ``device``."""
+    """Full training + final evaluation on ``device``. A device mesh
+    (``MRGCN_MESH``, ``[task] mesh``) raises ``NotImplementedError``."""
+    reject_mesh(config)
     tsv_writer.writerow(["epoch", "training_loss", "training_accurary",
                          "validation_loss", "validation_accuracy",
                          "test_loss", "test_accuracy"])

@@ -7,7 +7,8 @@ without JAX (the repository's conftest imports JAX, hence
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu --noconftest
 
 Elsewhere they skip. Tolerances: ``sorted_scatter``,
-``fused_place_scatter`` and ``fused_scatter_dot`` atol 1e-4 / rtol 1e-5
+``fused_place_scatter`` and ``fused_scatter_dot`` (both its kernels)
+atol 1e-4 / rtol 1e-5
 (the kernel and ``index_add_`` sum the same f32 values in different
 orders); ``sorted_gather`` and ``canonical_copy`` bit for bit (copies);
 ``compose_table`` and ``compose_grad_pass``'s ``d_packed`` the same atol
@@ -164,6 +165,87 @@ def test_fused_scatter_dot_kernel_matches_plain(cuda, rb, eb, L, d):
         torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-4)
         assert torch.equal(g, a)
     assert not got[1][(lo.reshape(-1) == rb)].any()    # padding: zero dot
+
+
+def sorted_case(cuda, rb, eb, L, d, strided, seed):
+    """A row-sorted stream (``chip_smoke.sorted_adversarial_stream``: a
+    hub row longer than the row-segmented kernel's 128-edge chunk over
+    many slabs, an all-padding slab inside its run, unvisited odd blocks,
+    a tenth of the edges padding), ``dvn`` scaled as the layer's norm
+    scales it, either cut from wider rows at an odd offset (4-byte loads)
+    or contiguous (16-byte loads where ``d`` is a multiple of 4), ``w``,
+    a table and a ragged row count."""
+    from chip_smoke import sorted_adversarial_stream
+    rng = np.random.default_rng(seed)
+    n_blocks = 10
+    n_edges, hub = {16: (200, 300), 64: (600, 400), 512: (3000, 1500)}[rb]
+    local, blk, scale = sorted_adversarial_stream(rng, n_edges, rb, eb,
+                                                  n_blocks, hub)
+    E, out_rows = local.size, n_blocks * rb - 3
+    wide = rng.standard_normal((E, d + 4)).astype(np.float32) \
+        * scale[:, None]
+    dvn = wide[:, 1:1 + d] if strided else np.ascontiguousarray(wide[:, :d])
+    w = rng.random(E).astype(np.float32)
+    table = rng.standard_normal((out_rows, L)).astype(np.float32)
+    lo, bl, wt, tb = (torch.from_numpy(x).to(cuda)
+                      for x in (local, blk, w, table))
+    dv = torch.from_numpy(wide).to(cuda)[:, 1:1 + d] if strided \
+        else torch.from_numpy(dvn).to(cuda)
+    return dv, wt, lo, bl, tb, out_rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("rb,eb,L,d", [(16, 8, 128, 128),
+                                       (512, 256, 256, 200),
+                                       (64, 40, 96, 21)])
+def test_fused_scatter_dot_rows_kernel_matches_plain(cuda, rb, eb, L, d,
+                                                     strided):
+    """The row-segmented kernel (``rows_sorted=True``) against the plain
+    version, atol 1e-4 / rtol 1e-5; the same bits twice; zeros outside
+    the visited rows and at lanes >= Lv; zero dots on padding."""
+    from mrgcn_tpu_torch.ops import sorted_stream as ss
+    args = sorted_case(cuda, rb, eb, L, d, strided, seed=rb + d)
+    before = (ss.fused_scatter_dot.launches,
+              ss.fused_scatter_dot.launches_sorted)
+    got = ss.fused_scatter_dot(*args, rb, eb, rows_sorted=True)
+    again = ss.fused_scatter_dot(*args, rb, eb, rows_sorted=True)
+    want = ss.fused_scatter_dot_reference(*args, rb, eb)
+    torch.cuda.synchronize()
+    assert (ss.fused_scatter_dot.launches,
+            ss.fused_scatter_dot.launches_sorted) == (before[0],
+                                                      before[1] + 2)
+    for g, a, w_ in zip(got, again, want):
+        torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-4)
+        assert torch.equal(g, a)
+    lo, bl, out_rows = args[2], args[3], args[5]
+    real = lo.reshape(-1) < rb
+    assert not got[1][~real].any()
+    visited = torch.zeros(out_rows, dtype=torch.bool, device=cuda)
+    visited[(bl.long()[:, None] * rb + lo.long()).reshape(-1)[real]] = True
+    assert not got[0][~visited].any() and not got[0][:, d:].any()
+
+
+@pytest.mark.gpu
+def test_fused_scatter_dot_rows_kernel_edge_cases(cuda):
+    """No edges, and edges that are all padding: every row zero; rows
+    wider than the kernel takes raise."""
+    from mrgcn_tpu_torch.ops import sorted_stream as ss
+    dvn, w, lo, bl, table, out_rows = sorted_case(cuda, 16, 8, 128, 128,
+                                                  False, seed=5)
+    for n in (0, lo.shape[0]):
+        pad = torch.full_like(lo[:n], 16)
+        out, dots = ss.fused_scatter_dot(dvn[:n * 8], w[:n * 8], pad, bl[:n],
+                                         table, out_rows, 16, 8,
+                                         rows_sorted=True)
+        torch.cuda.synchronize()
+        assert out.shape == (out_rows, 128) and not out.any()
+        assert dots.shape == (n * 8,) and not dots.any()
+    wide = torch.zeros(dvn.shape[0], 520, device=cuda)
+    with pytest.raises(ValueError, match="at most 512"):
+        ss.fused_scatter_dot(wide, w, lo, bl, torch.zeros(out_rows, 544,
+                                                          device=cuda),
+                             out_rows, 16, 8, rows_sorted=True)
 
 
 @pytest.mark.gpu
@@ -455,7 +537,8 @@ def test_compose_table_kernel_matches_plain(cuda, R, B, cols):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(41, 3), (1548, 128), (7,), (0, 128)])
+@pytest.mark.parametrize("shape", [(41, 3), (1548, 128), (7,), (0, 128),
+                                   (2049, 1031)])
 def test_canonical_copy_kernel_is_exact(cuda, shape):
     from mrgcn_tpu_torch.ops.compose_kernels import canonical_copy
     x = torch.randn(shape, device=cuda,
