@@ -8,12 +8,13 @@ beside it. ``--only a,b`` runs some phases alone (``stream``, ``compose``,
 ``nc``, ``minibatch``, ``lp``, ``encoders``, ``agree``, and ``profile`` /
 ``profile_mb`` / ``profile_att``: ``torch.profiler`` breakdowns of the
 link-prediction step, of a mini-batch NC step and of the attention
-kernels, never part of the whole run; ``profile`` also settles two route
-forks by device time per step in alternated windows: the basis layer's
+kernels, never part of the whole run; ``profile`` also compares routes
+by device time per step in alternated windows: the basis layer's
 backward through ``fused_scatter_dot`` or through ``fused_place_scatter``
-and a gathered dot, and the featureless NC step with and without
-``MRGCN_FUSED_COMPOSE_BWD=1``) and then prints no result line. Phases,
-each printing its own lines:
+and a gathered dot, and the featureless NC step with the identity
+compose on its kernels (``compose_table``, ``compose_grad_pass``) or on
+the library products, with the kernels' share of the step) and then
+prints no result line. Phases, each printing its own lines:
 
 1. the card, as ``nvidia-smi`` and torch see it;
 2. the kernels, built from ``mrgcn_tpu_torch/csrc`` (one ``nvcc`` per
@@ -39,23 +40,26 @@ each printing its own lines:
    split by an all-padding slab, timed). Then the compose kernels
    (``compose_grad_pass``, ``compose_table``, ``canonical_copy``) at DMG
    width (R=121, B=40, 12,800 packed rows of 128 lanes; the cotangent
-   table taken from a real ``bwd_table`` scatter) and at ragged shapes
-   (R=5, B=3, rows=8; R=475, B=2; rows no multiple of 32 or of 8; lines
-   20, 36 and 256 wide). ``d_comp`` sums 1,638,400 products per entry, so it is held to
-   1e-4 + 1e-5 of the sum of their absolute values and both sides are
-   printed against an f64 contraction; the copy is exact. Then the
-   featureless layer's forward with each compose variant (the model's
-   library matmul, the table given, ``compose_table``, a
-   ``canonical_copy`` of the table), whose launches are the two
-   micro-kernels' path;
-4. the featureless NC path, twice: ``mrgcn_tpu_torch.run`` trains the
+   table taken from a real ``bwd_table`` scatter), on ``packed`` cut from
+   a longer parameter (rows strided, as ``models/rgcn._fit_rows`` cuts
+   it) and at ragged shapes (R=5, B=3, rows=8; R=475, B=2; rows no
+   multiple of 32 or of 8; lines 20, 36 and 256 wide). ``d_comp`` sums
+   1,638,400 products per entry, so it is held to 1e-4 + 1e-5 of the sum
+   of their absolute values and both sides are printed against an f64
+   contraction; the copy is exact. The two compose products run 3xTF32
+   on the tensor cores, so their bound counts three TF32 passes at 495
+   TFLOP/s (the f32-FMA figure is printed beside it), and their
+   registers, spills and shared memory are printed from ``ptxas``. Then
+   the featureless layer's forward with each compose variant (the
+   model's ``compose_table``, the library matmul, the table given, a
+   ``canonical_copy`` of the table), whose launches are
+   ``canonical_copy``'s path;
+4. the featureless NC path: ``mrgcn_tpu_torch.run`` trains the
    featureless full-batch NC model (``configs/dmg.toml``'s ``[model]``: 2
    layers, hidden 16, 40 bases) for 5 epochs on the DMG-scale graph with
-   random weights from seed 0, then evaluates on the test split; on the
-   default route and with ``MRGCN_FUSED_COMPOSE_BWD=1``, where the
-   composed identity layer's backward is one ``compose_grad_pass`` (5
-   launches there, none elsewhere). The two routes' losses must agree
-   within 1e-5 relative per epoch; both epoch medians are printed;
+   random weights from seed 0, then evaluates on the test split; the
+   composed identity layer launches ``compose_table`` once a forward and
+   ``compose_grad_pass`` once a backward (6 and 5 launches: checked);
 5. the multimodal NC path: the same CLI and model over DMG's numeric (4),
    gYear (1) and string (16, the from-scratch text encoder: d=128, one
    head, two blocks, bf16 body) features, drawn from seed 0 at
@@ -134,8 +138,9 @@ each printing its own lines:
    gradients by norm, 1e-2), and on the FB15k-237-size graph at full
    width for one step. Mini-batch NC
    (``batchsize = 32``) on the small graph: losses within 1e-4 relative
-   over 3 epochs. ``featureless_composed``'s output and gradients on the
-   card (``fused_place_scatter``, ``compose_grad_pass``) within 1e-4 of
+   over 3 epochs. The composed identity layer's output and gradients on
+   the card (``compose_table``, ``fused_place_scatter``,
+   ``compose_grad_pass``, on a row slice of the parameter) within 1e-4 of
    their largest entry of the CPU's.
 
 Every kernel comparison checks bit identity across two runs, and the
@@ -144,7 +149,8 @@ call computes the same function, that call (median of 20 CUDA-event timed
 calls, in the order plain, kernel, kernel, plain). Each timed row carries
 its bound: the larger of the bytes the function must move over the card's
 3.35 TB/s and its operations over the card's peak for their type (67
-TFLOP/s f32, 989 TFLOP/s bf16 tensor cores), with both counts. Then one
+TFLOP/s f32, 989 TFLOP/s bf16 and 495 TFLOP/s TF32 tensor cores), with
+both counts. Then one
 JSON line with every kernel's numbers, and last the result line
 ``{"ok": true, "device": {...}}``. Any failure raises.
 """
@@ -178,6 +184,10 @@ TIMED_CALLS = 20
 # by norm: their largest-element error moved 2.6e-2 to 8.0e-2 between
 # runs, with the weights the CPU side's training ends at
 ENCODER_RTOL = {"mlp": (1e-4, 1e-4), "text": (1e-2, 1e-1)}
+# the compose kernels' launches a full-batch NC training step makes on the
+# port's route (rspmm.compose_packed): the identity layer's forward
+# (compose_table) and its backward (compose_grad_pass)
+COMPOSE_PER_STEP = {"compose_table": 1, "compose_grad_pass": 1}
 KERNEL_SOURCES = ("sorted_scatter", "sorted_gather", "fused_place_scatter",
                   "scatter_dot", "compose", "fused_attention", "fused_mlp")
 # configs/fb15k-237.toml trains 20 epochs and ranks every 10. The f32 loss
@@ -188,8 +198,9 @@ KERNEL_SOURCES = ("sorted_scatter", "sorted_gather", "fused_place_scatter",
 LP_EPOCHS, LP_EVAL_INTERVAL = 30, 10
 LP_HIDDEN = 200
 # published peaks of one H100 SXM: HBM bytes/s, f32 FLOP/s outside the
-# tensor cores, dense bf16 tensor-core FLOP/s
+# tensor cores, dense bf16 and TF32 tensor-core FLOP/s
 HBM_BYTES_S, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+TF32_FLOPS = 495e12      # dense TF32 tensor-core FLOP/s
 MULTIMODAL = ("xsd.numeric", "xsd.gYear", "xsd.string")
 
 
@@ -274,11 +285,13 @@ def nbytes(*tensors) -> int:
 
 
 def compare_stream(name, label, kernel, plain, library=None, work=None,
-                   exact=False, shape=None, scales=None) -> dict:
+                   exact=False, shape=None, scales=None,
+                   flops_peak=None) -> dict:
     """One stream kernel against its plain version: shapes, finiteness,
     tolerance (or bit equality with ``exact``), two bit-identical runs;
     with ``work`` (bytes, f32 operations) also the timings and the
-    bound. An output is held to ``ATOL + RTOL |want|`` element by element;
+    bound (operations at ``flops_peak``, f32 FMA's by default). An output
+    is held to ``ATOL + RTOL |want|`` element by element;
     where ``scales`` gives it a tensor (a long reduction: the sum of its
     terms' absolute values), to ``ATOL + RTOL scale``, since an entry near
     zero of such a sum carries the rounding of its large terms."""
@@ -301,7 +314,7 @@ def compare_stream(name, label, kernel, plain, library=None, work=None,
     row = {"label": label, **(shape or {}), "max_abs_err": err}
     if work is not None:
         row.update(timed_pair(kernel, plain, library))
-        row.update(bound(work[0], work[1], F32_FLOPS))
+        row.update(bound(work[0], work[1], flops_peak or F32_FLOPS))
     print(f"[kernel] {name} {json.dumps(row)}")
     return row
 
@@ -667,7 +680,9 @@ def compose_phase(work, device, rows) -> dict:
         R_, B_ = comp.shape
         K = d_t.numel() // R_
         args = (d_t, packed, comp, R_, B_)
-        d_flat, p_flat = d_t.reshape(R_, -1), packed.reshape(B_, -1)
+        d_flat = d_t.reshape(R_, -1)
+        p_flat = packed.reshape(B_, -1) if packed.is_contiguous() \
+            else packed.contiguous().reshape(B_, -1)
         # d_comp sums K products: its entries are held to the sum of their
         # terms' absolute values, and both sides are shown against an f64
         # contraction
@@ -682,15 +697,21 @@ def compose_phase(work, device, rows) -> dict:
               f"{json.dumps(f64)}, smallest tolerance "
               f"{ATOL + RTOL * float(scale.min()):.3g}")
         del exact
-        rows["compose_grad_pass"].append(compare_stream(
+        row = compare_stream(
             "compose_grad_pass", label, lambda: ss.compose_grad_pass(*args),
             lambda: ss.compose_grad_pass_reference(*args),
-            # the two contractions of the unfused compose backward
+            # the two library contractions of the compose backward
             (lambda: (d_flat @ p_flat.T, comp.T @ d_flat)) if timed else None,
+            # three TF32 passes on the tensor cores
             (nbytes(d_t, packed, comp) + nbytes(packed) + R_ * B_ * 4,
-             4.0 * R_ * B_ * K) if timed else None,
+             3 * 4.0 * R_ * B_ * K) if timed else None,
             shape={"R": R_, "B": B_, "rows": d_t.shape[0] // R_,
-                   "L": d_t.shape[1]}, scales=(scale, None)))
+                   "L": d_t.shape[1]}, scales=(scale, None),
+            flops_peak=TF32_FLOPS)
+        if timed:
+            # the yardstick of PR 4's f32-FMA design, kept beside it
+            row["bound_f32_fma_ms"] = 4.0 * R_ * B_ * K / F32_FLOPS * 1e3
+        rows["compose_grad_pass"].append(row)
 
     def table_case(label, comp, pk_flat, timed):
         R_, B_ = comp.shape
@@ -698,9 +719,12 @@ def compose_phase(work, device, rows) -> dict:
             "compose_table", label, lambda: ck.compose_table(comp, pk_flat),
             lambda: ck.compose_table_reference(comp, pk_flat),
             (lambda: torch.matmul(comp, pk_flat)) if timed else None,
-            (nbytes(comp, pk_flat) + R_ * pk_flat.shape[1] * 4,
-             2.0 * R_ * B_ * pk_flat.shape[1]) if timed else None,
-            shape={"R": R_, "B": B_, "cols": pk_flat.shape[1]}))
+            (nbytes(comp) + B_ * pk_flat.shape[1] * 4
+             + R_ * pk_flat.shape[1] * 4,
+             3 * 2.0 * R_ * B_ * pk_flat.shape[1]) if timed else None,
+            shape={"R": R_, "B": B_, "cols": pk_flat.shape[1],
+                   "row_stride": pk_flat.stride(0)},
+            flops_peak=TF32_FLOPS))
 
     def copy_case(label, x, timed):
         rows["canonical_copy"].append(compare_stream(
@@ -720,7 +744,16 @@ def compose_phase(work, device, rows) -> dict:
     grad_case("dmg", d_t, packed.reshape(-1, L), comp, True)
     table_case("dmg", comp, packed.reshape(B, -1), True)
     copy_case("dmg", d_t, True)
-    del d_t
+    # packed cut from a longer parameter, as models/rgcn._fit_rows cuts it
+    # where a plan's row block is smaller than the parameter's: rows of one
+    # basis contiguous, bases (n_rows + 512) * L floats apart
+    param = rnd(B, n_rows + 512, L)
+    sliced = param[:, :n_rows]
+    grad_case("dmg_row_slice", d_t, sliced, comp, False)
+    table_case("dmg_row_slice", comp,
+               sliced.as_strided((B, n_rows * L), (param.stride(0), 1)),
+               False)
+    del d_t, param, sliced
     # ragged: tiny, many relations with two bases, rows no multiple of 32
     # or of 8, lines of other widths; dense random cotangents
     for label, (R_, B_, rows_, L_) in {"ragged_5x3x8": (5, 3, 8, 128),
@@ -735,9 +768,19 @@ def compose_phase(work, device, rows) -> dict:
         table_case(label, c_, p_.reshape(B_, -1), False)
         copy_case(label, rnd(R_ * rows_ + 1, 3), False)
 
+    lib = ss._library("compose")
+    for kernel_name, used in ptxas_report("compose").items():
+        print(f"[kernel] compose.cu {kernel_name}: {json.dumps(used)}")
+        check(used.get("spill_store_bytes", 0) == 0,
+              f"compose.cu {kernel_name} spills registers")
+    print(f"[kernel] compose at DMG width, dynamic shared memory a block: "
+          f"compose_grad {lib.mrgcn_compose_grad_smem(R, B)} B, "
+          f"compose_table {lib.mrgcn_compose_table_smem(R, B)} B")
+
     # the stage split of the featureless layer's forward: the model's
-    # compose (a library matmul), the table given, and the two
-    # micro-kernels feeding the same aggregate
+    # compose (compose_table on the card), the library matmul in its
+    # place, the table given, and a canonical_copy of the table feeding
+    # the same aggregate
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
@@ -749,8 +792,8 @@ def compose_phase(work, device, rows) -> dict:
                 packed, comp, ident, hidden)),
             "precomposed_ms": time_ms(lambda: rl.featureless_aggregate(
                 table, ident, hidden)),
-            "kernel_whole_ms": time_ms(lambda: rl.featureless_aggregate(
-                ck.compose_table(comp, pk_flat).reshape(-1, L), ident,
+            "library_whole_ms": time_ms(lambda: rl.featureless_aggregate(
+                torch.matmul(comp, pk_flat).reshape(-1, L), ident,
                 hidden)),
             "copy_whole_ms": time_ms(lambda: rl.featureless_aggregate(
                 ck.canonical_copy(torch.matmul(comp, pk_flat)
@@ -1111,12 +1154,12 @@ def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
 
 
 def train_via_cli(tmp: Path, tag: str, work, epochs, num_bases,
-                  platform=None, F=None, task=None, graph=None, env=None):
+                  platform=None, F=None, task=None, graph=None):
     """``run.run_cli`` on ``work``'s graph; with ``F`` (literal features)
     the config includes the ``MULTIMODAL`` datatypes. The config is
     ``<tag>.toml`` (``task``: extra ``[task]`` entries), the artifact
-    ``<graph or tag>.npz``, so runs on one graph share its file; ``env``
-    is set for the run alone."""
+    ``<graph or tag>.npz``, so runs on one graph share its file;
+    ``platform`` sets ``MRGCN_PLATFORM`` for the run alone."""
     from mrgcn_tpu_torch import run
     from mrgcn_tpu_torch.tasks.synthetic import save_nc_artifact
     art = tmp / f"{graph or tag}.npz"
@@ -1130,17 +1173,14 @@ def train_via_cli(tmp: Path, tag: str, work, epochs, num_bases,
     if not cfg.exists():
         write_config(cfg, epochs, num_bases, work["hidden"],
                      features=MULTIMODAL if F else (), task=task)
-    env = dict(env or {})
-    if platform is not None:
-        env["MRGCN_PLATFORM"] = platform
     os.environ.pop("MRGCN_PLATFORM", None)
-    os.environ.update(env)
+    if platform is not None:
+        os.environ["MRGCN_PLATFORM"] = platform
     try:
         return run.run_cli(["-c", str(cfg), "-i", str(art), "-o",
                             str(tmp) + os.sep, "--dry_run", "--test"])
     finally:
-        for key in env:
-            os.environ.pop(key, None)
+        os.environ.pop("MRGCN_PLATFORM", None)
 
 
 class SecondCount:
@@ -1198,27 +1238,24 @@ def start_path() -> dict:
     return counters
 
 
-def slice_phase(work, tmp: Path, tag: str, kernels, F=None,
-                fused: bool = False) -> dict:
+def slice_phase(work, tmp: Path, tag: str, kernels, F=None) -> dict:
     """Train ``EPOCHS`` NC epochs through the CLI with every launch count
     set to 0 just before and read just after; ``kernels`` names each
-    kernel the path runs with its least launch count per epoch. ``fused``
-    sets ``MRGCN_FUSED_COMPOSE_BWD=1`` for the run (the composed identity
-    layer's single-pass backward, ``compose_grad_pass``: once a step there
-    and never on the default route)."""
+    kernel the path runs with its least launch count per epoch. The
+    identity layer's compose launches exactly ``COMPOSE_PER_STEP`` of each
+    compose kernel a training step, and ``compose_table`` once more for the
+    test split's evaluation."""
     import torch
     counters = start_path()
     t0 = time.perf_counter()
-    res = train_via_cli(tmp, tag, work, EPOCHS, work["num_bases"], F=F,
-                        env={"MRGCN_FUSED_COMPOSE_BWD": "1"} if fused
-                        else None)
+    res = train_via_cli(tmp, tag, work, EPOCHS, work["num_bases"], F=F)
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    tag += "_fused" if fused else ""
-    check(launches["compose_grad_pass"] == (EPOCHS if fused else 0),
-          f"{tag}: compose_grad_pass launched "
-          f"{launches['compose_grad_pass']} times")
+    for name, per_step in COMPOSE_PER_STEP.items():
+        want = per_step * (EPOCHS + (name == "compose_table"))
+        check(launches[name] == want,
+              f"{tag}: {name} launched {launches[name]} times, not {want}")
 
     losses = [h["train_loss"] for h in res.history]
     check(len(losses) == EPOCHS, f"{tag}: trained {len(losses)} epochs")
@@ -1282,10 +1319,11 @@ def minibatch_phase(work, tmp: Path, F) -> dict:
               f"{tag}: {res.batches} batches")
         check({p.device.type for p in res.model.parameters()} == {"cuda"},
               f"{tag}: parameters not on the card")
-        if feats is not None:
-            for name in ENCODER_KERNELS:
-                check(launches[name] >= res.batches["train"],
-                      f"{tag}: {name} launched {launches[name]} times")
+        # every batch composes the identity table and differentiates it
+        for name in (*COMPOSE_PER_STEP, *(ENCODER_KERNELS if feats
+                                          is not None else ())):
+            check(launches[name] >= res.batches["train"] * epochs,
+                  f"{tag}: {name} launched {launches[name]} times")
         out[tag] = {
             "path": tag, "task": task, "epochs": epochs,
             "train_loss": losses, "test_loss": res.loss,
@@ -1497,7 +1535,8 @@ def profile_phase(work, tmp: Path, device, steps: int = 3) -> None:
     over ``steps`` full-graph steps after three warm-up steps, device time
     by kernel name, and the card's busy share of the synchronised host
     time. Then the two route forks by device time per step, each in
-    alternated windows (``route_fork_basis``, ``route_fork_compose``)."""
+    alternated windows (``route_fork_basis``); the featureless NC step's
+    compose on its kernels and on the library (``compose_route_profile``)."""
     import numpy as np
     import torch
     from mrgcn_tpu_torch import run
@@ -1528,7 +1567,7 @@ def profile_phase(work, tmp: Path, device, steps: int = 3) -> None:
     route_fork_basis(step, steps)
     del model, optimizer, batch, inputs
     torch.cuda.empty_cache()
-    route_fork_compose(work, tmp, device, steps)
+    compose_route_profile(work, tmp, device, steps)
 
 
 def route_fork_basis(step, steps: int) -> dict:
@@ -1574,17 +1613,21 @@ def route_fork_basis(step, steps: int) -> dict:
     return result
 
 
-def route_fork_compose(work, tmp: Path, device, steps: int,
-                       pairs: int = 2) -> dict:
-    """Fork (b): the featureless full-batch NC step (DMG width, the
-    frontier-restricted layers) on the default compose-backward route and
-    with ``MRGCN_FUSED_COMPOSE_BWD=1`` (``compose_grad_pass``), device
-    time per step in ``pairs`` alternated pairs of windows, order default,
-    fused, fused, default; each window's ``compose_grad_pass`` launches
-    are checked to be its route's."""
+def compose_route_profile(work, tmp: Path, device, steps: int) -> dict:
+    """The featureless full-batch NC step (DMG width, the
+    frontier-restricted layers), device time per step in alternated
+    windows, each half of ``rspmm.compose_packed`` on its kernel
+    (forward ``compose_table``, backward ``compose_grad_pass``) or on the
+    library products the parent tree ran (``torch.tensordot``; two
+    matmuls): both kernels, both library, and each kernel alone, in the
+    order kernels, library, table, grads, grads, table, library, kernels.
+    Each window's launches of the two kernels are checked to be its
+    route's, and the kernels' device time a step and share of the step
+    are printed."""
     import numpy as np
     import torch
     from mrgcn_tpu_torch import run
+    from mrgcn_tpu_torch.ops import rspmm
     from mrgcn_tpu_torch.tasks import node_classification as nc
     from mrgcn_tpu_torch.tasks import utils as tutils
     from mrgcn_tpu_torch.tasks.common import prepare_inputs
@@ -1610,29 +1653,63 @@ def route_fork_compose(work, tmp: Path, device, steps: int,
     def step():
         nc.train_step(model, optimizer, batch, 0.0, 0.0)
 
-    busy = {"default": [], "fused": []}
-    order = ["default", "fused", "fused", "default"] * pairs
+    def library_table(comp, packed):
+        return torch.tensordot(comp, packed, dims=([1], [0]))
+
+    def library_grads(d_t, comp, packed):
+        R, B = comp.shape
+        d_flat = d_t.reshape(R, -1)
+        return (d_flat @ packed.reshape(B, -1).T,
+                (comp.T @ d_flat).reshape(packed.shape))
+
+    table, grads = rspmm._table, rspmm._grads
+    routes = {"kernels": (table, grads),
+              "library": (library_table, library_grads),
+              "table": (table, library_grads),
+              "grads": (library_table, grads)}
+    order = ["kernels", "library", "table", "grads", "grads", "table",
+             "library", "kernels"]
+    busy = {name: [] for name in routes}
+    own = {name: [] for name in routes}
     try:
         for name in order:
-            os.environ["MRGCN_FUSED_COMPOSE_BWD"] = \
-                "1" if name == "fused" else "0"
+            rspmm._table, rspmm._grads = routes[name]
             counters = kernel_counters()
             for fn in counters.values():
                 fn.launches = 0
-            busy[name].append(profile_steps(
-                f"featureless NC step, {name} compose backward", step,
-                steps, top=6)[0])
-            launched = counters["compose_grad_pass"].launches
-            check(launched == (3 + steps if name == "fused" else 0),
-                  f"fork (b) {name}: compose_grad_pass launched "
-                  f"{launched} times")
+            ms, _, by_name = profile_steps(
+                f"featureless NC step, compose route {name}", step, steps,
+                top=8)
+            busy[name].append(ms)
+            calls = 3 + steps
+            for kernel, on in (("compose_table", name in ("kernels",
+                                                           "table")),
+                               ("compose_grad_pass", name in ("kernels",
+                                                              "grads"))):
+                launched = counters[kernel].launches
+                check(launched == (calls if on else 0),
+                      f"compose route {name}: {kernel} launched "
+                      f"{launched} times in {calls} steps")
+            kernels_ms = sum(v for k, v in by_name.items()
+                             if "compose_" in k or "sum_partials" in k)
+            own[name].append({"kernels_ms": kernels_ms,
+                              "share": kernels_ms / ms})
     finally:
-        os.environ.pop("MRGCN_FUSED_COMPOSE_BWD", None)
+        rspmm._table, rspmm._grads = table, grads
     result = {name: {"device_ms_per_step": v,
-                     "median": statistics.median(v)}
+                     "median": statistics.median(v),
+                     "compose_kernels": own[name]}
               for name, v in busy.items()}
-    print(f"[fork] compose backward, device ms per featureless NC step "
+    print(f"[route] compose, device ms per featureless NC step "
           f"(order {order}): {json.dumps(result)}")
+    lib = result["library"]["median"]
+    print(f"[route] each half against the library route's "
+          f"{lib:.3f} ms a step: forward compose_table "
+          f"{lib - result['table']['median']:+.3f} ms, backward "
+          f"compose_grad_pass {lib - result['grads']['median']:+.3f} ms, "
+          f"both {lib - result['kernels']['median']:+.3f} ms saved; the "
+          f"two kernels take {result['kernels']['compose_kernels'][0]['share']:.1%}"
+          " of the kernels route's step")
     return result
 
 
@@ -1640,7 +1717,8 @@ def profile_steps(label: str, step, steps: int, top: int = 25):
     """``torch.profiler`` over ``steps`` calls of ``step`` after three
     warm-up calls: host time per call, device time by kernel name (the
     ``top`` largest), and the card's busy share of the synchronised host
-    time. Returns (device busy ms, host ms) per call."""
+    time. Returns (device busy ms, host ms, device ms by kernel name) per
+    call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -1667,6 +1745,8 @@ def profile_steps(label: str, step, steps: int, top: int = 25):
                     key=device_us, reverse=True)
     busy_ms = sum(device_us(e) for e in events) / 1e3 / steps
     check(busy_ms > 0, "profile: the trace shows no device time")
+    by_name = {e.key: device_us(e) / 1e3 / steps for e in events
+               if device_us(e) > 0}
     print(f"[profile] {label} {wall_ms:.3f} ms by host clock, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %), "
           f"{sum(e.count for e in events if device_us(e) > 0) // steps} "
@@ -1675,7 +1755,7 @@ def profile_steps(label: str, step, steps: int, top: int = 25):
         if device_us(e) > 0:
             print(f"[profile] {device_us(e) / 1e3 / steps:9.3f} ms/step  "
                   f"x{e.count / steps:5.1f}  {e.key[:90]}")
-    return busy_ms, wall_ms
+    return busy_ms, wall_ms, by_name
 
 
 def profile_attention_phase(device, steps: int = 10) -> None:
@@ -2000,16 +2080,19 @@ def agreement_phase(tmp: Path) -> None:
         check(err <= rtol, f"{tag}: cuda and cpu losses differ (rel {err})")
         if feats is not None:
             encoder_agreement(tmp, tag, gpu.model, cpu.model)
-    fused_gradient_agreement(small)
+    compose_agreement(small)
 
 
-def fused_gradient_agreement(work) -> None:
-    """``featureless_composed`` on the small graph's layer-0 identity
-    plan, card (``fused_place_scatter`` then ``compose_grad_pass``) against
-    CPU (their plain versions), same inputs and cotangent: the output and
-    both gradients within 1e-4 of their largest entry."""
+def compose_agreement(work) -> None:
+    """The composed identity layer (``rspmm.compose_packed`` on a row slice
+    of the parameter, then ``featureless_aggregate``) on the small graph's
+    layer-0 plan, card (``compose_table``, ``fused_place_scatter``,
+    ``compose_grad_pass``) against CPU (their plain versions), same inputs
+    and cotangent: the output and both gradients within 1e-4 of their
+    largest entry."""
     import torch
     from mrgcn_tpu_torch.ops import relational as rl
+    from mrgcn_tpu_torch.ops import rspmm
     gen = torch.Generator().manual_seed(4)
     R, B, hidden = work["R"], 4, work["hidden"]
     found = []
@@ -2018,19 +2101,21 @@ def fused_gradient_agreement(work) -> None:
         if not found:
             L = rl.line_width(ident.k_in, hidden)
             comp = torch.randn(R, B, generator=gen)
-            packed = torch.randn(B, ident.n_in_rows, L, generator=gen)
+            packed = torch.randn(B, ident.n_in_rows + 16, L, generator=gen)
             cot = torch.randn(ident.out_nodes, hidden, generator=gen)
         c = comp.to(device).requires_grad_()
         p = packed.to(device).requires_grad_()
-        out = rl.featureless_composed(c, p, ident, hidden)
+        table = rspmm.compose_packed(c, p[:, :ident.n_in_rows])
+        out = rl.featureless_aggregate(table.reshape(-1, L), ident, hidden)
         out.backward(cot.to(device))
         found.append([t.detach().cpu() for t in (out, c.grad, p.grad)])
     errs = {name: float((g - w).abs().max() / w.abs().max())
             for name, g, w in zip(("out", "d_comp", "d_packed"), *found)}
-    print(f"[agree] featureless_composed card vs CPU, error over the "
+    print(f"[agree] composed identity layer card vs CPU, error over the "
           f"largest entry: {json.dumps(errs)} (bound 1e-4)")
     check(max(errs.values()) <= 1e-4,
-          f"featureless_composed differs on the card and the CPU ({errs})")
+          f"the composed identity layer differs on the card and the CPU "
+          f"({errs})")
 
 
 # kernel -> (source, the TPU kernel it replaces, the timed row that goes
@@ -2115,20 +2200,8 @@ def main(argv=None) -> None:
             # (with features, twice: identity and relation-constant dense
             # half); the dense half's per-edge bwd_h stream still takes
             # sorted_scatter; two text blocks, forward and backward
-            default = paths["nc_featureless"] = slice_phase(
+            paths["nc_featureless"] = slice_phase(
                 work, tmp, "dmg_synth", {"fused_place_scatter": 2})
-            fused = paths["nc_featureless_fused"] = slice_phase(
-                work, tmp, "dmg_synth", {"fused_place_scatter": 2},
-                fused=True)
-            err = max(abs(a - b) / abs(b) for a, b in zip(
-                fused["train_loss"], default["train_loss"]))
-            print(f"[slice] featureless epoch median: default route "
-                  f"{default['epoch_s_median_after_first'] * 1e3:.3f} ms, "
-                  f"fused compose backward "
-                  f"{fused['epoch_s_median_after_first'] * 1e3:.3f} ms; "
-                  f"losses agree within {err:.3g} rel (bound 1e-5)")
-            check(err <= 1e-5, f"fused and default routes' losses differ: "
-                  f"{fused['train_loss']} vs {default['train_loss']}")
             paths["nc_multimodal"] = slice_phase(
                 work, tmp, "dmg_synth_multimodal",
                 {"sorted_scatter": 1, "fused_place_scatter": 3,
@@ -2192,7 +2265,8 @@ def main(argv=None) -> None:
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             **{key: timed[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "bytes", "flops", "general_ms", "place_dot_ms")
+                "bytes", "flops", "bound_f32_fma_ms", "general_ms",
+                "place_dot_ms")
                if key in timed}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

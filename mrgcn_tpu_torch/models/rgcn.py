@@ -13,11 +13,10 @@ for its shape, else the relation-grouped path
 no plans (their ``dst_global`` is set): their identity half runs
 :func:`..ops.rspmm.gather_aggregate_packed` or
 :func:`..ops.rspmm.gather_aggregate` on the global node ids, an ungrouped
-feature layer :func:`..ops.rspmm.transform_aggregate`.
-``MRGCN_FUSED_COMPOSE_BWD=1`` (default off, as in the JAX package) routes
-the composed identity layer through
-:func:`..ops.relational.featureless_composed`, whose backward reads the
-cotangent table once.
+feature layer :func:`..ops.rspmm.transform_aggregate`. The composed
+identity layer has one route, :func:`..ops.rspmm.compose_packed`, whose
+backward reads the cotangent table once for both gradients (the JAX
+package's fused-backward switch gives the same numbers either way).
 
 Parameter names match the JAX package's (``layer_0.comp_i``,
 ``layer_0.weight_i_packed``, ``layer_1.weight_f``, ...), so
@@ -26,7 +25,6 @@ Parameter names match the JAX package's (``layer_0.comp_i``,
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -106,11 +104,6 @@ def _identity_planned(packed: torch.Tensor, comp: Optional[torch.Tensor],
     relation-major packed table (one matmul) and aggregate it."""
     lw = packed.shape[2]
     pk = _fit_rows(packed, plan)
-    if comp is not None \
-            and os.environ.get("MRGCN_FUSED_COMPOSE_BWD", "0") != "0":
-        # single-pass backward over the cotangent table: d_comp and
-        # d_packed come from one read of it
-        return rl.featureless_composed(comp, pk, plan, out_dim)
     flat = rspmm.compose_packed(comp, pk) if comp is not None else pk
     return rl.featureless_aggregate(flat.reshape(-1, lw), plan, out_dim)
 

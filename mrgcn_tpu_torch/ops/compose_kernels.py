@@ -2,10 +2,10 @@
 
 Counterparts of ``benchmarks/micro_compose_kernel.py::compose_table`` and
 ``benchmarks/micro_compose_fusion.py::canonical``: two layout experiments
-over the composed identity table, kept beside the layer ops they were
-measured against. No layer calls them (the layers' forward compose is
-:func:`..rspmm.compose_packed`, a library matmul, as the JAX package leaves
-it to XLA); ``chip_smoke.py``'s compose phase does.
+over the composed identity table. :func:`compose_table` is the forward of
+:func:`..rspmm.compose_packed` on the card (the JAX package leaves that
+product to XLA); :func:`canonical_copy` is called only by
+``chip_smoke.py``'s compose phase.
 
 Each wrapper takes its plain PyTorch version (``*_reference``) for CPU
 tensors and launches its kernel (``csrc/compose.cu``) for CUDA tensors, or
@@ -16,9 +16,11 @@ from __future__ import annotations
 
 import torch
 
-from mrgcn_tpu_torch.ops.sorted_stream import (_check_lanes, _check_tensors,
-                                               _cuda_stream, _device_of,
-                                               _library, _raise_on)
+from mrgcn_tpu_torch.ops.sorted_stream import (_check_lanes,
+                                               _check_row_strided,
+                                               _check_tensors, _cuda_stream,
+                                               _device_of, _library,
+                                               _raise_on)
 
 
 def compose_table_reference(comp: torch.Tensor,
@@ -30,10 +32,13 @@ def compose_table_reference(comp: torch.Tensor,
 def compose_table(comp: torch.Tensor, pk_flat: torch.Tensor) -> torch.Tensor:
     """``(R, B) @ (B, cols) -> (R, cols)`` in f32, written relation-major:
     with ``cols = rows * L`` the reshape to the ``(R * rows, L)`` table the
-    featureless layer gathers from is free.
+    featureless layer gathers from is free. ``pk_flat``'s rows may lie
+    apart (a row slice of a larger packed parameter, viewed ``(B, cols)``):
+    the kernel takes their stride, so no copy is made.
 
     CPU tensors take :func:`compose_table_reference`; CUDA tensors launch
-    the kernel or raise. ``compose_table.launches`` counts the launches.
+    the kernel (3xTF32 on the tensor cores) or raise.
+    ``compose_table.launches`` counts the launches.
     """
     fn = "compose_table"
     if comp.dim() != 2 or pk_flat.dim() != 2 \
@@ -43,21 +48,19 @@ def compose_table(comp: torch.Tensor, pk_flat: torch.Tensor) -> torch.Tensor:
     if _device_of(fn, comp, (("pk_flat", pk_flat),)) == "cpu":
         return compose_table_reference(comp, pk_flat)
     lib = _library("compose")
-    _check_tensors(fn, (("comp", comp, torch.float32, True),
-                        ("pk_flat", pk_flat, torch.float32, True)))
+    _check_tensors(fn, (("comp", comp, torch.float32, True),))
     R, B = comp.shape
     cols = pk_flat.shape[1]
     _check_lanes(fn, cols, 4)
-    if pk_flat.data_ptr() % 16:
-        raise ValueError(f"{fn}: pk_flat must be 16-byte aligned")
+    ldp = _check_row_strided(fn, "pk_flat", pk_flat)
     if lib.mrgcn_compose_table_chunk(R, B) == 0:
         raise ValueError(f"{fn}: R={R}, B={B} need more shared memory than "
                          "a thread block has")
     out = torch.empty(R, cols, dtype=torch.float32, device=comp.device)
     with torch.cuda.device(comp.device):
         rc = lib.mrgcn_compose_table_f32(
-            comp.data_ptr(), pk_flat.data_ptr(), out.data_ptr(), R, B, cols,
-            _cuda_stream(comp))
+            comp.data_ptr(), pk_flat.data_ptr(), ldp, out.data_ptr(), R, B,
+            cols, _cuda_stream(comp))
     _raise_on(fn, lib, rc)
     compose_table.launches += 1
     return out

@@ -12,10 +12,9 @@ full-batch path:
   of the relation-major packed table and block-scatters them
   (:func:`..sorted_stream.fused_place_scatter`); its backward recomputes
   the per-edge cotangent on the (rel, dst)-sorted ``bwd_table`` stream and
-  block-scatters it into the table gradient. :func:`featureless_composed`
-  is the same layer with the compose inside, whose backward reads that
-  table gradient once for both ``d_comp`` and ``d_packed``
-  (:func:`..sorted_stream.compose_grad_pass`). :func:`featureless_basis`
+  block-scatters it into the table gradient, which the compose's own
+  backward (:func:`..rspmm.compose_packed`) reads once for both ``d_comp``
+  and ``d_packed``. :func:`featureless_basis`
   composes the basis tables per edge instead, for graphs whose composed
   table is over budget; :func:`dense_aggregate` is the layer over node
   features. No E-sized tensor crosses between differently sorted streams.
@@ -33,7 +32,7 @@ import torch
 from mrgcn_tpu_torch.ops.rspmm import (compose_packed, packed_identity_shape,
                                        packing_factor)
 from mrgcn_tpu_torch.ops.sorted_stream import (EDGE_BLOCK, ROW_BLOCK,
-                                               compose_grad_pass, expand_sub,
+                                               expand_sub,
                                                fused_place_scatter,
                                                fused_scatter_dot,
                                                sorted_scatter)
@@ -427,53 +426,6 @@ def featureless_aggregate(table: torch.Tensor, plans: LayerPlans,
     :func:`fused_place_scatter`.
     """
     return _FeaturelessAggregate.apply(table, plans, out_dim)
-
-
-# --------------------------------------------------------------------------
-# composed featureless layer: compose + aggregate, single-pass backward
-# --------------------------------------------------------------------------
-
-class _FeaturelessComposed(torch.autograd.Function):
-
-    @staticmethod
-    def forward(ctx, comp, packed, plans, out_dim):
-        flat = compose_packed(comp, packed).reshape(-1, packed.shape[2])
-        ctx.save_for_backward(comp, packed)
-        ctx.plans, ctx.out_dim = plans, out_dim
-        return _FeaturelessAggregate.apply(flat, plans, out_dim)
-
-    @staticmethod
-    def backward(ctx, d_out):
-        comp, packed = ctx.saved_tensors
-        plans, out_dim = ctx.plans, ctx.out_dim
-        R, B = comp.shape
-        L = packed.shape[2]
-        b = plans.bwd_table
-        d_out_p = pack_rows(d_out.contiguous(), plans.k_out,
-                            plans.n_out_rows)
-        d_v = _gather_sub(d_out_p, b.src_row, b.out_mod, plans.k_out,
-                          out_dim)
-        d_table = _place_scatter(d_v, b.in_mod, b, R * plans.n_in_rows,
-                                 plans.k_in, out_dim, L)
-        d_comp, d_packed = compose_grad_pass(
-            d_table, packed.reshape(-1, L), comp, R, B)
-        return (d_comp.to(comp.dtype),
-                d_packed.reshape(packed.shape).to(packed.dtype), None, None)
-
-
-def featureless_composed(comp: torch.Tensor, packed: torch.Tensor,
-                         plans: LayerPlans, out_dim: int) -> torch.Tensor:
-    """``featureless_aggregate(compose_packed(comp, packed))`` with a fused
-    backward: the cotangent table is scattered once on the ``bwd_table``
-    stream (:func:`fused_place_scatter`) and then read once by
-    :func:`..sorted_stream.compose_grad_pass`, which gives ``d_comp`` and
-    ``d_packed`` together; the chain of the two ops' own backwards reads
-    that table twice.
-
-    ``comp``: ``(R, B)``; ``packed``: ``(B, n_in_rows, L)``, already at the
-    plan's row count. Returns ``(out_nodes, out_dim)``.
-    """
-    return _FeaturelessComposed.apply(comp, packed, plans, out_dim)
 
 
 # --------------------------------------------------------------------------

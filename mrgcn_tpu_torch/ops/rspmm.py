@@ -21,6 +21,9 @@ from typing import Optional
 
 import torch
 
+from mrgcn_tpu_torch.ops.compose_kernels import compose_table
+from mrgcn_tpu_torch.ops.sorted_stream import _packed_rows, compose_grad_pass
+
 
 # budgets in padded f32 elements (rows to 8, the minor dimension to 128),
 # as the JAX package counts them
@@ -177,28 +180,48 @@ def transform_aggregate_grouped(H: torch.Tensor, grp_src: torch.Tensor,
     return segment_sum(messages, grp_src, num_nodes)
 
 
+def _table(comp: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """``(R, B) x (B, rows, L) -> (R, rows, L)`` through
+    :func:`..compose_kernels.compose_table` (kernel #10 on the card, its
+    plain matmul on the CPU); ``packed`` may be a row slice."""
+    R, B = comp.shape
+    return compose_table(comp, _packed_rows(packed, B)).view(
+        R, *packed.shape[1:])
+
+
+def _grads(d_t: torch.Tensor, comp: torch.Tensor, packed: torch.Tensor):
+    """Both gradients of :func:`_table` from one read of ``d_t`` through
+    :func:`..sorted_stream.compose_grad_pass` (kernel #4 on the card, its
+    two plain contractions on the CPU)."""
+    R, B = comp.shape
+    L = packed.shape[2]
+    d_comp, d_packed = compose_grad_pass(d_t.contiguous().view(-1, L),
+                                         packed, comp, R, B)
+    return d_comp, d_packed.view(packed.shape)
+
+
 class _ComposePacked(torch.autograd.Function):
     """``(R, B) x (B, rows, L) -> (R, rows, L)``, relation-major, so the
     ``(R * rows, L)`` table view the layer gathers from is free. The
-    backward is the two matmuls of ``rspmm._compose_packed_bwd``."""
+    forward is :func:`_table`; the backward is :func:`_grads` where both
+    gradients are needed, else the one library product of
+    ``rspmm._compose_packed_bwd``."""
 
     @staticmethod
     def forward(ctx, comp, packed):
         ctx.save_for_backward(comp, packed)
-        return torch.tensordot(comp, packed, dims=([1], [0]))
+        return _table(comp, packed)
 
     @staticmethod
     def backward(ctx, d_t):
         comp, packed = ctx.saved_tensors
+        if all(ctx.needs_input_grad):
+            return _grads(d_t, comp, packed)
         R, B = comp.shape
         d_flat = d_t.reshape(R, -1)
-        p_flat = packed.reshape(B, -1)
-        d_comp = d_packed = None
         if ctx.needs_input_grad[0]:
-            d_comp = d_flat @ p_flat.T                       # rql,bql->rb
-        if ctx.needs_input_grad[1]:
-            d_packed = (comp.T @ d_flat).reshape(packed.shape)  # rb,rql->bql
-        return d_comp, d_packed
+            return d_flat @ _packed_rows(packed, B).T, None   # rql,bql->rb
+        return None, (comp.T @ d_flat).reshape(packed.shape)   # rb,rql->bql
 
 
 def compose_packed(comp: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:

@@ -71,10 +71,13 @@ _SIGNATURES = {
         "mrgcn_scatter_dot_rows_max_width": ([], _I), **_ERR},
     "compose": {
         "mrgcn_compose_grad_f32": (
-            [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _P], _I),
+            [_P, _P, _LL, _P, _P, _P, _P, _I, _I, _LL, _P], _I),
         "mrgcn_compose_grad_chunk": ([_I, _I], _I),
         "mrgcn_compose_grad_ctas": ([_I, _I, _LL], _I),
-        "mrgcn_compose_table_f32": ([_P, _P, _P, _I, _I, _LL, _P], _I),
+        "mrgcn_compose_grad_smem": ([_I, _I], ctypes.c_size_t),
+        "mrgcn_compose_table_smem": ([_I, _I], ctypes.c_size_t),
+        "mrgcn_compose_table_f32": (
+            [_P, _P, _LL, _P, _I, _I, _LL, _P], _I),
         "mrgcn_compose_table_chunk": ([_I, _I], _I),
         "mrgcn_canonical_copy_f32": ([_P, _P, _LL, _P], _I), **_ERR},
 }
@@ -557,13 +560,40 @@ def _scatter_dot_rows(lib, dvn, w, local, out_blk, table, out_rows,
 # single-pass compose gradient: d_comp and d_packed from one read of d_t
 # --------------------------------------------------------------------------
 
+def _packed_rows(packed: torch.Tensor, B: int) -> torch.Tensor:
+    """``packed`` as ``(B, rows * L)``: a view where the rows of one basis
+    are contiguous, whatever lies between two bases (a row slice of a
+    larger ``(B, rows', L)`` parameter); otherwise a reshape."""
+    if packed.dim() == 3 and packed.stride(2) == 1 \
+            and packed.stride(1) == packed.shape[2]:
+        return packed.as_strided((B, packed.shape[1] * packed.shape[2]),
+                                 (packed.stride(0), 1))
+    return packed.reshape(B, -1)
+
+
+def _check_row_strided(fn: str, name: str, x: torch.Tensor) -> int:
+    """A ``(n, cols)`` f32 operand whose rows may lie apart (the kernels
+    take a leading dimension): unit column stride, a row stride that is a
+    multiple of 4 floats and no less than ``cols``, 16-byte alignment.
+    Returns the row stride."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"{fn}: {name} must be torch.float32, got {x.dtype}")
+    ld = x.stride(0) if x.shape[0] > 1 else x.shape[1]
+    if x.stride(1) != 1 or ld < x.shape[1] or ld % 4:
+        raise ValueError(f"{fn}: {name} must be contiguous, or rows of "
+                         "contiguous columns a multiple of 4 floats apart")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{fn}: {name} must be 16-byte aligned")
+    return ld
+
+
 def compose_grad_pass_reference(d_t: torch.Tensor, packed: torch.Tensor,
                                 comp: torch.Tensor, R: int, B: int):
     """Plain PyTorch version of :func:`compose_grad_pass`: the two
     contractions of ``pallas_gather.compose_grad_pass``'s XLA branch."""
     L = d_t.shape[1]
     d_flat = d_t.reshape(R, -1)
-    d_comp = d_flat @ packed.reshape(B, -1).T           # rql,bql->rb
+    d_comp = d_flat @ _packed_rows(packed, B).T          # rql,bql->rb
     d_packed = comp.T @ d_flat                          # rb,rql->bql
     return d_comp, d_packed.reshape(-1, L)
 
@@ -575,32 +605,39 @@ def compose_grad_pass(d_t: torch.Tensor, packed: torch.Tensor,
     ``d_packed = einsum('rb,rql->bql', comp, d_t)``, reading the
     ``(R * rows, L)`` cotangent table once.
 
-    ``d_t``: ``(R * rows, L)``; ``packed``: ``(B * rows, L)``; ``comp``:
-    ``(R, B)``, all f32. Returns ``(d_comp (R, B), d_packed (B * rows, L))``.
+    ``d_t``: ``(R * rows, L)``; ``packed``: ``(B * rows, L)``, or
+    ``(B, rows, L)`` whose bases may lie apart (a row slice of a larger
+    parameter: no copy is made); ``comp``: ``(R, B)``, all f32. Returns
+    ``(d_comp (R, B), d_packed (B * rows, L))``.
     CPU tensors take :func:`compose_grad_pass_reference`. CUDA tensors
-    launch the kernel for any ``rows`` (``d_comp`` from per-block partials
-    summed in a fixed order: no atomics, the same bits every time) or
-    raise; the kernel masks R, B and the last chunk, and needs only ``L``
-    a multiple of 4.
+    launch the kernel (3xTF32 on the tensor cores; ``d_comp`` from
+    per-block partials summed in a fixed order: no atomics, the same bits
+    every time) or raise; the kernel masks R, B and the last chunk, and
+    needs only ``L`` a multiple of 4.
     ``compose_grad_pass.launches`` counts the launches.
     """
     fn = "compose_grad_pass"
-    if d_t.dim() != 2 or packed.dim() != 2 or R <= 0 or B <= 0 \
-            or comp.shape != (R, B) or d_t.shape[0] % R \
-            or packed.shape != (d_t.shape[0] // R * B, d_t.shape[1]):
+    rows = d_t.shape[0] // R if d_t.dim() == 2 and R > 0 else 0
+    L = d_t.shape[-1]
+    fits = (B * rows, L) if packed.dim() == 2 else (B, rows, L)
+    if d_t.dim() != 2 or R <= 0 or B <= 0 or comp.shape != (R, B) \
+            or d_t.shape[0] % R or tuple(packed.shape) != fits:
         raise ValueError(f"{fn}: d_t {tuple(d_t.shape)}, packed "
                          f"{tuple(packed.shape)} and comp "
                          f"{tuple(comp.shape)} do not fit R={R}, B={B}")
-    rows, L = d_t.shape[0] // R, d_t.shape[1]
     if _device_of(fn, d_t, (("packed", packed), ("comp", comp))) == "cpu":
         return compose_grad_pass_reference(d_t, packed, comp, R, B)
     lib = _library("compose")
     _check_tensors(fn, (("d_t", d_t, torch.float32, True),
-                        ("packed", packed, torch.float32, True),
                         ("comp", comp, torch.float32, True)))
     _check_lanes(fn, L, 4)
-    if d_t.data_ptr() % 16 or packed.data_ptr() % 16:
-        raise ValueError(f"{fn}: d_t and packed must be 16-byte aligned")
+    if packed.dim() == 2 or packed.stride(2) != 1 \
+            or packed.stride(1) != L:
+        _check_tensors(fn, (("packed", packed, torch.float32, True),))
+    p_rows = _packed_rows(packed, B)
+    ldp = _check_row_strided(fn, "packed", p_rows)
+    if d_t.data_ptr() % 16:
+        raise ValueError(f"{fn}: d_t must be 16-byte aligned")
     if lib.mrgcn_compose_grad_chunk(R, B) == 0:
         raise ValueError(f"{fn}: R={R}, B={B} need more shared memory than "
                          "a thread block has")
@@ -614,7 +651,7 @@ def compose_grad_pass(d_t: torch.Tensor, packed: torch.Tensor,
             lib.mrgcn_compose_grad_ctas(R, B, K) * R * B,
             dtype=torch.float32, device=d_t.device)
         rc = lib.mrgcn_compose_grad_f32(
-            d_t.data_ptr(), packed.data_ptr(), comp.data_ptr(),
+            d_t.data_ptr(), p_rows.data_ptr(), ldp, comp.data_ptr(),
             d_packed.data_ptr(), d_comp.data_ptr(), partial.data_ptr(), R,
             B, K, _cuda_stream(d_t))
     _raise_on(fn, lib, rc)

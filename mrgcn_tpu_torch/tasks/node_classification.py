@@ -238,6 +238,12 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
                         torch.Generator().manual_seed(seed))
     optimizer = tutils.build_optimizer(model, config,
                                        inputs.optimizer_config, featureless)
+    # an encoder whose gate is exactly zero runs nothing (reference:
+    # node_classification.py:401, tasks/utils.with_gate_skip)
+    model.skip_encoders = tutils.dead_encoders(model)
+    if model.skip_encoders:
+        logger.info("Skipping zero-gated encoder(s): %s",
+                    ", ".join(model.skip_encoders))
     dropout_rng = torch.Generator(device=device).manual_seed(seed)
 
     nepoch = config["model"]["epoch"]

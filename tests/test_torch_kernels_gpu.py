@@ -13,7 +13,8 @@ atol 1e-4 / rtol 1e-5
 orders); ``sorted_gather`` and ``canonical_copy`` bit for bit (copies);
 ``compose_table`` and ``compose_grad_pass``'s ``d_packed`` the same atol
 and rtol, its ``d_comp`` (a sum over the whole table) 1e-4 + 1e-5 of the
-sum of its terms' absolute values. The bf16 encoder kernels
+sum of its terms' absolute values (both 3xTF32 on the tensor cores:
+about 21 bits of each product). The bf16 encoder kernels
 (fused attention, fused MLP) against their plain versions: element by
 element, ``|got - want| <= 2^-6 (|want| + scale) + 1e-6``, where ``scale`` is the element's product taken over
 absolute values (``mrgcn_tpu_torch.ops.kernel_bounds``). Both sides sum
@@ -567,39 +568,81 @@ def test_compose_kernels_reject_bad_arguments(cuda):
         compose_table(comp, torch.zeros(3, 6, device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
         canonical_copy(d_t[:, ::2])
+    # compose_table holds B x 64 columns of packed twice over in shared
+    # memory (its split fragments and the ring), whatever R is
     with pytest.raises(ValueError, match="shared memory"):
-        compose_table(torch.zeros(3000, 40, device=cuda),
-                      torch.zeros(40, 128, device=cuda))
+        compose_table(torch.zeros(40, 3000, device=cuda),
+                      torch.zeros(3000, 128, device=cuda))
+
+
+def hold_compose_grad(got, again, want, d_t, packed, R, B):
+    """``d_comp`` within 1e-4 + 1e-5 of the sum of its terms' absolute
+    values, ``d_packed`` atol 1e-4 / rtol 1e-5, two launches bit equal."""
+    p_rows = packed.reshape(B, -1) if packed.dim() == 2 \
+        else packed.contiguous().reshape(B, -1)
+    scale = d_t.reshape(R, -1).abs() @ p_rows.abs().T
+    assert bool(((got[0] - want[0]).abs() <= 1e-4 + 1e-5 * scale).all())
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
 
 
 @pytest.mark.gpu
-def test_featureless_composed_on_card_matches_cpu(cuda):
-    """The fused backward on the card (``fused_place_scatter`` then
-    ``compose_grad_pass``) against the CPU's plain versions: output and
-    both gradients within 1e-5 of the largest value."""
-    from mrgcn_tpu_torch.ops import relational as rl
+@pytest.mark.parametrize("rows,param_rows", [(12800, 12800), (3000, 3584),
+                                             (7, 12)])
+def test_compose_kernels_at_dmg_width_and_on_a_row_slice(cuda, rows,
+                                                          param_rows):
+    """#4 and #10 at DMG's R=121, B=40, L=128: the whole 12,800-row table,
+    and ``packed`` cut from a longer parameter as ``_fit_rows`` cuts it
+    (rows ``param_rows * L`` floats apart, taken without a copy)."""
+    from mrgcn_tpu_torch.ops.compose_kernels import (compose_table,
+                                                     compose_table_reference)
+    from mrgcn_tpu_torch.ops.sorted_stream import (
+        compose_grad_pass, compose_grad_pass_reference)
+    R, B, L = 121, 40, 128
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    comp = torch.randn(R, B, device=cuda, generator=gen)
+    param = torch.randn(B, param_rows, L, device=cuda, generator=gen)
+    d_t = torch.randn(R * rows, L, device=cuda, generator=gen)
+    packed = param[:, :rows]
+    got = compose_grad_pass(d_t, packed, comp, R, B)
+    again = compose_grad_pass(d_t, packed, comp, R, B)
+    want = compose_grad_pass_reference(d_t, packed.contiguous(), comp, R, B)
+    torch.cuda.synchronize()
+    hold_compose_grad(got, again, want, d_t, packed, R, B)
+    pk = packed.reshape(B, -1) if rows == param_rows \
+        else packed.as_strided((B, rows * L), (param_rows * L, 1))
+    table, table_again = compose_table(comp, pk), compose_table(comp, pk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        table, compose_table_reference(comp, pk.contiguous()), rtol=1e-5,
+        atol=1e-4)
+    assert torch.equal(table, table_again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,B,rows,L", [(121, 40, 64, 128), (5, 3, 8, 128),
+                                        (33, 17, 72, 36)])
+def test_compose_packed_on_card_matches_cpu(cuda, R, B, rows, L):
+    """``rspmm.compose_packed`` on the card (forward #10, backward #4, on a
+    row slice of the parameter) against the CPU's plain products: output
+    and both gradients within 1e-5 of the largest value."""
+    from mrgcn_tpu_torch.ops import rspmm
+    from mrgcn_tpu_torch.ops.compose_kernels import compose_table
     from mrgcn_tpu_torch.ops.sorted_stream import compose_grad_pass
-    rng = np.random.default_rng(2)
-    n, R, E, B, out_dim = 300, 6, 2000, 3, 16
-    src, dst = (rng.integers(0, n, E).astype(np.int32) for _ in range(2))
-    rel = rng.integers(0, R, E).astype(np.int32)
-    norm = rng.random(E).astype(np.float32)
+    rng = np.random.default_rng(R)
     comp = rng.standard_normal((R, B)).astype(np.float32)
-    cot = rng.standard_normal((n, out_dim)).astype(np.float32)
+    param = rng.standard_normal((B, rows + 8, L)).astype(np.float32)
+    cot = rng.standard_normal((R, rows, L)).astype(np.float32)
     found = []
     for device in (cuda, torch.device("cpu")):
-        plans = rl.build_layer_plans(src, dst, rel, norm, n, 8, 8,
-                                     row_block=64, edge_block=32,
-                                     kind="identity", device=device)
-        if not found:
-            packed = rng.standard_normal(
-                (B, plans.n_in_rows, 128)).astype(np.float32)
         c = torch.from_numpy(comp).to(device).requires_grad_()
-        p = torch.from_numpy(packed).to(device).requires_grad_()
-        before = compose_grad_pass.launches
-        out = rl.featureless_composed(c, p, plans, out_dim)
+        p = torch.from_numpy(param).to(device).requires_grad_()
+        before = (compose_table.launches, compose_grad_pass.launches)
+        out = rspmm.compose_packed(c, p[:, :rows])
         out.backward(torch.from_numpy(cot).to(device))
-        assert compose_grad_pass.launches == before + (device.type == "cuda")
+        on_card = int(device.type == "cuda")
+        assert (compose_table.launches, compose_grad_pass.launches) \
+            == (before[0] + on_card, before[1] + on_card)
         found.append([t.detach().cpu() for t in (out, c.grad, p.grad)])
     for got, want in zip(*found):
         scale = float(want.abs().max())

@@ -253,3 +253,49 @@ def test_unported_text_attention_override_raises(mm_artifact, monkeypatch):
     monkeypatch.setenv("MRGCN_TEXT_ATTN", "fused_core")
     nc.build_model(tin, make_config(), len(art.class_map),
                    torch.Generator().manual_seed(0))
+
+
+class _NoRows:
+    def writerow(self, row):
+        pass
+
+
+def test_nc_driver_skips_a_zero_gated_encoder(mm_artifact, monkeypatch):
+    """The NC driver skips an encoder whose gate is exactly zero, as the
+    LP driver and the JAX package's (``with_gate_skip``) do: the encoder
+    runs no time in ``nc.run`` (0 epochs, then the test split's
+    evaluation), and the model's logits equal the JAX model's with the same
+    encoder skipped, at the same parameters."""
+    import jax.numpy as jnp
+    art = artifact_io.load(str(mm_artifact))
+    config = make_config(epochs=0)
+    Y_test = np.asarray(art.Y["test"]).reshape(-1, 2)
+    (jin, jbatch, jmodel, params), (tin, tbatch, tmodel) = both_sides(
+        art, config, Y_test, False)
+    gates = np.asarray(params["gate_weights"]).copy()
+    gates[tmodel.names.index("xsd_string_0")] = 0.0
+    params = {**params, "gate_weights": jnp.asarray(gates)}
+
+    built, calls = [], []
+    build = nc.build_model
+
+    def build_with_dead_gate(*args, **kwargs):
+        model = build(*args, **kwargs)
+        load_jax_params(model, params)
+        model.xsd_string_0.register_forward_hook(
+            lambda *_: calls.append(1))
+        built.append(model)
+        return model
+
+    monkeypatch.setattr(nc, "build_model", build_with_dead_gate)
+    res = nc.run(art, config, _NoRows(), False, "test", 0, CPU)
+    assert res.model is built[0]
+    assert res.model.skip_encoders == ("xsd_string_0",)
+    assert not calls and np.isfinite(res.loss)
+
+    jskip = jutils.with_gate_skip(jmodel, params)
+    assert jskip.skip_encoders == ("xsd_string_0",)
+    want = jskip.apply({"params": params}, jbatch.features, jbatch.edges)
+    with torch.no_grad():
+        assert_logits_close(res.model(tbatch.edges, tbatch.features), want)
+    assert not calls
