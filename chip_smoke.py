@@ -6,9 +6,11 @@ card, the CUDA toolkit (``nvcc``) and no network, and it fails (exit code
 other than 0, no result line) where CUDA is absent or the repository is not
 beside it. ``--only a,b`` runs some phases alone (``stream``, ``compose``,
 ``nc``, ``minibatch``, ``lp``, ``encoders``, ``agree``, and ``profile`` /
-``profile_mb`` / ``profile_att``: ``torch.profiler`` breakdowns of the
-link-prediction step, of a mini-batch NC step and of the attention
-kernels, never part of the whole run; ``profile`` also compares routes
+``profile_mb`` / ``profile_att`` / ``profile_mm``: ``torch.profiler``
+breakdowns of the link-prediction step, of a mini-batch NC step, of the
+attention kernels and of a multimodal NC step (with the fused MLP's and
+the fused attention's share), never part of the whole run; ``profile``
+also compares routes
 by device time per step in alternated windows: the basis layer's
 backward through ``fused_scatter_dot`` or through ``fused_place_scatter``
 and a gathered dot, and the featureless NC step with the identity
@@ -108,13 +110,18 @@ prints no result line. Phases, each printing its own lines:
    (attention N=8,000, L=128, d=128; MLP 1,024,000 rows, 128 -> 512 ->
    128, bf16) and on adversarial ones (N not a multiple of 8, L=37, a
    sequence that is all padding, one of length 1, L=300 and 512, d=64
-   and 8, rows not a multiple of the row block); attention also timed at
-   N=2,000, L=512 and at the slice's shape with every key valid (no key
-   tile to skip), and held on masks with holes (whole key tiles of
-   padding inside a sequence). Each kernel's registers, spills and
-   static shared memory are printed from the ``ptxas`` log, and a timer
-   that needs no stream to finish ends the run if the attention cases
-   hang. Each element is
+   and 8; MLP rows 1, one past a tile or a weight-gradient segment, one
+   hidden chunk, d=48); attention also timed at N=2,000, L=512 and at
+   the slice's shape with every key valid (no key tile to skip), and held
+   on masks with holes (whole key tiles of padding inside a sequence);
+   the MLP also timed at a multimodal mini-batch's 262,144 rows, beside
+   the bf16 cuBLAS chain (``F.linear``, ``F.gelu``, ``F.linear``, and its
+   autograd backward; timed only), with each launch's device time. Each
+   case prints a digest of its outputs' bits, to set beside another
+   tree's run. Each kernel's registers, spills and static shared memory
+   are printed from the ``ptxas`` log, and a timer that needs no stream
+   to finish ends the run if the attention or the MLP cases hang. Each
+   element is
    held to ``|got - want| <= 2^-6 (|want| + scale) + 1e-6``, ``scale``
    being its product over absolute values
    (``mrgcn_tpu_torch.ops.kernel_bounds``: bf16 intermediates rounded
@@ -158,6 +165,7 @@ JSON line with every kernel's numbers, and last the result line
 from __future__ import annotations
 
 import faulthandler
+import hashlib
 import json
 import math
 import os
@@ -202,6 +210,10 @@ LP_HIDDEN = 200
 HBM_BYTES_S, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 TF32_FLOPS = 495e12      # dense TF32 tensor-core FLOP/s
 MULTIMODAL = ("xsd.numeric", "xsd.gYear", "xsd.string")
+# rows (sequences x 128 tokens) the text MLP takes in most batches of the
+# multimodal mini-batch run (batchsize = 512: 2,048 string rows after
+# bucketing; the minibatch phase checks it is the largest it sees)
+MINIBATCH_TEXT_ROWS = 2048 * 128
 
 
 def check(cond: bool, what: str) -> None:
@@ -950,7 +962,7 @@ def ptxas_report(name: str) -> dict:
     for line in _build.load(name).ptxas_log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            plain = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?",
+            plain = re.search(r"([a-z_]+_kernel)(?:IL[ib](\d+)E)?",
                               m.group(1))
             entry = m.group(1) if plain is None else plain.group(1) + (
                 f"<{plain.group(2)}>" if plain.group(2) else "")
@@ -984,6 +996,26 @@ def mlp_case(gen, M, d, hd, device):
             rnd(hd, d, scale=hd ** -0.5), rnd(d, scale=0.5), rnd(M, d))
 
 
+def cublas_chain(x, w1, b1, w2, b2, do=None):
+    """The unfused bf16 chain on the same inputs: ``F.linear`` (cuBLAS),
+    ``F.gelu(approximate="tanh")``, ``F.linear``; with ``do`` also its
+    autograd backward. Timed only, used nowhere in the port."""
+    import torch
+    import torch.nn.functional as F
+
+    def chain(x, w1, b1, w2, b2):
+        return F.linear(F.gelu(F.linear(x, w1.t(), b1), approximate="tanh"),
+                        w2.t(), b2)
+    if do is None:
+        return lambda: chain(x, w1, b1, w2, b2)
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (x, w1, b1, w2, b2)]
+
+    def both():
+        return torch.autograd.grad(chain(*leaves), leaves, do)
+    return both
+
+
 def encoder_kernel_phase(device) -> dict:
     """Kernels #6-#9 against their plain versions at the slice's shapes
     (timed) and on adversarial shapes. Returns per-kernel rows."""
@@ -1008,8 +1040,13 @@ def encoder_kernel_phase(device) -> dict:
                 for i, (g, w, s) in enumerate(zip(outs, wants, scales))]
         check(all(torch.equal(g, a) for g, a in zip(outs, agains)),
               f"{name} {label}: two runs differ")
+        # the outputs' bits, to set beside another tree's run
+        digest = hashlib.sha256()
+        for g in outs:
+            digest.update(g.contiguous().view(torch.uint8).cpu().numpy())
         row = {"label": label, "max_abs_err": max(e for e, _ in errs),
-               "max_err_over_bound": max(r for _, r in errs)}
+               "max_err_over_bound": max(r for _, r in errs),
+               "digest": digest.hexdigest()[:16]}
         if timed:
             row.update(timed_pair(kernel, plain, library))
             row.update(bound(work[0], work[1], BF16_FLOPS))
@@ -1034,9 +1071,9 @@ def encoder_kernel_phase(device) -> dict:
             return torch.autograd.grad(out, leaves, do[:, None])
         return both
 
-    for kernel_name, used in ptxas_report("fused_attention").items():
-        print(f"[kernel] fused_attention.cu {kernel_name}: "
-              f"{json.dumps(used)}")
+    for source in ("fused_attention", "fused_mlp"):
+        for kernel_name, used in ptxas_report(source).items():
+            print(f"[kernel] {source}.cu {kernel_name}: {json.dumps(used)}")
     # a hung kernel shows no launch error and never lets a synchronize
     # return: a timer that does not wait for the stream ends the process
     # (with every thread's traceback) if the attention cases take 400 s
@@ -1097,25 +1134,55 @@ def encoder_kernel_phase(device) -> dict:
         torch.cuda.synchronize()
         del q, k, v, valid, do, scales
     faulthandler.cancel_dump_traceback_later()
-    for label, (M, d, hd), timed in (("slice", (1_024_000, 128, 512), True),
-                                     ("adversarial_1000", (1000, 128, 512),
-                                      False),
-                                     ("adversarial_37x16x64", (37, 16, 64),
-                                      False)):
+    # the same for the MLP cases, 300 s
+    faulthandler.dump_traceback_later(300, exit=True)
+    # new cases come after the old ones, so these keep their inputs: one
+    # row; one past a 128-row dx tile and a 64-row weight-gradient segment
+    # (129: three segments); one past a 192-row forward tile (193); one
+    # past 15 segments of 128 rows and past a forward and a dx tile (1921,
+    # on 132 SMs); a single hidden chunk; d = 48 (TMA fills columns 48..127
+    # with zeros); and the rows a multimodal mini-batch of 512 labels gives
+    # the text MLP (MINIBATCH_TEXT_ROWS, checked in the minibatch phase)
+    for label, (M, d, hd), timed in (
+            ("slice", (1_024_000, 128, 512), True),
+            ("adversarial_1000", (1000, 128, 512), False),
+            ("adversarial_37x16x64", (37, 16, 64), False),
+            ("adversarial_1", (1, 128, 512), False),
+            ("adversarial_129", (129, 128, 512), False),
+            ("adversarial_193", (193, 128, 512), False),
+            ("adversarial_1921", (1921, 128, 512), False),
+            ("adversarial_1000x128x64", (1000, 128, 64), False),
+            ("adversarial_1000x48x192", (1000, 48, 192), False),
+            ("minibatch", (MINIBATCH_TEXT_ROWS, 128, 512), True)):
         x, w1, b1, w2, b2, do = mlp_case(gen, M, d, hd, device)
         scales = mlp_scales(x, w1, b1, w2, b2, do)
         # two products forward; five backward (the hidden activations
-        # again, dh, dx, dW1, dW2); no single PyTorch call computes either
+        # again, dh, dx, dW1, dW2); no single PyTorch call computes
+        # either: the yardstick is the bf16 cuBLAS chain, three calls
         weights = nbytes(w1, b1, w2, b2)
         compare("mlp_fwd", label, lambda: fm.mlp_fwd(x, w1, b1, w2, b2),
                 lambda: fm.mlp_fwd_reference(x, w1, b1, w2, b2),
-                scales[:1], timed, None,
+                scales[:1], timed,
+                cublas_chain(x, w1, b1, w2, b2) if timed else None,
                 (2 * nbytes(x) + weights, 4.0 * M * d * hd))
         compare("mlp_bwd", label, lambda: fm.mlp_bwd(x, w1, b1, w2, do),
                 lambda: fm.mlp_bwd_reference(x, w1, b1, w2, do),
-                scales[1:], timed, None,
+                scales[1:], timed,
+                cublas_chain(x, w1, b1, w2, b2, do) if timed else None,
                 (3 * nbytes(x) + 2 * weights, 10.0 * M * d * hd))
+        if timed:
+            fwd, bwd = rows["mlp_fwd"][-1], rows["mlp_bwd"][-1]
+            bwd["library_fwd_bwd_ms"] = bwd["library_ms"]
+            bwd["library_ms"] = bwd["library_ms"] - fwd["library_ms"]
+            print(f"[kernel] mlp_bwd {label}: cuBLAS chain's backward alone "
+                  f"{bwd['library_ms']:.3f} ms")
+            # each launch of the two wrappers by device time
+            profile_steps(f"mlp_fwd {label}, launches",
+                          lambda: fm.mlp_fwd(x, w1, b1, w2, b2), 5, top=5)
+            profile_steps(f"mlp_bwd {label}, launches",
+                          lambda: fm.mlp_bwd(x, w1, b1, w2, do), 5, top=5)
         del x, w1, b1, w2, b2, do, scales
+    faulthandler.cancel_dump_traceback_later()
     torch.cuda.empty_cache()
     return rows
 
@@ -1292,7 +1359,9 @@ def minibatch_phase(work, tmp: Path, F) -> dict:
     (every batch's 2-hop neighbourhood is the whole graph), the ranking of
     the training batches and the sliced ranking of the test split."""
     import torch
+    from torch.nn.modules.module import register_module_forward_pre_hook
     from mrgcn_tpu_torch import run
+    from mrgcn_tpu_torch.models.encoders import TextBlock
     out = {}
     for tag, graph, task, epochs, feats in (
             ("mb_nc", "dmg_synth", {"batchsize": 32}, 2, None),
@@ -1301,11 +1370,28 @@ def minibatch_phase(work, tmp: Path, F) -> dict:
               "neighbor_fanout_rounds": 2}, 2, None),
             ("mb_nc_multimodal", "dmg_synth_multimodal",
              {"batchsize": 512}, 1, F)):
+        # the rows each text block takes (sequences x tokens), recorded
+        # before its forward
+        text_rows = []
+
+        def record(module, args):
+            if isinstance(module, TextBlock):
+                text_rows.append(args[0].shape[0] * args[0].shape[1])
+        hook = register_module_forward_pre_hook(record) \
+            if feats is not None else None
         counters = start_path()
         t0 = time.perf_counter()
         res = train_via_cli(tmp, tag, work, epochs, work["num_bases"],
                             F=feats, task=task, graph=graph)
         wall = time.perf_counter() - t0
+        if hook is not None:
+            hook.remove()
+            check(max(text_rows) == MINIBATCH_TEXT_ROWS,
+                  f"{tag}: the text MLP took at most {max(text_rows)} rows, "
+                  f"not MINIBATCH_TEXT_ROWS = {MINIBATCH_TEXT_ROWS}")
+            print(f"[minibatch] {tag}: text MLP rows a call "
+                  f"{json.dumps(sorted(set(text_rows)))}, "
+                  f"{len(text_rows)} calls")
         launches = {name: fn.launches for name, fn in counters.items()}
         losses = [h["train_loss"] for h in res.history]
         check(len(losses) == epochs, f"{tag}: trained {len(losses)} epochs")
@@ -1785,6 +1871,53 @@ def profile_attention_phase(device, steps: int = 10) -> None:
         del q, k, v, valid, do
 
 
+def profile_multimodal_phase(work, tmp: Path, device, steps: int = 5) -> None:
+    """Where a multimodal NC step's time goes (``--only profile_mm``, not
+    part of the default run): the DMG-width model with the text encoder,
+    full batch, ``torch.profiler`` over ``steps`` training steps, and the
+    fused MLP's and fused attention's kernels' share of the device time."""
+    import numpy as np
+    import torch
+    from mrgcn_tpu_torch import run
+    from mrgcn_tpu_torch.tasks import node_classification as nc
+    from mrgcn_tpu_torch.tasks import utils as tutils
+    from mrgcn_tpu_torch.tasks.common import prepare_inputs
+    from mrgcn_tpu_torch.tasks.synthetic import (multimodal_features,
+                                                 save_nc_artifact)
+    art, cfg = tmp / "profile_mm.npz", tmp / "profile_mm.toml"
+    save_nc_artifact(str(art), work["n"], work["R"], work["src"],
+                     work["dst"], work["rel"], work["norm"],
+                     work["labels_idx"], work["labels_cls"],
+                     work["num_classes"], seed=0,
+                     num_eval=min(1000, work["n"] // 20),
+                     F=multimodal_features(work["n"], seed=0))
+    write_config(cfg, 1, work["num_bases"], work["hidden"],
+                 features=MULTIMODAL)
+    config = run.load_config(str(cfg))
+    artifact = run.artifact_io.load(str(art))
+    inputs = prepare_inputs(artifact, config, False, device)
+    model = nc.build_model(inputs, config, work["num_classes"],
+                           torch.Generator().manual_seed(0))
+    optimizer = tutils.build_optimizer(model, config,
+                                       inputs.optimizer_config, False)
+    model.skip_encoders = tutils.dead_encoders(model)
+    Y = np.concatenate([np.asarray(artifact.Y[k]).reshape(-1, 2)
+                        for k in ("train", "valid") if k in artifact.Y])
+    batch, = nc.make_batches(inputs, Y, -1, len(model.hidden_dims))
+    busy, wall, by_name = profile_steps(
+        "multimodal NC step",
+        lambda: nc.train_step(model, optimizer, batch, 0.0, 0.0), steps,
+        top=30)
+    # fused_mlp.cu's kernels (its segment sum included) and
+    # fused_attention.cu's
+    for what, names in (("fused_mlp", ("mlp_", "sum_segments_kernel")),
+                        ("fused_attention", ("attention_",))):
+        ms = sum(v for k, v in by_name.items()
+                 if any(n in k for n in names))
+        print(f"[profile] {what} kernels {ms:.3f} ms a step, "
+              f"{ms / busy:.1%} of the device time")
+
+
 def profile_minibatch_phase(work, tmp: Path, device, steps: int = 40) -> None:
     """Where a mini-batch NC epoch's time goes (``--only profile_mb``, not
     part of the default run): the DMG-width featureless model at
@@ -2153,7 +2286,8 @@ STREAM_KERNELS = ("sorted_scatter", "sorted_gather", "fused_scatter_dot",
                   "fused_place_scatter")
 ENCODER_KERNELS = ("attention_fwd", "attention_bwd", "mlp_fwd", "mlp_bwd")
 PHASES = ("stream", "compose", "nc", "minibatch", "lp", "encoders", "agree")
-EXTRA_PHASES = ("profile", "profile_mb", "profile_att")   # only with --only
+EXTRA_PHASES = ("profile", "profile_mb", "profile_att",   # only with
+                "profile_mm")                              # --only
 
 
 def main(argv=None) -> None:
@@ -2218,6 +2352,8 @@ def main(argv=None) -> None:
             profile_minibatch_phase(work, tmp, device)
         if "profile_att" in phases:
             profile_attention_phase(device)
+        if "profile_mm" in phases:
+            profile_multimodal_phase(work, tmp, device)
         if "encoders" in phases:
             rows.update(encoder_kernel_phase(device))
         if "agree" in phases:

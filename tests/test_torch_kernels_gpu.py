@@ -431,8 +431,18 @@ def test_fused_attention_autograd_on_card_matches_cpu(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("M,d,hd", [(1000, 128, 512), (37, 16, 64),
-                                    (4101, 64, 256), (128, 128, 512)])
+                                    (4101, 64, 256), (128, 128, 512),
+                                    (1, 128, 512), (129, 128, 512),
+                                    (193, 128, 512), (1921, 128, 512),
+                                    (1000, 128, 64), (1000, 48, 192),
+                                    (262144, 128, 512)])
 def test_mlp_kernels_match_plain(cuda, M, d, hd):
+    """Also at one row; one past a 128-row dx tile and a 64-row
+    weight-gradient segment (129); one past a 192-row forward tile (193);
+    one past 15 segments of 128 rows (1921 on 132 SMs: the last segment
+    holds one row); a single hidden chunk; d = 48, which the tensor maps
+    fill to 128 with zeros; and the rows of a multimodal mini-batch of 512
+    labels."""
     from mrgcn_tpu_torch.ops import fused_mlp as fm
     from mrgcn_tpu_torch.ops.kernel_bounds import mlp_scales
     gen = torch.Generator(device="cpu").manual_seed(M + d + hd)
@@ -460,6 +470,31 @@ def test_mlp_kernels_match_plain(cuda, M, d, hd):
                                  want, scales[1:], grads_again):
         assert_bf16_close(g, w, s, name)
         assert torch.equal(g, g2), name
+
+
+@pytest.mark.gpu
+def test_mlp_kernels_take_unaligned_views(cuda):
+    """Operands whose start is not 16-byte aligned (the tensor maps need
+    it) are copied, not refused: the result equals the aligned call's."""
+    from mrgcn_tpu_torch.ops import fused_mlp as fm
+    gen = torch.Generator(device="cpu").manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(
+            cuda, torch.bfloat16)
+
+    M, d, hd = 300, 64, 128
+    big, dbig = rnd(M * d + 1), rnd(M * d + 1)
+    x, do = big[1:].view(M, d), dbig[1:].view(M, d)
+    assert x.data_ptr() % 16
+    w1, b1 = rnd(d, hd, scale=d ** -0.5), rnd(hd, scale=0.5)
+    w2, b2 = rnd(hd, d, scale=hd ** -0.5), rnd(d, scale=0.5)
+    out = fm.mlp_fwd(x, w1, b1, w2, b2)
+    grads = fm.mlp_bwd(x, w1, b1, w2, do)
+    torch.cuda.synchronize()
+    assert torch.equal(out, fm.mlp_fwd(x.clone(), w1, b1, w2, b2))
+    for g, w in zip(grads, fm.mlp_bwd(x.clone(), w1, b1, w2, do.clone())):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.gpu
