@@ -5,7 +5,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, the CUDA toolkit (``nvcc``) and no network, and it fails (exit code
 other than 0, no result line) where CUDA is absent or the repository is not
 beside it. ``--only a,b`` runs some phases alone (``stream``, ``compose``,
-``nc``, ``minibatch``, ``lp``, ``encoders``, ``agree``, and ``profile`` /
+``nc``, ``minibatch``, ``lp``, ``encoders``, ``agree``; ``scatter_dot``,
+the ``fused_scatter_dot`` cases of ``stream``; ``profile_stream``, the
+scatters' device time by kernel on every main-path stream; and
+``profile`` /
 ``profile_mb`` / ``profile_att`` / ``profile_mm``: ``torch.profiler``
 breakdowns of the link-prediction step, of a mini-batch NC step, of the
 attention kernels and of a multimodal NC step (with the fused MLP's and
@@ -24,22 +27,40 @@ prints no result line. Phases, each printing its own lines:
 3. the stream kernels against their plain PyTorch versions on the card
    (f32 sums in other orders: atol 1e-4 / rtol 1e-5; ``sorted_gather`` bit
    for bit):
-   ``sorted_scatter`` and ``fused_place_scatter`` on the four layer-0
-   streams one multimodal training step scatters on the DMG-scale bench
-   graph (``benchmarks/torch_baseline.build_workload``): the identity
-   half's ``fwd`` and ``bwd_table``, the dense feature half's ``fwd`` and
-   ``bwd_h``; ``fused_place_scatter``, ``fused_scatter_dot`` and
-   ``sorted_gather`` on the link-prediction graph's streams (FB15k-237's
-   sizes, hidden 200: ``fwd`` and the dst-sorted ``bwd_h``;
-   ``fused_scatter_dot`` there through its row-segmented kernel, as the
-   layer calls it, with its block-walk kernel and the layer's other route,
-   ``fused_place_scatter`` and a gathered dot, timed beside it); and all
-   four on small adversarial streams (padding, a run of one slab,
-   all-padding slabs, repeated and unvisited blocks, ragged output rows,
-   ``k`` 1 and 8, values narrower than their slot), then
-   ``fused_scatter_dot``'s two kernels on row-sorted adversarial streams
+   ``fused_scatter_dot`` through its row-segmented kernel, as the layer
+   calls it, on the link-prediction graph's dst-sorted ``bwd_h`` stream
+   (FB15k-237's sizes, hidden 200) and on row-sorted adversarial streams
    (strided and contiguous values, a hub row of more than 20,000 edges
-   split by an all-padding slab, timed). Then the compose kernels
+   split by an all-padding slab, timed), each case with a digest of its
+   outputs' bits (``--only scatter_dot`` runs these alone and calls
+   nothing a tree without the row-segmented ``sorted_scatter`` and
+   ``fused_place_scatter`` lacks: this script run over such a tree sets
+   their digests side by side); ``sorted_scatter`` and
+   ``fused_place_scatter`` on the four layer-0 streams one multimodal
+   training step scatters on the DMG-scale bench graph
+   (``benchmarks/torch_baseline.build_workload``): the identity half's
+   ``fwd`` and ``bwd_table``, the dense feature half's ``fwd`` and
+   ``bwd_h``, each on the route the layer takes (the row-segmented kernel
+   on the streams the planner marks ``rows_sorted``; on the dense
+   half's relation-constant ``fwd`` the split walk of
+   ``fused_place_scatter`` and the block walk of ``sorted_scatter``);
+   ``fused_place_scatter`` and ``sorted_gather`` on the link-prediction
+   graph's ``fwd`` stream, and the basis layer's other route for the
+   ``bwd_h`` gradients (``fused_place_scatter`` and a gathered dot)
+   timed beside ``fused_scatter_dot``; the block walk of
+   ``sorted_scatter``, the split walk of ``fused_place_scatter`` and
+   ``sorted_gather`` on small adversarial streams that are not sorted by
+   row (padding, a run of one slab, all-padding slabs, repeated and
+   unvisited blocks, ragged output rows, ``k`` 1, 4 and 8, values
+   narrower than their slot, runs of some 300 slabs that the split walk
+   cuts), where ``fused_scatter_dot`` must raise; then the row-segmented
+   kernels of ``sorted_scatter`` and ``fused_place_scatter`` on
+   row-sorted adversarial streams (slots drawn per edge, so they
+   interleave within a row; ``k`` 8, 4, 1 and 2; contiguous and strided
+   values, an odd width, lines of 640 lanes, wider than one warp holds;
+   a hub row of more than 20,000 edges split by an all-padding slab,
+   timed, each case's longest row held to a float64 sum within 1e-3 of
+   its magnitude). Then the compose kernels
    (``compose_grad_pass``, ``compose_table``, ``canonical_copy``) at DMG
    width (R=121, B=40, 12,800 packed rows of 128 lanes; the cotangent
    table taken from a real ``bwd_table`` scatter), on ``packed`` cut from
@@ -95,8 +116,18 @@ prints no result line. Phases, each printing its own lines:
    just after: every kernel it runs must have launched. The paths run
    before phase 7: run after it, the featureless epoch measured about
    15 % slower than in a fresh process (H100 80GB HBM3, 700 W).
-   On this path every ``fused_scatter_dot`` launch must be its
-   row-segmented kernel (two a step). Then, counted apart from every
+   The scatters' launches are checked by route: on the featureless NC
+   path the place-scatter's row-segmented kernel twice a step (a forward
+   more for the test split), its split walk never; on the multimodal one
+   besides the split walk once a training forward and
+   ``sorted_scatter``'s row-segmented kernel once a step and once for the
+   test forward (``TEST_DENSE_FWD_SPLIT``), each count exact; on the
+   link-prediction path every
+   ``fused_place_scatter`` launch on the row-segmented kernel (one a step
+   and one an evaluation) and ``fused_scatter_dot`` two a step; the
+   mini-batch and node-sliced paths run the unplanned layers, and any
+   scatter they launch must be on its row-segmented kernel. Then,
+   counted apart from every
    path, the gradient of ``featureless_basis`` from its own backward
    (``fused_scatter_dot``)
    against autograd through the same forward written with differentiable
@@ -196,6 +227,12 @@ ENCODER_RTOL = {"mlp": (1e-4, 1e-4), "text": (1e-2, 1e-1)}
 # port's route (rspmm.compose_packed): the identity layer's forward
 # (compose_table) and its backward (compose_grad_pass)
 COMPOSE_PER_STEP = {"compose_table": 1, "compose_grad_pass": 1}
+# whether the multimodal NC path's test forward takes the split walk: the
+# planner makes the training split's layer-0 dense fwd relation-constant
+# (split walk) and the test split's frontier fwd plain and row-sorted
+# (sorted_scatter's row kernel) on the graph of
+# benchmarks.torch_baseline.build_workload(seed=0)
+TEST_DENSE_FWD_SPLIT = False
 KERNEL_SOURCES = ("sorted_scatter", "sorted_gather", "fused_place_scatter",
                   "scatter_dot", "compose", "fused_attention", "fused_mlp")
 # configs/fb15k-237.toml trains 20 epochs and ranks every 10. The f32 loss
@@ -296,6 +333,15 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def digest(outputs) -> str:
+    """The outputs' bits, to set beside another tree's run."""
+    import torch
+    h = hashlib.sha256()
+    for t in outputs:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy())
+    return h.hexdigest()[:16]
+
+
 def compare_stream(name, label, kernel, plain, library=None, work=None,
                    exact=False, shape=None, scales=None,
                    flops_peak=None) -> dict:
@@ -323,7 +369,8 @@ def compare_stream(name, label, kernel, plain, library=None, work=None,
             else bool(((g - w).abs() <= ATOL + RTOL * scale).all())
         check(ok, f"{what}: kernel disagrees with plain (max abs err {e})")
         check(torch.equal(g, a), f"{what}: two runs differ")
-    row = {"label": label, **(shape or {}), "max_abs_err": err}
+    row = {"label": label, **(shape or {}), "max_abs_err": err,
+           "digest": digest(as_tuple(got))}
     if work is not None:
         row.update(timed_pair(kernel, plain, library))
         row.update(bound(work[0], work[1], flops_peak or F32_FLOPS))
@@ -408,13 +455,26 @@ def edge_rows(local, blk, rb, num_rows):
     return torch.where(valid, rows, torch.full_like(rows, num_rows))
 
 
+def scatter_work(real, per_edge, flops_per_edge, local, blk, out_rows,
+                 L) -> tuple:
+    """(bytes, f32 operations) a scatter must move and do: its ``per_edge``
+    floats (a line for #1; the values, slot and norm for #5) at the real
+    edges only, since the function reads no padding edge; local and blk
+    whole (the walk reads every slot) and the output whole (every row is
+    written), as ``scatter_dot_cases`` counts #3's."""
+    return (real * per_edge * 4 + nbytes(local, blk) + out_rows * L * 4,
+            real * flops_per_edge)
+
+
 def scatter_cases(names, label, stream, place, out_rows, L, k, d, gen,
                   device) -> dict:
     """``sorted_scatter`` (on random full lines) and
     ``fused_place_scatter`` (on random ``d``-wide values placed at the
     slots ``place``, the stream's ``out_mod`` or ``in_mod``) on one
-    stream, each against its plain version and against ``index_add_`` on
-    lines expanded beforehand."""
+    stream, each on the route the layer takes there (the row-segmented
+    kernel where the planner marks the stream ``rows_sorted``), against
+    its plain version and against ``index_add_`` on lines expanded
+    beforehand."""
     import torch
     from mrgcn_tpu_torch.ops import sorted_stream as ss
     local, blk = stream.scatter_local, stream.scatter_blk
@@ -428,14 +488,16 @@ def scatter_cases(names, label, stream, place, out_rows, L, k, d, gen,
         return lambda: torch.zeros(out_rows + 1, L, device=device) \
             .index_add_(0, rows, msgs)
 
+    shape["rows_sorted"] = flag = stream.rows_sorted
+    shape["real_edges"] = real
     if "sorted_scatter" in names:
         msgs = torch.randn(E, L, generator=gen, device=device)
         args = (msgs, local, blk, out_rows, rb, eb)
         out["sorted_scatter"] = compare_stream(
-            "sorted_scatter", label, lambda: ss.sorted_scatter(*args),
+            "sorted_scatter", label,
+            lambda: ss.sorted_scatter(*args, rows_sorted=flag),
             lambda: ss.sorted_scatter_reference(*args), index_add(msgs),
-            (nbytes(msgs, local, blk) + out_rows * L * 4, real * L),
-            shape=shape)
+            scatter_work(real, L, L, local, blk, out_rows, L), shape=shape)
         del msgs
     if "fused_place_scatter" in names:
         V = torch.randn(E, d, generator=gen, device=device)
@@ -443,11 +505,10 @@ def scatter_cases(names, label, stream, place, out_rows, L, k, d, gen,
         lines = ss.expand_sub(V * stream.norm[:, None], place, k, L)
         out["fused_place_scatter"] = compare_stream(
             "fused_place_scatter", label,
-            lambda: ss.fused_place_scatter(*args),
+            lambda: ss.fused_place_scatter(*args, rows_sorted=flag),
             lambda: ss.fused_place_scatter_reference(*args),
             index_add(lines),
-            (nbytes(V, place, stream.norm, local, blk) + out_rows * L * 4,
-             2 * real * d),
+            scatter_work(real, d + 2, 2 * d, local, blk, out_rows, L),
             shape={**shape, "Lv": d, "k": k})
         del V, lines
     return out
@@ -490,6 +551,17 @@ def nc_stream_phase(work, device, rows) -> None:
 
     x_width, hidden = multimodal_width(), work["hidden"]
     ident, dense = nc_layer0_plans(work, device)
+    # the routes the NC paths' launch counts expect (main): every stream
+    # row-sorted but the dense half's relation-constant fwd
+    for what, stream, sorted_ in (
+            ("identity fwd", ident.fwd, True),
+            ("identity bwd_table", ident.bwd_table, True),
+            ("dense fwd", dense.fwd, False),
+            ("dense bwd_h", dense.bwd_h, True)):
+        check(stream.rows_sorted == sorted_
+              and stream.rel_const == (not sorted_),
+              f"NC layer 0's {what} stream: rows_sorted "
+              f"{stream.rows_sorted}, relation-constant {stream.rel_const}")
 
     gen = torch.Generator(device=device).manual_seed(0)
     # one training step's four scatters, in the order the step makes them:
@@ -528,15 +600,13 @@ def lp_plans(artifact_path: Path, device):
 
 
 def lp_stream_phase(plan, device, rows) -> None:
-    """``fused_place_scatter`` on the LP ``fwd`` stream,
-    ``fused_scatter_dot`` on its dst-sorted ``bwd_h`` stream and
-    ``sorted_gather`` on the ``fwd`` stream (the backward of the
-    differentiable ``sorted_scatter``), at hidden 200 in 256-lane rows.
-    ``fused_scatter_dot`` takes the row-segmented kernel there, as the
-    layer does (the planner marks ``bwd_h`` ``rows_sorted``); the
-    block-walk kernel and the layer's other route for the same gradients
-    (``fused_place_scatter``, then a dot with the gathered table rows) are
-    timed beside it on the same inputs."""
+    """``fused_place_scatter`` on the LP ``fwd`` stream and
+    ``sorted_gather`` on it (the backward of the differentiable
+    ``sorted_scatter``), at hidden 200 in 256-lane rows; then the basis
+    layer's other route for the ``bwd_h`` gradients
+    (``fused_place_scatter``, then a dot with the gathered table rows),
+    held to ``fused_scatter_dot``'s plain version and timed beside its
+    kernel (``scatter_dot_phase``), as ``place_dot_ms``."""
     import torch
     from mrgcn_tpu_torch.ops import sorted_stream as ss
     from mrgcn_tpu_torch.ops.relational import line_width
@@ -544,29 +614,40 @@ def lp_stream_phase(plan, device, rows) -> None:
     d, L = LP_HIDDEN, line_width(1, LP_HIDDEN)
 
     f = plan.fwd
+    check(f.rows_sorted, "the planner did not mark LP's fwd rows_sorted")
     got = scatter_cases(("fused_place_scatter",), "lp_fwd", f, f.out_mod,
                         plan.n_out_rows, L, 1, d, gen, device)
     rows["fused_place_scatter"].append(got["fused_place_scatter"])
 
     h = plan.bwd_h
-    check(h.rows_sorted, "the planner did not mark LP's bwd_h rows_sorted")
-    local, blk, rb, eb = h.scatter_local, h.scatter_blk, h.row_block, \
-        h.edge_block
-    E, T = h.num_padded_edges, plan.n_in_rows
-    dvn = torch.randn(E, d, generator=gen, device=device) * h.norm[:, None]
-    w = torch.randn(E, generator=gen, device=device)
-    table = torch.randn(T, L, generator=gen, device=device)
-    gathered = h.gather_row.long()
-    placed = (lambda: (
-        ss.fused_place_scatter(dvn, h.in_mod, w, local, blk, T, 1, L, rb,
-                               eb),
-        (dvn * table[gathered][:, :d]).sum(dim=1)))
-    rows["fused_scatter_dot"].append(scatter_dot_cases(
-        "lp_bwd_h", (dvn, w, local, blk, table, T, rb, eb),
-        stream_shape(h, T, L), placed))
-    del dvn, w
+    dvn, w, table = lp_bwd_h_inputs(plan, device)
+    T, gathered = plan.n_in_rows, h.gather_row.long()
+    args = (dvn, w, h.scatter_local, h.scatter_blk, table, T, h.row_block,
+            h.edge_block)
 
-    local, blk = f.scatter_local, f.scatter_blk
+    def placed():
+        return (ss.fused_place_scatter(dvn, h.in_mod, w, h.scatter_local,
+                                       h.scatter_blk, T, 1, L, h.row_block,
+                                       h.edge_block,
+                                       rows_sorted=h.rows_sorted),
+                (dvn * table[gathered][:, :d]).sum(dim=1))
+
+    got, want = placed(), ss.fused_scatter_dot_reference(*args)
+    for g, w_ in zip(got, want):
+        check(bool(((g - w_).abs() <= ATOL + RTOL * w_.abs()).all()),
+              "fused_scatter_dot lp_bwd_h: the place-scatter route "
+              "disagrees with plain")
+    ms = time_ms(placed)
+    row = next(r for r in rows["fused_scatter_dot"]
+               if r["label"] == "lp_bwd_h")
+    row["place_dot_ms"] = ms
+    print(f"[kernel] fused_scatter_dot lp_bwd_h: the layer's other route, "
+          f"fused_place_scatter + gathered dot, {ms:.3f} ms against "
+          f"{row['ms']:.3f} ms")
+    del dvn, w, got, want
+
+    local, blk, rb, eb = f.scatter_local, f.scatter_blk, f.row_block, \
+        f.edge_block
     frows = edge_rows(local, blk, rb, T)
     padded = torch.cat([table, table.new_zeros(1, L)])
     gargs = (table, local, blk, rb, eb)
@@ -579,13 +660,85 @@ def lp_stream_phase(plan, device, rows) -> None:
     torch.cuda.empty_cache()
 
 
-def scatter_dot_cases(label, args, shape, placed=None) -> dict:
-    """``fused_scatter_dot`` on a row-sorted stream: its row-segmented
-    kernel (the row returned, timed against the plain version and the
-    ``index_add_`` of the scatter half alone), then its block-walk kernel
-    on the same inputs, held and timed the same way (its times go into the
-    row as ``general_*``). ``placed`` (the layer's other route, returning
-    the same pair) is held to the plain version and timed too."""
+def lp_bwd_h_inputs(plan, device):
+    """``dvn`` (scaled by the stream's norm, as the layer scales it),
+    ``w`` and the table of the basis layer's backward on LP's ``bwd_h``
+    stream, from a generator of their own."""
+    import torch
+    from mrgcn_tpu_torch.ops.relational import line_width
+    gen = torch.Generator(device=device).manual_seed(4)
+    h, d = plan.bwd_h, LP_HIDDEN
+    E, T = h.num_padded_edges, plan.n_in_rows
+    dvn = torch.randn(E, d, generator=gen, device=device) * h.norm[:, None]
+    w = torch.randn(E, generator=gen, device=device)
+    table = torch.randn(T, line_width(1, d), generator=gen, device=device)
+    return dvn, w, table
+
+
+def scatter_dot_phase(plan, device, rows) -> None:
+    """``fused_scatter_dot`` (its row-segmented kernel, the layer's route)
+    on LP's dst-sorted ``bwd_h`` stream, timed, and on row-sorted
+    adversarial streams: ``dvn`` cut from wider rows at an odd offset
+    (4-byte loads) or contiguous (16-byte loads); the last with a hub row
+    of more than 20,000 edges over some 80 slabs, split by an all-padding
+    slab, timed too. Every case prints its outputs' digest. This phase
+    calls nothing of the API that a tree before the row-segmented
+    ``sorted_scatter`` and ``fused_place_scatter`` lacks, so this script
+    run with ``--only scatter_dot`` over such a tree gives its bits."""
+    import numpy as np
+    import torch
+    from mrgcn_tpu_torch.ops import sorted_stream as ss
+    h = plan.bwd_h
+    check(h.rows_sorted, "the planner did not mark LP's bwd_h rows_sorted")
+    dvn, w, table = lp_bwd_h_inputs(plan, device)
+    T = plan.n_in_rows
+    rows["fused_scatter_dot"].append(scatter_dot_cases(
+        "lp_bwd_h", (dvn, w, h.scatter_local, h.scatter_blk, table, T,
+                     h.row_block, h.edge_block),
+        stream_shape(h, T, table.shape[1])))
+    del dvn, w, table
+
+    rng = np.random.default_rng(3)
+    for label, (n_edges, rb, eb, n_blocks, L, d, hub, strided) in {
+            "sorted_16x8": (200, 16, 8, 10, 128, 128, 300, False),
+            "sorted_64x40_strided": (600, 64, 40, 20, 96, 21, 400, True),
+            "sorted_512x256_strided": (3000, 512, 256, 14, 256, 200, 1500,
+                                       True),
+            "sorted_hub": (30_000, 512, 256, 14, 256, 200, 23_000,
+                           False)}.items():
+        local, blk, scale = sorted_adversarial_stream(rng, n_edges, rb, eb,
+                                                      n_blocks, hub)
+        E, out_rows = local.size, (n_blocks + 1) * rb - 37
+        wide = torch.as_tensor(rng.standard_normal((E, d + 4))
+                               * scale[:, None], dtype=torch.float32,
+                               device=device)
+        dvn = wide[:, 1:1 + d] if strided else wide[:, :d].contiguous()
+        args = (dvn, torch.as_tensor(rng.random(E), dtype=torch.float32,
+                                     device=device),
+                torch.as_tensor(local, device=device),
+                torch.as_tensor(blk, device=device),
+                torch.as_tensor(rng.standard_normal((out_rows, L)),
+                                dtype=torch.float32, device=device),
+                out_rows, rb, eb)
+        shape = {"E_pad": E, "slabs": local.shape[0], "out_rows": out_rows,
+                 "L": L, "strided": strided}
+        if label == "sorted_hub":
+            rows["fused_scatter_dot"].append(scatter_dot_cases(
+                label, args, shape))
+            check(rows["fused_scatter_dot"][-1]["longest_row"] >= 20_000,
+                  "sorted_hub: the hub row is shorter than 20,000 edges")
+            continue
+        rows["fused_scatter_dot"].append(compare_stream(
+            "fused_scatter_dot", label,
+            lambda: ss.fused_scatter_dot(*args, rows_sorted=True),
+            lambda: ss.fused_scatter_dot_reference(*args), shape=shape))
+
+
+def scatter_dot_cases(label, args, shape) -> dict:
+    """``fused_scatter_dot`` on a row-sorted stream through its
+    row-segmented kernel, timed against the plain version and the
+    ``index_add_`` of the scatter half alone; its longest row held to a
+    float64 sum."""
     import torch
     from mrgcn_tpu_torch.ops import sorted_stream as ss
     dvn, w, local, blk, table, T, rb, eb = args
@@ -611,30 +764,15 @@ def scatter_dot_cases(label, args, shape, placed=None) -> dict:
         lambda: torch.zeros(T + 1, L, device=dvn.device)
         .index_add_(0, hrows, msgs),     # the scatter half alone
         work, shape=shape)
-    general = compare_stream(
-        "fused_scatter_dot", label + "_general",
-        lambda: ss.fused_scatter_dot(*args),
-        lambda: ss.fused_scatter_dot_reference(*args), None, work,
-        shape=shape)
-    row.update(general_ms=general["ms"], general_ms_runs=general["ms_runs"],
-               general_max_abs_err=general["max_abs_err"])
     if real:
-        row["longest_row_rel_err"] = longest_row_check(label, args, hrows,
-                                                       degree)
-    if placed is not None:
-        got, want = placed(), ss.fused_scatter_dot_reference(*args)
-        for g, w_ in zip(got, want):
-            check(bool(((g - w_).abs() <= ATOL + RTOL * w_.abs()).all()),
-                  f"fused_scatter_dot {label}: the place-scatter route "
-                  "disagrees with plain")
-        row["place_dot_ms"] = time_ms(placed)
+        row["longest_row_rel_err"] = longest_row_check(
+            "fused_scatter_dot", label,
+            lambda: ss.fused_scatter_dot(*args, rows_sorted=True), hrows,
+            degree, (dvn * w[:, None], dvn, table[:, :d]))
     print(f"[kernel] fused_scatter_dot {label}: row-segmented "
-          f"{row['ms']:.3f} ms, block walk {row['general_ms']:.3f} ms, "
-          f"plain {row['plain_ms']:.3f} ms, index_add_ (scatter half) "
-          f"{row['library_ms']:.3f} ms"
-          + (f", fused_place_scatter + gathered dot "
-             f"{row['place_dot_ms']:.3f} ms" if placed else "")
-          + f"; bound {row['bound_ms']:.3f} ms"
+          f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, index_add_ "
+          f"(scatter half) {row['library_ms']:.3f} ms; bound "
+          f"{row['bound_ms']:.3f} ms"
           + (f"; longest row ({row['longest_row']} edges) off a float64 "
              f"sum by {row['longest_row_rel_err']:.3g} of its magnitude"
              if real else ""))
@@ -642,28 +780,31 @@ def scatter_dot_cases(label, args, shape, placed=None) -> dict:
     return row
 
 
-def longest_row_check(label, args, hrows, degree) -> float:
-    """The row-segmented kernel's longest row (``out`` and its edges'
-    dots) against a float64 sum, held to 1e-3 of the row's largest
-    magnitude: values scaled by 1/degree leave a hub row's entries far
-    below ``ATOL``, where a dropped or doubled piece would still pass the
-    element-wise check. Returns the larger of the two relative errors."""
-    import torch
-    from mrgcn_tpu_torch.ops import sorted_stream as ss
-    dvn, w, _, _, table, _, _, _ = args
-    d = dvn.shape[1]
+def longest_row_check(name, label, kernel, hrows, degree, terms) -> float:
+    """A row-segmented kernel's longest row against a float64 sum, held to
+    1e-3 of the row's largest magnitude: values scaled by 1/degree leave a
+    hub row's entries far below ``ATOL``, where a dropped or doubled piece
+    would still pass the element-wise check. ``terms`` is ``(msgs,)`` for
+    a scatter whose edge ``e`` adds ``msgs[e]`` to its row's first lanes,
+    or ``(msgs, dvn, table_cols)`` for ``fused_scatter_dot``, whose edges'
+    dots with the row's table columns are held too. Returns the larger
+    relative error."""
     hub = int(degree.argmax())
     on_hub = hrows == hub
-    out, dots = ss.fused_scatter_dot(*args, rows_sorted=True)
-    v = dvn[on_hub].double()
+    got = kernel()
+    out, dots = got if isinstance(got, tuple) else (got, None)
+    msgs = terms[0][on_hub].double()
+    checks = [("row", out[hub, :msgs.shape[1]], msgs.sum(0))]
+    if dots is not None:
+        dvn, table_cols = terms[1], terms[2]
+        checks.append(("dots", dots.reshape(-1)[on_hub],
+                       dvn[on_hub].double() @ table_cols[hub].double()))
     worst = 0.0
-    for what, got, want in (
-            ("row", out[hub, :d], (v * w[on_hub].double()[:, None]).sum(0)),
-            ("dots", dots.reshape(-1)[on_hub], v @ table[hub, :d].double())):
-        rel = float((got.double() - want).abs().max() / want.abs().max())
-        check(rel <= 1e-3, f"fused_scatter_dot {label}: the longest row's "
-              f"{what} ({int(degree[hub])} edges) is {rel:.3g} of its "
-              "magnitude off a float64 sum (bound 1e-3)")
+    for what, g, want in checks:
+        rel = float((g.double() - want).abs().max() / want.abs().max())
+        check(rel <= 1e-3, f"{name} {label}: the longest row's {what} "
+              f"({int(degree[hub])} edges) is {rel:.3g} of its magnitude "
+              "off a float64 sum (bound 1e-3)")
         worst = max(worst, rel)
     return worst
 
@@ -794,8 +935,7 @@ def compose_phase(work, device, rows) -> dict:
     # place, the table given, and a canonical_copy of the table feeding
     # the same aggregate
     counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_launches(counters)
     pk_flat = packed.reshape(B, -1)
     with torch.no_grad():
         table = torch.matmul(comp, pk_flat).reshape(-1, L)
@@ -810,7 +950,7 @@ def compose_phase(work, device, rows) -> dict:
             "copy_whole_ms": time_ms(lambda: rl.featureless_aggregate(
                 ck.canonical_copy(torch.matmul(comp, pk_flat)
                                   .reshape(-1, L)), ident, hidden))}
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_launches(counters)
     check(launches["compose_table"] > 0 and launches["canonical_copy"] > 0,
           f"compose stages: launches {launches}")
     summary = {"path": "compose_stages", **stages, "launches": launches}
@@ -820,20 +960,25 @@ def compose_phase(work, device, rows) -> dict:
 
 
 def adversarial_phase(device, rows) -> None:
-    """All four stream kernels on small hostile streams; then
-    ``fused_scatter_dot``'s two kernels on row-sorted ones."""
+    """The stream kernels on small hostile streams that are not sorted by
+    row (``sorted_scatter``'s block walk, ``fused_place_scatter``'s split
+    walk, ``sorted_gather``; ``fused_scatter_dot`` must refuse them); then
+    the row-segmented kernels of ``sorted_scatter`` and
+    ``fused_place_scatter`` on row-sorted ones."""
     import numpy as np
     import torch
     from mrgcn_tpu_torch.ops import sorted_stream as ss
     rng = np.random.default_rng(0)
-    # (slabs, row block, edge block, blocks, L, out rows, k, value width)
+    # (slabs, row block, edge block, blocks, L, out rows, k, value width);
+    # the last has runs of some 300 slabs, which the split walk cuts
     for label, (nslab, rb, eb, n_blocks, L, out_rows, k, d) in {
             "adversarial_512x256_k8": (40, 512, 256, 14, 128,
                                        15 * 512 - 37, 8, 16),
             "adversarial_512x256_k1": (24, 512, 256, 8, 256, 9 * 512, 1,
                                        200),
-            "adversarial_64x40_k4": (33, 64, 40, 20, 96, 21 * 64, 4,
-                                     21)}.items():
+            "adversarial_64x40_k4": (33, 64, 40, 20, 96, 21 * 64, 4, 21),
+            "adversarial_long_runs_k8": (600, 512, 256, 4, 128,
+                                         5 * 512 - 37, 8, 16)}.items():
         msgs, local, blk = adversarial_stream(rng, nslab, rb, eb, n_blocks,
                                               L, device)
         E = nslab * eb
@@ -851,62 +996,110 @@ def adversarial_phase(device, rows) -> None:
         rows["fused_place_scatter"].append(compare_stream(
             "fused_place_scatter", label,
             lambda: ss.fused_place_scatter(*pargs),
-            lambda: ss.fused_place_scatter_reference(*pargs)))
+            lambda: ss.fused_place_scatter_reference(*pargs),
+            shape={"slabs": nslab, "segment": ss.split_segment(
+                nslab, L, torch.cuda.get_device_properties(device)
+                .multi_processor_count)}))
         table = torch.as_tensor(
             rng.standard_normal((out_rows, L)), dtype=torch.float32,
             device=device)
-        dargs = (V, norm, local, blk, table, out_rows, rb, eb)
-        rows["fused_scatter_dot"].append(compare_stream(
-            "fused_scatter_dot", label,
-            lambda: ss.fused_scatter_dot(*dargs),
-            lambda: ss.fused_scatter_dot_reference(*dargs)))
+        try:
+            ss.fused_scatter_dot(V, norm, local, blk, table, out_rows, rb,
+                                 eb)
+            check(False, f"fused_scatter_dot {label}: took a stream not "
+                  "marked rows_sorted")
+        except ValueError as err:
+            check("rows_sorted" in str(err), f"fused_scatter_dot {label}: "
+                  f"raised {err!r}")
         # the gather takes block ids in any order
         shuffled = blk[torch.randperm(nslab, device=device)]
         gargs = (table, local, shuffled, rb, eb)
         rows["sorted_gather"].append(compare_stream(
             "sorted_gather", label, lambda: ss.sorted_gather(*gargs),
             lambda: ss.sorted_gather_reference(*gargs), exact=True))
-    # row-sorted streams through fused_scatter_dot's row-segmented kernel
-    # (and its block walk on the same inputs): dvn cut from wider rows at
-    # an odd offset (4-byte loads) or contiguous (16-byte loads); the last
-    # has a hub row of more than 20,000 edges over some 80 slabs, split by
-    # an all-padding slab
-    for label, (n_edges, rb, eb, n_blocks, L, d, hub, strided) in {
-            "sorted_16x8": (200, 16, 8, 10, 128, 128, 300, False),
-            "sorted_64x40_strided": (600, 64, 40, 20, 96, 21, 400, True),
-            "sorted_512x256_strided": (3000, 512, 256, 14, 256, 200, 1500,
-                                       True),
-            "sorted_hub": (30_000, 512, 256, 14, 256, 200, 23_000,
-                           False)}.items():
-        local, blk, scale = sorted_adversarial_stream(rng, n_edges, rb, eb,
-                                                      n_blocks, hub)
-        E, out_rows = local.size, (n_blocks + 1) * rb - 37
-        wide = torch.as_tensor(rng.standard_normal((E, d + 4)) * scale[:, None],
-                               dtype=torch.float32, device=device)
-        dvn = wide[:, 1:1 + d] if strided else wide[:, :d].contiguous()
-        args = (dvn, torch.as_tensor(rng.random(E), dtype=torch.float32,
-                                     device=device),
-                torch.as_tensor(local, device=device),
-                torch.as_tensor(blk, device=device),
-                torch.as_tensor(rng.standard_normal((out_rows, L)),
-                                dtype=torch.float32, device=device),
-                out_rows, rb, eb)
-        shape = {"E_pad": E, "slabs": local.shape[0], "out_rows": out_rows,
-                 "L": L, "strided": strided}
-        if label == "sorted_hub":
-            rows["fused_scatter_dot"].append(scatter_dot_cases(
-                label, args, shape))
-            check(rows["fused_scatter_dot"][-1]["longest_row"] >= 20_000,
-                  "sorted_hub: the hub row is shorter than 20,000 edges")
-            continue
-        rows["fused_scatter_dot"].append(compare_stream(
-            "fused_scatter_dot", label,
-            lambda: ss.fused_scatter_dot(*args, rows_sorted=True),
-            lambda: ss.fused_scatter_dot_reference(*args), shape=shape))
-        rows["fused_scatter_dot"].append(compare_stream(
-            "fused_scatter_dot", label + "_general",
-            lambda: ss.fused_scatter_dot(*args),
-            lambda: ss.fused_scatter_dot_reference(*args), shape=shape))
+    row_sorted_scatter_cases(device, rows)
+
+
+def row_sorted_scatter_cases(device, rows) -> None:
+    """``sorted_scatter`` and ``fused_place_scatter`` through their
+    row-segmented kernels on row-sorted streams
+    (``sorted_adversarial_stream``: unvisited blocks, a tenth of the edges
+    padding, an all-padding slab inside the hub row's run, values scaled
+    by 1/degree), slots drawn per edge, so they interleave within a row:
+    k 8, 4, 1 and 2, values contiguous (16-byte loads) or cut from wider
+    rows at an odd offset (4-byte loads), an odd width, lines wider than
+    one warp's 512 columns; the last has a hub row of more than 20,000
+    edges, is timed, and its longest row is held to a float64 sum."""
+    import numpy as np
+    import torch
+    from mrgcn_tpu_torch.ops import sorted_stream as ss
+    rng = np.random.default_rng(5)
+    # (edges, row block, edge block, blocks, hub, L, k, value width,
+    # strided)
+    for label, (n_edges, rb, eb, n_blocks, hub, L, k, d, strided) in {
+            "rows_16x8_k8": (200, 16, 8, 10, 300, 128, 8, 16, False),
+            "rows_64x40_k4_strided": (600, 64, 40, 20, 400, 96, 4, 21,
+                                      True),
+            "rows_512x256_k1_strided": (3000, 512, 256, 14, 1500, 256, 1,
+                                        200, True),
+            "rows_64x40_k2_wide": (900, 64, 40, 12, 500, 640, 2, 320,
+                                   False),
+            "rows_hub_k8": (30_000, 512, 256, 14, 23_000, 128, 8, 16,
+                            False)}.items():
+        local_np, blk_np, scale = sorted_adversarial_stream(
+            rng, n_edges, rb, eb, n_blocks, hub)
+        E, out_rows = local_np.size, (n_blocks + 1) * rb - 37
+        local = torch.as_tensor(local_np, device=device)
+        blk = torch.as_tensor(blk_np, device=device)
+        sc = torch.as_tensor(scale, device=device)[:, None]
+        wide = torch.as_tensor(rng.standard_normal((E, d + 4)),
+                               dtype=torch.float32, device=device) * sc
+        V = wide[:, 1:1 + d] if strided else wide[:, :d].contiguous()
+        place = torch.as_tensor(rng.integers(0, k, E), dtype=torch.int32,
+                                device=device)
+        norm = torch.as_tensor(rng.random(E), dtype=torch.float32,
+                               device=device)
+        msgs = torch.as_tensor(rng.standard_normal((E, L)),
+                               dtype=torch.float32, device=device) * sc
+        hrows = edge_rows(local, blk, rb, out_rows)
+        real = int((hrows < out_rows).sum())
+        degree = torch.bincount(hrows[hrows < out_rows], minlength=out_rows)
+        timed = label == "rows_hub_k8"
+        shape = {"E_pad": E, "slabs": local_np.shape[0],
+                 "out_rows": out_rows, "L": L, "k": k, "Lv": d,
+                 "strided": strided, "real_edges": real,
+                 "longest_row": int(degree.max())}
+        if timed:
+            check(shape["longest_row"] >= 20_000,
+                  f"{label}: the hub row is shorter than 20,000 edges")
+
+        def index_add(lines):
+            return lambda: torch.zeros(out_rows + 1, L, device=device) \
+                .index_add_(0, hrows, lines)
+
+        lines = ss.expand_sub(V * norm[:, None], place, k, L)
+        for name, kernel, plain, terms, work in (
+                ("sorted_scatter",
+                 lambda: ss.sorted_scatter(msgs, local, blk, out_rows, rb,
+                                           eb, rows_sorted=True),
+                 lambda: ss.sorted_scatter_reference(msgs, local, blk,
+                                                     out_rows, rb, eb),
+                 msgs, scatter_work(real, L, L, local, blk, out_rows, L)),
+                ("fused_place_scatter",
+                 lambda: ss.fused_place_scatter(
+                     V, place, norm, local, blk, out_rows, k, L, rb, eb,
+                     rows_sorted=True),
+                 lambda: ss.fused_place_scatter_reference(
+                     V, place, norm, local, blk, out_rows, k, L, rb, eb),
+                 lines, scatter_work(real, d + 2, 2 * d, local, blk,
+                                     out_rows, L))):
+            row = compare_stream(name, label, kernel, plain,
+                                 index_add(terms) if timed else None,
+                                 work if timed else None, shape=shape)
+            row["longest_row_rel_err"] = longest_row_check(
+                name, label, kernel, hrows, degree, (terms,))
+            rows[name].append(row)
+        del lines, msgs, wide
 
 
 def check_bf16(got, want, scale, label: str):
@@ -1040,13 +1233,9 @@ def encoder_kernel_phase(device) -> dict:
                 for i, (g, w, s) in enumerate(zip(outs, wants, scales))]
         check(all(torch.equal(g, a) for g, a in zip(outs, agains)),
               f"{name} {label}: two runs differ")
-        # the outputs' bits, to set beside another tree's run
-        digest = hashlib.sha256()
-        for g in outs:
-            digest.update(g.contiguous().view(torch.uint8).cpu().numpy())
         row = {"label": label, "max_abs_err": max(e for e, _ in errs),
                "max_err_over_bound": max(r for _, r in errs),
-               "digest": digest.hexdigest()[:16]}
+               "digest": digest(outs)}
         if timed:
             row.update(timed_pair(kernel, plain, library))
             row.update(bound(work[0], work[1], BF16_FLOPS))
@@ -1250,27 +1439,10 @@ def train_via_cli(tmp: Path, tag: str, work, epochs, num_bases,
         os.environ.pop("MRGCN_PLATFORM", None)
 
 
-class SecondCount:
-    """A wrapper's second launch count (``attr``), read and set as
-    ``launches`` like the others."""
-
-    def __init__(self, fn, attr: str):
-        self.fn, self.attr = fn, attr
-
-    @property
-    def launches(self) -> int:
-        return getattr(self.fn, self.attr)
-
-    @launches.setter
-    def launches(self, value: int) -> None:
-        setattr(self.fn, self.attr, value)
-
-
 def kernel_counters() -> dict:
-    """Each kernel's launch count: the wrapper, whose ``launches`` counts
-    its launches; ``fused_scatter_dot`` has two kernels, the block walk
-    (``fused_scatter_dot``) and the row-segmented one
-    (``fused_scatter_dot_rows``)."""
+    """Each kernel's wrapper, whose ``launches`` counts its launches; the
+    scatters' ``launches_rows`` counts those on their row-segmented
+    kernel."""
     from mrgcn_tpu_torch.ops import attention as att
     from mrgcn_tpu_torch.ops import compose_kernels as ck
     from mrgcn_tpu_torch.ops import fused_mlp as fm
@@ -1279,14 +1451,39 @@ def kernel_counters() -> dict:
             "sorted_gather": ss.sorted_gather,
             "fused_place_scatter": ss.fused_place_scatter,
             "fused_scatter_dot": ss.fused_scatter_dot,
-            "fused_scatter_dot_rows": SecondCount(ss.fused_scatter_dot,
-                                                  "launches_sorted"),
             "compose_grad_pass": ss.compose_grad_pass,
             "compose_table": ck.compose_table,
             "canonical_copy": ck.canonical_copy,
             "attention_fwd": att.attention_fwd,
             "attention_bwd": att.attention_bwd,
             "mlp_fwd": fm.mlp_fwd, "mlp_bwd": fm.mlp_bwd}
+
+
+def reset_launches(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, "launches_rows"):
+            fn.launches_rows = 0
+
+
+def read_launches(counters) -> dict:
+    """``{name: launches}``, and ``{name}.rows`` for each kernel with a
+    row-segmented route: the launches on it."""
+    out = {}
+    for name, fn in counters.items():
+        out[name] = fn.launches
+        if hasattr(fn, "launches_rows"):
+            out[f"{name}.rows"] = fn.launches_rows
+    return out
+
+
+def by_route(launches: dict, name: str) -> dict:
+    """A scatter's launches by kernel: its row-segmented one and the
+    other route (#1's block walk, #5's split walk; #3 has none)."""
+    rows = launches[f"{name}.rows"]
+    return {ROW_KERNELS[name][0]: rows,
+            **({ROW_KERNELS[name][1]: launches[name] - rows}
+               if ROW_KERNELS[name][1] else {})}
 
 
 def start_path() -> dict:
@@ -1300,8 +1497,7 @@ def start_path() -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_launches(counters)
     return counters
 
 
@@ -1311,18 +1507,38 @@ def slice_phase(work, tmp: Path, tag: str, kernels, F=None) -> dict:
     kernel the path runs with its least launch count per epoch. The
     identity layer's compose launches exactly ``COMPOSE_PER_STEP`` of each
     compose kernel a training step, and ``compose_table`` once more for the
-    test split's evaluation."""
+    test split's evaluation. The scatters' launches by route: the identity
+    half's row-sorted ``fwd`` (each forward, the test split's too) and
+    ``bwd_table`` (each step) on ``fused_place_scatter``'s row-segmented
+    kernel; with features, each step the dense half's relation-constant
+    ``fwd`` on its split walk and its row-sorted ``bwd_h`` on
+    ``sorted_scatter``'s row-segmented kernel, and the test forward's
+    dense ``fwd`` on the route ``TEST_DENSE_FWD_SPLIT`` names; never
+    ``sorted_scatter``'s block walk."""
     import torch
     counters = start_path()
     t0 = time.perf_counter()
     res = train_via_cli(tmp, tag, work, EPOCHS, work["num_bases"], F=F)
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_launches(counters)
     peak = torch.cuda.max_memory_allocated()
     for name, per_step in COMPOSE_PER_STEP.items():
         want = per_step * (EPOCHS + (name == "compose_table"))
         check(launches[name] == want,
               f"{tag}: {name} launched {launches[name]} times, not {want}")
+    place = by_route(launches, "fused_place_scatter")
+    scatter = by_route(launches, "sorted_scatter")
+    place_rows, split = ROW_KERNELS["fused_place_scatter"]
+    scatter_rows, walk = ROW_KERNELS["sorted_scatter"]
+    test_split = int(TEST_DENSE_FWD_SPLIT)
+    want_split, want_rows = (EPOCHS + test_split,
+                             EPOCHS + 1 - test_split) if F is not None \
+        else (0, 0)
+    check(place[place_rows] == 2 * EPOCHS + 1 and place[split] == want_split
+          and scatter[scatter_rows] == want_rows and scatter[walk] == 0,
+          f"{tag}: scatters launched {place}, {scatter}; want "
+          f"{2 * EPOCHS + 1} on {place_rows}, {want_split} on {split}, "
+          f"{want_rows} on {scatter_rows}")
 
     losses = [h["train_loss"] for h in res.history]
     check(len(losses) == EPOCHS, f"{tag}: trained {len(losses)} epochs")
@@ -1392,7 +1608,7 @@ def minibatch_phase(work, tmp: Path, F) -> dict:
             print(f"[minibatch] {tag}: text MLP rows a call "
                   f"{json.dumps(sorted(set(text_rows)))}, "
                   f"{len(text_rows)} calls")
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches = read_launches(counters)
         losses = [h["train_loss"] for h in res.history]
         check(len(losses) == epochs, f"{tag}: trained {len(losses)} epochs")
         check(all(math.isfinite(x) for x in losses + [res.loss]),
@@ -1405,6 +1621,12 @@ def minibatch_phase(work, tmp: Path, F) -> dict:
               f"{tag}: {res.batches} batches")
         check({p.device.type for p in res.model.parameters()} == {"cuda"},
               f"{tag}: parameters not on the card")
+        # no planned stream of a batch is relation-constant or unsorted
+        check(launches["fused_place_scatter"]
+              == launches["fused_place_scatter.rows"]
+              and launches["sorted_scatter"]
+              == launches["sorted_scatter.rows"],
+              f"{tag}: a scatter took its other route: {launches}")
         # every batch composes the identity table and differentiates it
         for name in (*COMPOSE_PER_STEP, *(ENCODER_KERNELS if feats
                                           is not None else ())):
@@ -1452,6 +1674,13 @@ def minibatch_phase(work, tmp: Path, F) -> dict:
               f"range ({min(ranks)} to {max(ranks)})")
         check(0.0 < res.mrr[kind] <= 1.0,
               f"lp_sliced: {kind} MRR {res.mrr[kind]}")
+    launches = read_launches(counters)
+    # a node slice's layers take the unplanned paths: any scatter launched
+    # there is on its row-segmented kernel
+    check(launches["fused_place_scatter"]
+          == launches["fused_place_scatter.rows"]
+          and launches["sorted_scatter"] == launches["sorted_scatter.rows"],
+          f"lp_sliced: a scatter took its other route: {launches}")
     out["lp_sliced"] = {
         "path": "lp_sliced", "epochs": 1,
         "gcn_batchsize": sizes["gcn_batchsize"],
@@ -1462,8 +1691,7 @@ def minibatch_phase(work, tmp: Path, F) -> dict:
         "test_s": res.test_seconds, "test_mrr": res.mrr,
         "test_hits_at_1_3_10": res.hits,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-        "cli_wall_s": wall,
-        "launches": {name: fn.launches for name, fn in counters.items()}}
+        "cli_wall_s": wall, "launches": launches}
     print(f"[minibatch] {json.dumps(out['lp_sliced'])}")
     del res
     torch.cuda.empty_cache()
@@ -1528,7 +1756,8 @@ def basis_gradient_check(plan, num_relations: int, device) -> dict:
             for b in range(B))
     msgs = torch.nn.functional.pad(v * f.norm[:, None], (0, L - d))
     lines = sorted_scatter(msgs, f.scatter_local, f.scatter_blk,
-                           plan.n_out_rows, f.row_block, f.edge_block)
+                           plan.n_out_rows, f.row_block, f.edge_block,
+                           rows_sorted=f.rows_sorted)
     plain = rl.unpack_rows(lines, plan.k_out, plan.out_nodes, d)
     want = torch.autograd.grad(plain, (comp, packed), cot)
     torch.cuda.synchronize()
@@ -1559,19 +1788,18 @@ def lp_slice_phase(tmp: Path, plan, num_relations: int, device) -> dict:
     res = run.run_cli(["-c", str(cfg), "-i", str(tmp / "lp.npz"), "-o",
                        str(tmp) + os.sep, "--dry_run", "--test"])
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_launches(counters)
     peak = torch.cuda.max_memory_allocated()
 
     # no entry point differentiates sorted_scatter through autograd, so
     # only this check launches sorted_gather: its launches are no path's
-    for fn in counters.values():
-        fn.launches = 0
+    reset_launches(counters)
     errs = basis_gradient_check(plan, num_relations, device)
-    check_launches = {name: fn.launches for name, fn in counters.items()
-                      if fn.launches}
+    check_launches = {name: n for name, n in read_launches(counters).items()
+                      if n}
     check(check_launches.get("sorted_gather", 0) >= 1
-          and check_launches.get("sorted_scatter", 0) >= 1
-          and check_launches.get("fused_scatter_dot_rows", 0) >= 2,
+          and check_launches.get("sorted_scatter.rows", 0) >= 1
+          and check_launches.get("fused_scatter_dot.rows", 0) >= 2,
           f"lp: the gradient check launched {check_launches}")
 
     losses = [h["loss"] for h in res.history]
@@ -1589,12 +1817,18 @@ def lp_slice_phase(tmp: Path, plan, num_relations: int, device) -> dict:
         check(0.0 < res.mrr[kind] <= 1.0, f"lp: {kind} MRR {res.mrr[kind]}")
     # per training step: one fused_place_scatter forward, one
     # fused_scatter_dot per basis backward, every one the row-segmented
-    # kernel (the planner marks bwd_h rows_sorted); the evaluations add
-    # forwards
-    check(launches["fused_place_scatter"] >= LP_EPOCHS
-          and launches["fused_scatter_dot_rows"] == 2 * LP_EPOCHS
-          and launches["fused_scatter_dot"] == 0,
-          f"lp: launches {launches}")
+    # kernel (the planner marks fwd and bwd_h rows_sorted); each
+    # evaluation (train, valid, the final test: one graph slice each)
+    # adds a forward
+    evals = 1 + sum((h["train_mrr"] is not None)
+                    + (h["valid_mrr"] is not None) for h in res.history)
+    check(by_route(launches, "fused_place_scatter")
+          == {ROW_KERNELS["fused_place_scatter"][0]: LP_EPOCHS + evals,
+              ROW_KERNELS["fused_place_scatter"][1]: 0}
+          and by_route(launches, "fused_scatter_dot")
+          == {ROW_KERNELS["fused_scatter_dot"][0]: 2 * LP_EPOCHS}
+          and launches["sorted_scatter"] == 0,
+          f"lp: launches {launches} ({evals} evaluations)")
     secs = [h["seconds"] for h in res.history]
     summary = {"path": "lp_fb15k237_synth", "epochs": LP_EPOCHS,
                "cuts": "full graph (gcn_batchsize and test_batchsize -1, "
@@ -1678,13 +1912,12 @@ def route_fork_basis(step, steps: int) -> dict:
         for name in order:
             rl._basis_grads_fused = routes[name]
             counters = kernel_counters()
-            for fn in counters.values():
-                fn.launches = 0
+            reset_launches(counters)
             busy[name].append(profile_steps(
                 f"LP step, basis backward via {name}", step, steps,
                 top=6)[0])
             calls = 3 + steps
-            rows_launched = counters["fused_scatter_dot_rows"].launches
+            rows_launched = counters["fused_scatter_dot"].launches_rows
             check(rows_launched == (2 * calls if name == "fused_scatter_dot"
                                     else 0),
                   f"fork (a) {name}: row-segmented kernel launched "
@@ -1761,8 +1994,7 @@ def compose_route_profile(work, tmp: Path, device, steps: int) -> dict:
         for name in order:
             rspmm._table, rspmm._grads = routes[name]
             counters = kernel_counters()
-            for fn in counters.values():
-                fn.launches = 0
+            reset_launches(counters)
             ms, _, by_name = profile_steps(
                 f"featureless NC step, compose route {name}", step, steps,
                 top=8)
@@ -1842,6 +2074,53 @@ def profile_steps(label: str, step, steps: int, top: int = 25):
             print(f"[profile] {device_us(e) / 1e3 / steps:9.3f} ms/step  "
                   f"x{e.count / steps:5.1f}  {e.key[:90]}")
     return busy_ms, wall_ms, by_name
+
+
+def profile_stream_phase(work, plan, device, steps: int = 20) -> None:
+    """The scatters on every main-path stream, each on the route its layer
+    takes (``--only profile_stream``, not part of the default run): device
+    time a call by kernel (``torch.profiler``), without the host's work
+    around the launches that the CUDA-event times of the stream phase
+    include when the card waits for it."""
+    import torch
+    from mrgcn_tpu_torch.ops import sorted_stream as ss
+    from mrgcn_tpu_torch.ops.relational import line_width
+    ident, dense = nc_layer0_plans(work, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    for label, st, mod, out_rows, k, d in (
+            ("fwd", ident.fwd, ident.fwd.out_mod, ident.n_out_rows,
+             ident.k_out, work["hidden"]),
+            ("dense_fwd", dense.fwd, dense.fwd.out_mod, dense.n_out_rows,
+             dense.k_out, work["hidden"]),
+            ("bwd_table", ident.bwd_table, ident.bwd_table.in_mod,
+             work["R"] * ident.n_in_rows, ident.k_in, work["hidden"]),
+            ("lp_fwd", plan.fwd, plan.fwd.out_mod, plan.n_out_rows, 1,
+             LP_HIDDEN)):
+        V = torch.randn(st.num_padded_edges, d, generator=gen, device=device)
+        args = (V, mod, st.norm, st.scatter_local, st.scatter_blk, out_rows,
+                k, line_width(k, d), st.row_block, st.edge_block)
+        profile_steps(f"fused_place_scatter {label}",
+                      lambda: ss.fused_place_scatter(
+                          *args, rows_sorted=st.rows_sorted), steps, top=3)
+        del V, args
+    h = dense.bwd_h
+    msgs = torch.randn(h.num_padded_edges, line_width(dense.k_in,
+                                                      multimodal_width()),
+                       generator=gen, device=device)
+    profile_steps("sorted_scatter dense_bwd_h",
+                  lambda: ss.sorted_scatter(
+                      msgs, h.scatter_local, h.scatter_blk, dense.n_in_rows,
+                      h.row_block, h.edge_block, rows_sorted=h.rows_sorted),
+                  steps, top=3)
+    del msgs
+    dvn, w, table = lp_bwd_h_inputs(plan, device)
+    h = plan.bwd_h
+    profile_steps("fused_scatter_dot lp_bwd_h",
+                  lambda: ss.fused_scatter_dot(
+                      dvn, w, h.scatter_local, h.scatter_blk, table,
+                      plan.n_in_rows, h.row_block, h.edge_block,
+                      rows_sorted=True), steps, top=3)
+    torch.cuda.empty_cache()
 
 
 def profile_attention_phase(device, steps: int = 10) -> None:
@@ -2277,17 +2556,20 @@ SOURCES = {
     "mlp_bwd": ("mrgcn_tpu_torch/csrc/fused_mlp.cu",
                 "mrgcn_tpu/ops/fused_mlp.py:48", "slice"),
 }
-# a wrapper with two kernels: kernel name -> its launch count's key in
-# kernel_counters()
-SECOND_KERNELS = {"fused_scatter_dot": {
-    "scatter_dot_rows_kernel": "fused_scatter_dot_rows",
-    "scatter_dot_kernel": "fused_scatter_dot"}}
+# the scatters' kernels: (the row-segmented one, counted in the wrapper's
+# launches_rows; the other route's, counted in the rest of its launches)
+ROW_KERNELS = {
+    "sorted_scatter": ("place_rows_kernel", "sorted_scatter_kernel"),
+    "fused_place_scatter": ("place_rows_kernel",
+                            "fused_place_split_kernel"),
+    "fused_scatter_dot": ("scatter_dot_rows_kernel", None)}
 STREAM_KERNELS = ("sorted_scatter", "sorted_gather", "fused_scatter_dot",
                   "fused_place_scatter")
 ENCODER_KERNELS = ("attention_fwd", "attention_bwd", "mlp_fwd", "mlp_bwd")
 PHASES = ("stream", "compose", "nc", "minibatch", "lp", "encoders", "agree")
 EXTRA_PHASES = ("profile", "profile_mb", "profile_att",   # only with
-                "profile_mm")                              # --only
+                "profile_mm", "profile_stream",            # --only
+                "scatter_dot")
 
 
 def main(argv=None) -> None:
@@ -2321,6 +2603,8 @@ def main(argv=None) -> None:
         work = build_workload(seed=0)
         save_lp_artifact(str(tmp / "lp.npz"), seed=0)
         plan, num_relations = lp_plans(tmp / "lp.npz", device)
+        if "stream" in phases or "scatter_dot" in phases:
+            scatter_dot_phase(plan, device, rows)
         if "stream" in phases:
             nc_stream_phase(work, device, rows)
             lp_stream_phase(plan, device, rows)
@@ -2330,10 +2614,11 @@ def main(argv=None) -> None:
         F = multimodal_features(work["n"], seed=0) \
             if {"nc", "minibatch"} & set(phases) else None
         if "nc" in phases:
-            # per step: layer 0's forward and backward place-scatters
-            # (with features, twice: identity and relation-constant dense
-            # half); the dense half's per-edge bwd_h stream still takes
-            # sorted_scatter; two text blocks, forward and backward
+            # per step, forward and backward: layer 0's identity half
+            # place-scatters on its row-sorted fwd and bwd_table streams;
+            # with features the dense half adds the split walk on its
+            # relation-constant fwd and sorted_scatter on its row-sorted
+            # bwd_h; two text blocks, forward and backward
             paths["nc_featureless"] = slice_phase(
                 work, tmp, "dmg_synth", {"fused_place_scatter": 2})
             paths["nc_multimodal"] = slice_phase(
@@ -2344,6 +2629,8 @@ def main(argv=None) -> None:
             paths.update(minibatch_phase(work, tmp, F))
         if "lp" in phases:
             paths["lp"] = lp_slice_phase(tmp, plan, num_relations, device)
+        if "profile_stream" in phases:
+            profile_stream_phase(work, plan, device)
         del plan
         torch.cuda.empty_cache()
         if "profile" in phases:
@@ -2374,13 +2661,7 @@ def main(argv=None) -> None:
     kernels = []
     for name, (source, replaces, record) in SOURCES.items():
         timed = next(r for r in rows[name] if r["label"] == record)
-        # fused_scatter_dot counts both its kernels; each also apart
-        counted = SECOND_KERNELS.get(name, {name: name})
-        by_kernel = {kernel: sum(summary["launches"][key]
-                                 for summary in paths.values())
-                     for kernel, key in counted.items()}
-        by_path = {p: sum(summary["launches"][key]
-                          for key in counted.values())
+        by_path = {p: summary["launches"][name]
                    for p, summary in paths.items()}
         # sorted_gather is the autograd backward of sorted_scatter, which
         # no entry point of the port differentiates (the layer ops carry
@@ -2388,22 +2669,27 @@ def main(argv=None) -> None:
         # the basis gradient check, whose count stands beside
         check(sum(by_path.values()) > 0 or name == "sorted_gather",
               f"{name} launched on no path")
+        routes = {}
+        if name in ROW_KERNELS:
+            for summary in paths.values():
+                for kernel, n in by_route(summary["launches"],
+                                          name).items():
+                    routes[kernel] = routes.get(kernel, 0) + n
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            **({"launches_by_kernel": by_kernel} if len(counted) > 1
-               else {}),
-            "gradient_check_launches": sum(
-                paths["lp"]["gradient_check_launches"].get(key, 0)
-                for key in counted.values()),
+            **({"launches_by_kernel": routes} if len(routes) > 1 else {}),
+            "gradient_check_launches":
+                paths["lp"]["gradient_check_launches"].get(name, 0),
             "shape": record,
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             **{key: timed[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "bytes", "flops", "bound_f32_fma_ms", "general_ms",
-                "place_dot_ms")
-               if key in timed}})
+                "bytes", "flops", "bound_f32_fma_ms", "place_dot_ms")
+               if key in timed},
+            "ms_by_case": {r["label"]: r["ms"] for r in rows[name]
+                           if "ms" in r}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

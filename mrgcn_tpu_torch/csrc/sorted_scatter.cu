@@ -1,9 +1,9 @@
-// Block-sorted scatter-add for Hopper (sm_90a).
+// Block-sorted scatter-add for Hopper (sm_90a): two routes for one
+// function.
 //
 // Computes  out[blk[s] * RB + local[s, j]] += msgs[s * EB + j]  for every
 // slab s of EB edges, where the per-slab block ids blk[] never decrease and
-// a local index outside [0, RB) marks a padding edge. Blocks that no slab
-// addresses are left as the caller allocated them (the wrapper zero-fills).
+// a local index outside [0, RB) marks a padding edge.
 //
 // Replaces: mrgcn_tpu/ops/pallas_gather.py::_scatter_kernel (the TPU kernel
 // behind pallas_gather.sorted_scatter). That kernel walks the grid in order
@@ -11,30 +11,39 @@
 // grid step to the next, flushing it when the block id changes.
 //
 // What bounds it on the card: memory bandwidth. It does one add per byte
-// pair moved. At the DMG-scale bench shapes the layer-0 backward call reads
-// 421 MB of messages (822,784 x 128 f32) and writes the 793 MB composed
-// table (1,548,800 x 128 f32); the forward call reads 183 MB and writes
-// 3.4 MB.
+// pair moved. At the multimodal NC path's dense bwd_h stream it reads 186
+// MB of messages (363,008 x 128 f32) and writes 12.8 MB (25,088 rows).
 //
 // What the design does about it:
-//  * One CTA per (run of equal block ids, 32-lane tile): the walk of
-//    stream_walk.cuh. A run is owned by exactly one CTA, so nothing is
-//    carried between CTAs and no global atomics are needed. A CTA whose
-//    first slab continues the previous slab's run exits at once.
-//  * The (RB, 32) f32 accumulator lives in shared memory: 64 KB at RB=512,
-//    where the whole (512, 128) block would be 256 KB, above the 227 KB a
-//    CTA may have. Lane tiles keep two CTAs resident per SM.
-//  * Each slab's (EB, 32) message tile is read once, coalesced, 16 bytes a
-//    thread; the next slab's tile is loaded into registers while the
-//    current one is accumulated, so loads overlap the adds.
-//  * Determinism: warp w owns the rows r with r % 8 == w and each thread
-//    owns one lane, so every output element is summed by one thread in
-//    stream order. Results are bit-identical from run to run.
-//  * Each block is written once, whole, with 16-byte stores. Offsets are
-//    computed in 64 bits (blk * RB * L exceeds 2^31 at link-prediction
-//    scale).
+//  * Streams whose real scatter rows never decrease (the planner's
+//    Stream.rows_sorted: every stream a path hands this function) take
+//    the row-segmented walk of row_walk.cuh (place_rows_kernel without
+//    placement): one warp a chunk of 128 edges, each message line read
+//    once with 16-byte loads (8 lines' loads in flight a warp at L = 128),
+//    the current row's sum in registers, each row written once, zeros
+//    included, rows that cross a chunk summed in chunk order by the carry
+//    pass. Every row of `out` is written: the caller allocates it
+//    uninitialised. At the dense bwd_h stream that is 2,836 warps; the
+//    block walk below gives the same stream 49 runs x 4 lane tiles = 196
+//    CTAs.
+//  * Other block-sorted streams (the whole contract of the TPU function;
+//    no path of the port makes one) take the block walk: one CTA per (run
+//    of equal block ids, 32-lane tile), the walk of stream_walk.cuh. A run
+//    is owned by exactly one CTA, so nothing is carried between CTAs and
+//    no global atomics are needed. The (RB, 32) f32 accumulator lives in
+//    shared memory: 64 KB at RB=512, where the whole (512, 128) block
+//    would be 256 KB, above the 227 KB a CTA may have. Each slab's (EB,
+//    32) message tile is read once, coalesced, 16 bytes a thread; the next
+//    slab's tile is loaded into registers while the current one is
+//    accumulated. Warp w owns the rows r with r % 8 == w and each thread
+//    one lane, so every output element is summed by one thread in stream
+//    order. Blocks no slab addresses are left as the caller allocated
+//    them (the wrapper zero-fills).
+//  * Both routes are deterministic (no atomics: the same bits every run)
+//    and compute offsets in 64 bits (blk * RB * L exceeds 2^31 at
+//    link-prediction scale).
 
-#include "stream_walk.cuh"
+#include "row_walk.cuh"
 
 namespace {
 
@@ -136,6 +145,27 @@ int mrgcn_sorted_scatter_f32(const float* msgs, const int* local,
     sorted_scatter_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
         msgs, local, blk, out, nslab, edge_block, row_block, out_rows, L);
     return (int)cudaGetLastError();
+}
+
+// The row-segmented route, for a stream whose real scatter rows never
+// decrease: edges a warp walks (the wrapper sizes the scratch from it:
+// nchunks = max(1, ceil(nslab * edge_block / chunk)) lines of L floats for
+// `head` and for `tail`, 3 nchunks ints for `meta`).
+int mrgcn_sorted_scatter_rows_chunk() { return row_walk::kRowsChunk; }
+
+// Two launches on `stream` (the segmented pass, then the carry pass);
+// returns cudaGetLastError() (0 on success). `msgs` (nslab * edge_block,
+// L) contiguous and `out` (out_rows, L), both 16-byte aligned, L a
+// multiple of 32, nslab * edge_block < 2^31 - 128. Writes every element of
+// `out`.
+int mrgcn_sorted_scatter_rows_f32(const float* msgs, const int* local,
+                                  const int* blk, float* out, float* head,
+                                  float* tail, int* meta, int nslab,
+                                  int edge_block, int row_block,
+                                  int out_rows, int L, void* stream) {
+    return (int)row_walk::launch_place_rows<false>(
+        msgs, L, L, nullptr, nullptr, L, local, blk, out, head, tail, meta,
+        nslab, edge_block, row_block, out_rows, L, 4, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-// The walk the block-sorted scatter kernels share (sorted_scatter.cu,
-// fused_place_scatter.cu, scatter_dot.cu), for Hopper (sm_90a).
+// The walk the block-sorted scatter kernels share (sorted_scatter.cu's
+// block walk, fused_place_scatter.cu's split walk), for Hopper (sm_90a).
 //
 // A slab-padded edge stream carries one output block id per slab, and the
 // ids never decrease. One CTA of 256 threads owns a (run of slabs with
@@ -96,23 +96,6 @@ __device__ __forceinline__ void zero_block(float* __restrict__ out, int b,
             out + row * L + lane0 + (i % kVecPerRow) * 4) =
             make_float4(0.f, 0.f, 0.f, 0.f);
     });
-}
-
-// The CTAs with blockIdx.x >= nslab: CTA nslab + b zero-fills lanes
-// [lane0, lane0 + 32) of block b when no slab addresses it, so that a
-// block is written by exactly one CTA per lane tile. Returns whether this
-// CTA was one of them (and is done).
-__device__ __forceinline__ bool zero_fill_cta(const int* __restrict__ blk,
-                                              int nslab,
-                                              float* __restrict__ out,
-                                              int row_block,
-                                              long long out_rows, int L,
-                                              int lane0, int tid) {
-    if ((int)blockIdx.x < nslab) return false;
-    const int b = blockIdx.x - nslab;
-    if (!block_visited(blk, nslab, b))
-        zero_block(out, b, row_block, out_rows, L, lane0, tid);
-    return true;
 }
 
 // One staged slab: s_local[e] is edge e's row inside the block, a value

@@ -83,8 +83,10 @@ class Stream:
     ``rows_sorted``: the real edges' scatter rows never decrease along the
     stream (within every run of equal block ids; across runs the block ids
     rise), so all edges of one scatter row are contiguous. The planner
-    computes it; :func:`..sorted_stream.fused_scatter_dot` takes its
-    row-segmented kernel on such a stream.
+    computes it; the scatters (:func:`..sorted_stream.sorted_scatter`,
+    :func:`..sorted_stream.fused_place_scatter`,
+    :func:`..sorted_stream.fused_scatter_dot`) take their row-segmented
+    kernel on such a stream.
     """
 
     scatter_local: torch.Tensor  # (nslab, EB) int32; row_block on padding
@@ -374,11 +376,13 @@ def _place_scatter(V: torch.Tensor, place_mod: torch.Tensor,
                    L: int) -> torch.Tensor:
     """norm-scale + sub-row place + block scatter of per-edge values
     ``V`` (E, d) into ``(out_rows, L)``: one :func:`fused_place_scatter`
-    pass, without the ``(E, L)`` lines in between."""
+    pass, without the ``(E, L)`` lines in between (its row-segmented kernel
+    where the planner marks the stream ``rows_sorted``)."""
     return fused_place_scatter(V[:, :d], place_mod, stream.norm,
                                stream.scatter_local, stream.scatter_blk,
                                out_rows, k, L, stream.row_block,
-                               stream.edge_block)
+                               stream.edge_block,
+                               rows_sorted=stream.rows_sorted)
 
 
 # --------------------------------------------------------------------------
@@ -591,7 +595,7 @@ class _DenseAggregate(torch.autograd.Function):
             msgs = _expand_sub(v, f.out_mod, plans.k_out)
             out = sorted_scatter(msgs, f.scatter_local, f.scatter_blk,
                                  plans.n_out_rows, f.row_block,
-                                 f.edge_block)
+                                 f.edge_block, rows_sorted=f.rows_sorted)
         ctx.save_for_backward(H, W)
         ctx.plans, ctx.in_dim, ctx.out_dim = plans, in_dim, out_dim
         return unpack_rows(out, plans.k_out, plans.out_nodes, out_dim)
@@ -620,7 +624,7 @@ class _DenseAggregate(torch.autograd.Function):
             msgs = _expand_sub(d_Hg, h.in_mod, plans.k_in)
             d_Hp = sorted_scatter(msgs, h.scatter_local, h.scatter_blk,
                                   plans.n_in_rows, h.row_block,
-                                  h.edge_block)
+                                  h.edge_block, rows_sorted=h.rows_sorted)
         d_H = unpack_rows(d_Hp, plans.k_in, plans.in_nodes,
                           in_dim).to(H.dtype)
 

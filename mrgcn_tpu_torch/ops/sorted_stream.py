@@ -8,19 +8,25 @@ engine: ``ROW_BLOCK``, ``EDGE_BLOCK``, :func:`sorted_scatter`,
 An edge stream is cut into slabs of ``edge_block`` edges; slab ``s``
 addresses one ``row_block``-row block ``blk[s]`` of a table, and
 ``local[s, j]`` is the edge's row inside that block (``row_block`` on
-padding). For the scatters the block ids never decrease along the stream:
-the CUDA kernels (``csrc/sorted_scatter.cu``, ``fused_place_scatter.cu``,
-``scatter_dot.cu``) give each run of equal block ids to one thread block
-that accumulates it in shared memory, so the sums are deterministic and
-need no atomics; on a stream whose scatter rows never decrease,
-:func:`fused_scatter_dot` instead sums each row's contiguous edges in one
-warp's registers. The gather (``csrc/sorted_gather.cu``) copies rows.
+padding). For the scatters the block ids never decrease along the stream.
+Where the real edges' scatter rows never decrease too (the planner's
+``Stream.rows_sorted``: every stream a path makes but the
+relation-constant ones), the scatters take a row-segmented kernel
+(``csrc/row_walk.cuh``): each warp sums a chunk of edges row by row in
+registers, rows that cross chunks are summed in chunk order by a second
+pass. Otherwise :func:`sorted_scatter` gives each run of equal block ids
+to one thread block that accumulates it in shared memory, and
+:func:`fused_place_scatter` cuts long runs into pieces summed by separate
+thread blocks, then adds the pieces in a fixed order;
+:func:`fused_scatter_dot` takes only row-sorted streams. All sums are
+deterministic and need no atomics. The gather (``csrc/sorted_gather.cu``)
+copies rows.
 
 Each wrapper takes its plain PyTorch version (``*_reference``) for CPU
-tensors and launches its kernel for CUDA tensors, or raises: there is no
-fallback. ``<wrapper>.launches`` counts the kernel launches
-(:func:`fused_scatter_dot` has two kernels, and a second count,
-``launches_sorted``, for its row-segmented one).
+tensors, whatever ``rows_sorted`` says, and launches its kernel for CUDA
+tensors, or raises: there is no fallback. ``<wrapper>.launches`` counts
+its launches; the scatters' ``launches_rows`` counts those on the
+row-segmented kernel.
 
 :func:`compose_grad_pass` (``csrc/compose.cu``) is the backward of the
 relation-major compose in one read of the cotangent table.
@@ -45,25 +51,26 @@ _SIGNATURES = {
             [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _P], _I),
         "mrgcn_sorted_scatter_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "mrgcn_sorted_scatter_lane_tile": ([], _I),
-        "mrgcn_sorted_scatter_max_edge_block": ([], _I), **_ERR},
+        "mrgcn_sorted_scatter_max_edge_block": ([], _I),
+        "mrgcn_sorted_scatter_rows_f32": (
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        "mrgcn_sorted_scatter_rows_chunk": ([], _I), **_ERR},
     "sorted_gather": {
         "mrgcn_sorted_gather_f32": (
             [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _P], _I),
         "mrgcn_sorted_gather_max_edge_block": ([], _I), **_ERR},
     "fused_place_scatter": {
-        "mrgcn_fused_place_scatter_f32": (
-            [_P, _LL, _I, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _P],
-            _I),
+        "mrgcn_fused_place_split_f32": (
+            [_P, _LL, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _I,
+             _I, _I, _P], _I),
         "mrgcn_fused_place_scatter_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "mrgcn_fused_place_scatter_lane_tile": ([], _I),
-        "mrgcn_fused_place_scatter_max_edge_block": ([], _I), **_ERR},
+        "mrgcn_fused_place_scatter_max_edge_block": ([], _I),
+        "mrgcn_fused_place_rows_f32": (
+            [_P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+             _I, _I, _P], _I),
+        "mrgcn_fused_place_rows_chunk": ([], _I), **_ERR},
     "scatter_dot": {
-        "mrgcn_scatter_dot_f32": (
-            [_P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I,
-             _P], _I),
-        "mrgcn_scatter_dot_smem_bytes": ([_I, _I], ctypes.c_size_t),
-        "mrgcn_scatter_dot_lane_tile": ([], _I),
-        "mrgcn_scatter_dot_max_edge_block": ([], _I),
         "mrgcn_scatter_dot_rows_f32": (
             [_P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
              _I, _I, _P], _I),
@@ -238,10 +245,56 @@ def _cuda_stream(t: torch.Tensor) -> int:
 
 
 # --------------------------------------------------------------------------
+# the row-segmented kernels' scratch and limits (csrc/row_walk.cuh)
+# --------------------------------------------------------------------------
+
+# the row-segmented kernels stage no slab: any edge block will do
+_ROWS_MAX_EDGE_BLOCK = 2 ** 30
+
+
+def _check_row_indices(fn: str, num_edges: int, out_rows: int,
+                       chunk: int) -> None:
+    """The row-segmented kernels index edges and rows in 32 bits."""
+    if num_edges >= 2 ** 31 - chunk or out_rows >= 2 ** 31:
+        raise ValueError(f"{fn}: {num_edges} edges or {out_rows} rows "
+                         "exceed the row-segmented kernel's 32-bit indices")
+
+
+def _row_scratch(num_edges: int, width: int, chunk: int, device):
+    """Scratch of the row-segmented kernels' carry pass, in one
+    allocation: a ``width``-float line per chunk of edges for the rows
+    that cross a chunk boundary (``head``: the row continues from an
+    earlier chunk; ``tail``: it starts here), and a 3-int record per chunk.
+    Returns the buffer (keep it alive until the launch) and the three
+    addresses."""
+    nchunks = max(1, -(-num_edges // chunk))
+    line = nchunks * max(width, 1)
+    buf = torch.empty(2 * line + 3 * nchunks, dtype=torch.float32,
+                      device=device)
+    head = buf.data_ptr()
+    return buf, head, head + 4 * line, head + 8 * line
+
+
+def split_segment(nslab: int, L: int, sms: int) -> int:
+    """Slabs a thread block of :func:`fused_place_scatter`'s split walk
+    sums at most (``S``): the slab-tiles of the stream (a tile is 32
+    lanes) over two blocks for each of the card's ``sms`` SMs, since two
+    fit on an SM; at least 4, so that a piece's partial (64 KB a tile)
+    stays small beside the slabs it sums. Runs of up to ``S`` slabs stay
+    whole, longer ones are cut into pieces that separate blocks sum."""
+    return max(4, -(-nslab * (L // 32) // (2 * sms)))
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# --------------------------------------------------------------------------
 # sorted_scatter / sorted_gather: each the transpose of the other
 # --------------------------------------------------------------------------
 
-def _scatter(msgs, local, out_blk, out_rows, row_block, edge_block):
+def _scatter(msgs, local, out_blk, out_rows, row_block, edge_block,
+             rows_sorted):
     fn = "sorted_scatter"
     if _device_of(fn, msgs, (("local", local), ("out_blk", out_blk))) \
             == "cpu":
@@ -255,16 +308,37 @@ def _scatter(msgs, local, out_blk, out_rows, row_block, edge_block):
         raise ValueError(f"{fn}: expected msgs (E, L)")
     nslab = _check_stream(fn, msgs.shape[0], local, out_blk, row_block,
                           edge_block,
-                          lib.mrgcn_sorted_scatter_max_edge_block())
+                          _ROWS_MAX_EDGE_BLOCK if rows_sorted
+                          else lib.mrgcn_sorted_scatter_max_edge_block())
     L = msgs.shape[1]
     _check_lanes(fn, L, lib.mrgcn_sorted_scatter_lane_tile())
-    _check_smem(fn, lib.mrgcn_sorted_scatter_smem_bytes(row_block,
-                                                        edge_block),
-                row_block)
     if msgs.data_ptr() % 16:
         raise ValueError(f"{fn}: msgs must be 16-byte aligned")
     if out_rows < 0:
         raise ValueError(f"{fn}: out_rows must be >= 0")
+    if rows_sorted:
+        _check_row_indices(fn, msgs.shape[0], out_rows,
+                           lib.mrgcn_sorted_scatter_rows_chunk())
+        out = torch.empty(out_rows, L, dtype=torch.float32,
+                          device=msgs.device)
+        if out_rows == 0:
+            return out
+        _buf, head, tail, meta = _row_scratch(
+            msgs.shape[0], L, lib.mrgcn_sorted_scatter_rows_chunk(),
+            msgs.device)
+        with torch.cuda.device(msgs.device):
+            rc = lib.mrgcn_sorted_scatter_rows_f32(
+                msgs.data_ptr(), local.data_ptr(), out_blk.data_ptr(),
+                out.data_ptr(), head, tail, meta, nslab, edge_block,
+                row_block, out_rows, L, _cuda_stream(msgs))
+        _raise_on(fn, lib, rc)
+        sorted_scatter.launches += 1
+        sorted_scatter.launches_rows += 1
+        return out
+    _check_smem(fn, lib.mrgcn_sorted_scatter_smem_bytes(row_block,
+                                                        edge_block),
+                row_block)
+    # the block walk writes only the blocks some slab visits
     out = torch.zeros(out_rows, L, dtype=torch.float32, device=msgs.device)
     if nslab == 0 or out_rows == 0:
         return out
@@ -316,17 +390,18 @@ class _SortedScatter(torch.autograd.Function):
     (``pallas_gather._sorted_scatter_bwd``)."""
 
     @staticmethod
-    def forward(ctx, msgs, local, out_blk, out_rows, row_block, edge_block):
+    def forward(ctx, msgs, local, out_blk, out_rows, row_block, edge_block,
+                rows_sorted):
         ctx.save_for_backward(local, out_blk)
         ctx.blocks = (row_block, edge_block)
         return _scatter(msgs, local, out_blk, out_rows, row_block,
-                        edge_block)
+                        edge_block, rows_sorted)
 
     @staticmethod
     def backward(ctx, g):
         local, out_blk = ctx.saved_tensors
         return (_gather(g.contiguous(), local, out_blk, *ctx.blocks),
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 class _SortedGather(torch.autograd.Function):
@@ -349,22 +424,26 @@ class _SortedGather(torch.autograd.Function):
 
 def sorted_scatter(msgs: torch.Tensor, local: torch.Tensor,
                    out_blk: torch.Tensor, out_rows: int, row_block: int,
-                   edge_block: int) -> torch.Tensor:
+                   edge_block: int, rows_sorted: bool = False
+                   ) -> torch.Tensor:
     """``out[out_blk[e // EB] * RB + local[e]] += msgs[e]`` over a stream
     whose per-slab block ids never decrease; ``local == row_block`` marks
-    padding. Returns ``(out_rows, L)`` f32, zero in blocks no slab visits.
+    padding. Returns ``(out_rows, L)`` f32, zero in rows no edge visits.
 
-    CPU tensors take :func:`sorted_scatter_reference`. CUDA tensors launch
-    the hand-written kernel on the current stream (no synchronisation) or
-    raise; there is no fallback. ``sorted_scatter.launches`` counts the
-    kernel launches.
+    CPU tensors take :func:`sorted_scatter_reference`, whatever
+    ``rows_sorted`` says. CUDA tensors launch a hand-written kernel on the
+    current stream (no synchronisation) or raise; there is no fallback:
+    with ``rows_sorted`` (the real edges' scatter rows never decrease, as
+    the planner's ``Stream.rows_sorted`` records) the row-segmented kernel,
+    else the block walk. ``sorted_scatter.launches`` counts the launches,
+    ``sorted_scatter.launches_rows`` those on the row-segmented kernel.
 
     Differentiable in ``msgs``: the backward is :func:`sorted_gather` on
     the same stream. (The layer ops that call it under their own backward
     call it again on a differently sorted stream instead.)
     """
     return _SortedScatter.apply(msgs, local, out_blk, out_rows, row_block,
-                                edge_block)
+                                edge_block, bool(rows_sorted))
 
 
 def sorted_gather(table: torch.Tensor, local: torch.Tensor,
@@ -390,18 +469,22 @@ def sorted_gather(table: torch.Tensor, local: torch.Tensor,
 def fused_place_scatter(V: torch.Tensor, place_mod: torch.Tensor,
                         norm: torch.Tensor, local: torch.Tensor,
                         out_blk: torch.Tensor, out_rows: int, k: int,
-                        L: int, row_block: int,
-                        edge_block: int) -> torch.Tensor:
+                        L: int, row_block: int, edge_block: int,
+                        rows_sorted: bool = False) -> torch.Tensor:
     """``out[out_blk * RB + local] += place(norm * V, place_mod)`` in one
     pass: edge ``e``'s ``Lv`` values land in lanes ``[place_mod[e] * L/k,
     ... + Lv)`` of its row of the packed ``(out_rows, L)`` result, without
-    an ``(E, L)`` temporary. Blocks no slab visits are zero.
+    an ``(E, L)`` temporary. Rows no edge visits are zero.
 
     ``V``: ``(E_pad, Lv)`` f32 with ``Lv <= L // k`` (rows may be strided);
     ``place_mod`` int32 and ``norm`` f32: ``(E_pad,)``. Not differentiable:
     the layer ops carry their own backward. CPU tensors take
-    :func:`fused_place_scatter_reference`; CUDA tensors launch the kernel
-    or raise. ``fused_place_scatter.launches`` counts the launches.
+    :func:`fused_place_scatter_reference`, whatever ``rows_sorted`` says;
+    CUDA tensors launch a kernel or raise: with ``rows_sorted`` (the real
+    edges' scatter rows never decrease) the row-segmented kernel, else the
+    split walk. ``fused_place_scatter.launches`` counts the launches,
+    ``fused_place_scatter.launches_rows`` those on the row-segmented
+    kernel.
     """
     fn = "fused_place_scatter"
     if V.dim() != 2 or k <= 0 or L % k or V.shape[1] > L // k:
@@ -422,25 +505,54 @@ def fused_place_scatter(V: torch.Tensor, place_mod: torch.Tensor,
     if Lv > 1 and V.stride(1) != 1:
         raise ValueError(f"{fn}: V must be contiguous along its rows")
     nslab = _check_stream(fn, E, local, out_blk, row_block, edge_block,
+                          _ROWS_MAX_EDGE_BLOCK if rows_sorted else
                           lib.mrgcn_fused_place_scatter_max_edge_block())
     if place_mod.shape != (E,) or norm.shape != (E,):
         raise ValueError(f"{fn}: place_mod and norm must be ({E},)")
     _check_lanes(fn, L, lib.mrgcn_fused_place_scatter_lane_tile())
-    _check_smem(fn, lib.mrgcn_fused_place_scatter_smem_bytes(
-        row_block, edge_block), row_block)
     if out_rows < 0:
         raise ValueError(f"{fn}: out_rows must be >= 0")
+    if rows_sorted:
+        _check_row_indices(fn, E, out_rows,
+                           lib.mrgcn_fused_place_rows_chunk())
+    else:
+        _check_smem(fn, lib.mrgcn_fused_place_scatter_smem_bytes(
+            row_block, edge_block), row_block)
     out = torch.empty(out_rows, L, dtype=torch.float32, device=V.device)
     if out_rows == 0:
         return out
+    ldv = V.stride(0) if E > 1 else Lv
     with torch.cuda.device(V.device):
-        rc = lib.mrgcn_fused_place_scatter_f32(
-            V.data_ptr(), V.stride(0), Lv, place_mod.data_ptr(),
-            norm.data_ptr(), local.data_ptr(), out_blk.data_ptr(),
-            out.data_ptr(), nslab, edge_block, row_block, out_rows, L, k,
-            _cuda_stream(V))
+        if rows_sorted:
+            # 16-byte loads where V's pointer, row stride, width and slot
+            # width allow them
+            vec = 4 if (V.data_ptr() % 16 == 0 and ldv % 4 == 0
+                        and Lv % 4 == 0 and (L // k) % 4 == 0) else 1
+            _buf, head, tail, meta = _row_scratch(
+                E, L, lib.mrgcn_fused_place_rows_chunk(), V.device)
+            rc = lib.mrgcn_fused_place_rows_f32(
+                V.data_ptr(), ldv, Lv, place_mod.data_ptr(),
+                norm.data_ptr(), local.data_ptr(), out_blk.data_ptr(),
+                out.data_ptr(), head, tail, meta, nslab, edge_block,
+                row_block, out_rows, L, k, vec, _cuda_stream(V))
+        else:
+            sms = _sm_count(V.device)
+            seg = split_segment(nslab, L, sms)
+            out_blocks = -(-out_rows // row_block)
+            # two (RB, L) partials a segment: a run continuing from before
+            # it, and one going on past it
+            partial = torch.empty(2 * max(1, -(-nslab // seg)) * row_block
+                                  * L, dtype=torch.float32, device=V.device)
+            rc = lib.mrgcn_fused_place_split_f32(
+                V.data_ptr(), ldv, Lv, place_mod.data_ptr(),
+                norm.data_ptr(), local.data_ptr(), out_blk.data_ptr(),
+                out.data_ptr(), partial.data_ptr(), nslab, edge_block,
+                row_block, out_rows, L, k, seg,
+                max(1, min(16, -(-4 * sms // out_blocks))), _cuda_stream(V))
     _raise_on(fn, lib, rc)
     fused_place_scatter.launches += 1
+    if rows_sorted:
+        fused_place_scatter.launches_rows += 1
     return out
 
 
@@ -459,11 +571,12 @@ def fused_scatter_dot(dvn: torch.Tensor, w: torch.Tensor,
     ``out`` zero. Not differentiable.
 
     CPU tensors take :func:`fused_scatter_dot_reference`, whatever
-    ``rows_sorted`` says. CUDA tensors launch a kernel or raise: with
-    ``rows_sorted`` (the stream's real scatter rows never decrease, as the
-    planner's ``Stream.rows_sorted`` records) the row-segmented kernel
-    (``Lv <= 512``; counted in ``fused_scatter_dot.launches_sorted``),
-    else the general block-walk kernel (``fused_scatter_dot.launches``).
+    ``rows_sorted`` says. CUDA tensors launch the row-segmented kernel
+    (``Lv <= 512``) or raise; the kernel needs ``rows_sorted`` (the
+    stream's real scatter rows never decrease, as the planner's
+    ``Stream.rows_sorted`` records for every stream this function meets)
+    and raises ``ValueError`` without it. ``fused_scatter_dot.launches``
+    counts the launches, and so does ``.launches_rows``.
     """
     fn = "fused_scatter_dot"
     if dvn.dim() != 2 or table.dim() != 2 or table.shape[0] != out_rows \
@@ -475,6 +588,10 @@ def fused_scatter_dot(dvn: torch.Tensor, w: torch.Tensor,
             == "cpu":
         return fused_scatter_dot_reference(dvn, w, local, out_blk, table,
                                            out_rows, row_block, edge_block)
+    if not rows_sorted:
+        raise ValueError(f"{fn}: the kernel takes a stream whose real "
+                         "scatter rows never decrease; pass rows_sorted=True "
+                         "for one (Stream.rows_sorted)")
     lib = _library("scatter_dot")
     _check_tensors(fn, (("dvn", dvn, torch.float32, False),
                         ("w", w, torch.float32, True),
@@ -486,73 +603,33 @@ def fused_scatter_dot(dvn: torch.Tensor, w: torch.Tensor,
     if Lv > 1 and dvn.stride(1) != 1:
         raise ValueError(f"{fn}: dvn must be contiguous along its rows")
     nslab = _check_stream(fn, E, local, out_blk, row_block, edge_block,
-                          lib.mrgcn_scatter_dot_max_edge_block())
+                          _ROWS_MAX_EDGE_BLOCK)
     if w.shape != (E,):
         raise ValueError(f"{fn}: w must be ({E},)")
-    lanes = lib.mrgcn_scatter_dot_lane_tile()
-    _check_lanes(fn, L, lanes)
+    _check_lanes(fn, L, 32)
     if table.data_ptr() % 16:
         raise ValueError(f"{fn}: table must be 16-byte aligned")
-    if rows_sorted:
-        return _scatter_dot_rows(lib, dvn, w, local, out_blk, table,
-                                 out_rows, row_block, edge_block, nslab)
-    _check_smem(fn, lib.mrgcn_scatter_dot_smem_bytes(row_block, edge_block),
-                row_block)
-    out = torch.empty(out_rows, L, dtype=torch.float32, device=dvn.device)
-    dots = torch.empty(E, dtype=torch.float32, device=dvn.device)
-    if out_rows == 0 and E == 0:
-        return out, dots
-    # per-lane-tile partial dots, summed in tile order by the launch
-    partial = torch.empty(max(1, -(-Lv // lanes)) * max(E, 1),
-                          dtype=torch.float32, device=dvn.device)
-    with torch.cuda.device(dvn.device):
-        rc = lib.mrgcn_scatter_dot_f32(
-            dvn.data_ptr(), dvn.stride(0), Lv, w.data_ptr(),
-            local.data_ptr(), out_blk.data_ptr(), table.data_ptr(),
-            out.data_ptr(), dots.data_ptr(), partial.data_ptr(), nslab,
-            edge_block, row_block, out_rows, L, _cuda_stream(dvn))
-    _raise_on(fn, lib, rc)
-    fused_scatter_dot.launches += 1
-    return out, dots
-
-
-def _scatter_dot_rows(lib, dvn, w, local, out_blk, table, out_rows,
-                      row_block, edge_block, nslab):
-    """The row-segmented launch of :func:`fused_scatter_dot` (arguments
-    checked by the caller, except what only this kernel needs)."""
-    fn = "fused_scatter_dot"
-    E, Lv = dvn.shape
-    L = table.shape[1]
     if Lv > lib.mrgcn_scatter_dot_rows_max_width():
         raise ValueError(f"{fn}: the row-segmented kernel takes dvn rows of "
                          f"at most {lib.mrgcn_scatter_dot_rows_max_width()} "
                          f"values, got {Lv}")
     chunk = lib.mrgcn_scatter_dot_rows_chunk()
-    if E >= 2 ** 31 - chunk or out_rows >= 2 ** 31:
-        raise ValueError(f"{fn}: {E} edges or {out_rows} rows exceed the "
-                         "row-segmented kernel's 32-bit indices")
+    _check_row_indices(fn, E, out_rows, chunk)
     # 16-byte loads where dvn's pointer, row stride and width allow them
     vec = 4 if (dvn.data_ptr() % 16 == 0 and dvn.stride(0) % 4 == 0
                 and Lv % 4 == 0) else 1
     out = torch.empty(out_rows, L, dtype=torch.float32, device=dvn.device)
     dots = torch.empty(E, dtype=torch.float32, device=dvn.device)
-    # one line of Lv floats per chunk of edges for the rows that cross a
-    # chunk boundary (`head`: the row continues from an earlier chunk;
-    # `tail`: it starts here), one 3-int record per chunk
-    nchunks = max(1, -(-E // chunk))
-    head = torch.empty(nchunks * max(Lv, 1), dtype=torch.float32,
-                       device=dvn.device)
-    tail = torch.empty_like(head)
-    meta = torch.empty(3 * nchunks, dtype=torch.int32, device=dvn.device)
+    _buf, head, tail, meta = _row_scratch(E, Lv, chunk, dvn.device)
     with torch.cuda.device(dvn.device):
         rc = lib.mrgcn_scatter_dot_rows_f32(
             dvn.data_ptr(), dvn.stride(0), Lv, w.data_ptr(),
             local.data_ptr(), out_blk.data_ptr(), table.data_ptr(),
-            out.data_ptr(), dots.data_ptr(), head.data_ptr(),
-            tail.data_ptr(), meta.data_ptr(), nslab, edge_block, row_block,
-            out_rows, L, vec, _cuda_stream(dvn))
+            out.data_ptr(), dots.data_ptr(), head, tail, meta, nslab,
+            edge_block, row_block, out_rows, L, vec, _cuda_stream(dvn))
     _raise_on(fn, lib, rc)
-    fused_scatter_dot.launches_sorted += 1
+    fused_scatter_dot.launches += 1
+    fused_scatter_dot.launches_rows += 1
     return out, dots
 
 
@@ -662,5 +739,6 @@ def compose_grad_pass(d_t: torch.Tensor, packed: torch.Tensor,
 for _wrapper in (sorted_scatter, sorted_gather, fused_place_scatter,
                  fused_scatter_dot, compose_grad_pass):
     _wrapper.launches = 0
+for _wrapper in (sorted_scatter, fused_place_scatter, fused_scatter_dot):
+    _wrapper.launches_rows = 0
 del _wrapper
-fused_scatter_dot.launches_sorted = 0

@@ -6,8 +6,8 @@ without JAX (the repository's conftest imports JAX, hence
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu --noconftest
 
-Elsewhere they skip. Tolerances: ``sorted_scatter``,
-``fused_place_scatter`` and ``fused_scatter_dot`` (both its kernels)
+Elsewhere they skip. Tolerances: ``sorted_scatter`` and
+``fused_place_scatter`` (both routes of each) and ``fused_scatter_dot``
 atol 1e-4 / rtol 1e-5
 (the kernel and ``index_add_`` sum the same f32 values in different
 orders); ``sorted_gather`` and ``canonical_copy`` bit for bit (copies);
@@ -149,23 +149,33 @@ def test_fused_place_scatter_kernel_matches_plain(cuda, rb, eb, L, k, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rb,eb,L,d", [(16, 8, 128, 128),
-                                       (512, 256, 256, 200),
-                                       (64, 40, 96, 21)])
-def test_fused_scatter_dot_kernel_matches_plain(cuda, rb, eb, L, d):
+@pytest.mark.parametrize("nslab,n_blocks", [(60, 4), (300, 2)])
+def test_fused_place_split_walk_on_long_runs(cuda, nslab, n_blocks):
+    """Runs of 30 to 300 slabs, which the split walk cuts into pieces of
+    at most ``split_segment`` slabs summed by separate thread blocks and
+    then added in segment order: the plain version's sums, the same bits
+    twice, no row-segmented launch."""
     from mrgcn_tpu_torch.ops import sorted_stream as ss
-    dvn, lo, bl, _, w, table, out_rows = stream_case(cuda, rb, eb, L, 1,
-                                                     min(d, L - 1), rb + d)
-    args = (dvn, w, lo, bl, table, out_rows, rb, eb)
-    before = ss.fused_scatter_dot.launches
-    got, again = ss.fused_scatter_dot(*args), ss.fused_scatter_dot(*args)
-    want = ss.fused_scatter_dot_reference(*args)
+    rb, eb, L, k, d = 64, 32, 128, 8, 16
+    msgs, local, blk = make_stream(nslab, nslab, rb, eb, 2 * n_blocks, L)
+    rng = np.random.default_rng(nslab)
+    E, out_rows = nslab * eb, 2 * n_blocks * rb - 5
+    m, lo, bl = (torch.from_numpy(x).to(cuda) for x in (msgs, local, blk))
+    pl = torch.from_numpy(rng.integers(0, k, E).astype(np.int32)).to(cuda)
+    nm = torch.from_numpy(rng.random(E).astype(np.float32)).to(cuda)
+    args = (m[:, 5:5 + d], pl, nm, lo, bl, out_rows, k, L, rb, eb)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert nslab / n_blocks > ss.split_segment(nslab, L, sms)
+    before = (ss.fused_place_scatter.launches,
+              ss.fused_place_scatter.launches_rows)
+    got, again = ss.fused_place_scatter(*args), ss.fused_place_scatter(*args)
+    want = ss.fused_place_scatter_reference(*args)
     torch.cuda.synchronize()
-    assert ss.fused_scatter_dot.launches == before + 2
-    for g, a, w_ in zip(got, again, want):
-        torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-4)
-        assert torch.equal(g, a)
-    assert not got[1][(lo.reshape(-1) == rb)].any()    # padding: zero dot
+    assert (ss.fused_place_scatter.launches,
+            ss.fused_place_scatter.launches_rows) == (before[0] + 2,
+                                                      before[1])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, again)
 
 
 def sorted_case(cuda, rb, eb, L, d, strided, seed):
@@ -208,14 +218,14 @@ def test_fused_scatter_dot_rows_kernel_matches_plain(cuda, rb, eb, L, d,
     from mrgcn_tpu_torch.ops import sorted_stream as ss
     args = sorted_case(cuda, rb, eb, L, d, strided, seed=rb + d)
     before = (ss.fused_scatter_dot.launches,
-              ss.fused_scatter_dot.launches_sorted)
+              ss.fused_scatter_dot.launches_rows)
     got = ss.fused_scatter_dot(*args, rb, eb, rows_sorted=True)
     again = ss.fused_scatter_dot(*args, rb, eb, rows_sorted=True)
     want = ss.fused_scatter_dot_reference(*args, rb, eb)
     torch.cuda.synchronize()
     assert (ss.fused_scatter_dot.launches,
-            ss.fused_scatter_dot.launches_sorted) == (before[0],
-                                                      before[1] + 2)
+            ss.fused_scatter_dot.launches_rows) == (before[0] + 2,
+                                                    before[1] + 2)
     for g, a, w_ in zip(got, again, want):
         torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-4)
         assert torch.equal(g, a)
@@ -247,6 +257,95 @@ def test_fused_scatter_dot_rows_kernel_edge_cases(cuda):
         ss.fused_scatter_dot(wide, w, lo, bl, torch.zeros(out_rows, 544,
                                                           device=cuda),
                              out_rows, 16, 8, rows_sorted=True)
+
+
+def row_scatter_case(cuda, rb, eb, L, k, d, strided, seed, hub=None):
+    """A row-sorted stream (``sorted_adversarial_stream``) with slots
+    drawn per edge (they interleave within a row), values ``d`` wide
+    scaled by 1/degree, contiguous or cut from wider rows at an odd
+    offset, full message lines, norms and a ragged row count. Returns
+    the place-scatter's arguments and the scatter's messages."""
+    from chip_smoke import sorted_adversarial_stream
+    rng = np.random.default_rng(seed)
+    n_blocks = 10
+    n_edges, hub_edges = {16: (200, 300), 64: (600, 400),
+                          512: (3000, 1500)}[rb]
+    local, blk, scale = sorted_adversarial_stream(
+        rng, n_edges, rb, eb, n_blocks, hub or hub_edges)
+    E, out_rows = local.size, n_blocks * rb - 3
+    wide = rng.standard_normal((E, d + 4)).astype(np.float32) \
+        * scale[:, None]
+    place = rng.integers(0, k, E).astype(np.int32)
+    norm = rng.random(E).astype(np.float32)
+    msgs = (rng.standard_normal((E, L)) * scale[:, None]).astype(np.float32)
+    lo, bl, pl, nm, ms, wd = (torch.from_numpy(x).to(cuda) for x in (
+        local, blk, place, norm, msgs, wide))
+    V = wd[:, 1:1 + d] if strided else wd[:, :d].contiguous()
+    return (V, pl, nm, lo, bl, out_rows, k, L, rb, eb), ms
+
+
+def check_row_kernels(pargs, msgs):
+    """``fused_place_scatter`` and ``sorted_scatter`` with ``rows_sorted``
+    against their plain versions (atol 1e-4 / rtol 1e-5), the same bits
+    twice, two row-segmented launches each, and zeros in every row no
+    edge visits."""
+    from mrgcn_tpu_torch.ops import sorted_stream as ss
+    V, pl, nm, lo, bl, out_rows, k, L, rb, eb = pargs
+    sargs = (msgs, lo, bl, out_rows, rb, eb)
+    for fn, args, plain in (
+            (ss.fused_place_scatter, pargs, ss.fused_place_scatter_reference),
+            (ss.sorted_scatter, sargs, ss.sorted_scatter_reference)):
+        before = (fn.launches, fn.launches_rows)
+        got = fn(*args, rows_sorted=True)
+        again = fn(*args, rows_sorted=True)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.launches_rows) == (before[0] + 2,
+                                                   before[1] + 2)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+        assert torch.equal(got, again)
+        rows = (bl.long()[:, None] * rb + lo.long()).reshape(-1)
+        visited = torch.zeros(out_rows, dtype=torch.bool, device=got.device)
+        visited[rows[(lo.reshape(-1) < rb) & (rows < out_rows)]] = True
+        assert not got[~visited].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("rb,eb,L,k,d", [(16, 8, 128, 8, 16),
+                                         (64, 40, 96, 4, 21),
+                                         (512, 256, 256, 1, 200),
+                                         (64, 40, 640, 2, 320),
+                                         (16, 8, 128, 8, 11)])
+def test_row_scatter_kernels_match_plain(cuda, rb, eb, L, k, d, strided):
+    """The row-segmented kernels of ``fused_place_scatter`` (k 8, 4, 1,
+    2; odd widths; lines of 640 lanes, two column tiles) and
+    ``sorted_scatter`` on row-sorted streams with a hub row over many
+    chunks and an all-padding slab inside its run."""
+    check_row_kernels(*row_scatter_case(cuda, rb, eb, L, k, d, strided,
+                                        seed=rb + L + d))
+
+
+@pytest.mark.gpu
+def test_row_scatter_kernels_edge_cases(cuda):
+    """No slabs, slabs of padding only (every row zero), a hub row of
+    3,000 edges over 24 chunks, ``Lv = 1``, ``k = 2``, a row count that is
+    no multiple of the row block."""
+    from mrgcn_tpu_torch.ops import sorted_stream as ss
+    check_row_kernels(*row_scatter_case(cuda, 64, 40, 128, 2, 1, True,
+                                        seed=9, hub=3000))
+    (V, pl, nm, lo, bl, out_rows, k, L, rb, eb), msgs = row_scatter_case(
+        cuda, 16, 8, 128, 8, 16, False, seed=10)
+    for n in (0, lo.shape[0]):
+        pad = torch.full_like(lo[:n], rb)
+        e = n * eb
+        for got in (ss.fused_place_scatter(V[:e], pl[:e], nm[:e], pad,
+                                           bl[:n], out_rows, k, L, rb, eb,
+                                           rows_sorted=True),
+                    ss.sorted_scatter(msgs[:e], pad, bl[:n], out_rows, rb,
+                                      eb, rows_sorted=True)):
+            torch.cuda.synchronize()
+            assert got.shape == (out_rows, L) and not got.any()
 
 
 @pytest.mark.gpu
@@ -290,7 +389,13 @@ def test_stream_kernels_reject_bad_arguments(cuda):
                                8, 128, 16, 8)
     with pytest.raises(ValueError, match="multiple of 32"):
         ss.fused_scatter_dot(V, nm, lo, bl, table[:, :100].contiguous(),
-                             out_rows, 16, 8)
+                             out_rows, 16, 8, rows_sorted=True)
+    # the kernel walks rows in order: a stream not marked row-sorted is
+    # refused, and nothing launches
+    before = ss.fused_scatter_dot.launches
+    with pytest.raises(ValueError, match="rows_sorted=True"):
+        ss.fused_scatter_dot(V, nm, lo, bl, table, out_rows, 16, 8)
+    assert ss.fused_scatter_dot.launches == before
     with pytest.raises(ValueError, match="shapes disagree"):
         ss.sorted_gather(table, lo, bl[:-1], 16, 8)
     with pytest.raises(ValueError, match="table must be contiguous"):

@@ -142,9 +142,9 @@ def test_featureless_aggregate_launches_one_scatter_each_way(monkeypatch):
     calls = []
     real = rl.fused_place_scatter
 
-    def spy(V, place_mod, norm, local, blk, out_rows, *rest):
+    def spy(V, place_mod, norm, local, blk, out_rows, *rest, **kw):
         calls.append((local.data_ptr(), out_rows))
-        return real(V, place_mod, norm, local, blk, out_rows, *rest)
+        return real(V, place_mod, norm, local, blk, out_rows, *rest, **kw)
 
     # the scatter of these ops is the fused place-scatter; the plain
     # sorted_scatter must not run beside it

@@ -145,13 +145,13 @@ def test_cpu_tensors_take_the_plain_version_with_either_flag(rows_sorted):
     dvn, w, local, blk, table, out_rows = sorted_inputs(6)
     args = tuple(torch.from_numpy(a) for a in (dvn, w, local, blk, table))
     before = (ss.fused_scatter_dot.launches,
-              ss.fused_scatter_dot.launches_sorted)
+              ss.fused_scatter_dot.launches_rows)
     got = ss.fused_scatter_dot(*args, out_rows, 16, 8,
                                rows_sorted=rows_sorted)
     want = ss.fused_scatter_dot_reference(*args, out_rows, 16, 8)
     assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
     assert (ss.fused_scatter_dot.launches,
-            ss.fused_scatter_dot.launches_sorted) == before
+            ss.fused_scatter_dot.launches_rows) == before
 
 
 def test_row_sorted_stream_matches_jax(jax_mode):  # noqa: F811
