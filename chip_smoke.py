@@ -12,7 +12,11 @@ scatters' device time by kernel on every main-path stream; and
 ``profile_mb`` / ``profile_att`` / ``profile_mm``: ``torch.profiler``
 breakdowns of the link-prediction step, of a mini-batch NC step, of the
 attention kernels and of a multimodal NC step (with the fused MLP's and
-the fused attention's share), never part of the whole run; ``profile``
+the fused attention's share); ``profile_allmodal``, the same over all
+five modalities with the convolutional encoders' share (cuDNN
+convolutions, BatchNorm, pooling); ``conv_algorithms``, TCNN S under
+cuDNN's heuristic and measured algorithm choice, never part of the whole
+run; ``profile``
 also compares routes
 by device time per step in alternated windows: the basis layer's
 backward through ``fused_scatter_dot`` or through ``fused_place_scatter``
@@ -88,6 +92,12 @@ prints no result line. Phases, each printing its own lines:
    head, two blocks, bf16 body) features, drawn from seed 0 at
    ``benchmarks/bench_suite.multimodal_workload``'s counts (20,000
    numbers, 10,000 years, 8,000 byte strings of length 1-128), 5 epochs;
+   then over all five of DMG's modalities (``dmg_synth_allmodal``): the
+   same plus 10,000 WKT geometries of 4-64 points (16, ``TCNN`` size S,
+   f32) and 2,000 images of 224 x 224 (128, ``ImageCNN``, bf16 body),
+   ``X_width`` 165, so layer 0's dense half packs one row a 256-lane line
+   (k = 1), 5 epochs; every BatchNorm's running statistics must be finite
+   and moved from their 0 / 1 init;
 6. the link-prediction path, this slice's main path: the same CLI with
    ``[task] type = 'link prediction'`` on a synthetic graph at FB15k-237's
    sizes (14,541 entities, 475 relations, 272,115 / 17,535 / 20,466
@@ -118,10 +128,11 @@ prints no result line. Phases, each printing its own lines:
    15 % slower than in a fresh process (H100 80GB HBM3, 700 W).
    The scatters' launches are checked by route: on the featureless NC
    path the place-scatter's row-segmented kernel twice a step (a forward
-   more for the test split), its split walk never; on the multimodal one
-   besides the split walk once a training forward and
+   more for the test split), its split walk never; on the paths over
+   features besides the dense half's streams on the routes the planner
+   gives them (``dense_routes``: the split walk once a training forward,
    ``sorted_scatter``'s row-segmented kernel once a step and once for the
-   test forward (``TEST_DENSE_FWD_SPLIT``), each count exact; on the
+   test forward, at both widths), each count exact; on the
    link-prediction path every
    ``fused_place_scatter`` launch on the row-segmented kernel (one a step
    and one an evaluation) and ``fused_scatter_dot`` two a step; the
@@ -156,7 +167,11 @@ prints no result line. Phases, each printing its own lines:
    held to ``|got - want| <= 2^-6 (|want| + scale) + 1e-6``, ``scale``
    being its product over absolute values
    (``mrgcn_tpu_torch.ops.kernel_bounds``: bf16 intermediates rounded
-   from f32 sums taken in other orders land a bf16 step apart);
+   from f32 sums taken in other orders land a bf16 step apart). Then the
+   convolutional encoders (``conv_encoder_phase``; cuDNN's, no
+   hand-written kernel): ``TCNN`` S / M / L and ``ImageCNN`` ``sep`` /
+   ``dense`` on 256 rows, card against CPU with the same weights and
+   running statistics, timed, TF32 checked off;
 8. small graphs on the card and on the CPU (plain versions). NC through
    the CLI, featureless and multimodal: the per-epoch losses must agree
    (rtol 1e-4 featureless; 1e-3 multimodal, whose text encoder rounds to
@@ -164,7 +179,11 @@ prints no result line. Phases, each printing its own lines:
    the same outputs before its gate (max error relative to the largest
    value) and the same parameter gradients (error norm relative to the
    gradient's norm): 1e-4 for the f32 MLP encoders; 1e-2 for the outputs
-   and 1e-1 for the gradients of the bf16 text encoder. LP on the
+   and 1e-1 for the gradients of the bf16 text encoder. The same over
+   all five modalities (120 images of 224 x 224, 300 geometries): the
+   first epoch's loss within 1e-4, the trajectory within
+   ``AGREE_ALLMODAL_RTOL``, each encoder as above (``TCNN`` as the MLP
+   encoders, ``ImageCNN`` as the text encoder). LP on the
    basis-stream path, both sides fed the same corrupted triples: every
    step's loss agrees within 1e-4 relative and every parameter's gradient
    within 1e-4 of its largest entry, on a small graph for three steps
@@ -223,16 +242,27 @@ TIMED_CALLS = 20
 # by norm: their largest-element error moved 2.6e-2 to 8.0e-2 between
 # runs, with the weights the CPU side's training ends at
 ENCODER_RTOL = {"mlp": (1e-4, 1e-4), "text": (1e-2, 1e-1)}
+# the convolutional encoders, card (cuDNN) vs CPU, same bounds by kind:
+# TCNN is f32 throughout (no TF32: checked), as the MLP encoders; the
+# image CNN's body is bf16, as the text encoder's. In train mode the
+# running statistics are held with the gradients
+ENCODER_RTOL.update({"tcnn": ENCODER_RTOL["mlp"],
+                     "image": ENCODER_RTOL["text"]})
+# rows of the encoders phase's card-vs-CPU cases; the image side there,
+# and the dmg_synth_allmodal path's counts and shapes
+CONV_ROWS, CONV_IMAGE_SIDE = 256, 64
+ALLMODAL_GEOMETRIES, ALLMODAL_IMAGES, IMAGE_SIDE = 10_000, 2_000, 224
+# card vs CPU losses over three epochs of the all-modality small graph: the
+# image CNN's bf16 body under batch statistics drifts by bf16 steps
+# between any two implementations, its gradients with it, and two Adam
+# steps carry that into the losses: 1.8e-3 to 2.0e-3 in three runs where
+# the multimodal graph's stayed within 2.3e-5 (H100 80GB HBM3, 700 W);
+# the first epoch's loss, from equal parameters, is held to 1e-4
+AGREE_ALLMODAL_RTOL = 5e-3
 # the compose kernels' launches a full-batch NC training step makes on the
 # port's route (rspmm.compose_packed): the identity layer's forward
 # (compose_table) and its backward (compose_grad_pass)
 COMPOSE_PER_STEP = {"compose_table": 1, "compose_grad_pass": 1}
-# whether the multimodal NC path's test forward takes the split walk: the
-# planner makes the training split's layer-0 dense fwd relation-constant
-# (split walk) and the test split's frontier fwd plain and row-sorted
-# (sorted_scatter's row kernel) on the graph of
-# benchmarks.torch_baseline.build_workload(seed=0)
-TEST_DENSE_FWD_SPLIT = False
 KERNEL_SOURCES = ("sorted_scatter", "sorted_gather", "fused_place_scatter",
                   "scatter_dot", "compose", "fused_attention", "fused_mlp")
 # configs/fb15k-237.toml trains 20 epochs and ranks every 10. The f32 loss
@@ -247,6 +277,9 @@ LP_HIDDEN = 200
 HBM_BYTES_S, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 TF32_FLOPS = 495e12      # dense TF32 tensor-core FLOP/s
 MULTIMODAL = ("xsd.numeric", "xsd.gYear", "xsd.string")
+# all five of DMG's modalities: the multimodal ones, WKT geometries (TCNN)
+# and images (ImageCNN)
+ALLMODAL = MULTIMODAL + ("ogc.wktLiteral", "blob.image")
 # rows (sequences x 128 tokens) the text MLP takes in most batches of the
 # multimodal mini-batch run (batchsize = 512: 2,048 string rows after
 # bucketing; the minibatch phase checks it is the largest it sees)
@@ -430,13 +463,26 @@ def sorted_adversarial_stream(rng, n_edges, rb, eb, n_blocks, hub):
             scale.reshape(-1).astype(np.float32))
 
 
-def multimodal_width() -> int:
-    """``X_width`` of the multimodal path: the summed embedding widths of
-    ``configs/dmg.toml``'s ``MULTIMODAL`` features (4 + 1 + 16)."""
+def allmodal_features(num_nodes: int) -> dict:
+    """The ``dmg_synth_allmodal`` path's features, drawn from seed 0: the
+    multimodal path's (the same draws) and ``ALLMODAL_GEOMETRIES`` WKT
+    geometries of 4-64 points and ``ALLMODAL_IMAGES`` uint8 images of
+    ``IMAGE_SIDE`` x ``IMAGE_SIDE`` (DMG's ``centerCrop``)."""
+    from mrgcn_tpu_torch.tasks.synthetic import multimodal_features
+    return multimodal_features(num_nodes, seed=0,
+                               num_geometries=ALLMODAL_GEOMETRIES,
+                               num_images=ALLMODAL_IMAGES,
+                               image_size=IMAGE_SIDE)
+
+
+def multimodal_width(features=MULTIMODAL) -> int:
+    """``X_width`` of a path over ``features``: the summed embedding widths
+    of those of ``configs/dmg.toml``'s features (``MULTIMODAL``: 4 + 1 +
+    16; ``ALLMODAL``: 4 + 1 + 16 + 128 + 16)."""
     with open(ROOT / "configs" / "dmg.toml", "rb") as f:
         dmg = tomllib.load(f)
     return sum(f["embedding_dim"] for f in dmg["graph"]["features"]
-               if f["datatype"] in MULTIMODAL)
+               if f["datatype"] in features)
 
 
 def stream_shape(stream, out_rows, L) -> dict:
@@ -514,12 +560,14 @@ def scatter_cases(names, label, stream, place, out_rows, L, k, d, gen,
     return out
 
 
-def nc_layer0_plans(work, device):
-    """The identity (``8:8:id``) and dense (``4:8``) plans of the NC paths'
-    frontier-restricted layer 0 on the DMG-scale graph."""
+def nc_layer0_plans(work, device, labels=None, x_width=None):
+    """The identity (``8:8:id``) and dense (``4:8``; ``k:8`` at another
+    ``x_width``) plans of the NC paths' frontier-restricted layer 0 on the
+    DMG-scale graph, for the training labels or the nodes ``labels``."""
     import numpy as np
     import torch
     from mrgcn_tpu_torch.models.rgcn import EdgeBlock
+    from mrgcn_tpu_torch.ops.rspmm import packing_factor
     from mrgcn_tpu_torch.tasks.common import restricted_layer_edges
 
     n = work["n"]
@@ -530,12 +578,16 @@ def nc_layer0_plans(work, device):
                      dst=torch.as_tensor(work["dst"]),
                      rel=torch.as_tensor(work["rel"]),
                      norm=torch.as_tensor(work["norm"]), num_out=n)
+    x_width = x_width or multimodal_width()
+    labels = work["labels_idx"] if labels is None else labels
     t0 = time.perf_counter()
-    chain = restricted_layer_edges(structure, np.unique(work["labels_idx"]),
+    chain = restricted_layer_edges(structure, np.unique(labels),
                                    2, full, first_dim=work["hidden"],
-                                   X_width=multimodal_width(),
+                                   X_width=x_width,
                                    featureless=False, device=device)
-    ident, dense = chain[0].plans["8:8:id"], chain[0].plans["4:8"]
+    ident = chain[0].plans["8:8:id"]
+    dense = chain[0].plans[f"{packing_factor(x_width)}:"
+                           f"{packing_factor(work['hidden'])}"]
     print(f"[kernel] NC layer-0 plans built in "
           f"{time.perf_counter() - t0:.1f} s: {ident.out_nodes} output nodes")
     return ident, dense
@@ -583,6 +635,20 @@ def nc_stream_phase(work, device, rows) -> None:
                             device)
         for name, row in got.items():
             rows[name].append(row)
+    # over all five modalities (X_width 165) the dense half packs one row
+    # a line: its bwd_h carries 256-lane lines into sorted_scatter (k = 1)
+    x_all = multimodal_width(ALLMODAL)
+    _, dense1 = nc_layer0_plans(work, device, x_width=x_all)
+    h = dense1.bwd_h
+    check(dense1.k_in == 1 and h.rows_sorted and not h.rel_const,
+          f"all-modality layer 0's bwd_h: k {dense1.k_in}, rows_sorted "
+          f"{h.rows_sorted}, relation-constant {h.rel_const}")
+    L = line_width(1, x_all)
+    print(f"[kernel] stream dense_bwd_h_k1: E_pad {h.num_padded_edges}, "
+          f"{dense1.n_in_rows} out rows of {L} lanes")
+    got = scatter_cases(("sorted_scatter",), "dense_bwd_h_k1", h, h.in_mod,
+                        dense1.n_in_rows, L, 1, x_all, gen, device)
+    rows["sorted_scatter"].append(got["sorted_scatter"])
     torch.cuda.empty_cache()
 
 
@@ -1376,12 +1442,242 @@ def encoder_kernel_phase(device) -> dict:
     return rows
 
 
+def toml_value(v) -> str:
+    """``v`` as a TOML value: a dict as an inline table, anything else as
+    JSON (a string, number, bool or list of them reads the same)."""
+    if isinstance(v, dict):
+        return "{ " + ", ".join(f"{k} = {toml_value(x)}"
+                                for k, x in v.items()) + " }"
+    return json.dumps(v)
+
+
+def conv_inputs(gen, rows: int, kind: str, shape):
+    """Inputs of a convolutional encoder: geometries as standard normals,
+    images as standard normals of their own contrast and brightness each
+    (as photographs differ; identical statistics would leave the deep
+    BatchNorms nearly constant inputs)."""
+    import torch
+    x = torch.randn((rows, *shape), generator=gen)
+    if kind == "image":
+        x = x * (0.2 + 2.8 * torch.rand((rows, 1, 1, 1), generator=gen)) \
+            + torch.randn((rows, shape[0], 1, 1), generator=gen)
+    return x
+
+
+def conv_encoder_phase(device) -> None:
+    """The convolutional encoders (no hand-written kernel: cuDNN's and
+    PyTorch's convolutions, f32 without TF32 for ``TCNN``, checked; bf16
+    for ``ImageCNN``'s body): ``TCNN`` S / M / L, each at its minimal
+    length, and ``ImageCNN`` (``sep``, ``dense``) on ``CONV_IMAGE_SIDE``
+    images, ``CONV_ROWS`` rows each, on the card against the same weights
+    and running statistics on the CPU. In train mode (batch statistics),
+    ``TCNN`` and ``ImageCNN`` with an f32 body (its ``dtype``): outputs
+    (max error over the CPU's largest), the parameter gradients (error
+    norm over the norm, all of them as one vector) and each updated
+    running statistic (error norm over its norm; a mean's over the larger
+    of its norm and its standard deviations') within
+    ``ENCODER_RTOL["tcnn"]``; where a ReLU input within rounding of zero
+    falls on the other side (the pre-ReLU signs that differ are counted
+    and printed), the gradients within 1e-2. The bf16 body
+    in eval mode, running statistics drawn away from 0 / 1: within
+    ``ENCODER_RTOL["image"]`` (under batch statistics a bf16 body drifts
+    by bf16 steps between any two implementations,
+    ``tests/test_torch_conv_encoders.py``). Each timed on the card as the
+    model runs it (train mode, bf16 image body), forward and backward, by
+    CUDA events; ``TCNN`` S and the ``sep`` ``ImageCNN`` also at the
+    ``dmg_synth_allmodal`` path's shapes (10,000 geometries of 64 points;
+    2,000 images of 224 x 224), with the bytes their forward keeps for
+    the backward and the peak of one forward and backward."""
+    import copy
+    import torch
+    from mrgcn_tpu_torch.models import encoders as enc
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on for f32 convolutions or matmuls")
+    gen = torch.Generator().manual_seed(0)
+    side = CONV_IMAGE_SIDE
+    cases = [(f"tcnn_{size}", "tcnn", (9, enc.TCNN_MINIMAL_LENGTH[size]),
+              lambda size=size, dtype=None: enc.TCNN(9, 16, gen, size=size),
+              (9, 64) if size == "S" else None) for size in "SML"]
+    cases += [(f"image_{impl}", "image", (3, side, side),
+               lambda impl=impl, dtype=torch.bfloat16: enc.ImageCNN(
+                   128, gen, p_dropout=0.0, block_impl=impl, dtype=dtype),
+               (3, IMAGE_SIDE, IMAGE_SIDE) if impl == "sep" else None)
+              for impl in ("sep", "dense")]
+
+    def compare(cpu, x, cot, train):
+        """Card against CPU: output error, the error norms by name and
+        the pre-ReLU signs that differ."""
+        gpu = copy.deepcopy(cpu).to(device)
+        found = []
+        for model in (gpu, cpu):
+            dev = next(model.parameters()).device
+            signs = []
+            hooks = [m.register_forward_hook(
+                lambda _m, _i, o: signs.append((o > 0).cpu()))
+                for m in model.modules() if isinstance(m, enc.BatchNorm)]
+            model.zero_grad()
+            out = model(x.to(dev), train=train)
+            out.backward(cot.to(dev))
+            for h in hooks:
+                h.remove()
+            found.append(({"output": out.detach().float().cpu(),
+                           **{n: p.grad.float().cpu()
+                              for n, p in model.named_parameters()},
+                           **{n: b.float().cpu()
+                              for n, b in model.named_buffers()}}, signs))
+        (got, got_signs), (want, want_signs) = found
+        flips = sum(int((a != b).sum())
+                    for a, b in zip(got_signs, want_signs))
+        out = want.pop("output")
+        out_err = float((got.pop("output") - out).abs().max()) \
+            / max(float(out.abs().max()), 1e-30)
+        check(bool(torch.isfinite(torch.cat(
+            [t.reshape(-1) for t in got.values()])).all()),
+            "non-finite gradients or statistics on the card")
+
+        def scale(name, w):
+            norm = float(torch.linalg.vector_norm(w))
+            if name.endswith(".mean"):
+                var = want[name[:-len("mean")] + "var"]
+                norm = max(norm, float(torch.linalg.vector_norm(var.sqrt())))
+            return max(norm, 1e-30)
+
+        buffers = {n for n, _ in cpu.named_buffers()}
+        stats = {n: float(torch.linalg.vector_norm(got[n] - w)) / scale(n, w)
+                 for n, w in want.items() if n in buffers}
+        grads = [n for n in want if n not in buffers]
+        # the gradients as one vector: a convolution's bias ahead of
+        # BatchNorm has gradient 0 in exact arithmetic (the batch mean
+        # subtracts it), so alone its error would be all noise
+        grad_err = math.sqrt(sum(float(torch.linalg.vector_norm(
+            got[n] - want[n])) ** 2 for n in grads) / max(sum(
+                float(torch.linalg.vector_norm(want[n])) ** 2
+                for n in grads), 1e-60))
+        return gpu, out_err, grad_err, stats, flips
+
+    for label, kind, shape, make, path_shape in cases:
+        x = conv_inputs(gen, CONV_ROWS, kind, shape)
+        cpu = make() if kind == "tcnn" else make(dtype=torch.float32)
+        out_dim = cpu.Dense_1.kernel.shape[1]
+        cot = torch.randn((CONV_ROWS, out_dim), generator=gen)
+        row = {"label": label, "rows": CONV_ROWS, "shape": list(shape)}
+        checks = [("train_f32", cpu, True, ENCODER_RTOL["tcnn"])]
+        if kind == "image":
+            bf16 = make()
+            with torch.no_grad():
+                for m in bf16.modules():
+                    if isinstance(m, enc.BatchNorm):
+                        m.mean.normal_(0.0, 0.1, generator=gen)
+                        m.var.uniform_(0.5, 2.0, generator=gen)
+            checks.append(("eval_bf16", bf16, False, ENCODER_RTOL["image"]))
+        for mode, model, train, (out_bound, bound) in checks:
+            gpu, out_err, grad_err, stats, flips = compare(model, x, cot,
+                                                           train)
+            worst = max(stats, key=stats.get)
+            grad_bound = max(bound, 1e-2) if flips else bound
+            row[mode] = {"output_rel_err": out_err,
+                         "gradient_rel_norm_err": grad_err,
+                         "statistics_worst": worst,
+                         "statistics_rel_norm_err": stats[worst],
+                         "relu_sign_flips": flips,
+                         "bounds": [out_bound, grad_bound, bound]}
+            check(out_err <= out_bound and grad_err <= grad_bound
+                  and stats[worst] <= bound,
+                  f"encoder {label} {mode}: card and CPU differ "
+                  f"{json.dumps(row[mode])}")
+        del gpu
+        gpu = (make() if kind == "tcnn" else bf16).to(device)
+
+        def step(model=gpu, x=x.to(device), cot=cot.to(device)):
+            model(x, train=True).backward(cot)
+
+        row["fwd_bwd_ms"] = time_ms(step)
+        if path_shape is not None:
+            rows = ALLMODAL_GEOMETRIES if kind == "tcnn" else ALLMODAL_IMAGES
+            xp = conv_inputs(torch.Generator().manual_seed(1), rows, kind,
+                             path_shape).to(device)
+            cp = torch.randn((rows, out_dim), device=device)
+            row["path_shape"] = [rows, *path_shape]
+            row["path_fwd_bwd_ms"] = time_ms(lambda: step(gpu, xp, cp))
+            # what the forward keeps for the backward, and the peak of one
+            # forward and backward, beyond the inputs and weights
+            gpu.zero_grad(set_to_none=False)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = gpu(xp, train=True)
+            row["path_saved_bytes"] = torch.cuda.memory_allocated() - base
+            out.backward(cp)
+            del out
+            row["path_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+            del xp, cp
+        print(f"[encoder] {json.dumps(row)}")
+        del gpu
+        torch.cuda.empty_cache()
+
+
+def conv_algorithm_probe(measured: bool) -> None:
+    """``TCNN`` S's forward and backward at the ``dmg_synth_allmodal``
+    path's shape (10,000 geometries of 64 points, f32) with cuDNN's
+    heuristic choice of algorithms (``measured`` false) or its measured
+    one (``cudnn.benchmark``, which the port sets): the first call (the
+    measuring included) and the median of the timed calls after it, in
+    milliseconds by CUDA events, and the peak beyond inputs and weights
+    of the first call and of the calls after it. Run in a process of its
+    own: cuDNN keeps a chosen algorithm for the process."""
+    import torch
+    from mrgcn_tpu_torch.models import encoders as enc
+    from mrgcn_tpu_torch.utils.device import pin_float32_precision
+    pin_float32_precision()
+    torch.backends.cudnn.benchmark = measured
+    device = torch.device("cuda", 0)
+    x = conv_inputs(torch.Generator().manual_seed(1), ALLMODAL_GEOMETRIES,
+                    "tcnn", (9, 64)).to(device)
+    cot = torch.randn((ALLMODAL_GEOMETRIES, 16), device=device)
+    model = enc.TCNN(9, 16, torch.Generator().manual_seed(0),
+                     size="S").to(device)
+
+    def step():
+        model(x, train=True).backward(cot)
+
+    base = torch.cuda.memory_allocated()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    step()
+    end.record()
+    end.synchronize()
+    first_ms = start.elapsed_time(end)
+    first_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(step)
+    print(json.dumps({"cudnn.benchmark": measured,
+                      "shape": list(x.shape), "first_call_ms": first_ms,
+                      "first_call_peak_bytes": first_peak, "ms": ms,
+                      "peak_bytes": torch.cuda.max_memory_allocated()
+                      - base}))
+
+
+def conv_algorithm_phase() -> None:
+    """``conv_algorithm_probe`` with cuDNN's heuristic choice and with its
+    measured one, each in a fresh process (``--only conv_algorithms``,
+    not part of the default run)."""
+    for measured in (False, True):
+        proc = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke; "
+             f"chip_smoke.conv_algorithm_probe({measured})"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0,
+              f"conv_algorithm_probe({measured}): {proc.stderr[-2000:]}")
+        print(f"[encoder] tcnn_S algorithms {proc.stdout.strip()}")
+
+
 def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
                  features=(), task=None) -> None:
     """``configs/dmg.toml``'s model section; of its features, the
     datatypes in ``features`` are included as DMG configures them (the
-    string feature without its pretrained ``model`` and ``tokenizer``
-    keys: the from-scratch text encoder), all others excluded. ``task``
+    string and image features without their pretrained ``model`` key and
+    the string's ``tokenizer``: the from-scratch text and image encoders,
+    whatever backbone a machine caches), all others excluded. ``task``
     adds ``[task]`` entries to the full-batch default (``batchsize``,
     ``neighbor_fanout``, ``neighbor_fanout_rounds``)."""
     with open(ROOT / "configs" / "dmg.toml", "rb") as f:
@@ -1401,7 +1697,7 @@ def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
     for feature in dmg["graph"]["features"]:
         lines += ["", "[[graph.features]]"]
         if feature["datatype"] in features:
-            lines += [f"{k} = {json.dumps(v)}" for k, v in feature.items()
+            lines += [f"{k} = {toml_value(v)}" for k, v in feature.items()
                       if k not in ("model", "tokenizer")]
         else:
             lines += [f"datatype = {json.dumps(feature['datatype'])}",
@@ -1410,9 +1706,10 @@ def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
 
 
 def train_via_cli(tmp: Path, tag: str, work, epochs, num_bases,
-                  platform=None, F=None, task=None, graph=None):
+                  platform=None, F=None, task=None, graph=None,
+                  features=MULTIMODAL):
     """``run.run_cli`` on ``work``'s graph; with ``F`` (literal features)
-    the config includes the ``MULTIMODAL`` datatypes. The config is
+    the config includes the ``features`` datatypes. The config is
     ``<tag>.toml`` (``task``: extra ``[task]`` entries), the artifact
     ``<graph or tag>.npz``, so runs on one graph share its file;
     ``platform`` sets ``MRGCN_PLATFORM`` for the run alone."""
@@ -1428,7 +1725,7 @@ def train_via_cli(tmp: Path, tag: str, work, epochs, num_bases,
                          num_eval=min(1000, work["n"] // 20), F=F)
     if not cfg.exists():
         write_config(cfg, epochs, num_bases, work["hidden"],
-                     features=MULTIMODAL if F else (), task=task)
+                     features=features if F else (), task=task)
     os.environ.pop("MRGCN_PLATFORM", None)
     if platform is not None:
         os.environ["MRGCN_PLATFORM"] = platform
@@ -1501,24 +1798,57 @@ def start_path() -> dict:
     return counters
 
 
-def slice_phase(work, tmp: Path, tag: str, kernels, F=None) -> dict:
+def dense_routes(work, art: Path, x_width: int) -> dict:
+    """``{(scatter, kernel): launches}`` of the dense half of layer 0 in
+    ``EPOCHS`` training steps (its ``fwd`` and ``bwd_h`` streams) and the
+    test split's forward, read from the planner: layer 0 restricted to the
+    frontier of the NC run's own labels (train and valid merged, as
+    ``--test`` merges them; then the test split's), at ``x_width``. A
+    relation-constant stream goes through ``fused_place_scatter``, any
+    other through ``sorted_scatter``, each on its row-segmented kernel
+    where the planner marks the stream ``rows_sorted``."""
+    import numpy as np
+    import torch
+    from mrgcn_tpu_torch.data import artifact as artifact_io
+    Y = {k: np.asarray(v).reshape(-1, 2)
+         for k, v in artifact_io.load(str(art)).Y.items()}
+    counts = {}
+    for labels, streams, times in (
+            (np.concatenate([Y["train"], Y["valid"]])[:, 0],
+             ("fwd", "bwd_h"), EPOCHS),
+            (Y["test"][:, 0], ("fwd",), 1)):
+        _, dense = nc_layer0_plans(work, torch.device("cpu"), labels,
+                                   x_width)
+        for name in streams:
+            stream = getattr(dense, name)
+            scatter = "fused_place_scatter" if stream.rel_const \
+                else "sorted_scatter"
+            kernel = ROW_KERNELS[scatter][0 if stream.rows_sorted else 1]
+            counts[scatter, kernel] = counts.get((scatter, kernel), 0) \
+                + times
+    return counts
+
+
+def slice_phase(work, tmp: Path, tag: str, kernels, F=None,
+                features=MULTIMODAL) -> dict:
     """Train ``EPOCHS`` NC epochs through the CLI with every launch count
     set to 0 just before and read just after; ``kernels`` names each
-    kernel the path runs with its least launch count per epoch. The
-    identity layer's compose launches exactly ``COMPOSE_PER_STEP`` of each
-    compose kernel a training step, and ``compose_table`` once more for the
-    test split's evaluation. The scatters' launches by route: the identity
-    half's row-sorted ``fwd`` (each forward, the test split's too) and
-    ``bwd_table`` (each step) on ``fused_place_scatter``'s row-segmented
-    kernel; with features, each step the dense half's relation-constant
-    ``fwd`` on its split walk and its row-sorted ``bwd_h`` on
-    ``sorted_scatter``'s row-segmented kernel, and the test forward's
-    dense ``fwd`` on the route ``TEST_DENSE_FWD_SPLIT`` names; never
-    ``sorted_scatter``'s block walk."""
+    kernel the path runs with its least launch count per epoch. With
+    ``F``, the config includes ``features``. The identity layer's compose
+    launches exactly ``COMPOSE_PER_STEP`` of each compose kernel a
+    training step, and ``compose_table`` once more for the test split's
+    evaluation. The scatters' launches by route, each count exact: the
+    identity half's row-sorted ``fwd`` (each forward, the test split's
+    too) and ``bwd_table`` (each step) on ``fused_place_scatter``'s
+    row-segmented kernel; with features, the dense half's streams on the
+    routes the planner gives them (``dense_routes``). Over the image and
+    WKT features, every BatchNorm's running statistics must be finite and
+    moved from their 0 / 1 init."""
     import torch
     counters = start_path()
     t0 = time.perf_counter()
-    res = train_via_cli(tmp, tag, work, EPOCHS, work["num_bases"], F=F)
+    res = train_via_cli(tmp, tag, work, EPOCHS, work["num_bases"], F=F,
+                        features=features)
     wall = time.perf_counter() - t0
     launches = read_launches(counters)
     peak = torch.cuda.max_memory_allocated()
@@ -1526,28 +1856,37 @@ def slice_phase(work, tmp: Path, tag: str, kernels, F=None) -> dict:
         want = per_step * (EPOCHS + (name == "compose_table"))
         check(launches[name] == want,
               f"{tag}: {name} launched {launches[name]} times, not {want}")
-    place = by_route(launches, "fused_place_scatter")
-    scatter = by_route(launches, "sorted_scatter")
-    place_rows, split = ROW_KERNELS["fused_place_scatter"]
-    scatter_rows, walk = ROW_KERNELS["sorted_scatter"]
-    test_split = int(TEST_DENSE_FWD_SPLIT)
-    want_split, want_rows = (EPOCHS + test_split,
-                             EPOCHS + 1 - test_split) if F is not None \
-        else (0, 0)
-    check(place[place_rows] == 2 * EPOCHS + 1 and place[split] == want_split
-          and scatter[scatter_rows] == want_rows and scatter[walk] == 0,
-          f"{tag}: scatters launched {place}, {scatter}; want "
-          f"{2 * EPOCHS + 1} on {place_rows}, {want_split} on {split}, "
-          f"{want_rows} on {scatter_rows}")
+    scatters = ("fused_place_scatter", "sorted_scatter")
+    want = {(name, kernel): 0 for name in scatters
+            for kernel in ROW_KERNELS[name]}
+    want["fused_place_scatter", ROW_KERNELS["fused_place_scatter"][0]] = \
+        2 * EPOCHS + 1
+    if F is not None:
+        for key, n in dense_routes(work, tmp / f"{tag}.npz",
+                                   multimodal_width(features)).items():
+            want[key] += n
+    got = {(name, kernel): n for name in scatters
+           for kernel, n in by_route(launches, name).items()}
+    check(got == want, f"{tag}: scatters launched {got}; want {want}")
 
     losses = [h["train_loss"] for h in res.history]
     check(len(losses) == EPOCHS, f"{tag}: trained {len(losses)} epochs")
     check(all(math.isfinite(x) for x in losses + [res.loss]),
           f"{tag}: non-finite loss: {losses}, test {res.loss}")
-    devices = {p.device.type for p in res.model.parameters()}
-    check(devices == {"cuda"}, f"{tag}: parameters on {devices}")
+    devices = {t.device.type for t in res.model.state_dict().values()}
+    check(devices == {"cuda"}, f"{tag}: parameters and buffers on {devices}")
+    check(all(bool(torch.isfinite(t).all())
+              for t in res.model.state_dict().values()),
+          f"{tag}: non-finite parameters or buffers")
     check(res.model.featureless == (F is None),
           f"{tag}: featureless is {res.model.featureless}")
+    stats = {k: t for k, t in res.model.state_dict().items()
+             if ".BatchNorm_" in k and k.endswith((".mean", ".var"))}
+    check(bool(stats) == ("blob.image" in features and F is not None),
+          f"{tag}: {len(stats)} BatchNorm statistics")
+    for k, t in stats.items():
+        init = 0.0 if k.endswith(".mean") else 1.0
+        check(bool((t != init).any()), f"{tag}: {k} never moved")
     for name, per_epoch in kernels.items():
         check(launches[name] >= per_epoch * EPOCHS,
               f"{tag}: {name} launched {launches[name]} times in "
@@ -1558,7 +1897,9 @@ def slice_phase(work, tmp: Path, tag: str, kernels, F=None) -> dict:
                "first_epoch_s": secs[0], "epoch_s_after_first": secs[1:],
                "epoch_s_median_after_first": statistics.median(secs[1:]),
                "peak_mem_bytes": peak, "cli_wall_s": wall,
-               "launches": launches}
+               "launches": launches,
+               "scatter_routes": {f"{n}.{k}": c for (n, k), c in got.items()},
+               **({"batchnorm_statistics": len(stats)} if stats else {})}
     print(f"[slice] {json.dumps(summary)}")
     return summary
 
@@ -2150,11 +2491,31 @@ def profile_attention_phase(device, steps: int = 10) -> None:
         del q, k, v, valid, do
 
 
-def profile_multimodal_phase(work, tmp: Path, device, steps: int = 5) -> None:
-    """Where a multimodal NC step's time goes (``--only profile_mm``, not
-    part of the default run): the DMG-width model with the text encoder,
-    full batch, ``torch.profiler`` over ``steps`` training steps, and the
-    fused MLP's and fused attention's kernels' share of the device time."""
+# device-time groups of an NC step, by kernel name: the hand-written
+# kernels, then what cuDNN and PyTorch run for the convolutional encoders
+PROFILE_GROUPS = (
+    ("fused_mlp", ("mlp_", "sum_segments_kernel")),
+    ("fused_attention", ("attention_",)),
+    ("stream and compose kernels", ("place_rows_kernel", "fused_place_",
+                                    "sorted_scatter_kernel", "compose_",
+                                    "canonical_")),
+    ("BatchNorm", ("batch_norm", "bn_fw", "bn_bw", "welford")),
+    ("pooling", ("pool", "adaptive_max")),
+    ("convolution (cuDNN)", ("convolve", "conv_depthwise", "conv1d",
+                             "conv2d", "xmma", "fprop", "dgrad", "wgrad",
+                             "implicit_gemm", "cudnn", "ToNhwc", "ToNchw",
+                             "winograd")),
+)
+
+
+def profile_multimodal_phase(work, tmp: Path, device, steps: int = 5,
+                             features=MULTIMODAL) -> None:
+    """Where a multimodal NC step's time goes (``--only profile_mm``;
+    ``--only profile_allmodal``: the ``dmg_synth_allmodal`` features;
+    neither part of the default run): the DMG-width model full batch,
+    ``torch.profiler`` over ``steps`` training steps, and each
+    ``PROFILE_GROUPS`` group's share of the device time (a kernel in the
+    first group whose names it matches)."""
     import numpy as np
     import torch
     from mrgcn_tpu_torch import run
@@ -2163,15 +2524,17 @@ def profile_multimodal_phase(work, tmp: Path, device, steps: int = 5) -> None:
     from mrgcn_tpu_torch.tasks.common import prepare_inputs
     from mrgcn_tpu_torch.tasks.synthetic import (multimodal_features,
                                                  save_nc_artifact)
-    art, cfg = tmp / "profile_mm.npz", tmp / "profile_mm.toml"
+    tag = "profile_allmodal" if features == ALLMODAL else "profile_mm"
+    art, cfg = tmp / f"{tag}.npz", tmp / f"{tag}.toml"
     save_nc_artifact(str(art), work["n"], work["R"], work["src"],
                      work["dst"], work["rel"], work["norm"],
                      work["labels_idx"], work["labels_cls"],
                      work["num_classes"], seed=0,
                      num_eval=min(1000, work["n"] // 20),
-                     F=multimodal_features(work["n"], seed=0))
+                     F=allmodal_features(work["n"]) if features == ALLMODAL
+                     else multimodal_features(work["n"], seed=0))
     write_config(cfg, 1, work["num_bases"], work["hidden"],
-                 features=MULTIMODAL)
+                 features=features)
     config = run.load_config(str(cfg))
     artifact = run.artifact_io.load(str(art))
     inputs = prepare_inputs(artifact, config, False, device)
@@ -2183,18 +2546,30 @@ def profile_multimodal_phase(work, tmp: Path, device, steps: int = 5) -> None:
     Y = np.concatenate([np.asarray(artifact.Y[k]).reshape(-1, 2)
                         for k in ("train", "valid") if k in artifact.Y])
     batch, = nc.make_batches(inputs, Y, -1, len(model.hidden_dims))
+
+    def step():
+        nc.train_step(model, optimizer, batch, 0.0, 0.0)
+
+    # the peak of training steps after the first (whose convolutions
+    # cuDNN measures, trying algorithms with large workspaces)
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    print(f"[profile] {tag} peak of a training step after the first: "
+          f"{torch.cuda.max_memory_allocated()} bytes")
     busy, wall, by_name = profile_steps(
-        "multimodal NC step",
-        lambda: nc.train_step(model, optimizer, batch, 0.0, 0.0), steps,
-        top=30)
-    # fused_mlp.cu's kernels (its segment sum included) and
-    # fused_attention.cu's
-    for what, names in (("fused_mlp", ("mlp_", "sum_segments_kernel")),
-                        ("fused_attention", ("attention_",))):
-        ms = sum(v for k, v in by_name.items()
-                 if any(n in k for n in names))
-        print(f"[profile] {what} kernels {ms:.3f} ms a step, "
-              f"{ms / busy:.1%} of the device time")
+        f"{tag} NC step (X_width {inputs.X_width})", step, steps, top=40)
+    rest = dict(by_name)
+    for what, names in PROFILE_GROUPS:
+        mine = [k for k in rest if any(n in k for n in names)]
+        ms = sum(rest.pop(k) for k in mine)
+        print(f"[profile] {what}: {ms:.3f} ms a step, {ms / busy:.1%} of "
+              f"the device time, {len(mine)} kernel names")
+    print(f"[profile] the rest (elementwise, copies, reductions, GEMMs): "
+          f"{sum(rest.values()):.3f} ms a step, "
+          f"{sum(rest.values()) / busy:.1%}")
 
 
 def profile_minibatch_phase(work, tmp: Path, device, steps: int = 40) -> None:
@@ -2430,21 +2805,22 @@ def encoder_agreement(tmp: Path, tag: str, gpu_model, cpu_model) -> None:
     sides = [(m, prepare_inputs(artifact, config, False, device).features)
              for m in (gpu_model, cpu_model)
              for device in [next(m.parameters()).device]]
-    for name, (datatype, _) in zip(cpu_model.names,
-                                   cpu_model.modules_config):
+    for name, (datatype, args) in zip(cpu_model.names,
+                                      cpu_model.modules_config):
         results = []
         for model, features in sides:
             encoder = getattr(model, name)
             encoder.zero_grad()
-            out = encoder(model._prepare(datatype, features[name][0]))
+            out = encoder(model._prepare(datatype, args, features[name][0]))
             cot = torch.randn(out.shape, generator=torch.Generator()
                               .manual_seed(0)).to(out.device)
             out.backward(cot)
             results.append({"output": out.detach().cpu()} | {
                 n: p.grad.detach().cpu()
                 for n, p in encoder.named_parameters() if p.grad is not None})
-        kind = "text" if datatype in ("xsd.string", "xsd.anyURI") \
-            else "mlp"
+        kind = {"xsd.string": "text", "xsd.anyURI": "text",
+                "ogc.wktLiteral": "tcnn", "blob.image": "image"}.get(
+                    datatype, "mlp")
         gpu_res, cpu_res = results
         want = cpu_res.pop("output").float()
         out_err = float((gpu_res.pop("output").float() - want).abs().max()) \
@@ -2464,32 +2840,46 @@ def encoder_agreement(tmp: Path, tag: str, gpu_model, cpu_model) -> None:
 
 def agreement_phase(tmp: Path) -> None:
     """The CLI on a small graph: CUDA kernels vs the CPU's plain path,
-    featureless (rtol 1e-4) and multimodal (rtol 1e-3: the text encoder's
+    featureless (rtol 1e-4), multimodal (rtol 1e-3: the text encoder's
     body is bf16 and the two sides round it at the same places but from
-    f32 sums taken in other orders); for the multimodal model also each
-    encoder on its own (``encoder_agreement``)."""
+    f32 sums taken in other orders) and over all five modalities (rtol
+    ``AGREE_ALLMODAL_RTOL``), every path's first epoch within 1e-4; for
+    the models over features also each encoder on its own
+    (``encoder_agreement``, the convolutional encoders in eval mode, with
+    the CPU run's running statistics on both sides)."""
     from benchmarks.torch_baseline import build_workload
     from mrgcn_tpu_torch.tasks.synthetic import multimodal_features
     small = build_workload(n=3000, num_props=6, num_edges=20_000,
                            num_labeled=300, seed=0)
     F = multimodal_features(small["n"], seed=0, num_numeric=600,
                             num_years=300, num_strings=240, max_len=128)
+    # and with geometries and images: all five modalities, the
+    # convolutional encoders and their running statistics on both sides
+    F_all = multimodal_features(small["n"], seed=0, num_numeric=600,
+                                num_years=300, num_strings=240, max_len=128,
+                                num_geometries=300, num_images=120,
+                                image_size=IMAGE_SIDE)
     # small_mb: the featureless graph again in mini-batches of 32 labels
     # (10 a training epoch), whose layers take the unplanned paths
-    for tag, graph, feats, rtol, task in (
-            ("small", "small", None, 1e-4, None),
-            ("small_mb", "small", None, 1e-4, {"batchsize": 32}),
-            ("small_mm", "small_mm", F, 1e-3, None)):
+    for tag, graph, feats, rtol, task, features in (
+            ("small", "small", None, 1e-4, None, ()),
+            ("small_mb", "small", None, 1e-4, {"batchsize": 32}, ()),
+            ("small_mm", "small_mm", F, 1e-3, None, MULTIMODAL),
+            ("small_am", "small_am", F_all, AGREE_ALLMODAL_RTOL, None,
+             ALLMODAL)):
         gpu = train_via_cli(tmp, tag, small, 3, 4, F=feats, task=task,
-                            graph=graph)
+                            graph=graph, features=features)
         cpu = train_via_cli(tmp, tag, small, 3, 4, platform="cpu", F=feats,
-                            task=task, graph=graph)
+                            task=task, graph=graph, features=features)
         a = [h["train_loss"] for h in gpu.history] + [gpu.loss]
         b = [h["train_loss"] for h in cpu.history] + [cpu.loss]
         err = max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b))
         print(f"[agree] {tag} losses cuda {a} cpu {b} "
               f"(max rel err {err:.3g}, bound {rtol})")
         check(err <= rtol, f"{tag}: cuda and cpu losses differ (rel {err})")
+        # the first epoch's loss: one forward from equal parameters
+        first = abs(a[0] - b[0]) / max(abs(b[0]), 1e-12)
+        check(first <= 1e-4, f"{tag}: first losses differ (rel {first})")
         if feats is not None:
             encoder_agreement(tmp, tag, gpu.model, cpu.model)
     compose_agreement(small)
@@ -2569,6 +2959,7 @@ ENCODER_KERNELS = ("attention_fwd", "attention_bwd", "mlp_fwd", "mlp_bwd")
 PHASES = ("stream", "compose", "nc", "minibatch", "lp", "encoders", "agree")
 EXTRA_PHASES = ("profile", "profile_mb", "profile_att",   # only with
                 "profile_mm", "profile_stream",            # --only
+                "profile_allmodal", "conv_algorithms",
                 "scatter_dot")
 
 
@@ -2588,9 +2979,11 @@ def main(argv=None) -> None:
     from benchmarks.torch_baseline import build_workload
     from mrgcn_tpu_torch.tasks.synthetic import (multimodal_features,
                                                  save_lp_artifact)
-    from mrgcn_tpu_torch.utils.device import pin_float32_precision
+    from mrgcn_tpu_torch.utils.device import (measure_conv_algorithms,
+                                              pin_float32_precision)
 
     pin_float32_precision()
+    measure_conv_algorithms()
     smi = card()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -2625,6 +3018,13 @@ def main(argv=None) -> None:
                 work, tmp, "dmg_synth_multimodal",
                 {"sorted_scatter": 1, "fused_place_scatter": 3,
                  **dict.fromkeys(ENCODER_KERNELS, 2)}, F=F)
+            # all five modalities: X_width 165, so the dense half packs
+            # one row a line (k = 1, 256 lanes); the same kernels a step
+            paths["nc_allmodal"] = slice_phase(
+                work, tmp, "dmg_synth_allmodal",
+                {"sorted_scatter": 1, "fused_place_scatter": 3,
+                 **dict.fromkeys(ENCODER_KERNELS, 2)},
+                F=allmodal_features(work["n"]), features=ALLMODAL)
         if "minibatch" in phases:
             paths.update(minibatch_phase(work, tmp, F))
         if "lp" in phases:
@@ -2641,8 +3041,13 @@ def main(argv=None) -> None:
             profile_attention_phase(device)
         if "profile_mm" in phases:
             profile_multimodal_phase(work, tmp, device)
+        if "profile_allmodal" in phases:
+            profile_multimodal_phase(work, tmp, device, features=ALLMODAL)
         if "encoders" in phases:
             rows.update(encoder_kernel_phase(device))
+            conv_encoder_phase(device)
+        if "conv_algorithms" in phases:
+            conv_algorithm_phase()
         if "agree" in phases:
             agreement_phase(tmp)
             save_lp_artifact(str(tmp / "lp_small.npz"), num_nodes=3000,

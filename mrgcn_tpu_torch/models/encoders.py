@@ -1,7 +1,6 @@
-"""Modality encoders: MLP and the from-scratch text encoder (PyTorch).
+"""Modality encoders (PyTorch).
 
-Counterpart of :mod:`mrgcn_tpu.models.encoders` for the encoders the
-multimodal slice runs:
+Counterpart of :mod:`mrgcn_tpu.models.encoders`:
 
 * :class:`MLP` (numeric, boolean and temporal literals): Dense -> Dropout
   -> ReLU per layer, widths interpolated from input to output, kernels and
@@ -11,27 +10,38 @@ multimodal slice runs:
   encoder's default path: bf16 body (parameters, LayerNorm statistics and
   the head stay f32), key-only padding mask, CLS pooling and the
   reference's head (pre_fc -> ReLU -> dropout -> fc).
+* :class:`TCNN` (WKT geometries, ``(N, C, L)``) in sizes S / M / L: f32
+  Conv -> :class:`BatchNorm` -> ReLU stacks with max pooling, then the
+  reference's head (reference: temporal_cnn.py:6-156).
+* :class:`ImageCNN` (images, ``(N, C, H, W)``): a bf16 convolution body of
+  depthwise-separable (``"sep"``) or plain 3x3 (``"dense"``) blocks with
+  XLA's ``SAME`` padding, a global average pool in f32 and an f32 head
+  (reference: imagecnn.py:9-41).
 
 Parameter names and layouts are the flax ones (``Dense_0.kernel`` as
-``(in, out)``, ``LayerNorm_0.scale``, ``_TextBlock_0.qkv``, ...), so the
-weight bridge maps the two packages by path. The other text paths, the
-temporal and image CNNs and pretrained backbones raise
-``NotImplementedError`` naming their ROADMAP item.
+``(in, out)``, ``LayerNorm_0.scale``, ``_TextBlock_0.qkv``,
+``_ConvBNRelu_0.Conv_0.kernel`` as ``(k, C_in, C_out)``, an image
+convolution's ``(3, 3, C_in / groups, C_out)``, ...), and the BatchNorm
+running statistics are buffers named as flax's ``batch_stats``
+(``BatchNorm_0.mean``, ``.var``), so the weight bridge maps the two
+packages by path. The other text paths raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mrgcn_tpu_torch.encodings.features import TCNN_LENGTH_L, TCNN_LENGTH_S
 from mrgcn_tpu_torch.models import init as tinit
 from mrgcn_tpu_torch.ops.attention import fused_attention
 from mrgcn_tpu_torch.ops.fused_mlp import fused_mlp
 
-TODO_TEXT = "ROADMAP Queue 1, item 3 (multi-head and xla/flash attention)"
+TODO_TEXT = "ROADMAP Queue 1, item 3c (multi-head and xla/flash attention)"
 
 
 class Dense(nn.Module):
@@ -203,3 +213,280 @@ class TextEncoder(nn.Module):
         pooled = torch.relu(self.Dense_0(x[:, 0].float()))
         pooled = F.dropout(pooled, self.p_dropout, training=train)
         return self.Dense_1(pooled)
+
+
+# --------------------------------------------------------------------------
+# convolutional encoders: TCNN (WKT geometries) and ImageCNN (images)
+# --------------------------------------------------------------------------
+
+# minimal input length per TCNN size; size M takes LENGTH_L as its minimal
+# length (reference: temporal_cnn.py:7-9, 57)
+TCNN_MINIMAL_LENGTH = {"S": TCNN_LENGTH_S, "M": TCNN_LENGTH_L,
+                       "L": TCNN_LENGTH_L}
+
+
+def adaptive_max_pool1d(x: torch.Tensor, output_size: int) -> torch.Tensor:
+    """Max over windows ``[floor(i L / k), ceil((i + 1) L / k))`` of the
+    length axis of ``(N, C, L)``: torch's ``AdaptiveMaxPool1d``, the JAX
+    package's windows."""
+    return F.adaptive_max_pool1d(x, output_size)
+
+
+def same_padding(size: int, window: int, stride: int) -> Tuple[int, int]:
+    """XLA's ``SAME`` padding of one spatial axis: ``ceil(size / stride)``
+    outputs, the extra pad on the high side (at stride 2 and an even size,
+    3x3 windows pad ``(0, 1)`` where torch's ``padding=1`` pads
+    ``(1, 1)``)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + window - size, 0)
+    return total // 2, total - total // 2
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over axis 1 of
+    ``(N, C, ...)``: parameters ``scale``, ``bias``; the running
+    statistics are the buffers ``mean`` (zeros) and ``var`` (ones),
+    flax's ``batch_stats``.
+
+    With ``train`` the batch's statistics normalize (reduced in f32, also
+    for a bf16 input) and the buffers move to
+    ``0.9 * running + 0.1 * batch``, where the batch variance is the biased
+    one, ``E[x^2] - E[x]^2``, as flax keeps it (torch's ``BatchNorm*d``
+    would keep the unbiased one). Without it the running statistics
+    normalize and the buffers stay. The output has the input's dtype."""
+
+    def __init__(self, features: int, momentum: float = 0.9,
+                 epsilon: float = 1e-5):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+        self.momentum = momentum
+        self.epsilon = epsilon
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(x, self.mean, self.var, self.scale,
+                                self.bias, training=False, eps=self.epsilon)
+        count = x.numel() // x.shape[1]
+        if count == 1:
+            # torch takes no batch statistics of one value per channel;
+            # flax's are the value itself and variance 0
+            shape = (1, -1) + (1,) * (x.ndim - 2)
+            batch_mean = x.detach().float().reshape(-1)
+            batch_var = torch.zeros_like(self.var)
+            y = ((x - x) * self.scale.view(shape)
+                 + self.bias.view(shape)).to(x.dtype)
+        else:
+            # momentum 1: the scratch buffers take this batch's mean and
+            # its unbiased variance, rescaled to the biased one below
+            batch_mean = torch.zeros_like(self.mean)
+            batch_var = torch.ones_like(self.var)
+            y = F.batch_norm(x, batch_mean, batch_var, self.scale,
+                             self.bias, training=True, momentum=1.0,
+                             eps=self.epsilon)
+            batch_var = batch_var * ((count - 1) / count)
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1 - m) * batch_mean)
+            self.var.copy_(m * self.var + (1 - m) * batch_var)
+        return y
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` over ``(N, C, *spatial)``: ``kernel`` as
+    ``(*window, C_in / groups, C_out)``, an optional ``bias`` (zeros),
+    computed in ``dtype`` (input, kernel and bias cast to it) or, with
+    ``dtype=None``, in the input's type. ``padding`` is one ``(lo, hi)``
+    pair per spatial axis, or ``"SAME"`` (:func:`same_padding`)."""
+
+    def __init__(self, in_features: int, features: int,
+                 window: Tuple[int, ...], generator: torch.Generator,
+                 kernel_init: Callable = tinit.lecun_normal,
+                 use_bias: bool = True, stride: int = 1,
+                 padding="SAME", groups: int = 1,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.kernel = nn.Parameter(kernel_init(
+            (*window, in_features // groups, features), generator))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias \
+            else None
+        self.window = tuple(window)
+        self.stride = stride
+        self.padding = padding
+        self.groups = groups
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        nd = len(self.window)
+        dtype = self.dtype or torch.promote_types(x.dtype,
+                                                  self.kernel.dtype)
+        pads = [same_padding(n, k, self.stride) for n, k in
+                zip(x.shape[2:], self.window)] \
+            if self.padding == "SAME" else list(self.padding)
+        x = x.to(dtype)
+        if any(lo != hi for lo, hi in pads):
+            # F.pad takes the last axis first
+            x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
+            pads = [(0, 0)] * nd
+        weight = self.kernel.permute(nd + 1, nd, *range(nd)).to(dtype)
+        bias = self.bias.to(dtype) if self.bias is not None else None
+        conv = F.conv1d if nd == 1 else F.conv2d
+        return conv(x, weight, bias, self.stride, [lo for lo, _ in pads],
+                    groups=self.groups)
+
+
+class _ConvBNRelu(nn.Module):
+    def __init__(self, in_features: int, features: int, kernel: int,
+                 padding: int, generator: torch.Generator):
+        super().__init__()
+        self.Conv_0 = Conv(in_features, features, (kernel,), generator,
+                           kernel_init=tinit.torch_linear_kernel,
+                           padding=((padding, padding),))
+        self.BatchNorm_0 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return torch.relu(self.BatchNorm_0(self.Conv_0(x), train))
+
+
+# channel plans per size (reference: temporal_cnn.py:24-139): stages of
+# (features, kernel, padding) convolutions, each followed by its pool
+# (("max", k) | ("adaptive", k) | None), and the head's width
+_TCNN_PLANS = {
+    "S": ([([(64, 3, 1), (64, 3, 1)], ("max", 2)),
+           ([(128, 3, 1), (128, 3, 1)], ("max", 2)),
+           ([(256, 3, 1), (256, 3, 1)], ("adaptive", 2)),
+           ([(512, 2, 0)], None)], 512),
+    "M": ([([(64, 7, 3), (64, 7, 3)], ("max", 3)),
+           ([(128, 3, 1), (128, 3, 1)], ("max", 3)),
+           ([(256, 3, 1), (256, 3, 1)], ("adaptive", 3)),
+           ([(512, 3, 1), (512, 3, 1), (1024, 3, 0)], None)], 1024),
+    "L": ([([(64, 7, 3), (64, 7, 3)], ("max", 3)),
+           ([(128, 7, 3), (128, 7, 3)], ("max", 3)),
+           ([(256, 3, 1), (256, 3, 1)], ("max", 3)),
+           ([(512, 3, 1), (512, 3, 1)], ("adaptive", 3)),
+           ([(1024, 3, 1), (1024, 3, 1), (2048, 3, 0)], None)], 2048),
+}
+
+
+class TCNN(nn.Module):
+    """Temporal CNN over ``(N, C, L)`` sequences (WKT geometries: C = 9)
+    in sizes S / M / L; an input of at least ``TCNN_MINIMAL_LENGTH[size]``
+    points leaves one position, whose ``cnn_out`` channels the head reads
+    (reference: temporal_cnn.py:6-156)."""
+
+    def __init__(self, input_dim: int, output_dim: int,
+                 generator: torch.Generator, size: str = "M",
+                 p_dropout: float = 0.0):
+        super().__init__()
+        stages, cnn_out = _TCNN_PLANS[size]
+        self.pools = []
+        prev, i = input_dim, 0
+        for convs, pool in stages:
+            for features, kernel, padding in convs:
+                setattr(self, f"_ConvBNRelu_{i}", _ConvBNRelu(
+                    prev, features, kernel, padding, generator))
+                prev, i = features, i + 1
+            self.pools.append((len(convs), pool))
+        self.p_dropout = p_dropout
+        self.Dense_0 = Dense(cnn_out, cnn_out, generator,
+                             kernel_init=tinit.torch_linear_kernel,
+                             bias_init=tinit.torch_linear_bias(cnn_out))
+        self.Dense_1 = Dense(cnn_out, output_dim, generator,
+                             kernel_init=tinit.torch_linear_kernel,
+                             bias_init=tinit.torch_linear_bias(cnn_out))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        i = 0
+        for num_convs, pool in self.pools:
+            for _ in range(num_convs):
+                x = getattr(self, f"_ConvBNRelu_{i}")(x, train)
+                i += 1
+            if pool is not None:
+                kind, k = pool
+                x = F.max_pool1d(x, k, k) if kind == "max" \
+                    else adaptive_max_pool1d(x, k)
+        # flatten as the JAX package's (N, L', C') rows are, l-major
+        x = x.transpose(1, 2).reshape(x.shape[0], -1)
+        x = torch.relu(self.Dense_0(x))
+        x = F.dropout(x, self.p_dropout, training=train)
+        return self.Dense_1(x)
+
+
+class _SeparableBlock(nn.Module):
+    """Depthwise 3x3 (``groups = C_in``) -> BatchNorm -> ReLU -> pointwise
+    1x1 -> BatchNorm -> ReLU, convolutions in ``dtype``."""
+
+    def __init__(self, in_features: int, features: int, stride: int,
+                 generator: torch.Generator, dtype: torch.dtype):
+        super().__init__()
+        self.Conv_0 = Conv(in_features, in_features, (3, 3), generator,
+                           use_bias=False, stride=stride,
+                           groups=in_features, dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(in_features)
+        self.Conv_1 = Conv(in_features, features, (1, 1), generator,
+                           use_bias=False, dtype=dtype)
+        self.BatchNorm_1 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = torch.relu(self.BatchNorm_0(self.Conv_0(x), train))
+        return torch.relu(self.BatchNorm_1(self.Conv_1(x), train))
+
+
+class _DenseBlock(nn.Module):
+    """Plain 3x3 convolution -> BatchNorm -> ReLU, in ``dtype``."""
+
+    def __init__(self, in_features: int, features: int, stride: int,
+                 generator: torch.Generator, dtype: torch.dtype):
+        super().__init__()
+        self.Conv_0 = Conv(in_features, features, (3, 3), generator,
+                           use_bias=False, stride=stride, dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return torch.relu(self.BatchNorm_0(self.Conv_0(x), train))
+
+
+class ImageCNN(nn.Module):
+    """Compact image CNN over normalized ``(N, C, H, W)`` f32 images: a
+    stride-2 stem and seven ``block_impl`` blocks (``"sep"``: depthwise
+    separable, MobileNet-style; ``"dense"``: plain 3x3), convolutions in
+    ``dtype`` with parameters in f32, then a global average pool in f32
+    and the reference's head in f32 (reference: imagecnn.py:9-41)."""
+
+    def __init__(self, output_dim: int, generator: torch.Generator,
+                 p_dropout: float = 0.2, width: int = 32,
+                 dtype: torch.dtype = torch.bfloat16,
+                 block_impl: str = "sep", in_channels: int = 3):
+        super().__init__()
+        w = width
+        block, name = (_DenseBlock, "_DenseBlock") \
+            if block_impl == "dense" else (_SeparableBlock,
+                                           "_SeparableBlock")
+        self.Conv_0 = Conv(in_channels, w, (3, 3), generator,
+                           use_bias=False, stride=2, dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(w)
+        self.blocks = []
+        prev = w
+        for i, (features, stride) in enumerate(
+                ((w * 2, 2), (w * 2, 1), (w * 4, 2), (w * 4, 1),
+                 (w * 8, 2), (w * 8, 1), (w * 16, 2))):
+            setattr(self, f"{name}_{i}", block(prev, features, stride,
+                                               generator, dtype))
+            self.blocks.append(f"{name}_{i}")
+            prev = features
+        self.p_dropout = p_dropout
+        self.Dense_0 = Dense(prev, prev, generator,
+                             kernel_init=tinit.torch_linear_kernel)
+        self.Dense_1 = Dense(prev, output_dim, generator,
+                             kernel_init=tinit.torch_linear_kernel)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = torch.relu(self.BatchNorm_0(self.Conv_0(x), train))
+        for name in self.blocks:
+            x = getattr(self, name)(x, train)
+        x = x.float().mean(dim=(2, 3))          # global average pool
+        x = torch.relu(self.Dense_0(x))
+        x = F.dropout(x, self.p_dropout, training=train)
+        return self.Dense_1(x)

@@ -8,25 +8,29 @@ its parameters live under that name, beside the ``gate_weights`` vector
 encoder outputs are placed into a dense ``(num_rows, X_width)`` feature
 matrix, which the R-GCN's input layer takes beside its identity weight.
 
-Ported encoders: the MLPs of numeric, boolean and temporal literals and
-the from-scratch text encoder. Image and WKT encoders and pretrained
-backbones raise ``NotImplementedError`` naming their ROADMAP item.
+Encoders: the MLPs of numeric, boolean and temporal literals, the
+from-scratch text encoder, the temporal CNN of WKT geometries (``TCNN``,
+size S / M / L as the features' lengths pick it) and the image CNN
+(``ImageCNN``). Their BatchNorm running statistics are buffers of the
+model, so ``state_dict()`` carries them. A pretrained backbone found on
+disk (text or image) raises ``NotImplementedError`` naming its ROADMAP
+item; without one, both packages train the from-scratch encoder.
 """
 
 from __future__ import annotations
 
+import glob
 import os
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from mrgcn_tpu_torch.models.encoders import MLP, TextEncoder
+from mrgcn_tpu_torch.models.encoders import MLP, TCNN, ImageCNN, TextEncoder
 from mrgcn_tpu_torch.models.rgcn import RGCN
 from mrgcn_tpu_torch.ops.placement import place_rows, place_rows_pre
 
-TODO_ENCODERS = "ROADMAP Queue 1, item 3 (image and WKT encoders, " \
-    "pretrained backbones)"
+TODO_ENCODERS = "ROADMAP Queue 1, item 3c (pretrained backbones)"
 
 # datatypes handled per encoder family (reference: mrgcn.py:63-124)
 _MLP1 = ("xsd.boolean", "xsd.numeric")
@@ -95,12 +99,31 @@ def _backbone_cached(hub_spec) -> bool:
     return True
 
 
+def _image_checkpoint() -> Optional[str]:
+    """A local MobileNetV2 checkpoint, found without network access:
+    ``MRGCN_VISION_WEIGHTS``, then the torch.hub cache under
+    ``$TORCH_HOME`` (``~/.cache/torch`` by default), as the JAX package
+    looks for one (``mrgcn_tpu.models.mobilenet.find_local_checkpoint``).
+    Where there is one, the JAX package runs it frozen; where there is
+    none, both packages train the from-scratch ``ImageCNN``."""
+    explicit = os.environ.get("MRGCN_VISION_WEIGHTS")
+    if explicit and os.path.exists(explicit):
+        return explicit
+    hub = os.environ.get("TORCH_HOME", os.path.expanduser("~/.cache/torch"))
+    hits = sorted(glob.glob(os.path.join(hub, "hub", "checkpoints",
+                                         "*mobilenet_v2*.pth")))
+    return hits[0] if hits else None
+
+
 class MRGCN(nn.Module):
     """Gated multimodal encoders + R-GCN.
 
     ``modules_config``: ``(datatype, args)`` pairs in the JAX package's
     contract (numeric/temporal ``(feature_size, embedding_dim, dropout)``,
-    string ``(model_config, embedding_dim, dropout)``). ``forward`` takes
+    string ``(model_config, embedding_dim, dropout)``, WKT
+    ``(feature_size, embedding_dim, size, dropout)``, image
+    ``(model_config, transform_config, embedding_dim, dropout)``).
+    ``forward`` takes
     ``features``: encoder name -> ``(data, node_idx, rows)`` tensors, as
     :func:`..tasks.common.prepare_inputs` builds them.
     """
@@ -139,9 +162,24 @@ class MRGCN(nn.Module):
                     dim_out, generator, vocab_size=text_vocab_size,
                     pad_id=text_pad_id, p_dropout=dropout,
                     attn_impl=os.environ.get("MRGCN_TEXT_ATTN", "auto"))
+            elif datatype == "ogc.wktLiteral":
+                feature_size, dim_out, size, dropout = args
+                encoder = TCNN(feature_size, dim_out, generator, size=size,
+                               p_dropout=dropout)
+            elif datatype == "blob.image":
+                model_cfg, transform, dim_out, dropout = args
+                checkpoint = _image_checkpoint() if model_cfg else None
+                if checkpoint is not None:
+                    raise NotImplementedError(
+                        f"pretrained image backbone {checkpoint}: "
+                        f"{TODO_ENCODERS}")
+                # one channel a letter of the image mode, as the image
+                # vectorizer counts them ("RGB": 3, "L": 1)
+                encoder = ImageCNN(dim_out, generator, p_dropout=dropout,
+                                   in_channels=len(transform.get("mode",
+                                                                 "RGB")))
             else:
-                raise NotImplementedError(
-                    f"{datatype} encoder: {TODO_ENCODERS}")
+                raise ValueError(f"Datatype not supported: {datatype}")
             setattr(self, name, encoder)
             self.encoder_dims[name] = dim_out
         self.modality_dim = modality_output_dim(self.modules_config)
@@ -161,11 +199,23 @@ class MRGCN(nn.Module):
                          link_prediction=link_prediction)
 
     @staticmethod
-    def _prepare(datatype: str, data: torch.Tensor) -> torch.Tensor:
-        """Per-modality casting (reference: mrgcn.py:286-292)."""
+    def _prepare(datatype: str, args, data: torch.Tensor) -> torch.Tensor:
+        """Per-modality casting (reference: mrgcn.py:286-292). Images stay
+        ``(N, C, H, W)`` and are normalized by the transform's ``mean`` and
+        ``std`` (scaled to 0-255) only when the config gives both, as the
+        reference builds its normalizer (reference: mrgcn.py:107-111); WKT
+        geometries stay ``(N, C, L)``."""
         if datatype in _TEXT:
             return data.long()
-        return data.float()
+        x = data.float()
+        if datatype == "blob.image":
+            transform = args[1]
+            if "mean" in transform and "std" in transform:
+                mean, std = (torch.tensor(transform[key], dtype=torch.float32,
+                                          device=x.device) * 255.0
+                             for key in ("mean", "std"))
+                x = (x - mean[None, :, None, None]) / std[None, :, None, None]
+        return x
 
     def compute_modality_embeddings(self, features: Dict, num_rows: int,
                                     train: bool = False) -> torch.Tensor:
@@ -175,7 +225,7 @@ class MRGCN(nn.Module):
         ``skip_encoders``, contributes zeros and runs nothing."""
         cols = []
         device = next(self.parameters()).device
-        for i, (name, (datatype, _)) in enumerate(
+        for i, (name, (datatype, args)) in enumerate(
                 zip(self.names, self.modules_config)):
             entry = features.get(name)
             if entry is None or entry[0].shape[0] == 0 \
@@ -184,7 +234,7 @@ class MRGCN(nn.Module):
                                         device=device))
                 continue
             data, node_idx, *pre = entry
-            out = getattr(self, name)(self._prepare(datatype, data),
+            out = getattr(self, name)(self._prepare(datatype, args, data),
                                       train=train)
             out = (out * self.gate_weights[i]).float()
             if pre:

@@ -23,7 +23,8 @@ from mrgcn_tpu_torch.encodings.features import (densify, getDatatypeConfig,
 from mrgcn_tpu_torch.encodings.structure import group_by_relation
 from mrgcn_tpu_torch.encodings.xsd.string import (ByteTokenizer,
                                                   pad_symbol_for)
-from mrgcn_tpu_torch.models.mrgcn import TODO_ENCODERS, module_names
+from mrgcn_tpu_torch.models.encoders import TCNN_MINIMAL_LENGTH
+from mrgcn_tpu_torch.models.mrgcn import module_names
 from mrgcn_tpu_torch.models.rgcn import EdgeBlock
 from mrgcn_tpu_torch.ops import relational as rl
 from mrgcn_tpu_torch.ops.placement import build_rows
@@ -138,10 +139,6 @@ def prepare_inputs(artifact: Artifact, config: Dict, featureless: bool,
         featureless = True
     # stable datatype order, so encoder instance ids match across runs
     modules_config = tuple(sorted(modules_config, key=lambda t: t[0]))
-    for datatype, _ in modules_config:
-        if datatype in ("blob.image", "ogc.wktLiteral"):
-            raise NotImplementedError(f"{datatype} features: "
-                                      f"{TODO_ENCODERS}")
 
     # pad symbols for token sequences (reference:
     # node_classification.py:61-70)
@@ -152,7 +149,12 @@ def prepare_inputs(artifact: Artifact, config: Dict, featureless: bool,
             pad_symbols[datatype] = pad_symbol_for(
                 getDatatypeConfig(config, datatype) or {})
             text_pad_id = pad_symbols[datatype]
-    X = densify(X, pad_symbols=pad_symbols)
+    # geometries padded to at least the largest TCNN's minimal length, so
+    # every convolution stack fits its input
+    min_lengths = {"ogc.wktLiteral": max(
+        [1] + [TCNN_MINIMAL_LENGTH[args[2]] for datatype, args
+               in modules_config if datatype == "ogc.wktLiteral"])}
+    X = densify(X, pad_symbols=pad_symbols, min_lengths=min_lengths)
     features, features_host, text_vocab = _feature_tensors(
         X, modules_config, n, device, ByteTokenizer.VOCAB_SIZE)
 

@@ -7,8 +7,9 @@ DMG-scale bench graph), the training labels are the caller's, and
 validation and test labels are drawn from the remaining nodes with a
 seeded generator. :func:`multimodal_features` draws literal features in
 the artifact's encoding-set layout (``[encodings, node_idx,
-seq_lengths]`` per set): numbers, years at the temporal encoder's width
-and byte-token strings. :func:`save_lp_artifact` draws a link-prediction
+seq_lengths]`` per set): numbers, years at the temporal encoder's width,
+byte-token strings and, when asked for, WKT geometries as ``(9, n)``
+point sets and uint8 images. :func:`save_lp_artifact` draws a link-prediction
 graph at FB15k-237's published sizes.
 """
 
@@ -24,17 +25,33 @@ from mrgcn_tpu_torch.encodings.xsd.string import ByteTokenizer
 # (mrgcn_tpu/encodings/xsd/temporal.py: sign, century, decade and year
 # on the unit circle)
 GYEAR_WIDTH = 6
+# rows of an encoded WKT point (mrgcn_tpu/encodings/ogc/wkt.py: the
+# geometry's mean x / y, then x, y, is_point, is_exterior_ring,
+# is_interior_ring, sub_stop, full_stop) and the reference's cap on points
+# (reference: wktLiteral.py:20)
+WKT_ROWS, WKT_MAX_POINTS = 9, 64
 
 
 def multimodal_features(num_nodes: int, seed: int = 0,
                         num_numeric: int = 20_000, num_years: int = 10_000,
                         num_strings: int = 8_000,
-                        max_len: int = 128) -> dict:
+                        max_len: int = 128, num_geometries: int = 0,
+                        num_images: int = 0, image_size: int = 224,
+                        geometry_points=(4, WKT_MAX_POINTS)) -> dict:
     """``F`` with one encoding set each of ``xsd.numeric`` (one standard
     normal per node), ``xsd.gYear`` (``GYEAR_WIDTH`` values in [-1, 1])
     and ``xsd.string`` (byte tokens, lengths uniform in [1, max_len]), on
     distinct random nodes per set, from ``seed``. The default counts are
-    ``benchmarks/bench_suite.multimodal_workload``'s."""
+    ``benchmarks/bench_suite.multimodal_workload``'s.
+
+    With ``num_geometries`` > 0, an ``ogc.wktLiteral`` set of polygons
+    laid out as the vectorizer writes them: ``(WKT_ROWS, n)`` float32
+    arrays of ``n`` points, uniform in ``geometry_points`` (a random walk
+    in x / y, the mean rows, the exterior-ring flag, the full stop on the
+    last point), lengths beside them; with ``num_images`` > 0, a
+    ``blob.image`` set of ``(3, image_size, image_size)`` uint8 images.
+    Both counts default to 0 and are drawn after the other sets, so those
+    stay as they were."""
     rng = np.random.default_rng(seed)
 
     def nodes(k):
@@ -50,7 +67,7 @@ def multimodal_features(num_nodes: int, seed: int = 0,
     strings = np.empty(num_strings, dtype=object)
     for i, part in enumerate(np.split(tokens, np.cumsum(lengths)[:-1])):
         strings[i] = part
-    return {
+    F = {
         "xsd.numeric": [[numeric, nodes(num_numeric),
                          np.ones(num_numeric, np.int32)]],
         "xsd.gYear": [[years, nodes(num_years),
@@ -58,6 +75,25 @@ def multimodal_features(num_nodes: int, seed: int = 0,
         "xsd.string": [[strings, nodes(num_strings),
                         lengths.astype(np.int32)]],
     }
+    if num_geometries > 0:
+        lo, hi = geometry_points
+        points = rng.integers(lo, hi + 1, num_geometries)
+        geometries = np.empty(num_geometries, dtype=object)
+        for i, n in enumerate(points):
+            g = np.zeros((WKT_ROWS, n), np.float32)
+            g[2:4] = np.cumsum(rng.standard_normal((2, n)), axis=1) * 0.1
+            g[0:2] = g[2:4].mean(axis=1, keepdims=True)
+            g[5] = 1.0                          # exterior ring
+            g[8, -1] = 1.0                      # full stop
+            geometries[i] = g
+        F["ogc.wktLiteral"] = [[geometries, nodes(num_geometries),
+                                points.astype(np.int32)]]
+    if num_images > 0:
+        images = rng.integers(0, 256, (num_images, 3, image_size,
+                                       image_size), dtype=np.uint8)
+        F["blob.image"] = [[images, nodes(num_images),
+                            -np.ones(num_images, np.float32)]]
+    return F
 
 
 def save_nc_artifact(path: str, num_nodes: int, num_relations: int,

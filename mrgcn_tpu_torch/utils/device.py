@@ -7,7 +7,11 @@ its own.
 
 Every float32 contraction runs in full float32, as the JAX package pins
 ``Precision.HIGHEST`` on its contractions: TF32 is switched off for
-matmuls and convolutions.
+matmuls and convolutions. cuDNN picks each convolution's algorithm by
+timing the candidates on its first call at a shape (``cudnn.benchmark``):
+its heuristic choice for TCNN S's f32 backward at 10,000 geometries
+takes a workspace of tens of GB and several times as long
+(``chip_smoke.py --only conv_algorithms`` prints both on the card).
 """
 
 from __future__ import annotations
@@ -26,9 +30,15 @@ def pin_float32_precision() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
+def measure_conv_algorithms() -> None:
+    torch.backends.cudnn.benchmark = True
+
+
 def select_device() -> torch.device:
-    """The device ``MRGCN_PLATFORM`` asks for, with f32 precision pinned."""
+    """The device ``MRGCN_PLATFORM`` asks for, with f32 precision pinned
+    and cuDNN's convolution algorithms measured."""
     pin_float32_precision()
+    measure_conv_algorithms()
     platform = os.environ.get("MRGCN_PLATFORM", "").strip().lower()
     if platform == "cpu":
         return torch.device("cpu")

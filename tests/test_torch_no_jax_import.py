@@ -3,10 +3,11 @@
 Every ``.py`` of ``mrgcn_tpu_torch/`` and ``chip_smoke.py`` is parsed with
 ``ast`` and must hold no ``import jax``, ``import mrgcn_tpu`` or
 ``from mrgcn_tpu... import`` (at any depth: inside functions too); and the
-CLI module imports, a link-prediction run trains and a mini-batch NC run
+CLI module imports, a link-prediction run trains, a mini-batch NC run
 trains one epoch (the host batch sampler and its native library
-included), in a subprocess in which both names are blocked
-(``sys.modules[name] = None``).
+included) and a full-batch NC run over all five modalities (the
+convolutional encoders) trains one epoch, in a subprocess in which both
+names are blocked (``sys.modules[name] = None``).
 """
 
 import ast
@@ -98,6 +99,24 @@ with tempfile.TemporaryDirectory() as tmp:
     assert res.batches["train"] == 3 and len(res.history) == 1
     lib = native.get_sampler_lib()
     assert lib is None or "mrgcn_tpu_torch" in native._SAMPLER_SO
+
+    # one full-batch NC epoch over all five modalities (TCNN, ImageCNN)
+    from pathlib import Path
+    from mrgcn_tpu_torch.tasks.synthetic import multimodal_features
+    art = os.path.join(tmp, "am.npz")
+    save_nc_artifact(art, n, R, rng.integers(0, n, E), rng.integers(0, n, E),
+                     rng.integers(0, R, E), rng.random(E).astype("float32"),
+                     rng.choice(n, 40, replace=False),
+                     rng.integers(0, 3, 40), 3, num_eval=10,
+                     F=multimodal_features(n, num_numeric=20, num_years=10,
+                                           num_strings=10, max_len=8,
+                                           num_geometries=10, num_images=6,
+                                           image_size=32))
+    cfg = os.path.join(tmp, "am.toml")
+    chip_smoke.write_config(Path(cfg), 1, 2, 8,
+                            features=chip_smoke.ALLMODAL)
+    res = run.run_cli(["-c", cfg, "-i", art, "-o", tmp, "--dry_run"])
+    assert res.model.modality_dim == 165 and len(res.history) == 1
 loaded = [m for m in sys.modules if m.split(".")[0] in
           ("jax", "jaxlib", "flax", "optax", "mrgcn_tpu")
           and sys.modules[m] is not None]

@@ -31,6 +31,7 @@ from mrgcn_tpu.tasks import node_classification as jnc
 from mrgcn_tpu.tasks import utils as jutils
 from mrgcn_tpu.tasks.common import prepare_inputs as jax_prepare_inputs
 from mrgcn_tpu_torch import run as torch_run
+from mrgcn_tpu_torch.models.encoders import TCNN, ImageCNN
 from mrgcn_tpu_torch.models.mrgcn import MRGCN
 from mrgcn_tpu_torch.models.rgcn import RGCN
 from mrgcn_tpu_torch.tasks import node_classification as nc
@@ -186,12 +187,14 @@ def test_unported_paths_raise(small_artifact, tmp_path, monkeypatch):
     Y_train = np.asarray(small_artifact.Y["train"]).reshape(-1, 2)
     # mini-batches are ported: eight label rows a batch
     assert len(nc.make_batches(tin, Y_train, 8, 2)) == -(-len(Y_train) // 8)
-    for datatype, args in (("blob.image", (None, {}, 16, 0.0)),
-                           ("ogc.wktLiteral", (9, 16, "S", 0.0))):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            MRGCN(hidden_dims=(4, 2), modules_config=((datatype, args),),
-                  num_relations=3, num_nodes=5,
-                  generator=torch.Generator(), featureless=False)
+    # the image and WKT encoders are ported: both build
+    for datatype, args, encoder in (
+            ("blob.image", (None, {}, 16, 0.0), ImageCNN),
+            ("ogc.wktLiteral", (9, 16, "S", 0.0), TCNN)):
+        model = MRGCN(hidden_dims=(4, 2), modules_config=((datatype, args),),
+                      num_relations=3, num_nodes=5,
+                      generator=torch.Generator(), featureless=False)
+        assert isinstance(getattr(model, model.names[0]), encoder)
     for flag in ("--save_checkpoint", "--load_checkpoint=x.npz"):
         with pytest.raises(NotImplementedError, match="checkpoints"):
             torch_run.main(["-c", "c.toml", "-i", "a.npz", flag])
