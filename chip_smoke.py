@@ -214,7 +214,9 @@ JSON line with every kernel's numbers, and last the result line
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
+import functools
 import hashlib
 import json
 import math
@@ -1707,12 +1709,14 @@ def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
 
 def train_via_cli(tmp: Path, tag: str, work, epochs, num_bases,
                   platform=None, F=None, task=None, graph=None,
-                  features=MULTIMODAL):
-    """``run.run_cli`` on ``work``'s graph; with ``F`` (literal features)
-    the config includes the ``features`` datatypes. The config is
-    ``<tag>.toml`` (``task``: extra ``[task]`` entries), the artifact
-    ``<graph or tag>.npz``, so runs on one graph share its file;
-    ``platform`` sets ``MRGCN_PLATFORM`` for the run alone."""
+                  features=MULTIMODAL, extra=()):
+    """``run.run_cli`` on ``work``'s graph; with ``F`` (literal features,
+    or a function that draws them, called only where the artifact is not
+    yet written) the config includes the ``features`` datatypes. The
+    config is ``<tag>.toml`` (``task``: extra ``[task]`` entries), the
+    artifact ``<graph or tag>.npz``, so runs on one graph share its file;
+    ``platform`` sets ``MRGCN_PLATFORM`` for the run alone; ``extra``
+    adds CLI arguments (the checkpoint flags)."""
     from mrgcn_tpu_torch import run
     from mrgcn_tpu_torch.tasks.synthetic import save_nc_artifact
     art = tmp / f"{graph or tag}.npz"
@@ -1722,7 +1726,8 @@ def train_via_cli(tmp: Path, tag: str, work, epochs, num_bases,
                          work["dst"], work["rel"], work["norm"],
                          work["labels_idx"], work["labels_cls"],
                          work["num_classes"], seed=0,
-                         num_eval=min(1000, work["n"] // 20), F=F)
+                         num_eval=min(1000, work["n"] // 20),
+                         F=F() if callable(F) else F)
     if not cfg.exists():
         write_config(cfg, epochs, num_bases, work["hidden"],
                      features=features if F else (), task=task)
@@ -1731,7 +1736,8 @@ def train_via_cli(tmp: Path, tag: str, work, epochs, num_bases,
         os.environ["MRGCN_PLATFORM"] = platform
     try:
         return run.run_cli(["-c", str(cfg), "-i", str(art), "-o",
-                            str(tmp) + os.sep, "--dry_run", "--test"])
+                            str(tmp) + os.sep, "--dry_run", "--test",
+                            *extra])
     finally:
         os.environ.pop("MRGCN_PLATFORM", None)
 
@@ -2920,6 +2926,442 @@ def compose_agreement(work) -> None:
           f"({errs})")
 
 
+# ---------------------------------------------------------------------------
+# the checkpoint phase: resumed runs, card <-> CPU files, the reference's
+# formats, and the profiler
+# ---------------------------------------------------------------------------
+
+# image side of the small all-modality graph whose checkpoints go between
+# the card and the CPU: the CPU side trains its f32 image body
+CK_IMAGE_SIDE = 64
+# the features of the reference-interop graph: an MLP and the TCNN, whose
+# running statistics the reference's names carry
+CK_REFERENCE_FEATURES = ("xsd.numeric", "ogc.wktLiteral")
+
+
+def sync() -> None:
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def restored_matches(model, optimizer, state) -> dict:
+    """``model``'s parameters and running statistics and ``optimizer``'s
+    Adam moments and steps against ``state`` (a checkpoint as
+    ``load_checkpoint`` reads it), bit for bit, every tensor on the
+    model's device."""
+    import numpy as np
+    import torch
+    from mrgcn_tpu_torch.tasks import utils as tutils
+    from mrgcn_tpu_torch.tasks.jax_import import params_to_state_dict
+    device = next(model.parameters()).device
+    sd = model.state_dict()
+    want = {**params_to_state_dict(state["params"]),
+            **params_to_state_dict(state["batch_stats"])}
+    check(sorted(want) == sorted(sd), "restore: the model's names are not "
+          "the file's")
+    for k, w in want.items():
+        check(sd[k].device == device and torch.equal(sd[k].cpu(), w),
+              f"restore: {k} is not the file's")
+    adam = optimizer.adam
+    check({t.device for st in adam.state.values() for k, t in st.items()
+           if k != "step"} == {device}, "restore: Adam's moments are not on "
+          "the model's device")
+    arrays = 0
+
+    def walk(got, stored, path):
+        nonlocal arrays
+        if isinstance(stored, dict):
+            check(isinstance(got, dict) and sorted(got) == sorted(stored),
+                  f"restore: the optimizer state differs at {path}")
+            for k in stored:
+                walk(got[k], stored[k], f"{path}/{k}")
+            return
+        check(got.dtype == stored.dtype and np.array_equal(got, stored),
+              f"restore: {path} is not the file's")
+        arrays += 1
+
+    # the optimizer's state as it would be written: every exp_avg,
+    # exp_avg_sq (max_exp_avg_sq) and the step count of each group
+    walk(tutils.optax_opt_state(model, optimizer), state["opt_state"],
+         "opt_state")
+    steps = {float(st["step"]) for st in adam.state.values()}
+    check(len(steps) == 1 and len(adam.state) == len(sd) - sum(
+        1 for k in sd if ".BatchNorm_" in k and k.endswith((".mean", ".var"))),
+        f"restore: steps {steps} over {len(adam.state)} parameters")
+    return {"tensors": len(want), "optimizer_arrays": arrays,
+            "step": steps.pop()}
+
+
+@contextlib.contextmanager
+def watch_run(counters, task):
+    """Instrument one CLI run: the seconds of ``tasks/utils``'
+    ``save_checkpoint`` (and the file's bytes), ``load_checkpoint`` and
+    ``restore_checkpoint``; right after a restore, the model and optimizer
+    against the file (``restored_matches``, its own seconds apart); and at
+    each of ``task``'s training steps, the time and the launch counts so
+    far. Yields the record."""
+    from mrgcn_tpu_torch.tasks import utils as tutils
+    rec = {"start": time.perf_counter(), "steps": [], "check_s": 0.0}
+    save, load = tutils.save_checkpoint, tutils.load_checkpoint
+    restore, step = tutils.restore_checkpoint, task.train_step
+
+    def timed_save(path, *args):
+        sync()
+        t0 = time.perf_counter()
+        save(path, *args)
+        rec.update(save_s=time.perf_counter() - t0, file=path,
+                   file_bytes=os.path.getsize(path))
+
+    def timed_load(path):
+        t0 = time.perf_counter()
+        state = load(path)
+        rec["read_s"] = time.perf_counter() - t0
+        return state
+
+    def checked_restore(model, optimizer, state):
+        t0 = time.perf_counter()
+        epoch = restore(model, optimizer, state)
+        sync()
+        rec["restore_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["restored"] = restored_matches(model, optimizer, state)
+        rec["check_s"] = time.perf_counter() - t0
+        return epoch
+
+    def watched_step(*args, **kwargs):
+        rec["steps"].append((time.perf_counter(), read_launches(counters)))
+        return step(*args, **kwargs)
+
+    tutils.save_checkpoint, tutils.load_checkpoint = timed_save, timed_load
+    tutils.restore_checkpoint, task.train_step = checked_restore, \
+        watched_step
+    try:
+        yield rec
+    finally:
+        tutils.save_checkpoint, tutils.load_checkpoint = save, load
+        tutils.restore_checkpoint, task.train_step = restore, step
+
+
+def launches_since(rec, launches: dict, step: int) -> dict:
+    """The launches from the start of training step ``step`` (0-based) to
+    the end of the run."""
+    before = rec["steps"][step][1]
+    return {k: n - before[k] for k, n in launches.items()}
+
+
+def setup_seconds(rec) -> float:
+    """From the run's start to its first training step, less the
+    restore check's own time."""
+    return rec["steps"][0][0] - rec["start"] - rec["check_s"]
+
+
+def checkpoint_cost(rec) -> dict:
+    return {k: rec[k] for k in ("file_bytes", "save_s", "read_s",
+                                "restore_s", "restored") if k in rec}
+
+
+def resume_allmodal(work, tmp: Path) -> dict:
+    """(a) ``dmg_synth_allmodal`` at full width through the CLI: 2 epochs
+    with ``--save_checkpoint``, 2 more with ``--load_checkpoint``, and 4
+    unbroken. Right after the load the state is the file's, bit for bit;
+    the resumed epochs 3-4 train within ``AGREE_ALLMODAL_RTOL`` of the
+    unbroken run's and launch exactly its epochs 3-4's kernels."""
+    from mrgcn_tpu_torch.tasks import node_classification as nc
+    F = functools.partial(allmodal_features, work["n"])
+    runs = {}
+    for tag, epochs in (("save", 2), ("resume", 2), ("whole", 4)):
+        extra = {"save": ["--save_checkpoint"],
+                 "resume": ["--load_checkpoint",
+                            runs.get("save", {}).get("file", "")],
+                 "whole": []}[tag]
+        counters = start_path()
+        with watch_run(counters, nc) as rec:
+            res = train_via_cli(tmp, f"ck_allmodal_{epochs}", work, epochs,
+                                work["num_bases"], F=F,
+                                graph="dmg_synth_allmodal",
+                                features=ALLMODAL, extra=extra)
+        rec["launches"] = read_launches(counters)
+        rec["history"] = res.history
+        rec["epoch"] = res.epoch
+        check({p.device.type for p in res.model.parameters()} == {"cuda"},
+              f"ck_allmodal_{tag}: parameters not on the card")
+        runs[tag] = rec
+        del res
+    save, resume, whole = runs["save"], runs["resume"], runs["whole"]
+    check("restored" in resume, "ck_allmodal: the resumed run did not load")
+    check([h["epoch"] for h in resume["history"]] == [3, 4]
+          and resume["epoch"] == 4, f"ck_allmodal: resumed epochs "
+          f"{[h['epoch'] for h in resume['history']]}")
+    got = [h["train_loss"] for h in resume["history"]]
+    want = [h["train_loss"] for h in whole["history"][2:]]
+    err = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    print(f"[checkpoint] all-modality resumed epochs 3-4 losses {got}, "
+          f"unbroken {want}: max rel err {err:.3g} "
+          f"(bound {AGREE_ALLMODAL_RTOL})")
+    check(err <= AGREE_ALLMODAL_RTOL, f"ck_allmodal: resumed losses differ "
+          f"(rel {err})")
+    resumed = launches_since(resume, resume["launches"], 0)
+    unbroken = launches_since(whole, whole["launches"], 2)
+    check(resumed == unbroken and any(resumed.values()),
+          f"ck_allmodal: resumed launches {resumed}, the unbroken run's "
+          f"epochs 3-4 {unbroken}")
+    summary = {"path": "ck_allmodal", "resumed_losses": got,
+               "unbroken_losses": want, "max_rel_err": err,
+               "launches_epochs_3_4": resumed,
+               "save": checkpoint_cost(save),
+               "load": checkpoint_cost(resume),
+               "setup_s": {tag: setup_seconds(r) for tag, r in runs.items()},
+               "epoch_s": {tag: [h["seconds"] for h in r["history"]]
+                           for tag, r in runs.items()}}
+    print(f"[checkpoint] {json.dumps(summary)}")
+    return {f"ck_allmodal_{tag}": {"launches": r["launches"]}
+            for tag, r in runs.items()}
+
+
+def resume_lp(tmp: Path) -> dict:
+    """(b) Link prediction at FB15k-237 width, full graph: 20 epochs with
+    ``--save_checkpoint``; the file loaded into a fresh model (0 epochs)
+    ranks the test split as the saving run did (at most 2 % of the ranks
+    different); a resumed run's TSV starts at epoch 21."""
+    import numpy as np
+    from mrgcn_tpu_torch import run
+    from mrgcn_tpu_torch.tasks import link_prediction as lpd
+    args = ["-i", str(tmp / "lp.npz"), "-o", str(tmp) + os.sep, "--test"]
+    runs, results = {}, {}
+    for tag, epochs in (("save", 20), ("load", 0), ("resume", 1)):
+        cfg = tmp / f"ck_lp_{epochs}.toml"
+        write_lp_config(cfg, epochs, LP_HIDDEN, LP_EVAL_INTERVAL,
+                        name=f"CK_LP_{tag.upper()}")
+        extra = ["--dry_run", "--save_checkpoint"] if tag == "save" else \
+            ["--load_checkpoint", runs["save"]["file"]] \
+            + (["--dry_run"] if tag == "load" else [])
+        counters = start_path()
+        with watch_run(counters, lpd) as rec:
+            results[tag] = run.run_cli(["-c", str(cfg), *args, *extra])
+        rec["launches"] = read_launches(counters)
+        runs[tag] = rec
+    save, load, resume = (results[t] for t in ("save", "load", "resume"))
+    check(load.epoch == 20 and not load.history,
+          f"ck_lp: the loaded run trained {load.history}")
+    same = {}
+    for kind in ("raw", "flt"):
+        a, b = np.asarray(save.ranks[kind]), np.asarray(load.ranks[kind])
+        check(a.shape == b.shape and a.size, f"ck_lp: {kind} ranks")
+        same[kind] = float(np.mean(a == b))
+        check(same[kind] >= 0.98, f"ck_lp: {kind} ranks equal at "
+              f"{same[kind]:.4f} only")
+    tsv, = tmp.glob("CK_LP_RESUME*_acc.tsv")
+    rows = [r.split("\t") for r in tsv.read_text().splitlines()]
+    check(rows[1][0] == "21" and resume.history[0]["epoch"] == 21,
+          f"ck_lp: the resumed TSV starts at epoch {rows[1][0]}")
+    summary = {"path": "ck_lp", "ranks_equal": same,
+               "test_mrr": {"saving run": save.mrr, "loaded": load.mrr},
+               "save": checkpoint_cost(runs["save"]),
+               "load": checkpoint_cost(runs["load"]),
+               "setup_s": {t: setup_seconds(runs[t])
+                           for t in ("save", "resume")},
+               "loaded_test_ranking_s": load.test_seconds}
+    print(f"[checkpoint] {json.dumps(summary)}")
+    return {f"ck_lp_{tag}": {"launches": r["launches"]}
+            for tag, r in runs.items()}
+
+
+def small_graph():
+    from benchmarks.torch_baseline import build_workload
+    return build_workload(n=3000, num_props=6, num_edges=20_000,
+                          num_labeled=300, seed=0)
+
+
+def card_cpu_checkpoints(tmp: Path) -> None:
+    """(c) The small all-modality graph with the image CNN's body in f32:
+    a checkpoint the card writes resumes on the CPU and on the card, and
+    one the CPU writes resumes on both; each pair's next epoch's loss
+    within 1e-3 relative (the multimodal card-vs-CPU bound: the text
+    encoder's body is bf16)."""
+    import torch
+    from mrgcn_tpu_torch.models import encoders as enc
+    from mrgcn_tpu_torch.models import mrgcn as tmrgcn
+    from mrgcn_tpu_torch.tasks import node_classification as nc
+    from mrgcn_tpu_torch.tasks.synthetic import multimodal_features
+    small = small_graph()
+    F = functools.partial(multimodal_features, small["n"], seed=0,
+                          num_numeric=600, num_years=300, num_strings=240,
+                          max_len=128, num_geometries=300, num_images=60,
+                          image_size=CK_IMAGE_SIDE)
+    image_cnn = tmrgcn.ImageCNN
+    tmrgcn.ImageCNN = functools.partial(enc.ImageCNN, dtype=torch.float32)
+
+    def one_epoch(platform, extra):
+        counters = kernel_counters()
+        with watch_run(counters, nc) as rec:
+            res = train_via_cli(tmp, "ck_small_am", small, 1, 4, F=F,
+                                platform=platform, features=ALLMODAL,
+                                extra=extra)
+        device = {p.device.type for p in res.model.parameters()}
+        check(device == {platform or "cuda"},
+              f"ck_small_am: parameters on {device} ({platform})")
+        return rec, res
+
+    try:
+        out = {}
+        for writer in (None, "cpu"):
+            saved, _ = one_epoch(writer, ["--save_checkpoint"])
+            losses = {}
+            for reader in (None, "cpu"):
+                rec, res = one_epoch(reader, ["--load_checkpoint",
+                                              saved["file"]])
+                check("restored" in rec and res.history[0]["epoch"] == 2,
+                      f"ck_small_am: {reader} did not resume")
+                losses[reader or "cuda"] = res.history[0]["train_loss"]
+            err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+            out[writer or "cuda"] = {"next_epoch_losses": losses,
+                                     "rel_err": err,
+                                     "file": checkpoint_cost(saved)}
+            check(err <= 1e-3, f"ck_small_am: written on {writer or 'cuda'}"
+                  f", the next losses differ (rel {err})")
+    finally:
+        tmrgcn.ImageCNN = image_cnn
+    print(f"[checkpoint] card <-> CPU, small all-modality graph (f32 image "
+          f"body), written on each: {json.dumps(out)} (bound 1e-3)")
+
+
+def reference_interop(tmp: Path) -> None:
+    """(d) The reference's formats on a small graph with an MLP and the
+    TCNN: a ``save_reference_tar`` dataset trains 2 epochs on the card
+    with losses within 1e-4 relative of its ``.npz`` twin's; a
+    reference-named ``torch.save`` state dict built on the CPU from the
+    port's own parameters (running statistics moved) loads through
+    ``--load_checkpoint`` with a fresh optimizer and the file's epoch, and
+    the eval-mode logits of the test labels on the card equal the CPU
+    model's within 1e-4 of their largest."""
+    import numpy as np
+    import torch
+    from mrgcn_tpu_torch import run
+    from mrgcn_tpu_torch.data import artifact as artifact_io
+    from mrgcn_tpu_torch.tasks import node_classification as nc
+    from mrgcn_tpu_torch.tasks.common import prepare_inputs
+    from mrgcn_tpu_torch.tasks.synthetic import (multimodal_features,
+                                                 save_nc_artifact,
+                                                 save_reference_checkpoint,
+                                                 save_reference_tar)
+    small = small_graph()
+    npz, tar = tmp / "ck_ref.npz", tmp / "ck_ref.tar"
+    save_nc_artifact(str(npz), small["n"], small["R"], small["src"],
+                     small["dst"], small["rel"], small["norm"],
+                     small["labels_idx"], small["labels_cls"],
+                     small["num_classes"], seed=0, num_eval=150,
+                     F=multimodal_features(small["n"], seed=0,
+                                           num_numeric=600, num_years=300,
+                                           num_strings=240,
+                                           num_geometries=300))
+    art = artifact_io.load(str(npz))
+    save_reference_tar(str(tar), art.structure, art.F, Y=art.Y,
+                       sample_map=art.sample_map, class_map=art.class_map)
+    losses = {}
+    for epochs in (2, 0):
+        write_config(tmp / f"ck_ref_{epochs}.toml", epochs, 4,
+                     small["hidden"], features=CK_REFERENCE_FEATURES)
+    args = ["-o", str(tmp) + os.sep, "--dry_run", "--test"]
+    for path in (npz, tar):
+        res = run.run_cli(["-c", str(tmp / "ck_ref_2.toml"), "-i", str(path),
+                           *args])
+        losses[path.suffix] = [h["train_loss"] for h in res.history] \
+            + [res.loss]
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses[".tar"],
+                                                  losses[".npz"]))
+    print(f"[checkpoint] reference .tar vs its .npz twin, 2 epochs on the "
+          f"card: losses {json.dumps(losses)}, max rel err {err:.3g} "
+          f"(bound 1e-4)")
+    check(err <= 1e-4, f"ck_ref: the .tar trains apart from its twin "
+          f"(rel {err})")
+
+    config = run.load_config(str(tmp / "ck_ref_0.toml"))
+    Y_train = np.asarray(art.Y["train"]).reshape(-1, 2)
+    Y_test = np.asarray(art.Y["test"]).reshape(-1, 2)
+    C = len(art.class_map)
+    cpu = torch.device("cpu")
+    tin = prepare_inputs(art, config, False, cpu)
+    model = nc.build_model(tin, config, C, torch.Generator().manual_seed(3))
+    with torch.no_grad():       # the running statistics move off 0 / 1
+        b = nc.make_batches(tin, Y_train, -1, 2)[0]
+        model(b.edges, b.features, train=True)
+    pt = tmp / "ck_reference.pt"
+    save_reference_checkpoint(str(pt), model, epoch=7, loss=0.5)
+    res = run.run_cli(["-c", str(tmp / "ck_ref_0.toml"), "-i", str(npz),
+                       *args, "--load_checkpoint", str(pt)])
+    check(res.epoch == 7 and not res.history
+          and not res.optimizer.adam.state,
+          f"ck_ref: epoch {res.epoch}, {len(res.optimizer.adam.state)} "
+          f"Adam states after loading a reference checkpoint")
+    logits = []
+    for m in (model, res.model):
+        device = next(m.parameters()).device
+        b = nc.make_batches(prepare_inputs(art, config, False, device),
+                            Y_test, -1, 2)[0]
+        with torch.no_grad():
+            logits.append(m(b.edges, b.features)[b.idx].cpu())
+    got, want = logits[1], logits[0]
+    err = float((got - want).abs().max() / want.abs().max())
+    print(f"[checkpoint] reference torch.save checkpoint, eval-mode test "
+          f"logits card vs CPU: err over the largest {err:.3g} (bound 1e-4)")
+    check(err <= 1e-4, f"ck_ref: the loaded model's logits differ ({err})")
+
+
+def profiled_run(work, tmp: Path) -> dict:
+    """(e) Featureless NC at DMG width, 2 epochs through the CLI with
+    ``MRGCN_PROFILE_DIR`` set, beside a run without it: a Chrome trace is
+    written, and its CUDA kernel events name the path's hand-written
+    kernels (#5's row walk, #4, #10) as often as their wrappers counted
+    launches."""
+    trace_dir = tmp / "trace"
+    epochs = {}
+    for profiled in (False, True):
+        if profiled:
+            os.environ["MRGCN_PROFILE_DIR"] = str(trace_dir)
+        counters = start_path()
+        try:
+            res = train_via_cli(tmp, "ck_profile_2", work, 2,
+                                work["num_bases"], graph="dmg_synth")
+        finally:
+            os.environ.pop("MRGCN_PROFILE_DIR", None)
+        launches = read_launches(counters)
+        epochs["profiled" if profiled else "plain"] = \
+            [h["seconds"] for h in res.history]
+        del res
+    trace, = trace_dir.glob("trace_*.json")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events
+               if str(e.get("cat", "")).lower() == "kernel"]
+    traced = {name: sum(name in k for k in kernels) for name in (
+        "place_rows_kernel", "compose_grad_kernel", "compose_table_kernel")}
+    counted = {"place_rows_kernel": launches["fused_place_scatter.rows"]
+               + launches["sorted_scatter.rows"],
+               "compose_grad_kernel": launches["compose_grad_pass"],
+               "compose_table_kernel": launches["compose_table"]}
+    summary = {"path": "ck_profile", "trace_bytes": trace.stat().st_size,
+               "trace_events": len(events), "kernel_events": len(kernels),
+               "traced": traced, "counted": counted, "epoch_s": epochs}
+    print(f"[checkpoint] {json.dumps(summary)}")
+    check(traced == counted and all(counted.values()),
+          f"ck_profile: the trace holds {traced}, the wrappers counted "
+          f"{counted}")
+    return {"ck_profile": {"launches": launches}}
+
+
+def checkpoint_phase(work, tmp: Path) -> dict:
+    """Checkpoints, the reference's formats and the profiler on the card:
+    (a) to (e) above. Returns the full-width runs' launch counts, each
+    counted from 0 just before its run."""
+    paths = resume_allmodal(work, tmp)
+    paths.update(resume_lp(tmp))
+    card_cpu_checkpoints(tmp)
+    reference_interop(tmp)
+    paths.update(profiled_run(work, tmp))
+    return paths
+
+
 # kernel -> (source, the TPU kernel it replaces, the timed row that goes
 # into the kernels line: the call its main path makes)
 SOURCES = {
@@ -2956,7 +3398,8 @@ ROW_KERNELS = {
 STREAM_KERNELS = ("sorted_scatter", "sorted_gather", "fused_scatter_dot",
                   "fused_place_scatter")
 ENCODER_KERNELS = ("attention_fwd", "attention_bwd", "mlp_fwd", "mlp_bwd")
-PHASES = ("stream", "compose", "nc", "minibatch", "lp", "encoders", "agree")
+PHASES = ("stream", "compose", "nc", "minibatch", "lp", "checkpoint",
+          "encoders", "agree")
 EXTRA_PHASES = ("profile", "profile_mb", "profile_att",   # only with
                 "profile_mm", "profile_stream",            # --only
                 "profile_allmodal", "conv_algorithms",
@@ -3029,6 +3472,8 @@ def main(argv=None) -> None:
             paths.update(minibatch_phase(work, tmp, F))
         if "lp" in phases:
             paths["lp"] = lp_slice_phase(tmp, plan, num_relations, device)
+        if "checkpoint" in phases:
+            paths.update(checkpoint_phase(work, tmp))
         if "profile_stream" in phases:
             profile_stream_phase(work, plan, device)
         del plan

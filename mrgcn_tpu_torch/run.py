@@ -5,11 +5,13 @@ Same flags as ``python -m mrgcn_tpu.run``
 --test/--version``). Node classification, full batch or in mini-batches
 (``[task] batchsize``), and link prediction, on the full graph or in
 node-sliced batches (``gcn_batchsize``, ``test_batchsize``), both with
-neighbour sampling (``neighbor_fanout``, ``neighbor_fanout_rounds``), are
-supported, featureless or over numeric, boolean, temporal and string
-features (the from-scratch text encoder); image and WKT features,
-reference ``.tar`` input and checkpoints raise a "not yet ported" error
-naming their ROADMAP item.
+neighbour sampling (``neighbor_fanout``, ``neighbor_fanout_rounds``),
+featureless or over every literal modality. The input is the ``.npz``
+artifact or a reference-produced ``.tar`` dataset. ``--save_checkpoint``
+writes ``<base>_model_state_<epoch>.npz``, the checkpoint both packages
+read; ``--load_checkpoint`` resumes from one, or from a reference
+``torch.save`` checkpoint. ``MRGCN_PROFILE_DIR`` records a
+``torch.profiler`` trace of the task.
 
 The device comes from ``MRGCN_PLATFORM`` (``cpu``, else CUDA; see
 :mod:`mrgcn_tpu_torch.utils.device`). Example::
@@ -30,14 +32,15 @@ from mrgcn_tpu_torch import __version__
 from mrgcn_tpu_torch.config import load_config
 from mrgcn_tpu_torch.data import artifact as artifact_io
 from mrgcn_tpu_torch.data.tsv import TSV
+from mrgcn_tpu_torch.data.reference_tar import artifact_from_reference_tar
 from mrgcn_tpu_torch.data.utils import is_readable, is_writable, set_seed
 from mrgcn_tpu_torch.utils.logging import init_logger
 from mrgcn_tpu_torch.tasks import link_prediction, node_classification
+from mrgcn_tpu_torch.tasks import utils as tutils
 from mrgcn_tpu_torch.utils.device import select_device
+from mrgcn_tpu_torch.utils.profiling import profile_session
 
 logger = logging.getLogger(__name__)
-
-NOT_PORTED = "not yet ported to mrgcn_tpu_torch ({}); use mrgcn_tpu.run"
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -45,7 +48,8 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("-c", "--config", required=True,
                         help="Configuration file (toml)")
     parser.add_argument("-i", "--input", required=True,
-                        help="Prepared input file (npz artifact)")
+                        help="Prepared input file (npz artifact, or a "
+                             "reference-produced .tar dataset)")
     parser.add_argument("-o", "--output", default="/tmp/",
                         help="Output directory")
     parser.add_argument("-v", "--verbose", action="count", default=0,
@@ -105,12 +109,6 @@ def run_cli(argv=None):
     (``NCResult`` or ``LPResult``)."""
     timestamp = int(time())
     args = _parser().parse_args(argv)
-    if args.load_checkpoint or args.save_checkpoint:
-        raise NotImplementedError(NOT_PORTED.format(
-            "checkpoints: ROADMAP Queue 1, item 5"))
-    if args.input.endswith(".tar"):
-        raise NotImplementedError(NOT_PORTED.format(
-            "reference .tar datasets: ROADMAP Queue 1, item 5"))
 
     if not is_readable(args.config):
         raise OSError(f"config not readable: {args.config}")
@@ -137,25 +135,38 @@ def run_cli(argv=None):
 
     if not is_readable(args.input):
         raise OSError(f"input not readable: {args.input}")
-    artifact = artifact_io.load(args.input)
+    if args.input.endswith(".tar"):
+        # a dataset written by the reference's mkdataset
+        artifact = artifact_from_reference_tar(args.input)
+    else:
+        artifact = artifact_io.load(args.input)
 
     logging.info("Starting %s task", task)
     if task == "node classification":
-        result = node_classification.run(artifact, config, acc_writer,
-                                         featureless, test_split, seed,
-                                         device)
+        with profile_session(device=device):
+            result = node_classification.run(
+                artifact, config, acc_writer, featureless, test_split, seed,
+                device, args.load_checkpoint)
         print(f"loss {result.loss:.4f} / accuracy {result.acc:.4f}")
         if args.save_output:
             _save_predictions(base, artifact, test_split, result)
     else:
         filter_ranks = config["task"]["filter_ranks"]
-        result = link_prediction.run(artifact, config, acc_writer,
-                                     featureless, test_split, seed, device)
+        with profile_session(device=device):
+            result = link_prediction.run(
+                artifact, config, acc_writer, featureless, test_split, seed,
+                device, args.load_checkpoint)
         print(_lp_summary(test_split, filter_ranks, result.mrr,
                           result.hits))
         if args.save_output:
             _save_ranks(base, filter_ranks, result.ranks)
     acc_writer.close()
+
+    if args.save_checkpoint:
+        f_state = base + f"_model_state_{result.epoch}.npz"
+        tutils.save_checkpoint(f_state, result.epoch, result.model,
+                               result.optimizer, result.loss)
+        print(f"[SAVE] Writing model state to {f_state}")
     return result
 
 

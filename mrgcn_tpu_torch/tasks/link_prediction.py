@@ -28,8 +28,11 @@ Semantics kept from the reference and the JAX package:
 
 Corruption and the update are separate functions (:func:`make_corruptor`'s
 ``corrupt`` and :func:`loss_and_grads`), so the same corrupted triples can
-be fed to both packages. A device mesh and checkpoints raise
-``NotImplementedError`` naming their ROADMAP item.
+be fed to both packages. A checkpoint resumes the run: the epochs (and
+with them the ranking cadence) count on from the file's, and the
+corruption and sampling generators restart at the seed, as in the JAX
+package. A device mesh raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -517,9 +520,11 @@ class LPResult:
 
 
 def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
-        test_split: str, seed: int, device: torch.device) -> LPResult:
+        test_split: str, seed: int, device: torch.device,
+        checkpoint: Optional[str] = None) -> LPResult:
     """Full training, periodic ranking and the final ranking of
-    ``test_split`` on ``device``; writes the 26-column TSV."""
+    ``test_split`` on ``device``, from the state in ``checkpoint`` when
+    one is given; writes the 26-column TSV."""
     header = ["epoch", "loss"]
     for split in ("train", "valid", "test"):
         header.extend([f"{split}_mrr_raw", f"{split}_H@1_raw",
@@ -541,9 +546,15 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
                                        axis=0)
         data["valid"] = None
 
+    state = tutils.load_checkpoint(checkpoint) if checkpoint else None
     model = build_model(inputs, config, torch.Generator().manual_seed(seed))
     optimizer = tutils.build_optimizer(model, config,
                                        inputs.optimizer_config, featureless)
+    epoch = 0
+    if state is not None:
+        print("[LOAD] Loading model state", end="")
+        epoch = tutils.restore_checkpoint(model, optimizer, state)
+        print(f" - {epoch} epoch")
     rng = torch.Generator(device=device).manual_seed(seed)
 
     nepoch = config["model"]["epoch"]
@@ -606,8 +617,9 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
     history: List[Dict] = []
     t0 = perf_counter()
     loss = 0.0
-    final_epoch = 0
-    for ep in range(1, nepoch + 1):
+    final_epoch = epoch
+    last = nepoch + epoch
+    for ep in range(epoch + 1, last + 1):
         if early_stop is not None and early_stop.stop:
             logger.info("Stopping early after %d epoch", ep - 1)
             if early_stop.best_state is not None:
@@ -634,14 +646,14 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
 
         t_eval = perf_counter()
         train_mrr = train_hits = valid_mrr = valid_hits = None
-        if ep % eval_interval == 0 or ep == nepoch:
+        if ep % eval_interval == 0 or ep == last:
             train_mrr, train_hits, _ = evaluate(
                 train_batches, model, mrr_batchsize, filter_ranks)
             results_str += f" | train MRR {train_mrr['raw']:.4f} (raw)"
             if filter_ranks:
                 results_str += f" / {train_mrr['flt']:.4f} (filtered)"
 
-            if valid_batches and ep < nepoch:
+            if valid_batches and ep < last:
                 valid_mrr, valid_hits, _ = evaluate(
                     valid_batches, model, mrr_batchsize, filter_ranks)
                 results_str += f" | valid MRR {valid_mrr['raw']:.4f} (raw)"

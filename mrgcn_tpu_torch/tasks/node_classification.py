@@ -12,7 +12,10 @@ samples across epochs, while evaluation batches always expand fully.
 CE loss with L1/L2 penalties, global-norm clip and Adam, early stopping
 on validation loss, and the reference's evaluation semantics (train and
 validation labels merge in test mode; loss and accuracy are per-batch
-means). Losses stay on the device and are read once per epoch.
+means). Losses stay on the device and are read once per epoch. A
+checkpoint (:func:`..tasks.utils.load_checkpoint`) resumes the run: the
+epochs count on from the file's, and dropout and sampling restart at the
+seed, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -215,8 +218,10 @@ class NCResult:
 
 
 def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
-        test_split: str, seed: int, device: torch.device) -> NCResult:
-    """Full training + final evaluation on ``device``. A device mesh
+        test_split: str, seed: int, device: torch.device,
+        checkpoint: Optional[str] = None) -> NCResult:
+    """Full training + final evaluation on ``device``, from the state in
+    ``checkpoint`` when one is given (its epochs count on). A device mesh
     (``MRGCN_MESH``, ``[task] mesh``) raises ``NotImplementedError``."""
     reject_mesh(config)
     tsv_writer.writerow(["epoch", "training_loss", "training_accurary",
@@ -234,12 +239,21 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
         Y_train = np.concatenate([Y_train, Y_valid], axis=0)
         Y_valid = None
 
+    # the file is read before the model is built: a tree the port cannot
+    # build is refused first
+    state = tutils.load_checkpoint(checkpoint) if checkpoint else None
     model = build_model(inputs, config, num_classes,
                         torch.Generator().manual_seed(seed))
     optimizer = tutils.build_optimizer(model, config,
                                        inputs.optimizer_config, featureless)
+    epoch = 0
+    if state is not None:
+        print("[LOAD] Loading model state", end="")
+        epoch = tutils.restore_checkpoint(model, optimizer, state)
+        print(f" - {epoch} epoch")
     # an encoder whose gate is exactly zero runs nothing (reference:
-    # node_classification.py:401, tasks/utils.with_gate_skip)
+    # node_classification.py:401, tasks/utils.with_gate_skip); the gates
+    # may come from the checkpoint
     model.skip_encoders = tutils.dead_encoders(model)
     if model.skip_encoders:
         logger.info("Skipping zero-gated encoder(s): %s",
@@ -291,8 +305,8 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
                 len(train_batches), device)
     history: List[Dict] = []
     t0 = perf_counter()
-    final_epoch = 0
-    for ep in range(1, nepoch + 1):
+    final_epoch = epoch
+    for ep in range(epoch + 1, nepoch + epoch + 1):
         if early_stop is not None and early_stop.stop:
             logger.info("Stopping early after %d epoch", ep - 1)
             if early_stop.best_state is not None:

@@ -10,16 +10,32 @@ the artifact's encoding-set layout (``[encodings, node_idx,
 seq_lengths]`` per set): numbers, years at the temporal encoder's width,
 byte-token strings and, when asked for, WKT geometries as ``(9, n)``
 point sets and uint8 images. :func:`save_lp_artifact` draws a link-prediction
-graph at FB15k-237's published sizes.
+graph at FB15k-237's published sizes, with literal features when given.
+
+The reference's own formats are written here too, for tests and the card's
+smoke run (the repository holds no reference-produced file):
+:func:`save_reference_tar` writes a dataset in the upstream ``mkdataset``
+tarball layout, and :func:`save_reference_checkpoint` a ``torch.save``
+checkpoint with the reference's names for a port model's state.
 """
 
 from __future__ import annotations
 
+import io
+import pickle
+import tarfile
+from typing import Dict, Optional
+
 import numpy as np
+import torch
+from torch import nn
 
 from mrgcn_tpu_torch.data import artifact as artifact_io
 from mrgcn_tpu_torch.encodings.structure import GraphStructure, compute_norm
 from mrgcn_tpu_torch.encodings.xsd.string import ByteTokenizer
+from mrgcn_tpu_torch.models.encoders import MLP, TCNN
+from mrgcn_tpu_torch.ops.rspmm import packing_factor
+from mrgcn_tpu_torch.tasks.torch_import import _tcnn_sequential_map
 
 # feature width of an encoded xsd:gYear
 # (mrgcn_tpu/encodings/xsd/temporal.py: sign, century, decade and year
@@ -137,9 +153,11 @@ def save_lp_artifact(path: str, num_nodes: int = FB15K237["num_nodes"],
                      num_train: int = FB15K237["train"],
                      num_valid: int = FB15K237["valid"],
                      num_test: int = FB15K237["test"],
-                     seed: int = 0) -> None:
+                     seed: int = 0, features: Optional[Dict] = None) -> None:
     """Write a link-prediction artifact of uniformly random triples at
-    FB15k-237's sizes (the defaults) from a seeded numpy generator.
+    FB15k-237's sizes (the defaults) from a seeded numpy generator, with
+    the literal features ``features`` (e.g. :func:`multimodal_features`;
+    none by default).
 
     The graph is built from the train triples as the ETL builds it: one
     relation per property, then the inverses, then the self-loop, so
@@ -168,4 +186,139 @@ def save_lp_artifact(path: str, num_nodes: int = FB15K237["num_nodes"],
         num_nodes=int(num_nodes), num_relations=num_relations, src=src,
         dst=dst, rel=rel,
         norm=compute_norm(src, rel, num_nodes, num_relations))
-    artifact_io.save(path, structure, {}, data=data)
+    artifact_io.save(path, structure, features or {}, data=data)
+
+
+def _tar_member(tar: tarfile.TarFile, name: str, raw: bytes) -> None:
+    info = tarfile.TarInfo(name)
+    info.size = len(raw)
+    tar.addfile(info, io.BytesIO(raw))
+
+
+def _pickled(obj) -> bytes:
+    # protocol 4: numpy arrays pickle through _reconstruct, as the
+    # reference's members do (protocol 5 takes another global)
+    return pickle.dumps(obj, protocol=4)
+
+
+def _csr_npz(matrix) -> bytes:
+    import scipy.sparse as sp
+    buf = io.BytesIO()
+    sp.save_npz(buf, matrix.tocsr(), compressed=False)
+    return buf.getvalue()
+
+
+def save_reference_tar(path: str, structure: GraphStructure, F: Dict,
+                       Y: Optional[Dict] = None, data: Optional[Dict] = None,
+                       sample_map: Optional[Dict] = None,
+                       class_map=None) -> None:
+    """Write a dataset in the upstream ``mkdataset`` tarball layout that
+    ``data/reference_tar.read_reference_tar`` reads (reference:
+    mrgcn/data/io/tarball.py): ``A.npz``, the ``(n, R*n)`` CSR of the
+    normalised adjacency; ``dict/F/<datatype>.pkl``, each datatype's
+    encoding sets with ragged encodings as lists of arrays;
+    ``dict/Y/<split>.npz``, one-hot ``(n, classes)`` CSR labels;
+    ``dict/data/<split>.npy``, triples; ``sample_map.pkl``; and the class
+    map as a list, ``list/class_map/<i>.pkl``, read back in numeric
+    order. The arguments are :func:`..data.artifact.save`'s."""
+    import scipy.sparse as sp
+    n = structure.num_nodes
+    num_classes = len(class_map or [])
+    with tarfile.open(path, "w") as tar:
+        _tar_member(tar, "A.npz", _csr_npz(structure.to_scipy_hstack()))
+        for datatype, sets in F.items():
+            out = [[list(enc) if enc.dtype == object else enc,
+                    np.asarray(idx), np.asarray(lengths)]
+                   for enc, idx, lengths in sets]
+            _tar_member(tar, f"dict/F/{datatype}.pkl", _pickled(out))
+        for split, rows in (Y or {}).items():
+            rows = np.asarray(rows).reshape(-1, 2)
+            onehot = sp.csr_matrix(
+                (np.ones(len(rows), np.float32), (rows[:, 0], rows[:, 1])),
+                shape=(n, num_classes))
+            _tar_member(tar, f"dict/Y/{split}.npz", _csr_npz(onehot))
+        for split, triples in (data or {}).items():
+            buf = io.BytesIO()
+            np.save(buf, np.asarray(triples), allow_pickle=False)
+            _tar_member(tar, f"dict/data/{split}.npy", buf.getvalue())
+        _tar_member(tar, "sample_map.pkl", _pickled(sample_map or {}))
+        for i, name in enumerate(class_map or []):
+            _tar_member(tar, f"list/class_map/{i}.pkl", _pickled(name))
+
+
+def reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The reference's ``model_state_dict`` names for a port model's state
+    (the inverse of ``tasks/torch_import.map_state_dict``), as CPU
+    tensors: the R-GCN's weights with the identity weight unpacked to
+    ``(S*n, out)``, the relation vectors, the gates, and the MLP and TCNN
+    encoders (their running statistics too). Other encoders have no
+    reference counterpart and are left out."""
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    out: Dict[str, torch.Tensor] = {}
+    names = {"weight_f": "weight_F", "comp_i": "weight_I_comp",
+             "comp_f": "weight_F_comp", "bias": "b"}
+    for i, out_dim in enumerate(model.hidden_dims):
+        layer = f"rgcn.layer_{i}"
+        for leaf, ref in names.items():
+            if f"{layer}.{leaf}" in sd:
+                out[f"rgcn.layers.layer_{i}.{ref}"] = sd[f"{layer}.{leaf}"]
+        for leaf in ("weight_i_packed", "weight_i"):
+            packed = sd.get(f"{layer}.{leaf}")
+            if packed is None:
+                continue
+            S, rows, lanes = packed.shape
+            k = packing_factor(out_dim)
+            node = torch.arange(model.num_nodes)
+            cols = (node % k)[:, None] * (lanes // k) + torch.arange(out_dim)
+            logical = packed[:, (node // k)[:, None], cols]
+            out[f"rgcn.layers.layer_{i}.weight_I"] = logical.reshape(
+                S * model.num_nodes, out_dim)
+    for key in ("rgcn.relations", "gate_weights"):
+        if key in sd:
+            out[key] = sd[key]
+    for name in model.names:
+        encoder = getattr(model, name)
+        prefix = f"module_dict.{name}"
+        if isinstance(encoder, MLP):
+            j = 0
+            while f"{name}.Dense_{j}.kernel" in sd:
+                out[f"{prefix}.mlp.{3 * j}.weight"] = \
+                    sd[f"{name}.Dense_{j}.kernel"].T.contiguous()
+                out[f"{prefix}.mlp.{3 * j}.bias"] = \
+                    sd[f"{name}.Dense_{j}.bias"]
+                j += 1
+        elif isinstance(encoder, TCNN):
+            blocks = sorted({k.split(".")[1] for k in sd
+                             if k.startswith(f"{name}._ConvBNRelu_")},
+                            key=lambda b: int(b.split("_")[-1]))
+            seq = {pos: idx for idx, pos in _tcnn_sequential_map(
+                len(blocks)).items()}
+            for b, block in enumerate(blocks):
+                conv = f"{prefix}.conv.{seq[b, 'conv']}"
+                bn = f"{prefix}.conv.{seq[b, 'bn']}"
+                here = f"{name}.{block}"
+                out[f"{conv}.weight"] = sd[f"{here}.Conv_0.kernel"].permute(
+                    2, 1, 0).contiguous()
+                out[f"{conv}.bias"] = sd[f"{here}.Conv_0.bias"]
+                out[f"{bn}.weight"] = sd[f"{here}.BatchNorm_0.scale"]
+                out[f"{bn}.bias"] = sd[f"{here}.BatchNorm_0.bias"]
+                out[f"{bn}.running_mean"] = sd[f"{here}.BatchNorm_0.mean"]
+                out[f"{bn}.running_var"] = sd[f"{here}.BatchNorm_0.var"]
+                out[f"{bn}.num_batches_tracked"] = torch.tensor(0)
+            for j, idx in ((0, 0), (1, 3)):
+                out[f"{prefix}.fc.{idx}.weight"] = \
+                    sd[f"{name}.Dense_{j}.kernel"].T.contiguous()
+                out[f"{prefix}.fc.{idx}.bias"] = sd[f"{name}.Dense_{j}.bias"]
+    return out
+
+
+def save_reference_checkpoint(path: str, model: nn.Module, epoch: int,
+                              loss: float) -> None:
+    """Write a reference-format checkpoint (reference: mrgcn/run.py:
+    230-236): ``{epoch, model_state_dict, optimizer_state_dict, loss}``
+    through ``torch.save``, the loss a numpy scalar as the reference
+    stores it."""
+    torch.save({"epoch": epoch,
+                "model_state_dict": reference_state_dict(model),
+                "optimizer_state_dict": {"state": {}, "param_groups": []},
+                "loss": np.float64(loss)}, path)

@@ -41,7 +41,8 @@ from mrgcn_tpu_torch.tasks.jax_import import (load_jax_params,
                                               params_to_state_dict,
                                               state_dict_to_params)
 from mrgcn_tpu_torch.tasks.synthetic import (save_lp_artifact,
-                                             save_nc_artifact)
+                                             save_nc_artifact,
+                                             save_reference_tar)
 from mrgcn_tpu_torch.utils import device as port_device
 
 from tests.test_torch_layers import assert_plans_equal
@@ -195,11 +196,24 @@ def test_unported_paths_raise(small_artifact, tmp_path, monkeypatch):
                       num_relations=3, num_nodes=5,
                       generator=torch.Generator(), featureless=False)
         assert isinstance(getattr(model, model.names[0]), encoder)
-    for flag in ("--save_checkpoint", "--load_checkpoint=x.npz"):
-        with pytest.raises(NotImplementedError, match="checkpoints"):
-            torch_run.main(["-c", "c.toml", "-i", "a.npz", flag])
-    with pytest.raises(NotImplementedError, match="tar"):
-        torch_run.main(["-c", "c.toml", "-i", "a.tar"])
+    # checkpoints and reference .tar datasets are ported: a run saves, a
+    # run resumes from the file, and a .tar trains
+    monkeypatch.setenv("MRGCN_PLATFORM", "cpu")
+    nc_cfg = tmp_path / "nc.toml"
+    nc_cfg.write_text('name = "NC"\n[task]\ntype = "node classification"\n'
+                      'seed = 0\n[model]\nepoch = 1\nnum_bases = 3\n'
+                      '[[model.layers]]\nhidden_nodes = 16\n'
+                      '[[model.layers]]\ntype = "mrgcn"\n')
+    tar = str(tmp_path / "small.tar")
+    save_reference_tar(tar, small_artifact.structure, small_artifact.F,
+                       Y=small_artifact.Y, data=small_artifact.data,
+                       sample_map=small_artifact.sample_map,
+                       class_map=small_artifact.class_map)
+    args = ["-c", str(nc_cfg), "-i", tar, "-o", str(tmp_path), "--test"]
+    assert torch_run.main(args + ["--save_checkpoint"]) == 0
+    saved, = tmp_path.glob("NC*_model_state_1.npz")
+    assert torch_run.run_cli(args + [f"--load_checkpoint={saved}"]).epoch \
+        == 2
     # link prediction is ported, node-sliced batches too; a device mesh
     # still names its item
     cfg = tmp_path / "lp.toml"
@@ -210,7 +224,6 @@ def test_unported_paths_raise(small_artifact, tmp_path, monkeypatch):
     art = tmp_path / "lp.npz"
     save_lp_artifact(str(art), num_nodes=60, num_props=3, num_train=200,
                      num_valid=30, num_test=30)
-    monkeypatch.setenv("MRGCN_PLATFORM", "cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
         torch_run.main(["-c", str(cfg), "-i", str(art), "--dry_run"])
 
