@@ -5,7 +5,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, the CUDA toolkit (``nvcc``) and no network, and it fails (exit code
 other than 0, no result line) where CUDA is absent or the repository is not
 beside it. ``--only a,b`` runs some phases alone (``stream``, ``compose``,
-``nc``, ``minibatch``, ``lp``, ``encoders``, ``agree``; ``scatter_dot``,
+``nc``, ``backbones``, ``minibatch``, ``lp``, ``checkpoint``,
+``encoders``, ``text_attn``, ``agree``; ``scatter_dot``,
 the ``fused_scatter_dot`` cases of ``stream``; ``profile_stream``, the
 scatters' device time by kernel on every main-path stream; and
 ``profile`` /
@@ -14,7 +15,9 @@ breakdowns of the link-prediction step, of a mini-batch NC step, of the
 attention kernels and of a multimodal NC step (with the fused MLP's and
 the fused attention's share); ``profile_allmodal``, the same over all
 five modalities with the convolutional encoders' share (cuDNN
-convolutions, BatchNorm, pooling); ``conv_algorithms``, TCNN S under
+convolutions, BatchNorm, pooling); ``profile_backbones``, the same on the
+pretrained backbones (with the f32 products', softmax's and LayerNorm's
+shares); ``conv_algorithms``, TCNN S under
 cuDNN's heuristic and measured algorithm choice, never part of the whole
 run; ``profile``
 also compares routes
@@ -97,7 +100,20 @@ prints no result line. Phases, each printing its own lines:
    f32) and 2,000 images of 224 x 224 (128, ``ImageCNN``, bf16 body),
    ``X_width`` 165, so layer 0's dense half packs one row a 256-lane line
    (k = 1), 5 epochs; every BatchNorm's running statistics must be finite
-   and moved from their 0 / 1 init;
+   and moved from their 0 / 1 init. Then the same all-modality graph on
+   the v3.0 pretrained backbones (``backbones``): a random DistilBERT at
+   ``distilbert-base-multilingual-cased``'s published widths (768 wide, 6
+   layers, 12 heads, hidden 3,072, vocabulary 119,547) written into a hub
+   cache that ``HF_HUB_CACHE`` names, and a random torchvision-format
+   MobileNetV2 ``.pth`` that ``MRGCN_VISION_WEIGHTS`` names, both from
+   seed 0; the strings are 8,000 WordPiece-like id sequences of 3-130
+   ids; 5 epochs through the CLI with the kernels by route as above and
+   the text kernels (#6-#9) never launched; the backbones bit-equal to
+   their files after training and the heads moved; on a small graph
+   (60 strings, 40 images) the first epoch's loss card against CPU within
+   1e-4 and each encoder (backbone outputs, head gradients) within 1e-4;
+   and a checkpoint that holds the heads and no backbone tensor, from
+   which a restored run gives the same eval-mode logits (1e-5);
 6. the link-prediction path, this slice's main path: the same CLI with
    ``[task] type = 'link prediction'`` on a synthetic graph at FB15k-237's
    sizes (14,541 entities, 475 relations, 272,115 / 17,535 / 20,466
@@ -171,7 +187,17 @@ prints no result line. Phases, each printing its own lines:
    convolutional encoders (``conv_encoder_phase``; cuDNN's, no
    hand-written kernel): ``TCNN`` S / M / L and ``ImageCNN`` ``sep`` /
    ``dense`` on 256 rows, card against CPU with the same weights and
-   running statistics, timed, TF32 checked off;
+   running statistics, timed, TF32 checked off. Then ``text_attn``: #12,
+   the attention kernels with H = 2, 4, 8 heads of width 128 / H read by
+   strides in flax's ``(N, L, H, d)`` layout, against their plain version
+   at N = 8,000, L = 128 and N = 2,000, L = 512 with ragged, all-valid
+   and holed masks (held as above; one head of a case bit-equal to the
+   single-head kernel on it), timed beside SDPA with their bound; a
+   ``TextEncoder`` with 2, 4 and 8 heads trained 3 steps on the
+   multimodal path's strings (only #12 launches: 2 a step each way) and
+   at 4 heads card against CPU; and the CLI on the small multimodal graph
+   under ``MRGCN_TEXT_ATTN`` = ``xla``, ``flash``, ``plain`` and
+   ``plain_fused``, card against CPU as in phase 8;
 8. small graphs on the card and on the CPU (plain versions). NC through
    the CLI, featureless and multimodal: the per-epoch losses must agree
    (rtol 1e-4 featureless; 1e-3 multimodal, whose text encoder rounds to
@@ -250,6 +276,9 @@ ENCODER_RTOL = {"mlp": (1e-4, 1e-4), "text": (1e-2, 1e-1)}
 # running statistics are held with the gradients
 ENCODER_RTOL.update({"tcnn": ENCODER_RTOL["mlp"],
                      "image": ENCODER_RTOL["text"]})
+# the pretrained encoders, card vs CPU: f32 throughout (TF32 off), the
+# frozen backbone's outputs and the trainable head alike
+ENCODER_RTOL["backbone"] = (1e-4, 1e-4)
 # rows of the encoders phase's card-vs-CPU cases; the image side there,
 # and the dmg_synth_allmodal path's counts and shapes
 CONV_ROWS, CONV_IMAGE_SIDE = 256, 64
@@ -274,6 +303,7 @@ KERNEL_SOURCES = ("sorted_scatter", "sorted_gather", "fused_place_scatter",
 # HBM3 at 700 W)
 LP_EPOCHS, LP_EVAL_INTERVAL = 30, 10
 LP_HIDDEN = 200
+LP_SLICED_LAYERS = 1
 # published peaks of one H100 SXM: HBM bytes/s, f32 FLOP/s outside the
 # tensor cores, dense bf16 and TF32 tensor-core FLOP/s
 HBM_BYTES_S, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
@@ -465,16 +495,19 @@ def sorted_adversarial_stream(rng, n_edges, rb, eb, n_blocks, hub):
             scale.reshape(-1).astype(np.float32))
 
 
-def allmodal_features(num_nodes: int) -> dict:
+def allmodal_features(num_nodes: int, wordpiece_vocab: int = 0) -> dict:
     """The ``dmg_synth_allmodal`` path's features, drawn from seed 0: the
     multimodal path's (the same draws) and ``ALLMODAL_GEOMETRIES`` WKT
     geometries of 4-64 points and ``ALLMODAL_IMAGES`` uint8 images of
-    ``IMAGE_SIDE`` x ``IMAGE_SIDE`` (DMG's ``centerCrop``)."""
+    ``IMAGE_SIDE`` x ``IMAGE_SIDE`` (DMG's ``centerCrop``); with
+    ``wordpiece_vocab`` the strings are WordPiece-like ids for the
+    pretrained text backbone (``[CLS]``, 1-128 ids, ``[SEP]``)."""
     from mrgcn_tpu_torch.tasks.synthetic import multimodal_features
     return multimodal_features(num_nodes, seed=0,
                                num_geometries=ALLMODAL_GEOMETRIES,
                                num_images=ALLMODAL_IMAGES,
-                               image_size=IMAGE_SIDE)
+                               image_size=IMAGE_SIDE,
+                               wordpiece_vocab=wordpiece_vocab)
 
 
 def multimodal_width(features=MULTIMODAL) -> int:
@@ -1674,14 +1707,15 @@ def conv_algorithm_phase() -> None:
 
 
 def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
-                 features=(), task=None) -> None:
+                 features=(), task=None, backbones: bool = False) -> None:
     """``configs/dmg.toml``'s model section; of its features, the
     datatypes in ``features`` are included as DMG configures them (the
     string and image features without their pretrained ``model`` key and
     the string's ``tokenizer``: the from-scratch text and image encoders,
-    whatever backbone a machine caches), all others excluded. ``task``
-    adds ``[task]`` entries to the full-batch default (``batchsize``,
-    ``neighbor_fanout``, ``neighbor_fanout_rounds``)."""
+    whatever backbone a machine caches; with ``backbones`` with them, so
+    the pretrained backbones run where their files are found), all others
+    excluded. ``task`` adds ``[task]`` entries to the full-batch default
+    (``batchsize``, ``neighbor_fanout``, ``neighbor_fanout_rounds``)."""
     with open(ROOT / "configs" / "dmg.toml", "rb") as f:
         dmg = tomllib.load(f)
     model = dict(dmg["model"], epoch=epochs, num_bases=num_bases)
@@ -1700,7 +1734,7 @@ def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
         lines += ["", "[[graph.features]]"]
         if feature["datatype"] in features:
             lines += [f"{k} = {toml_value(v)}" for k, v in feature.items()
-                      if k not in ("model", "tokenizer")]
+                      if backbones or k not in ("model", "tokenizer")]
         else:
             lines += [f"datatype = {json.dumps(feature['datatype'])}",
                       "include = false"]
@@ -1709,14 +1743,15 @@ def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
 
 def train_via_cli(tmp: Path, tag: str, work, epochs, num_bases,
                   platform=None, F=None, task=None, graph=None,
-                  features=MULTIMODAL, extra=()):
+                  features=MULTIMODAL, extra=(), backbones=False):
     """``run.run_cli`` on ``work``'s graph; with ``F`` (literal features,
     or a function that draws them, called only where the artifact is not
     yet written) the config includes the ``features`` datatypes. The
     config is ``<tag>.toml`` (``task``: extra ``[task]`` entries), the
     artifact ``<graph or tag>.npz``, so runs on one graph share its file;
     ``platform`` sets ``MRGCN_PLATFORM`` for the run alone; ``extra``
-    adds CLI arguments (the checkpoint flags)."""
+    adds CLI arguments (the checkpoint flags); ``backbones`` keeps the
+    features' pretrained ``model`` specs (``write_config``)."""
     from mrgcn_tpu_torch import run
     from mrgcn_tpu_torch.tasks.synthetic import save_nc_artifact
     art = tmp / f"{graph or tag}.npz"
@@ -1730,7 +1765,8 @@ def train_via_cli(tmp: Path, tag: str, work, epochs, num_bases,
                          F=F() if callable(F) else F)
     if not cfg.exists():
         write_config(cfg, epochs, num_bases, work["hidden"],
-                     features=features if F else (), task=task)
+                     features=features if F else (), task=task,
+                     backbones=backbones)
     os.environ.pop("MRGCN_PLATFORM", None)
     if platform is not None:
         os.environ["MRGCN_PLATFORM"] = platform
@@ -1745,7 +1781,8 @@ def train_via_cli(tmp: Path, tag: str, work, epochs, num_bases,
 def kernel_counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches; the
     scatters' ``launches_rows`` counts those on their row-segmented
-    kernel."""
+    kernel; the attention wrappers' ``launches_heads`` their launches with
+    more than one head (#12), which ``launches`` leaves out."""
     from mrgcn_tpu_torch.ops import attention as att
     from mrgcn_tpu_torch.ops import compose_kernels as ck
     from mrgcn_tpu_torch.ops import fused_mlp as fm
@@ -1762,21 +1799,28 @@ def kernel_counters() -> dict:
             "mlp_fwd": fm.mlp_fwd, "mlp_bwd": fm.mlp_bwd}
 
 
+# the counts apart from ``launches``: {attribute: suffix of its key}
+SUB_COUNTS = {"launches_rows": "rows", "launches_heads": "heads"}
+
+
 def reset_launches(counters) -> None:
     for fn in counters.values():
         fn.launches = 0
-        if hasattr(fn, "launches_rows"):
-            fn.launches_rows = 0
+        for attr in SUB_COUNTS:
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
 
 
 def read_launches(counters) -> dict:
-    """``{name: launches}``, and ``{name}.rows`` for each kernel with a
-    row-segmented route: the launches on it."""
+    """``{name: launches}``, ``{name}.rows`` for each kernel with a
+    row-segmented route (the launches on it) and ``{name}.heads`` for the
+    attention wrappers (their multi-head launches, #12)."""
     out = {}
     for name, fn in counters.items():
         out[name] = fn.launches
-        if hasattr(fn, "launches_rows"):
-            out[f"{name}.rows"] = fn.launches_rows
+        for attr, suffix in SUB_COUNTS.items():
+            if hasattr(fn, attr):
+                out[f"{name}.{suffix}"] = getattr(fn, attr)
     return out
 
 
@@ -1836,7 +1880,8 @@ def dense_routes(work, art: Path, x_width: int) -> dict:
 
 
 def slice_phase(work, tmp: Path, tag: str, kernels, F=None,
-                features=MULTIMODAL) -> dict:
+                features=MULTIMODAL, backbones=False, absent=(),
+                inspect=None) -> dict:
     """Train ``EPOCHS`` NC epochs through the CLI with every launch count
     set to 0 just before and read just after; ``kernels`` names each
     kernel the path runs with its least launch count per epoch. With
@@ -1849,12 +1894,15 @@ def slice_phase(work, tmp: Path, tag: str, kernels, F=None,
     row-segmented kernel; with features, the dense half's streams on the
     routes the planner gives them (``dense_routes``). Over the image and
     WKT features, every BatchNorm's running statistics must be finite and
-    moved from their 0 / 1 init."""
+    moved from their 0 / 1 init. With ``backbones`` the string and image
+    features keep their pretrained ``model`` specs; each kernel named in
+    ``absent`` must launch no time; ``inspect(res)`` adds checks of the
+    trained model and returns entries for the summary."""
     import torch
     counters = start_path()
     t0 = time.perf_counter()
     res = train_via_cli(tmp, tag, work, EPOCHS, work["num_bases"], F=F,
-                        features=features)
+                        features=features, backbones=backbones)
     wall = time.perf_counter() - t0
     launches = read_launches(counters)
     peak = torch.cuda.max_memory_allocated()
@@ -1897,6 +1945,10 @@ def slice_phase(work, tmp: Path, tag: str, kernels, F=None,
         check(launches[name] >= per_epoch * EPOCHS,
               f"{tag}: {name} launched {launches[name]} times in "
               f"{EPOCHS} epochs")
+    for name in absent:
+        check(launches[name] == 0, f"{tag}: {name} launched "
+              f"{launches[name]} times")
+    extra = inspect(res) if inspect else {}
     secs = [h["seconds"] for h in res.history]
     summary = {"path": tag, "epochs": EPOCHS, "train_loss": losses,
                "test_loss": res.loss, "test_acc": res.acc,
@@ -1905,7 +1957,8 @@ def slice_phase(work, tmp: Path, tag: str, kernels, F=None,
                "peak_mem_bytes": peak, "cli_wall_s": wall,
                "launches": launches,
                "scatter_routes": {f"{n}.{k}": c for (n, k), c in got.items()},
-               **({"batchnorm_statistics": len(stats)} if stats else {})}
+               **({"batchnorm_statistics": len(stats)} if stats else {}),
+               **extra}
     print(f"[slice] {json.dumps(summary)}")
     return summary
 
@@ -1991,9 +2044,13 @@ def minibatch_phase(work, tmp: Path, F) -> dict:
         torch.cuda.empty_cache()
 
     # node-sliced link prediction: the toml's own batches, one epoch with
-    # the train ranking, then the sliced test ranking
+    # the train ranking, then the sliced test ranking. Depth cut to one
+    # R-GCN layer: a slice's two-hop neighbourhood is most of the graph,
+    # whose host build took 79-108 s of the run; the agreement phase runs
+    # the two-layer node-sliced path card against CPU
     cfg = tmp / "lp_sliced.toml"
-    write_lp_config(cfg, 1, LP_HIDDEN, 1, full_graph=False)
+    write_lp_config(cfg, 1, LP_HIDDEN, 1, full_graph=False,
+                    layers=LP_SLICED_LAYERS)
     sizes = run.load_config(str(cfg))["task"]
     counters = start_path()
     t0 = time.perf_counter()
@@ -2029,7 +2086,7 @@ def minibatch_phase(work, tmp: Path, F) -> dict:
           and launches["sorted_scatter"] == launches["sorted_scatter.rows"],
           f"lp_sliced: a scatter took its other route: {launches}")
     out["lp_sliced"] = {
-        "path": "lp_sliced", "epochs": 1,
+        "path": "lp_sliced", "epochs": 1, "layers": LP_SLICED_LAYERS,
         "gcn_batchsize": sizes["gcn_batchsize"],
         "test_batchsize": sizes["test_batchsize"], "batches": res.batches,
         "loss": h["loss"], "epoch_s": h["seconds"],
@@ -2047,11 +2104,12 @@ def minibatch_phase(work, tmp: Path, F) -> dict:
 
 def write_lp_config(path: Path, epochs: int, hidden: int, eval_interval: int,
                     name: str = "FB15K237_SYNTH", full_graph: bool = True,
-                    ) -> None:
+                    layers: int = 2) -> None:
     """``configs/fb15k-237.toml``'s model section (2 bases, lr 0.01) with
-    two ``hidden``-wide R-GCN layers (the link-prediction task reads all
-    but the last ``[[model.layers]]`` entry, so the file gets three), on
-    the full graph (``gcn_batchsize`` and ``test_batchsize`` -1) or, with
+    ``layers`` ``hidden``-wide R-GCN layers, the config's two unless the
+    depth is cut (the link-prediction task reads all but the last
+    ``[[model.layers]]`` entry, so the file gets one more), on the full
+    graph (``gcn_batchsize`` and ``test_batchsize`` -1) or, with
     ``full_graph`` off, in the file's own node-sliced batches (32, 500)."""
     with open(ROOT / "configs" / "fb15k-237.toml", "rb") as f:
         fb = tomllib.load(f)
@@ -2067,7 +2125,7 @@ def write_lp_config(path: Path, epochs: int, hidden: int, eval_interval: int,
               for k, v in stop.items()]
     lines += ["", "[model]"]
     lines += [f"{k} = {json.dumps(v)}" for k, v in model.items()]
-    for entry in (layer, layer, {"type": layer["type"]}):
+    for entry in [layer] * layers + [{"type": layer["type"]}]:
         lines += ["", "[[model.layers]]"]
         lines += [f"{k} = {json.dumps(v)}" for k, v in entry.items()]
     path.write_text("\n".join(lines) + "\n")
@@ -2498,7 +2556,9 @@ def profile_attention_phase(device, steps: int = 10) -> None:
 
 
 # device-time groups of an NC step, by kernel name: the hand-written
-# kernels, then what cuDNN and PyTorch run for the convolutional encoders
+# kernels, then what cuDNN and PyTorch run for the convolutional encoders;
+# each group takes the kernels whose names hold one of its words and none
+# of its exceptions (third entry, where given)
 PROFILE_GROUPS = (
     ("fused_mlp", ("mlp_", "sum_segments_kernel")),
     ("fused_attention", ("attention_",)),
@@ -2508,20 +2568,27 @@ PROFILE_GROUPS = (
     ("BatchNorm", ("batch_norm", "bn_fw", "bn_bw", "welford")),
     ("pooling", ("pool", "adaptive_max")),
     ("convolution (cuDNN)", ("convolve", "conv_depthwise", "conv1d",
-                             "conv2d", "xmma", "fprop", "dgrad", "wgrad",
+                             "conv2d", "fprop", "dgrad", "wgrad",
                              "implicit_gemm", "cudnn", "ToNhwc", "ToNchw",
                              "winograd")),
+    # the f32 products of the text backbone and the heads (cuBLAS), and the
+    # rest of the backbone's passes
+    ("matrix products (cuBLAS)", ("gemm", "Gemm", "xmma"), ("implicit",)),
+    ("softmax", ("softmax",)),
+    ("LayerNorm", ("layer_norm", "LayerNorm")),
 )
 
 
 def profile_multimodal_phase(work, tmp: Path, device, steps: int = 5,
-                             features=MULTIMODAL) -> None:
+                             features=MULTIMODAL,
+                             backbones: bool = False) -> None:
     """Where a multimodal NC step's time goes (``--only profile_mm``;
     ``--only profile_allmodal``: the ``dmg_synth_allmodal`` features;
-    neither part of the default run): the DMG-width model full batch,
-    ``torch.profiler`` over ``steps`` training steps, and each
-    ``PROFILE_GROUPS`` group's share of the device time (a kernel in the
-    first group whose names it matches)."""
+    ``--only profile_backbones``: the same on both pretrained backbones,
+    whose files ``backbone_files`` wrote; none part of the default run):
+    the DMG-width model full batch, ``torch.profiler`` over ``steps``
+    training steps, and each ``PROFILE_GROUPS`` group's share of the
+    device time (a kernel in the first group whose names it matches)."""
     import numpy as np
     import torch
     from mrgcn_tpu_torch import run
@@ -2530,17 +2597,21 @@ def profile_multimodal_phase(work, tmp: Path, device, steps: int = 5,
     from mrgcn_tpu_torch.tasks.common import prepare_inputs
     from mrgcn_tpu_torch.tasks.synthetic import (multimodal_features,
                                                  save_nc_artifact)
-    tag = "profile_allmodal" if features == ALLMODAL else "profile_mm"
+    from mrgcn_tpu_torch.tasks.synthetic import DISTILBERT_MULTILINGUAL
+    tag = "profile_backbones" if backbones else "profile_allmodal" \
+        if features == ALLMODAL else "profile_mm"
     art, cfg = tmp / f"{tag}.npz", tmp / f"{tag}.toml"
+    vocab = DISTILBERT_MULTILINGUAL["vocab_size"] if backbones else 0
     save_nc_artifact(str(art), work["n"], work["R"], work["src"],
                      work["dst"], work["rel"], work["norm"],
                      work["labels_idx"], work["labels_cls"],
                      work["num_classes"], seed=0,
                      num_eval=min(1000, work["n"] // 20),
-                     F=allmodal_features(work["n"]) if features == ALLMODAL
+                     F=allmodal_features(work["n"], wordpiece_vocab=vocab)
+                     if features == ALLMODAL
                      else multimodal_features(work["n"], seed=0))
     write_config(cfg, 1, work["num_bases"], work["hidden"],
-                 features=features)
+                 features=features, backbones=backbones)
     config = run.load_config(str(cfg))
     artifact = run.artifact_io.load(str(art))
     inputs = prepare_inputs(artifact, config, False, device)
@@ -2568,8 +2639,9 @@ def profile_multimodal_phase(work, tmp: Path, device, steps: int = 5,
     busy, wall, by_name = profile_steps(
         f"{tag} NC step (X_width {inputs.X_width})", step, steps, top=40)
     rest = dict(by_name)
-    for what, names in PROFILE_GROUPS:
-        mine = [k for k in rest if any(n in k for n in names)]
+    for what, names, *unless in PROFILE_GROUPS:
+        mine = [k for k in rest if any(n in k for n in names)
+                and not any(n in k for n in (unless[0] if unless else ()))]
         ms = sum(rest.pop(k) for k in mine)
         print(f"[profile] {what}: {ms:.3f} ms a step, {ms / busy:.1%} of "
               f"the device time, {len(mine)} kernel names")
@@ -2801,9 +2873,15 @@ def encoder_agreement(tmp: Path, tag: str, gpu_model, cpu_model) -> None:
     gates, and the encoder's parameter gradients for a seeded cotangent,
     card (kernels) against CPU (plain versions). Bounds
     (``ENCODER_RTOL[kind]``): the outputs' max abs error relative to
-    max |CPU output|; each gradient's error norm relative to its norm."""
+    max |CPU output|; each gradient's error norm relative to its norm.
+    The key projection's bias of the text paths that have one (``plain``,
+    ``xla``, ``flash``) is left out: it shifts every score of a row alike,
+    which the softmax does not see, so its gradient is 0 in exact
+    arithmetic and rounding noise on both sides."""
     import torch
     from mrgcn_tpu_torch import run
+    from mrgcn_tpu_torch.models.pretrained import (PretrainedImageEncoder,
+                                                   PretrainedTextEncoder)
     from mrgcn_tpu_torch.tasks.common import prepare_inputs
     config = run.load_config(str(tmp / f"{tag}.toml"))
     artifact = run.artifact_io.load(str(tmp / f"{tag}.npz"))
@@ -2823,10 +2901,14 @@ def encoder_agreement(tmp: Path, tag: str, gpu_model, cpu_model) -> None:
             out.backward(cot)
             results.append({"output": out.detach().cpu()} | {
                 n: p.grad.detach().cpu()
-                for n, p in encoder.named_parameters() if p.grad is not None})
+                for n, p in encoder.named_parameters()
+                if p.grad is not None and not n.endswith(".key.bias")})
         kind = {"xsd.string": "text", "xsd.anyURI": "text",
                 "ogc.wktLiteral": "tcnn", "blob.image": "image"}.get(
                     datatype, "mlp")
+        if isinstance(getattr(cpu_model, name), (PretrainedTextEncoder,
+                                                 PretrainedImageEncoder)):
+            kind = "backbone"
         gpu_res, cpu_res = results
         want = cpu_res.pop("output").float()
         out_err = float((gpu_res.pop("output").float() - want).abs().max()) \
@@ -2853,10 +2935,8 @@ def agreement_phase(tmp: Path) -> None:
     the models over features also each encoder on its own
     (``encoder_agreement``, the convolutional encoders in eval mode, with
     the CPU run's running statistics on both sides)."""
-    from benchmarks.torch_baseline import build_workload
     from mrgcn_tpu_torch.tasks.synthetic import multimodal_features
-    small = build_workload(n=3000, num_props=6, num_edges=20_000,
-                           num_labeled=300, seed=0)
+    small = small_graph()
     F = multimodal_features(small["n"], seed=0, num_numeric=600,
                             num_years=300, num_strings=240, max_len=128)
     # and with geometries and images: all five modalities, the
@@ -3362,6 +3442,535 @@ def checkpoint_phase(work, tmp: Path) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# the text attention paths and #12 (multi-head attention)
+# ---------------------------------------------------------------------------
+
+# the from-scratch text encoder's attention paths other than its default
+# (fused_core), each trained card against CPU: the two trees besides the
+# default's (``flash`` runs ``xla``'s code and ``plain_fused`` the default's,
+# which the CPU tests hold)
+TEXT_ATTN_IMPLS = ("xla", "plain")
+HEAD_COUNTS = (2, 4, 8)
+# an encoder entry over its card-vs-CPU bound passes where the card lies
+# no farther than this many times the bf16 CPU run's distance from a
+# float64 witness (``heads_card_vs_cpu``): the two sides round in
+# different places, a kernel fault moves the card far beyond it
+WITNESS_MARGIN = 1.5
+# #12's cases (sequences, tokens): the multimodal path's strings, and the
+# tokenizer's longest sequences
+HEAD_SHAPES = ((8000, 128), (2000, 512))
+# the byte strings the multi-head encoder trains on: the multimodal path's
+HEAD_PATH_STRINGS = 8000
+# the plain versions' (N, H, L, L) f32 intermediates per chunk of sequences
+PLAIN_CHUNK_BYTES = 2 << 30
+# training steps of each multi-head TextEncoder on the card
+HEAD_STEPS = 3
+
+
+def heads_case(gen, N, L, H, device, mask="ragged", D=128):
+    """q (scaled by 1 / sqrt(D / H)), k and v as the multi-head text path
+    hands them over, ``(N, L, H, D / H)`` views (k and v of one fused
+    ``(N, L, 3D)`` bf16 tensor, so their rows are strided), a key mask as
+    ``attention_case`` draws it, and a cotangent."""
+    import torch
+    d = D // H
+    q, k, v, valid, do = attention_case(gen, N, L, D, device, mask)
+    scale = torch.tensor(D ** 0.5 / d ** 0.5, dtype=torch.bfloat16)
+    return ((q * scale).view(N, L, H, d), k.view(N, L, H, d),
+            v.view(N, L, H, d), valid, do.view(N, L, H, d))
+
+
+def chunked(fn, *args, rows: int):
+    """``fn`` over slices of ``rows`` sequences of its arguments (all with
+    the sequence axis first), its outputs joined: the plain versions at
+    shapes whose (N, H, L, L) intermediates would not fit the card."""
+    import torch
+    outs = [fn(*(a[i:i + rows] for a in args))
+            for i in range(0, args[0].shape[0], rows)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def sdpa_heads(q, k, v, valid, do=None):
+    """``F.scaled_dot_product_attention`` on the heads (q comes scaled, so
+    its scale is 1): the forward alone, or with ``do`` the forward and its
+    autograd backward. Timed only, used nowhere in the port."""
+    import torch
+    mask = valid[:, None, None, :]
+    heads = [t.transpose(1, 2) for t in (q, k, v)]
+    if do is None:
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            *heads, attn_mask=mask, scale=1.0)
+    leaves = [t.detach().clone().requires_grad_() for t in heads]
+
+    def both():
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, attn_mask=mask, scale=1.0)
+        return torch.autograd.grad(out, leaves, do.transpose(1, 2))
+    return both
+
+
+def heads_kernel_phase(device) -> dict:
+    """#12 (the attention kernels with H = 2, 4, 8 heads of width 128 / H)
+    against their plain versions: N = 8,000, L = 128 and N = 2,000,
+    L = 512, ragged, all-valid and holed masks, every output element held
+    by ``check_bf16``; two runs bit-identical; each head of one case equal
+    bit for bit to the single-head kernel on that head alone. The
+    8,000 x 128 ragged cases are timed beside the plain version and SDPA
+    (the library's forward, and its forward + backward less the forward),
+    with their bound: the bytes of q, every row, and k and v at real keys
+    (all L keys of a sequence without one), of the output (and in the
+    backward of do, dq, dk and dv) over the card's memory rate, and
+    4 (forward) or 10 (backward) x (real keys x L x 128) FLOP over the bf16
+    tensor-core peak; the 2,000 x 512 ragged cases time the kernel and
+    SDPA (their plain backward's intermediates are 17 GB a tensor at
+    H = 8). Returns the rows by kernel."""
+    import torch
+    from mrgcn_tpu_torch.ops import attention as att
+    from mrgcn_tpu_torch.ops.kernel_bounds import attention_scales
+    gen = torch.Generator(device=device).manual_seed(12)
+    rows = {"attention_heads_fwd": [], "attention_heads_bwd": []}
+    faulthandler.dump_traceback_later(500, exit=True)
+    short, long = HEAD_SHAPES
+    for (N, L), H, mask in (
+            [(short, H, "ragged") for H in HEAD_COUNTS]
+            + [(long, H, "ragged") for H in HEAD_COUNTS]
+            + [(short, H, "all") for H in HEAD_COUNTS]
+            + [(long, H, "holes") for H in HEAD_COUNTS]):
+        label = f"h{H}_{N}x{L}" + ("" if mask == "ragged" else f"_{mask}")
+        q, k, v, valid, do = heads_case(gen, N, L, H, device, mask)
+        per_chunk = max(1, PLAIN_CHUNK_BYTES // (6 * H * L * L * 4))
+        scales = chunked(attention_scales, q, k, v, valid, do,
+                         rows=per_chunk)
+        fwd = lambda: att.attention_fwd(q, k, v, valid)  # noqa: E731
+        bwd = lambda: att.attention_bwd(q, k, v, valid, do)  # noqa: E731
+        plain_fwd = lambda: chunked(  # noqa: E731
+            att.attention_fwd_reference, q, k, v, valid, rows=per_chunk)
+        plain_bwd = lambda: chunked(  # noqa: E731
+            att.attention_bwd_reference, q, k, v, valid, do,
+            rows=per_chunk)
+        real = valid.sum(dim=1)
+        pairs = float(real.sum()) * L * 128
+        kv_rows = int(torch.where(real > 0, real, torch.full_like(real, L))
+                      .sum())
+        qkv_bytes = (N * L + 2 * kv_rows) * 128 * 2 + valid.numel()
+        for name, kernel, plain, sc, work, library in (
+                ("attention_heads_fwd", fwd, plain_fwd, scales[:1],
+                 (qkv_bytes + N * L * 128 * 2, 4 * pairs),
+                 sdpa_heads(q, k, v, valid)),
+                ("attention_heads_bwd", bwd, plain_bwd, scales[1:],
+                 (qkv_bytes + 4 * N * L * 128 * 2, 10 * pairs),
+                 sdpa_heads(q, k, v, valid, do))):
+            got, again, want = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            outs = got if isinstance(got, tuple) else (got,)
+            wants = want if isinstance(want, tuple) else (want,)
+            agains = again if isinstance(again, tuple) else (again,)
+            errs = [check_bf16(g, w, s_, f"{name} {label} output {i}")
+                    for i, (g, w, s_) in enumerate(zip(outs, wants, sc))]
+            check(all(torch.equal(g, a) for g, a in zip(outs, agains)),
+                  f"{name} {label}: two runs differ")
+            row = {"label": label, "heads": H, "max_abs_err":
+                   max(e for e, _ in errs),
+                   "max_err_over_bound": max(r for _, r in errs),
+                   "digest": digest(outs)}
+            del got, again, want, outs, wants, agains
+            if mask == "ragged" and (N, L) == short:
+                row.update(timed_pair(kernel, plain, library))
+                row.update(bound(work[0], work[1], BF16_FLOPS))
+            elif mask == "ragged":
+                row.update(ms=time_ms(kernel), plain_ms=None,
+                           library_ms=time_ms(library))
+                row.update(bound(work[0], work[1], BF16_FLOPS))
+            rows[name].append(row)
+        if "library_ms" in rows["attention_heads_bwd"][-1]:
+            f_row, b_row = (rows[n][-1] for n in rows)
+            b_row["library_fwd_bwd_ms"] = b_row["library_ms"]
+            b_row["library_ms"] = b_row["library_ms"] - f_row["library_ms"]
+        for name in rows:
+            print(f"[kernel] {name} {json.dumps(rows[name][-1])}")
+        if (N, L) == short and mask == "ragged":
+            # one head alone through the single-head kernel: the same bits
+            h = H - 1
+            one = [t[:, :, h].contiguous() for t in (q, k, v)]
+            out = att.attention_fwd(q, k, v, valid)
+            check(torch.equal(out[:, :, h], att.attention_fwd(*one, valid)),
+                  f"{label}: head {h} differs from the single-head kernel")
+            dq, dk, dv = att.attention_bwd(q, k, v, valid, do)
+            for g, w in zip((dq, dk, dv), att.attention_bwd(
+                    *one, valid, do[:, :, h].contiguous())):
+                check(torch.equal(g[:, :, h], w),
+                      f"{label}: head {h}'s gradients differ from the "
+                      "single-head kernel's")
+            del out, dq, dk, dv, one
+        del q, k, v, valid, do, scales
+        torch.cuda.empty_cache()
+    faulthandler.cancel_dump_traceback_later()
+    return rows
+
+
+def padded_tokens(strings, pad: int):
+    """The byte-token strings of an encoding set as one ``(N, longest)``
+    int64 array, ``pad`` past each string's end."""
+    import numpy as np
+    longest = max(len(t) for t in strings)
+    out = np.full((len(strings), longest), pad, dtype=np.int64)
+    for i, t in enumerate(strings):
+        out[i, :len(t)] = t
+    return out
+
+
+def relative_errors(got: dict, want: dict) -> dict:
+    """Each entry's error norm relative to the norm of ``want``'s."""
+    return {n: float((got[n].double() - w.double()).norm()
+                     / max(float(w.double().norm()), 1e-30))
+            for n, w in want.items()}
+
+
+def heads_card_vs_cpu(tokens, cot, H: int, device) -> None:
+    """A fresh ``TextEncoder`` with ``H`` heads (the ``xla`` tree) on the
+    card and the CPU with the same weights, and a float64 witness of it on
+    the CPU (``dtype=torch.float64``: no bf16 rounding anywhere). Each
+    parameter's gradient for the cotangent ``cot`` (the key bias left out:
+    0 in exact arithmetic, ``encoder_agreement``) and the output are held
+    card against CPU by the text bounds of ``ENCODER_RTOL`` (1e-1 by norm,
+    1e-2 of the largest output). At these fresh weights the bf16 CPU run
+    itself lies about that far from the witness (printed as ``cpu_f64``),
+    so an entry over its bound passes
+    only where the card is no farther from the witness than
+    ``WITNESS_MARGIN`` times the CPU's distance from it; every such entry
+    is printed with the three distances."""
+    import copy
+    import torch
+    from mrgcn_tpu_torch.models.encoders import TextEncoder
+    cpu = TextEncoder(16, torch.Generator().manual_seed(0), num_heads=H,
+                      attn_impl="xla")
+    card = copy.deepcopy(cpu).to(device)
+    exact = TextEncoder(16, torch.Generator().manual_seed(0), num_heads=H,
+                        attn_impl="xla", dtype=torch.float64)
+    exact.load_state_dict(cpu.state_dict())
+    exact.double()
+    results = []
+    for model, dev in ((cpu, "cpu"), (card, device), (exact, "cpu")):
+        out = model(tokens.to(dev))
+        out.backward(cot.to(dev, out.dtype))
+        results.append({"output": out.detach().cpu()} | {
+            n: p.grad.cpu() for n, p in model.named_parameters()
+            if not n.endswith(".key.bias")})
+    want, got, witness = results
+    out_err = float((got["output"].double() - want["output"].double())
+                    .abs().max() / want["output"].double().abs().max())
+    card_cpu = relative_errors(got, want)
+    card_cpu["output"] = out_err
+    card_exact = relative_errors(got, witness)
+    cpu_exact = relative_errors(want, witness)
+    for side in (card_exact, cpu_exact):
+        side["output"] = float(
+            ((got if side is card_exact else want)["output"].double()
+             - witness["output"]).abs().max()
+            / witness["output"].abs().max())
+    out_bound, grad_bound = ENCODER_RTOL["text"]
+    over = {n: {"card_cpu": e, "card_f64": card_exact[n],
+                "cpu_f64": cpu_exact[n]}
+            for n, e in card_cpu.items()
+            if e > (out_bound if n == "output" else grad_bound)}
+    worst = max((n for n in card_cpu if n != "output"), key=card_cpu.get)
+    print(f"[agree] text encoder, {H} head(s), card vs CPU: output rel err "
+          f"{out_err:.3g} (bound {out_bound}; CPU vs float64 "
+          f"{cpu_exact['output']:.3g}, card vs float64 "
+          f"{card_exact['output']:.3g}), parameter gradients max rel norm "
+          f"err {card_cpu[worst]:.3g} at {worst} (bound {grad_bound}); "
+          f"over the bound, against the float64 witness (card no farther "
+          f"than {WITNESS_MARGIN} x the CPU's distance): {json.dumps(over)}")
+    check(all(v["card_f64"] <= WITNESS_MARGIN * v["cpu_f64"]
+              for v in over.values()),
+          f"the {H}-head text encoder differs on the card and the CPU")
+
+
+def heads_paths(work, device) -> dict:
+    """The multi-head text encoder, which ``MRGCN`` never builds (it
+    passes no head count) and a caller builds directly: a ``TextEncoder``
+    with ``num_heads`` = 2, 4, 8 (the ``xla`` tree) trains
+    ``HEAD_STEPS`` Adam steps on the multimodal path's 8,000 byte strings
+    (padded to 128) towards a seeded target, each with the launch counts
+    set to 0 just before and read just after: two blocks, so 2 launches
+    of #12 forward and backward a step and none of #6 / #7. The losses
+    must be finite and fall. Then 300 of the strings at one head and at
+    four on the card and the CPU (``heads_card_vs_cpu``)."""
+    import torch
+    from mrgcn_tpu_torch.encodings.xsd.string import ByteTokenizer
+    from mrgcn_tpu_torch.models.encoders import TextEncoder
+    from mrgcn_tpu_torch.tasks.synthetic import multimodal_features
+    strings = multimodal_features(work["n"], seed=0,
+                                  num_strings=HEAD_PATH_STRINGS)[
+        "xsd.string"][0][0]
+    tokens = torch.from_numpy(padded_tokens(strings, ByteTokenizer.PAD))
+    target = torch.randn(len(strings), 16,
+                         generator=torch.Generator().manual_seed(5))
+    paths = {}
+    for H in HEAD_COUNTS:
+        model = TextEncoder(16, torch.Generator().manual_seed(0),
+                            num_heads=H, attn_impl="xla").to(device)
+        optimizer = torch.optim.Adam(model.parameters(), lr=1e-3)
+        x, y = tokens.to(device), target.to(device)
+        counters = start_path()
+        losses, seconds = [], []
+        for _ in range(HEAD_STEPS):
+            t0 = time.perf_counter()
+            loss = ((model(x, train=True) - y) ** 2).mean()
+            optimizer.zero_grad()
+            loss.backward()
+            optimizer.step()
+            losses.append(loss.item())
+            seconds.append(time.perf_counter() - t0)
+        launches = read_launches(counters)
+        tag = f"text_heads_h{H}"
+        want = 2 * HEAD_STEPS
+        check(launches["attention_fwd.heads"] == want
+              and launches["attention_bwd.heads"] == want
+              and launches["attention_fwd"] == launches["attention_bwd"] == 0,
+              f"{tag}: attention launches {launches}")
+        check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+              f"{tag}: losses {losses}")
+        summary = {"path": tag, "steps": HEAD_STEPS, "losses": losses,
+                   "step_s": seconds,
+                   "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                   "launches": launches}
+        print(f"[slice] {json.dumps(summary)}")
+        paths[tag] = summary
+        del model, optimizer, x, y
+    for H in (1, 4):
+        heads_card_vs_cpu(tokens[:300], target[:300], H, device)
+    return paths
+
+
+def text_attn_agreement(tmp: Path) -> dict:
+    """The CLI on the agreement phase's small multimodal graph under
+    ``MRGCN_TEXT_ATTN`` = each of ``TEXT_ATTN_IMPLS``, 3 epochs on the card
+    (counts set to 0 just before, read just after: #6 / #7 launch, #12
+    does not: ``MRGCN`` builds one head) and on the CPU: the losses within
+    1e-3 (the multimodal bound), the first within 1e-4, and each encoder
+    card against CPU (``encoder_agreement``: the text bounds 1e-2 /
+    1e-1)."""
+    from mrgcn_tpu_torch.tasks.synthetic import multimodal_features
+    small = small_graph()
+    F = multimodal_features(small["n"], seed=0, num_numeric=600,
+                            num_years=300, num_strings=240, max_len=128)
+    paths = {}
+    try:
+        for impl in TEXT_ATTN_IMPLS:
+            os.environ["MRGCN_TEXT_ATTN"] = impl
+            tag = f"small_mm_{impl}"
+            counters = start_path()
+            gpu = train_via_cli(tmp, tag, small, 3, 4, F=F)
+            launches = read_launches(counters)
+            cpu = train_via_cli(tmp, tag, small, 3, 4, platform="cpu", F=F)
+            check(gpu.model.xsd_string_0.attn_impl == impl,
+                  f"{tag}: built {gpu.model.xsd_string_0.attn_impl}")
+            check(launches["attention_fwd"] > 0
+                  and launches["attention_bwd"] > 0
+                  and launches["attention_fwd.heads"] == 0,
+                  f"{tag}: attention launches {launches}")
+            a = [h["train_loss"] for h in gpu.history] + [gpu.loss]
+            b = [h["train_loss"] for h in cpu.history] + [cpu.loss]
+            err = max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b))
+            first = abs(a[0] - b[0]) / max(abs(b[0]), 1e-12)
+            print(f"[agree] {tag} losses cuda {a} cpu {b} (max rel err "
+                  f"{err:.3g}, bound 1e-3; first {first:.3g}, bound 1e-4)")
+            check(err <= 1e-3 and first <= 1e-4,
+                  f"{tag}: cuda and cpu losses differ")
+            encoder_agreement(tmp, tag, gpu.model, cpu.model)
+            paths[tag] = {"path": tag, "launches": launches,
+                          "train_loss": a[:-1], "test_loss": a[-1]}
+    finally:
+        os.environ.pop("MRGCN_TEXT_ATTN", None)
+    return paths
+
+
+def text_attn_phase(work, tmp: Path, device, rows) -> dict:
+    """#12 against its plain version (``heads_kernel_phase``), the
+    multi-head encoder's training paths (``heads_paths``) and every other
+    text attention path card against CPU (``text_attn_agreement``).
+    Returns the paths' summaries."""
+    rows.update(heads_kernel_phase(device))
+    paths = heads_paths(work, device)
+    paths.update(text_attn_agreement(tmp))
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# the pretrained backbones (DistilBERT text, MobileNetV2 images)
+# ---------------------------------------------------------------------------
+
+# the small graph's feature counts on the backbones (its CPU side runs
+# DistilBERT at the published widths)
+BB_SMALL_STRINGS, BB_SMALL_IMAGES = 60, 40
+
+
+def backbone_files(tmp: Path) -> dict:
+    """The backbones' files with random weights from seed 0: a DistilBERT
+    at ``distilbert-base-multilingual-cased``'s published widths (dim 768,
+    6 layers, 12 heads, hidden 3,072, vocabulary 119,547, 512 positions)
+    in a hub cache that ``HF_HUB_CACHE`` names, and a torchvision-format
+    MobileNetV2 ``.pth`` that ``MRGCN_VISION_WEIGHTS`` names."""
+    from mrgcn_tpu_torch.tasks.synthetic import (save_distilbert_snapshot,
+                                                 save_mobilenet_checkpoint)
+    t0 = time.perf_counter()
+    hub = tmp / "hub"
+    snapshot = save_distilbert_snapshot(hub, seed=0)
+    pth = tmp / "mobilenet_v2-random.pth"
+    save_mobilenet_checkpoint(pth, seed=0)
+    os.environ["HF_HUB_CACHE"] = str(hub)
+    os.environ["MRGCN_VISION_WEIGHTS"] = str(pth)
+    files = {"snapshot": snapshot, "pth": pth,
+             "msgpack_bytes": (snapshot / "flax_model.msgpack")
+             .stat().st_size, "pth_bytes": pth.stat().st_size,
+             "write_s": time.perf_counter() - t0}
+    print(f"[backbones] files: {json.dumps(files, default=str)}")
+    return files
+
+
+def backbones_unchanged(model, files) -> dict:
+    """The trained model's frozen backbones, on the card, against the
+    files they were loaded from: bit-equal; and the heads moved off their
+    zero biases."""
+    import torch
+    from mrgcn_tpu_torch.models.distilbert import DistilBert
+    from mrgcn_tpu_torch.models.mobilenet import load_image_backbone
+    from mrgcn_tpu_torch.models.pretrained import (PretrainedImageEncoder,
+                                                   PretrainedTextEncoder)
+    text, image = model.xsd_string_0, model.blob_image_0
+    check(isinstance(text, PretrainedTextEncoder)
+          and isinstance(image, PretrainedImageEncoder),
+          f"backbones: built {type(text).__name__}, {type(image).__name__}")
+    for encoder, fresh in ((text, DistilBert.from_pretrained(
+            files["snapshot"])), (image, load_image_backbone(
+                str(files["pth"])))):
+        mine = encoder.backbone.state_dict()
+        check(all(t.device.type == "cuda" for t in mine.values()),
+              "backbones: a backbone tensor is off the card")
+        check(all(torch.equal(t.cpu(), fresh.state_dict()[k])
+                  for k, t in mine.items()),
+              f"backbones: {type(encoder).__name__}'s backbone changed")
+        for j in (0, 1):
+            check(bool(getattr(encoder, f"Dense_{j}").bias.ne(0).any()),
+                  f"backbones: {type(encoder).__name__}'s head never moved")
+    return {"backbone_tensors": len(text.backbone.state_dict())
+            + len(image.backbone.state_dict())}
+
+
+def backbone_agreement(tmp: Path, files) -> dict:
+    """The small graph with both backbones (``BB_SMALL_STRINGS`` strings,
+    ``BB_SMALL_IMAGES`` images of 224 x 224), 2 epochs through the CLI on
+    the card and the CPU: the first epoch's loss within 1e-4, each
+    encoder card against CPU (``encoder_agreement``: the pretrained ones,
+    backbone output and head gradients, within 1e-4). Then a checkpoint
+    round trip on the card: the file holds the heads and no backbone
+    tensor, and a run restored from it (which loads the backbones from
+    disk again) gives the saving model's eval-mode test logits within
+    1e-5 of their largest."""
+    import numpy as np
+    import torch
+    from mrgcn_tpu_torch import run
+    from mrgcn_tpu_torch.tasks import node_classification as nc
+    from mrgcn_tpu_torch.tasks.common import prepare_inputs
+    from mrgcn_tpu_torch.tasks.synthetic import (DISTILBERT_MULTILINGUAL,
+                                                 multimodal_features)
+    small = small_graph()
+    F = functools.partial(
+        multimodal_features, small["n"], seed=0, num_numeric=600,
+        num_years=300, num_strings=BB_SMALL_STRINGS, max_len=128,
+        num_geometries=300, num_images=BB_SMALL_IMAGES,
+        image_size=IMAGE_SIDE,
+        wordpiece_vocab=DISTILBERT_MULTILINGUAL["vocab_size"])
+    tag = "small_bb"
+    gpu = train_via_cli(tmp, tag, small, 2, 4, F=F, features=ALLMODAL,
+                        backbones=True)
+    cpu = train_via_cli(tmp, tag, small, 2, 4, platform="cpu", F=F,
+                        features=ALLMODAL, backbones=True)
+    a = [h["train_loss"] for h in gpu.history]
+    b = [h["train_loss"] for h in cpu.history]
+    first = abs(a[0] - b[0]) / abs(b[0])
+    print(f"[backbones] {tag} losses cuda {a} cpu {b}: first epoch rel err "
+          f"{first:.3g} (bound 1e-4)")
+    check(first <= 1e-4, f"{tag}: the first losses differ (rel {first})")
+    encoder_agreement(tmp, tag, gpu.model, cpu.model)
+
+    counters = kernel_counters()
+    with watch_run(counters, nc) as rec:
+        saved = train_via_cli(tmp, tag, small, 2, 4, F=F, features=ALLMODAL,
+                              backbones=True, extra=["--save_checkpoint"])
+    keys = list(np.load(rec["file"]).files)
+    encoders = {k.split("/")[1] for k in keys if k.startswith("params/")}
+    heads = sorted(k for k in keys
+                   if k.startswith(("params/xsd_string_0/",
+                                    "params/blob_image_0/")))
+    want = sorted(f"params/{e}/Dense_{j}/{leaf}"
+                  for e in ("xsd_string_0", "blob_image_0") for j in (0, 1)
+                  for leaf in ("bias", "kernel"))
+    check(heads == want and len([k for k in keys if k.startswith("params/")])
+          == len(list(saved.model.parameters())),
+          f"{tag}: the checkpoint holds {heads} of the pretrained encoders")
+    # the restored run trains no epoch: its model is the file's
+    write_config(tmp / f"{tag}_0.toml", 0, 4, small["hidden"],
+                 features=ALLMODAL, backbones=True)
+    with watch_run(counters, nc) as loaded:
+        restored = run.run_cli(["-c", str(tmp / f"{tag}_0.toml"), "-i",
+                                str(tmp / f"{tag}.npz"), "-o",
+                                str(tmp) + os.sep, "--dry_run", "--test",
+                                "--load_checkpoint", rec["file"]])
+    check("restored" in loaded and not restored.history,
+          f"{tag}: nothing restored, or the restored run trained")
+    config = run.load_config(str(tmp / f"{tag}.toml"))
+    art = run.artifact_io.load(str(tmp / f"{tag}.npz"))
+    Y_test = np.asarray(art.Y["test"]).reshape(-1, 2)
+    device = next(saved.model.parameters()).device
+    batch = nc.make_batches(prepare_inputs(art, config, False, device),
+                            Y_test, -1, 2)[0]
+    logits = []
+    for m in (saved.model, restored.model):
+        with torch.no_grad():
+            logits.append(m(batch.edges, batch.features)[batch.idx].cpu())
+    err = float((logits[1] - logits[0]).abs().max() / logits[0].abs().max())
+    print(f"[backbones] checkpoint: {len(keys)} entries, encoders "
+          f"{sorted(encoders)}, {rec['file_bytes']} bytes; restored eval "
+          f"logits err over the largest {err:.3g} (bound 1e-5)")
+    check(err <= 1e-5, f"{tag}: the restored model's logits differ ({err})")
+    return {"small_losses": {"cuda": a, "cpu": b},
+            "checkpoint_bytes": rec["file_bytes"],
+            "restored_logits_err": err}
+
+
+def backbones_phase(work, tmp: Path) -> dict:
+    """``dmg_synth_allmodal`` with both pretrained backbones at the
+    published widths through the CLI (``slice_phase``, ``EPOCHS`` epochs):
+    8,000 strings of 3-130 WordPiece-like ids, 2,000 images of 224 x 224,
+    the WKT, numeric and gYear features as before, X_width 165. The
+    kernels by route as the all-modality path (#5, #1, #4, #10), #6-#9
+    none (the text encoder is the backbone); the backbones bit-equal to
+    their files after training, on the card, and the heads moved
+    (``backbones_unchanged``); then the small graph card against CPU and
+    a checkpoint round trip (``backbone_agreement``)."""
+    from mrgcn_tpu_torch.tasks.synthetic import DISTILBERT_MULTILINGUAL
+    files = backbone_files(tmp)
+    try:
+        paths = {"nc_backbones": slice_phase(
+            work, tmp, "dmg_synth_allmodal_bb",
+            {"sorted_scatter": 1, "fused_place_scatter": 3},
+            F=allmodal_features(
+                work["n"],
+                wordpiece_vocab=DISTILBERT_MULTILINGUAL["vocab_size"]),
+            features=ALLMODAL, backbones=True, absent=ENCODER_KERNELS,
+            inspect=lambda res: backbones_unchanged(res.model, files))}
+        paths["nc_backbones"].update(backbone_agreement(tmp, files))
+    finally:
+        os.environ.pop("HF_HUB_CACHE", None)
+        os.environ.pop("MRGCN_VISION_WEIGHTS", None)
+    return paths
+
+
 # kernel -> (source, the TPU kernel it replaces, the timed row that goes
 # into the kernels line: the call its main path makes)
 SOURCES = {
@@ -3387,7 +3996,19 @@ SOURCES = {
                 "mrgcn_tpu/ops/fused_mlp.py:38", "slice"),
     "mlp_bwd": ("mrgcn_tpu_torch/csrc/fused_mlp.cu",
                 "mrgcn_tpu/ops/fused_mlp.py:48", "slice"),
+    # #12: the multi-head path (the Pallas TPU FlashAttention forward, dq
+    # and dkv kernels behind _flash_attention_fn); the attention kernels
+    # with a head axis, counted apart in the wrappers' launches_heads
+    "attention_heads_fwd": ("mrgcn_tpu_torch/csrc/fused_attention.cu",
+                            "mrgcn_tpu/models/encoders.py:150",
+                            "h4_8000x128"),
+    "attention_heads_bwd": ("mrgcn_tpu_torch/csrc/fused_attention.cu",
+                            "mrgcn_tpu/models/encoders.py:150",
+                            "h4_8000x128"),
 }
+# a kernel whose launches stand under another key of read_launches
+COUNTED_AS = {"attention_heads_fwd": "attention_fwd.heads",
+              "attention_heads_bwd": "attention_bwd.heads"}
 # the scatters' kernels: (the row-segmented one, counted in the wrapper's
 # launches_rows; the other route's, counted in the rest of its launches)
 ROW_KERNELS = {
@@ -3398,12 +4019,12 @@ ROW_KERNELS = {
 STREAM_KERNELS = ("sorted_scatter", "sorted_gather", "fused_scatter_dot",
                   "fused_place_scatter")
 ENCODER_KERNELS = ("attention_fwd", "attention_bwd", "mlp_fwd", "mlp_bwd")
-PHASES = ("stream", "compose", "nc", "minibatch", "lp", "checkpoint",
-          "encoders", "agree")
+PHASES = ("stream", "compose", "nc", "backbones", "minibatch", "lp",
+          "checkpoint", "encoders", "text_attn", "agree")
 EXTRA_PHASES = ("profile", "profile_mb", "profile_att",   # only with
                 "profile_mm", "profile_stream",            # --only
-                "profile_allmodal", "conv_algorithms",
-                "scatter_dot")
+                "profile_allmodal", "profile_backbones",
+                "conv_algorithms", "scatter_dot")
 
 
 def main(argv=None) -> None:
@@ -3431,6 +4052,13 @@ def main(argv=None) -> None:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     build_kernels()
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Print the seconds since the last lap, under ``name``."""
+        now = time.perf_counter()
+        print(f"[time] {name}: {now - clock[0]:.1f} s")
+        clock[0] = now
 
     rows = {name: [] for name in SOURCES}
     paths = {}
@@ -3439,14 +4067,17 @@ def main(argv=None) -> None:
         work = build_workload(seed=0)
         save_lp_artifact(str(tmp / "lp.npz"), seed=0)
         plan, num_relations = lp_plans(tmp / "lp.npz", device)
+        lap("workloads")
         if "stream" in phases or "scatter_dot" in phases:
             scatter_dot_phase(plan, device, rows)
         if "stream" in phases:
             nc_stream_phase(work, device, rows)
             lp_stream_phase(plan, device, rows)
             adversarial_phase(device, rows)
+            lap("stream")
         if "compose" in phases:
             paths["compose_stages"] = compose_phase(work, device, rows)
+            lap("compose")
         F = multimodal_features(work["n"], seed=0) \
             if {"nc", "minibatch"} & set(phases) else None
         if "nc" in phases:
@@ -3468,12 +4099,19 @@ def main(argv=None) -> None:
                 {"sorted_scatter": 1, "fused_place_scatter": 3,
                  **dict.fromkeys(ENCODER_KERNELS, 2)},
                 F=allmodal_features(work["n"]), features=ALLMODAL)
+            lap("nc")
+        if "backbones" in phases:
+            paths.update(backbones_phase(work, tmp))
+            lap("backbones")
         if "minibatch" in phases:
             paths.update(minibatch_phase(work, tmp, F))
+            lap("minibatch")
         if "lp" in phases:
             paths["lp"] = lp_slice_phase(tmp, plan, num_relations, device)
+            lap("lp")
         if "checkpoint" in phases:
             paths.update(checkpoint_phase(work, tmp))
+            lap("checkpoint")
         if "profile_stream" in phases:
             profile_stream_phase(work, plan, device)
         del plan
@@ -3488,9 +4126,22 @@ def main(argv=None) -> None:
             profile_multimodal_phase(work, tmp, device)
         if "profile_allmodal" in phases:
             profile_multimodal_phase(work, tmp, device, features=ALLMODAL)
+        if "profile_backbones" in phases:
+            files = backbone_files(tmp)
+            try:
+                profile_multimodal_phase(work, tmp, device,
+                                         features=ALLMODAL, backbones=True)
+            finally:
+                os.environ.pop("HF_HUB_CACHE", None)
+                os.environ.pop("MRGCN_VISION_WEIGHTS", None)
+            del files
         if "encoders" in phases:
             rows.update(encoder_kernel_phase(device))
             conv_encoder_phase(device)
+            lap("encoders")
+        if "text_attn" in phases:
+            paths.update(text_attn_phase(work, tmp, device, rows))
+            lap("text_attn")
         if "conv_algorithms" in phases:
             conv_algorithm_phase()
         if "agree" in phases:
@@ -3501,6 +4152,7 @@ def main(argv=None) -> None:
             lp_agreement(tmp, "lp_small", 3, budget=2 ** 20, ranks=True)
             lp_agreement(tmp, "lp_small", 3, ranks=True, sliced=(256, 500))
             lp_agreement(tmp, "lp", 1)     # full width: one step
+            lap("agree")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[card] {smi}")
@@ -3511,7 +4163,7 @@ def main(argv=None) -> None:
     kernels = []
     for name, (source, replaces, record) in SOURCES.items():
         timed = next(r for r in rows[name] if r["label"] == record)
-        by_path = {p: summary["launches"][name]
+        by_path = {p: summary["launches"][COUNTED_AS.get(name, name)]
                    for p, summary in paths.items()}
         # sorted_gather is the autograd backward of sorted_scatter, which
         # no entry point of the port differentiates (the layer ops carry

@@ -1,8 +1,9 @@
-// Fused single-head attention core for Hopper (sm_90a), forward and
-// backward, for the text encoder's sequences (up to 512 tokens, its
-// tokenizer's limit).
+// Fused attention core for Hopper (sm_90a), forward and backward, for the
+// text encoder's sequences (up to 512 tokens, its tokenizer's limit), with
+// one head or several.
 //
-// Forward, per sequence n (q already multiplied by 1/sqrt(d)):
+// Forward, per sequence n and head h (q already multiplied by
+// 1/sqrt(d), d the head's width):
 //   s[i, j] = q[i] . k[j]            (bf16 inputs, f32 sums)
 //   s[i, j] = -1e9 where key j is padding (valid[n, j] == 0)
 //   p = softmax_j(s)                 (f32)
@@ -12,9 +13,28 @@
 //   ds = 0 at padding keys, dq = bf16(ds) k, dk = bf16(ds)^T q.
 //
 // Replaces: mrgcn_tpu/ops/attention.py::_fwd_kernel and ::_bwd_kernel (the
-// TPU kernels behind fused_attention). Those run G = 8 sequences per step
-// of an in-order grid with the (L, L) probabilities held in VMEM, and pad L
-// and d to 128 and N to a multiple of 8.
+// TPU kernels behind fused_attention, single-head). Those run G = 8
+// sequences per step of an in-order grid with the (L, L) probabilities
+// held in VMEM, and pad L and d to 128 and N to a multiple of 8. With H > 1
+// heads it also replaces the multi-head path of
+// mrgcn_tpu/models/encoders.py::_flash_attention_fn, which calls the Pallas
+// TPU FlashAttention kernels (forward, dq, dkv) on (N, H, L, d) with segment
+// ids from the key mask: the same math on every row a caller can observe
+// (flash lets padding queries attend padding keys; those rows reach no
+// output).
+//
+// Heads: q, k, v (and dout) are (N, L, H, d) as flax lays them out, read
+// by strides through 4-d tensor maps, no permute copy; out, dq, dk, dv are
+// written in the same contiguous layout. Every block owns one (sequence,
+// head) pair: the grid walks (sequence, head, row tile), and the tiling
+// below is the single-head one for every H. A head narrower than 128
+// columns is filled with zeros by the copy engine, and the score products
+// take only the 16-column steps that hold any of it: the kernels are
+// templates on that count (KS = 1, 2, 4, 8 for d up to 16, 32, 64, 128),
+// as a bound known only at run time kept ptxas from issuing a chain's
+// wgmma back to back (#7 at one head 17-34 % slower on the H100). The
+// second products still run over 128 columns, so at H = 8 the tensor
+// cores do 8x the useful work of one 128-wide head.
 //
 // Masking follows the plain chain (xla_attention): a padding key's logit
 // is replaced by -1e9, not offset by it, so a sequence whose keys are all
@@ -75,7 +95,7 @@
 //    L <= 128) both stay in the ring and walk 2 loads nothing. D is summed
 //    from the same dp the second walk meets, so a row with one valid key
 //    has ds = 0 exactly, as the plain version has. Each row's (max,
-//    1 / sum, D) goes to f32 scratch (3, N, L).
+//    1 / sum, D) goes to f32 scratch (3, N H, L).
 //  * Backward, dk / dv kernel: key-major. It owns 64 key rows and walks
 //    all query tiles with their rows' statistics, recomputes s^T = k q^T
 //    and dp^T = v do^T 32 queries at a time, and so holds p^T and ds^T in
@@ -86,6 +106,7 @@
 //  * Deterministic: every output element is summed by one thread in a
 //    fixed order; no atomics on device memory.
 //  * Limits: L <= 512, d <= 128 and a multiple of 8 (the wrapper checks).
+//    Heads: H >= 1.
 
 #include <math.h>
 
@@ -110,13 +131,15 @@ constexpr int kTileBytes = 2 * kBoxBytes;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMasked = -1e9f * kLog2e;   // a padding key's logit, log2 units
 
-// s = X[rows 0..63] Y[rows y0..y0+8 NT-1]^T over the tiles' 128 columns
-template <int NT>
+// s = X[rows 0..63] Y[rows y0..y0+8 NT-1]^T over the tiles' first 16 KS
+// columns (the others hold zeros)
+template <int NT, int KS>
 __device__ __forceinline__ void issue_scores(float (&s)[NT][4], const char* X,
                                              const char* Y, int y0) {
     static_assert(NT == 8 || NT == 4, "64 or 32 columns");
+    static_assert(KS >= 1 && KS <= kMaxD / 16, "1 to 8 k steps");
 #pragma unroll
-    for (int kk = 0; kk < kMaxD / 16; ++kk) {
+    for (int kk = 0; kk < KS; ++kk) {
         if constexpr (NT == 8)
             wgmma_ss_n64(s, desc_k_major(X, 0, kk), desc_k_major(Y, y0, kk),
                          kk > 0);
@@ -226,13 +249,14 @@ __device__ __forceinline__ float prob(float x, float m) {
 
 // The warpgroup's 64 rows of acc (each times scale[row half]) as bf16 into
 // a shared tile no product reads any more (rows of 256 bytes, the 16-byte
-// chunk c of row r at chunk c ^ (r % 8)), then to rows row0.. of a
-// contiguous (L, d) matrix, 16 bytes a thread. A warp writes and reads
-// back only its own 16 rows.
+// chunk c of row r at chunk c ^ (r % 8)), then to rows row0.. of an
+// (L, d) matrix, 16 bytes a thread. A warp writes and reads
+// back only its own 16 rows. Rows of dst are ld elements apart.
 __device__ __forceinline__ void store_rows(bf16* dst, char* S,
                                            const float (&acc)[kDimTiles][4],
                                            float scale0, float scale1,
-                                           int row0, int L, int d) {
+                                           int row0, int L, int d,
+                                           long long ld) {
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
     char* mine = S + 16 * warp * 256;          // rows 16 warp .. + 15
@@ -251,7 +275,7 @@ __device__ __forceinline__ void store_rows(bf16* dst, char* S,
         const int c = (i >> 3) & 15;
         const int r = row0 + 16 * warp + rl;
         if (r < L && c * 8 < d)
-            *reinterpret_cast<uint4*>(dst + (long long)r * d + c * 8) =
+            *reinterpret_cast<uint4*>(dst + (long long)r * ld + c * 8) =
                 *reinterpret_cast<const uint4*>(
                     mine + rl * 256 + ((c ^ (rl & 7)) << 4));
     }
@@ -260,7 +284,7 @@ __device__ __forceinline__ void store_rows(bf16* dst, char* S,
 // One key tile of the forward for a warpgroup's 64 query rows (tile Qw):
 // scores against Ks, the online softmax update of (m, l) and of the
 // accumulator o, then o += p Vs. First: nothing is accumulated yet.
-template <bool Full>
+template <bool Full, int KS>
 __device__ __forceinline__ void forward_tile(float (&o)[kDimTiles][4],
                                              float (&m)[2], float (&l)[2],
                                              const char* Qw, const char* Ks,
@@ -269,7 +293,7 @@ __device__ __forceinline__ void forward_tile(float (&o)[kDimTiles][4],
                                              bool first) {
     float s[kTile / 8][4];
     wgmma_fence();
-    issue_scores<kTile / 8>(s, Qw, Ks, 0);
+    issue_scores<kTile / 8, KS>(s, Qw, Ks, 0);
     wgmma_commit();
     wgmma_wait(s);
     float mt[2];
@@ -311,17 +335,21 @@ __device__ __forceinline__ void forward_tile(float (&o)[kDimTiles][4],
 }
 
 // ---------------------------------------------------------------------------
-// Forward: a block of two warpgroups owns 128 query rows of one sequence
-// (64 a warpgroup) and walks the live key tiles with an online softmax.
+// Forward: a block of two warpgroups owns 128 query rows of one head of
+// one sequence (64 a warpgroup) and walks the live key tiles with an
+// online softmax. KS: the score products' k steps (16 columns each).
 // ---------------------------------------------------------------------------
 constexpr int kFwdWarpgroups = 2;
+template <int KS>
 __global__ void __launch_bounds__(kFwdWarpgroups * kThreads, 2)
 attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v,
                      const uint8_t* __restrict__ valid,
-                     bf16* __restrict__ out, int L, int d, int row_tiles) {
-    const int n = blockIdx.x / row_tiles;
+                     bf16* __restrict__ out, int L, int H, int d,
+                     int row_tiles) {
+    const int seq = blockIdx.x / row_tiles;      // (sequence, head)
+    const int n = seq / H, h = seq % H;
     const int q0 = (blockIdx.x % row_tiles) * (kFwdWarpgroups * kTile);
     extern __shared__ __align__(1024) char smem[];
     char* Qs = smem;                   // a tile a warpgroup
@@ -340,8 +368,8 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
         mbar_expect(&bars[0], kFwdWarpgroups * kTileBytes);
 #pragma unroll
         for (int w = 0; w < kFwdWarpgroups; ++w)
-            load_tile(Qs + w * kTileBytes, &map_q, &bars[0], q0 + w * kTile,
-                      n);
+            load_tile_head(Qs + w * kTileBytes, &map_q, &bars[0],
+                           q0 + w * kTile, n, h);
     }
     // (its barriers order the other threads after the initialisation)
     const KeyPlan plan =
@@ -352,8 +380,9 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
             char* Ks = ring + (i & 1) * 2 * kTileBytes;
             uint64_t* bar = &bars[1 + (i & 1)];
             mbar_expect(bar, 2 * kTileBytes);
-            load_tile(Ks, &map_k, bar, tiles[i] * kTile, n);
-            load_tile(Ks + kTileBytes, &map_v, bar, tiles[i] * kTile, n);
+            load_tile_head(Ks, &map_k, bar, tiles[i] * kTile, n, h);
+            load_tile_head(Ks + kTileBytes, &map_v, bar, tiles[i] * kTile, n,
+                           h);
         }
     };
     issue(0);
@@ -378,11 +407,11 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
             const char* Ks = ring + (i & 1) * 2 * kTileBytes;
             const signed char* ok = key_ok + tiles[i] * kTile + 2 * t;
             if ((plan.full >> tiles[i]) & 1u)
-                forward_tile<true>(o, m, l, Qw, Ks, Ks + kTileBytes, ok,
-                                   i == 0);
+                forward_tile<true, KS>(o, m, l, Qw, Ks, Ks + kTileBytes, ok,
+                                       i == 0);
             else
-                forward_tile<false>(o, m, l, Qw, Ks, Ks + kTileBytes, ok,
-                                    i == 0);
+                forward_tile<false, KS>(o, m, l, Qw, Ks, Ks + kTileBytes, ok,
+                                        i == 0);
         }
         __syncthreads();               // the stage is free
         issue(i + 2);
@@ -390,8 +419,8 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     if (!active) return;
     const float inv0 = 1.f / quad_sum(l[0]);
     const float inv1 = 1.f / quad_sum(l[1]);
-    store_rows(out + (long long)n * L * d, Qw, o, inv0, inv1,
-               q0 + wg * kTile, L, d);
+    store_rows(out + ((long long)n * L * H + h) * d, Qw, o, inv0, inv1,
+               q0 + wg * kTile, L, d, (long long)H * d);
 }
 
 // One key tile of the dq kernel's first walk: the rows' running max, sum
@@ -454,10 +483,12 @@ __device__ __forceinline__ void ds_tile_rows(float (&sc)[kTile / 8][4],
 }
 
 // ---------------------------------------------------------------------------
-// Backward, dq: a block owns 64 query rows and walks the live key tiles
-// twice: first each row's max, sum and D, then ds and dq. The rows'
-// (max, 1 / sum, D) go to stats (3, N, L) for the dk / dv kernel.
+// Backward, dq: a block owns 64 query rows of one head of one sequence and
+// walks the live key tiles twice: first each row's max, sum and D, then ds
+// and dq. The rows' (max, 1 / sum, D) go to stats (3, N H, L) for the
+// dk / dv kernel.
 // ---------------------------------------------------------------------------
+template <int KS>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
@@ -465,9 +496,11 @@ attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_do,
                         const uint8_t* __restrict__ valid,
                         bf16* __restrict__ dq, float* __restrict__ stats,
-                        int N, int L, int d, int row_tiles) {
-    const int n = blockIdx.x / row_tiles;
+                        int N, int L, int H, int d, int row_tiles) {
+    const int seq = blockIdx.x / row_tiles;      // (sequence, head)
+    const int n = seq / H, h = seq % H;
     const int q0 = (blockIdx.x % row_tiles) * kTile;
+    const long long NH = (long long)N * H;
     extern __shared__ __align__(1024) char smem[];
     char* Qs = smem;
     char* dOs = Qs + kTileBytes;
@@ -483,8 +516,8 @@ attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
         for (int b = 0; b < 1 + kStages; ++b) mbar_init(&bars[b], 1);
         mbar_init_fence();
         mbar_expect(&bars[0], 2 * kTileBytes);
-        load_tile(Qs, &map_q, &bars[0], q0, n);
-        load_tile(dOs, &map_do, &bars[0], q0, n);
+        load_tile_head(Qs, &map_q, &bars[0], q0, n, h);
+        load_tile_head(dOs, &map_do, &bars[0], q0, n, h);
     }
     const KeyPlan plan =
         plan_key_tiles(key_ok, tiles, bits, valid + (long long)n * L, L);
@@ -501,8 +534,9 @@ attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
             char* Ks = ring + (s & 1) * 2 * kTileBytes;
             uint64_t* bar = &bars[1 + (s & 1)];
             mbar_expect(bar, 2 * kTileBytes);
-            load_tile(Ks, &map_k, bar, tiles[i] * kTile, n);
-            load_tile(Ks + kTileBytes, &map_v, bar, tiles[i] * kTile, n);
+            load_tile_head(Ks, &map_k, bar, tiles[i] * kTile, n, h);
+            load_tile_head(Ks + kTileBytes, &map_v, bar, tiles[i] * kTile, n,
+                           h);
         }
     };
     issue(0);
@@ -524,9 +558,9 @@ attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
         if (loads(s)) mbar_wait(&bars[1 + (s & 1)], (s >> 1) & 1);
         if (s == count) {
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                l[h] = 1.f / quad_sum(l[h]);
-                D[h] = quad_sum(D[h]) * l[h];
+            for (int r = 0; r < 2; ++r) {
+                l[r] = 1.f / quad_sum(l[r]);
+                D[r] = quad_sum(D[r]) * l[r];
             }
         }
         const int i = s < count ? s : s - count;
@@ -537,8 +571,8 @@ attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
         const bool full = (plan.full >> tiles[i]) & 1u;
         float sc[kTile / 8][4], dp[kTile / 8][4];
         wgmma_fence();
-        issue_scores<kTile / 8>(sc, Qs, Ks, 0);
-        issue_scores<kTile / 8>(dp, dOs, Vs, 0);
+        issue_scores<kTile / 8, KS>(sc, Qs, Ks, 0);
+        issue_scores<kTile / 8, KS>(dp, dOs, Vs, 0);
         wgmma_commit();
         wgmma_wait(sc);
         wgmma_wait(dp);
@@ -563,17 +597,18 @@ attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     if (t == 0) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int row = q0 + 16 * warp + g + 8 * h;
+        for (int r = 0; r < 2; ++r) {
+            const int row = q0 + 16 * warp + g + 8 * r;
             if (row < L) {
-                const long long i = (long long)n * L + row;
-                stats[i] = m[h];
-                stats[(long long)N * L + i] = l[h];
-                stats[2LL * N * L + i] = D[h];
+                const long long i = (long long)seq * L + row;
+                stats[i] = m[r];
+                stats[NH * L + i] = l[r];
+                stats[2 * NH * L + i] = D[r];
             }
         }
     }
-    store_rows(dq + (long long)n * L * d, Qs, acc, 1.f, 1.f, q0, L, d);
+    store_rows(dq + ((long long)n * L * H + h) * d, Qs, acc, 1.f, 1.f, q0, L,
+               d, (long long)H * d);
 }
 
 // p^T into sc and ds^T into dp for 32 query columns of the key-major
@@ -606,12 +641,13 @@ __device__ __forceinline__ void ds_tile_columns(float (&sc)[4][4],
 }
 
 // ---------------------------------------------------------------------------
-// Backward, dk and dv: key-major. A block owns 64 key rows and walks all
-// query tiles with their (max, 1 / sum, D) from stats: s^T = k q^T and
-// dp^T = v do^T give p^T and ds^T in registers, the A operands of
-// dv += p^T do and dk += ds^T q. A key tile without a valid key (in a
-// sequence that has one) gets zeros.
+// Backward, dk and dv: key-major. A block owns 64 key rows of one head of
+// one sequence and walks all query tiles with their (max, 1 / sum, D) from
+// stats: s^T = k q^T and dp^T = v do^T give p^T and ds^T in registers, the
+// A operands of dv += p^T do and dk += ds^T q. A key tile without a valid
+// key (in a sequence that has one) gets zeros.
 // ---------------------------------------------------------------------------
+template <int KS>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
                          const __grid_constant__ CUtensorMap map_k,
@@ -620,9 +656,12 @@ attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
                          const uint8_t* __restrict__ valid,
                          const float* __restrict__ stats,
                          bf16* __restrict__ dk, bf16* __restrict__ dv,
-                         int N, int L, int d, int row_tiles) {
-    const int n = blockIdx.x / row_tiles;
+                         int N, int L, int H, int d, int row_tiles) {
+    const int seq = blockIdx.x / row_tiles;      // (sequence, head)
+    const int n = seq / H, h = seq % H;
     const int kt = blockIdx.x % row_tiles;
+    const long long NH = (long long)N * H;
+    const long long ld = (long long)H * d;      // row stride of dk, dv
     const int k0 = kt * kTile;
     extern __shared__ __align__(1024) char smem[];
     char* Ks = smem;
@@ -643,13 +682,14 @@ attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     const KeyPlan plan =
         plan_key_tiles(key_ok, tiles, bits, valid + (long long)n * L, L);
-    const long long base = (long long)n * L * d;
+    const long long base = (long long)n * L * ld + (long long)h * d;
     if (!((plan.walked >> kt) & 1u)) {
         const int vecs = d >> 3;
         const int rows = min(kTile, L - k0);
         const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
         for (int i = threadIdx.x; i < rows * vecs; i += kThreads) {
-            const long long at = base + (long long)k0 * d + (long long)i * 8;
+            const long long at = base + (long long)(k0 + i / vecs) * ld
+                               + (long long)(i % vecs) * 8;
             *reinterpret_cast<uint4*>(dk + at) = zero;
             *reinterpret_cast<uint4*>(dv + at) = zero;
         }
@@ -662,14 +702,14 @@ attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
             char* Qt = ring + (s & 1) * 2 * kTileBytes;
             uint64_t* bar = &bars[1 + (s & 1)];
             mbar_expect(bar, 2 * kTileBytes);
-            load_tile(Qt, &map_q, bar, s * kTile, n);
-            load_tile(Qt + kTileBytes, &map_do, bar, s * kTile, n);
+            load_tile_head(Qt, &map_q, bar, s * kTile, n, h);
+            load_tile_head(Qt + kTileBytes, &map_do, bar, s * kTile, n, h);
         }
     };
     if (threadIdx.x == 0) {
         mbar_expect(&bars[0], 2 * kTileBytes);
-        load_tile(Ks, &map_k, &bars[0], k0, n);
-        load_tile(Vs, &map_v, &bars[0], k0, n);
+        load_tile_head(Ks, &map_k, &bars[0], k0, n, h);
+        load_tile_head(Vs, &map_v, &bars[0], k0, n, h);
     }
     issue(0);
     issue(1);
@@ -683,7 +723,7 @@ attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
             const int i = threadIdx.x + r * kThreads;
             const int row = s * kTile + (i & (kTile - 1));
             ahead[r] = i < 3 * kTile && s < row_tiles && row < L
-                ? stats[(long long)(i / kTile) * N * L + (long long)n * L + row]
+                ? stats[(i / kTile) * NH * L + (long long)seq * L + row]
                 : 0.f;
         }
     };
@@ -724,8 +764,8 @@ attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
         for (int c0 = 0; c0 < kTile; c0 += 32) {
             float sc[4][4], dp[4][4];
             wgmma_fence();
-            issue_scores<4>(sc, Ks, Qt, c0);
-            issue_scores<4>(dp, Vs, dOt, c0);
+            issue_scores<4, KS>(sc, Ks, Qt, c0);
+            issue_scores<4, KS>(dp, Vs, dOt, c0);
             wgmma_commit();
             wgmma_wait(sc);
             wgmma_wait(dp);
@@ -754,8 +794,8 @@ attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
         __syncthreads();               // the stage is free
         issue(s + 2);
     }
-    store_rows(dv + base, Vs, dva, 1.f, 1.f, k0, L, d);
-    store_rows(dk + base, Ks, dka, 1.f, 1.f, k0, L, d);
+    store_rows(dv + base, Vs, dva, 1.f, 1.f, k0, L, d, ld);
+    store_rows(dk + base, Ks, dka, 1.f, 1.f, k0, L, d, ld);
 }
 
 // Shared memory of a block: `resident` resident tiles, the ring of kStages
@@ -765,82 +805,137 @@ size_t block_smem(int resident, int extra) {
 }
 
 // the kernels' limits (the wrapper raises on them with a message)
-bool shape_ok(int N, int L, int d) {
-    return N > 0 && L > 0 && L <= kMaxL && d > 0 && d <= kMaxD && d % 8 == 0;
+bool shape_ok(int N, int L, int H, int d) {
+    return N > 0 && L > 0 && L <= kMaxL && H > 0 && d > 0 && d <= kMaxD
+        && d % 8 == 0;
+}
+
+// The tensor maps of q, k, v: (N, L, H, d) with element strides
+// s[0..2] = (over N, over L, over H), s[3..5] for k, s[6..8] for v
+int make_qkv_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
+                  const void* q, const void* k, const void* v, int N, int L,
+                  int H, int d, const long long* s) {
+    int err = make_map_heads(mq, q, N, L, H, d, s[0], s[1], s[2]);
+    if (!err) err = make_map_heads(mk, k, N, L, H, d, s[3], s[4], s[5]);
+    if (!err) err = make_map_heads(mv, v, N, L, H, d, s[6], s[7], s[8]);
+    return err;
+}
+
+template <int KS>
+int launch_fwd(const CUtensorMap& mq, const CUtensorMap& mk,
+               const CUtensorMap& mv, const void* valid, void* out, int N,
+               int L, int H, int d, cudaStream_t stream) {
+    static bool done[64];
+    const size_t smem = block_smem(kFwdWarpgroups, 0);
+    int err = allow_smem((const void*)attention_fwd_kernel<KS>, smem, done);
+    if (err) return err;
+    const int rows = kFwdWarpgroups * kTile;
+    const int row_tiles = (L + rows - 1) / rows;
+    attention_fwd_kernel<KS><<<(unsigned)N * H * row_tiles,
+                               kFwdWarpgroups * kThreads, smem, stream>>>(
+        mq, mk, mv, (const uint8_t*)valid, (bf16*)out, L, H, d, row_tiles);
+    return (int)cudaGetLastError();
+}
+
+template <int KS>
+int launch_bwd(const CUtensorMap& mq, const CUtensorMap& mk,
+               const CUtensorMap& mv, const CUtensorMap& mdo,
+               const void* valid, void* dq, void* dk, void* dv, void* stats,
+               int N, int L, int H, int d, cudaStream_t stream) {
+    static bool done[2][64];
+    const size_t smem = block_smem(2, kStages * 3 * kTile * sizeof(float));
+    int err = allow_smem((const void*)attention_bwd_dq_kernel<KS>, smem,
+                         done[0]);
+    if (err) return err;
+    err = allow_smem((const void*)attention_bwd_dkv_kernel<KS>, smem,
+                     done[1]);
+    if (err) return err;
+    const int row_tiles = (L + kTile - 1) / kTile;
+    const unsigned grid = (unsigned)N * H * row_tiles;
+    attention_bwd_dq_kernel<KS><<<grid, kThreads, smem, stream>>>(
+        mq, mk, mv, mdo, (const uint8_t*)valid, (bf16*)dq, (float*)stats, N,
+        L, H, d, row_tiles);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    attention_bwd_dkv_kernel<KS><<<grid, kThreads, smem, stream>>>(
+        mq, mk, mv, mdo, (const uint8_t*)valid, (const float*)stats,
+        (bf16*)dk, (bf16*)dv, N, L, H, d, row_tiles);
+    return (int)cudaGetLastError();
+}
+
+// the score products' k steps for head width d: 16 columns a step, rounded
+// up to 1, 2, 4 or 8 (the columns past d are zeros)
+int k_steps(int d) {
+    const int ks = (d + 15) / 16;
+    return ks <= 1 ? 1 : ks <= 2 ? 2 : ks <= 4 ? 4 : 8;
 }
 
 }  // namespace
 
 extern "C" {
 
-// f32 scratch the backward needs: each row's (max, 1 / sum, D)
-long long mrgcn_attention_bwd_scratch_floats(int N, int L) {
-    return 3LL * N * L;
+// f32 scratch the backward needs: each row's (max, 1 / sum, D) for every
+// (sequence, head)
+long long mrgcn_attention_bwd_scratch_floats(int N, int L, int H) {
+    return 3LL * N * L * H;
 }
 
-// q, k, v: (N, L, d) bf16 with the given element strides over N and L
-// (multiples of 8), a contiguous last dim and a 16-byte aligned start;
-// valid: (N, L) uint8; out: contiguous (N, L, d). One block of two
-// warpgroups per (sequence, 128 query rows). Launches on `stream`; returns
-// a cudaError_t (0 on success).
+// q, k, v: (N, L, H, d) bf16 with element strides `strides` (q's over N,
+// L and H, then k's, then v's; multiples of 8), a contiguous last dim and a
+// 16-byte aligned start; valid: (N, L) uint8; out: contiguous (N, L, H, d).
+// One block of two warpgroups per (sequence, head, 128 query rows).
+// Launches on `stream`; returns a cudaError_t (0 on success).
 int mrgcn_attention_fwd_bf16(const void* q, const void* k, const void* v,
                              const void* valid, void* out, int N, int L,
-                             int d, long long q_sn, long long q_sl,
-                             long long k_sn, long long k_sl, long long v_sn,
-                             long long v_sl, void* stream) {
-    static bool done[64];
-    if (!shape_ok(N, L, d)) return (int)cudaErrorInvalidValue;
-    const size_t smem = block_smem(kFwdWarpgroups, 0);
-    int err = allow_smem((const void*)attention_fwd_kernel, smem, done);
+                             int H, int d, const long long* strides,
+                             void* stream) {
+    if (!shape_ok(N, L, H, d)) return (int)cudaErrorInvalidValue;
+    // binds the device's context to this thread before the tensor maps are
+    // encoded (a libcuda call: autograd's worker threads may lack it)
+    int err = (int)cudaFree(nullptr);
     if (err) return err;
     CUtensorMap mq, mk, mv;
-    if ((err = make_map(&mq, q, N, L, d, q_sn, q_sl))) return err;
-    if ((err = make_map(&mk, k, N, L, d, k_sn, k_sl))) return err;
-    if ((err = make_map(&mv, v, N, L, d, v_sn, v_sl))) return err;
-    const int rows = kFwdWarpgroups * kTile;
-    const int row_tiles = (L + rows - 1) / rows;
-    attention_fwd_kernel<<<(unsigned)N * row_tiles,
-                           kFwdWarpgroups * kThreads, smem,
-                           (cudaStream_t)stream>>>(
-        mq, mk, mv, (const uint8_t*)valid, (bf16*)out, L, d, row_tiles);
-    return (int)cudaGetLastError();
+    if ((err = make_qkv_maps(&mq, &mk, &mv, q, k, v, N, L, H, d, strides)))
+        return err;
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (k_steps(d)) {
+        case 1: return launch_fwd<1>(mq, mk, mv, valid, out, N, L, H, d, s);
+        case 2: return launch_fwd<2>(mq, mk, mv, valid, out, N, L, H, d, s);
+        case 4: return launch_fwd<4>(mq, mk, mv, valid, out, N, L, H, d, s);
+        default: return launch_fwd<8>(mq, mk, mv, valid, out, N, L, H, d, s);
+    }
 }
 
-// As the forward, plus dout (contiguous (N, L, d)) in and dq, dk, dv
-// (contiguous (N, L, d) bf16) out; stats: f32 scratch of
-// mrgcn_attention_bwd_scratch_floats(N, L). Two launches: dq (and the
-// rows' statistics), then dk and dv, one block per (sequence, 64 rows).
+// As the forward, plus dout (contiguous (N, L, H, d)) in and dq, dk, dv
+// (contiguous (N, L, H, d) bf16) out; stats: f32 scratch of
+// mrgcn_attention_bwd_scratch_floats(N, L, H). Two launches: dq (and the
+// rows' statistics), then dk and dv, one block per (sequence, head, 64
+// rows).
 int mrgcn_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              const void* valid, const void* dout, void* dq,
                              void* dk, void* dv, void* stats, int N, int L,
-                             int d, long long q_sn, long long q_sl,
-                             long long k_sn, long long k_sl, long long v_sn,
-                             long long v_sl, void* stream) {
-    static bool done[2][64];
-    if (!shape_ok(N, L, d)) return (int)cudaErrorInvalidValue;
-    const size_t smem = block_smem(2, kStages * 3 * kTile * sizeof(float));
-    int err = allow_smem((const void*)attention_bwd_dq_kernel, smem, done[0]);
-    if (err) return err;
-    err = allow_smem((const void*)attention_bwd_dkv_kernel, smem, done[1]);
+                             int H, int d, const long long* strides,
+                             void* stream) {
+    if (!shape_ok(N, L, H, d)) return (int)cudaErrorInvalidValue;
+    int err = (int)cudaFree(nullptr);     // as in the forward
     if (err) return err;
     CUtensorMap mq, mk, mv, mdo;
-    if ((err = make_map(&mq, q, N, L, d, q_sn, q_sl))) return err;
-    if ((err = make_map(&mk, k, N, L, d, k_sn, k_sl))) return err;
-    if ((err = make_map(&mv, v, N, L, d, v_sn, v_sl))) return err;
-    if ((err = make_map(&mdo, dout, N, L, d, (long long)L * d, d)))
+    if ((err = make_qkv_maps(&mq, &mk, &mv, q, k, v, N, L, H, d, strides)))
+        return err;
+    if ((err = make_map_heads(&mdo, dout, N, L, H, d, (long long)L * H * d,
+                              (long long)H * d, d)))
         return err;
     cudaStream_t s = (cudaStream_t)stream;
-    const int row_tiles = (L + kTile - 1) / kTile;
-    const unsigned grid = (unsigned)N * row_tiles;
-    attention_bwd_dq_kernel<<<grid, kThreads, smem, s>>>(
-        mq, mk, mv, mdo, (const uint8_t*)valid, (bf16*)dq, (float*)stats, N,
-        L, d, row_tiles);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-    attention_bwd_dkv_kernel<<<grid, kThreads, smem, s>>>(
-        mq, mk, mv, mdo, (const uint8_t*)valid, (const float*)stats,
-        (bf16*)dk, (bf16*)dv, N, L, d, row_tiles);
-    return (int)cudaGetLastError();
+    switch (k_steps(d)) {
+        case 1: return launch_bwd<1>(mq, mk, mv, mdo, valid, dq, dk, dv,
+                                     stats, N, L, H, d, s);
+        case 2: return launch_bwd<2>(mq, mk, mv, mdo, valid, dq, dk, dv,
+                                     stats, N, L, H, d, s);
+        case 4: return launch_bwd<4>(mq, mk, mv, mdo, valid, dq, dk, dv,
+                                     stats, N, L, H, d, s);
+        default: return launch_bwd<8>(mq, mk, mv, mdo, valid, dq, dk, dv,
+                                      stats, N, L, H, d, s);
+    }
 }
 
 const char* mrgcn_attention_error_string(int code) {

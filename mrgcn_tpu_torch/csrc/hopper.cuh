@@ -88,6 +88,31 @@ __device__ __forceinline__ void load_tile(char* dst, const CUtensorMap* map,
         tma_load_box(dst + box * kBoxBytes, map, bar, box * 64, row, n);
 }
 
+// One box of a 4-d tensor map, at coordinates (c0 innermost, .., c3).
+__device__ __forceinline__ void tma_load_box_4d(char* dst,
+                                                const CUtensorMap* map,
+                                                uint64_t* bar, int c0, int c1,
+                                                int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier"
+        "::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+        :: "r"(shared_address(dst)), "l"((uint64_t)map),
+           "r"(shared_address(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+// Rows row.. (64) x all 128 columns of head h of sequence n of a mapped
+// (N, L, H, d) tensor (make_map_heads) into a shared tile (two boxes);
+// zeros outside (L, d). One thread calls it.
+__device__ __forceinline__ void load_tile_head(char* dst,
+                                               const CUtensorMap* map,
+                                               uint64_t* bar, int row, int n,
+                                               int h) {
+#pragma unroll
+    for (int box = 0; box < 2; ++box)
+        tma_load_box_4d(dst + box * kBoxBytes, map, bar, box * 64, h, row, n);
+}
+
 // orders this thread's generic-proxy accesses of shared memory before
 // later async-proxy ones (wgmma operand reads, TMA writes)
 __device__ __forceinline__ void fence_proxy_async() {
@@ -340,33 +365,62 @@ typedef CUresult (*EncodeTiled)(
     CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
     CUtensorMapFloatOOBfill);
 
-// The tensor map of an (N, L, d) bf16 tensor with element strides
-// (sn, sl, 1): boxes of 64 rows x 64 columns of one sequence in the
-// 128-byte swizzle, zeros outside the tensor. libcuda's encoder is taken
-// through the runtime, so nothing links against libcuda.
-inline int make_map(CUtensorMap* map, const void* base, int N, int L, int d,
-                    long long sn, long long sl) {
+// libcuda's tensor-map encoder, taken through the runtime, so nothing links
+// against libcuda; nullptr where the driver lacks it
+inline EncodeTiled tensor_map_encoder() {
     static EncodeTiled encode = nullptr;
     if (!encode) {
         void* fn = nullptr;
         cudaDriverEntryPointQueryResult found;
-        int err = (int)cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                               cudaEnableDefault, &found);
-        if (err) return err;
-        if (found != cudaDriverEntryPointSuccess || !fn)
-            return (int)cudaErrorSymbolNotFound;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                    cudaEnableDefault, &found) != cudaSuccess
+            || found != cudaDriverEntryPointSuccess)
+            return nullptr;
         encode = (EncodeTiled)fn;
     }
-    const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)L, (cuuint64_t)N};
-    const cuuint64_t strides[2] = {(cuuint64_t)sl * 2, (cuuint64_t)sn * 2};
-    const cuuint32_t box[3] = {64, kBoxRows, 1};
-    const cuuint32_t steps[3] = {1, 1, 1};
+    return encode;
+}
+
+// A bf16 tensor map of `rank` dims (sizes innermost first, the element
+// strides of the outer ones) read in boxes of sizes `box`, in the 128-byte
+// swizzle, zeros outside the tensor.
+inline int encode_map(CUtensorMap* map, const void* base, int rank,
+                      const cuuint64_t* dims, const long long* strides,
+                      const cuuint32_t* box) {
+    EncodeTiled encode = tensor_map_encoder();
+    if (!encode) return (int)cudaErrorSymbolNotFound;
+    cuuint64_t bytes[4];
+    for (int i = 0; i + 1 < rank; ++i) bytes[i] = (cuuint64_t)strides[i] * 2;
+    const cuuint32_t steps[4] = {1, 1, 1, 1};
     const CUresult rc = encode(
-        map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-        dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+        map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+        const_cast<void*>(base), dims, bytes, box, steps,
+        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The tensor map of an (N, L, d) bf16 tensor with element strides
+// (sn, sl, 1): boxes of 64 rows x 64 columns of one sequence.
+inline int make_map(CUtensorMap* map, const void* base, int N, int L, int d,
+                    long long sn, long long sl) {
+    const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)L, (cuuint64_t)N};
+    const long long strides[2] = {sl, sn};
+    const cuuint32_t box[3] = {64, kBoxRows, 1};
+    return encode_map(map, base, 3, dims, strides, box);
+}
+
+// The tensor map of an (N, L, H, d) bf16 tensor with element strides
+// (sn, sl, sh, 1): boxes of 64 rows x 64 columns of one head of one
+// sequence (the layout of a box in shared memory is make_map's).
+inline int make_map_heads(CUtensorMap* map, const void* base, int N, int L,
+                          int H, int d, long long sn, long long sl,
+                          long long sh) {
+    const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)H, (cuuint64_t)L,
+                                (cuuint64_t)N};
+    const long long strides[3] = {sh, sl, sn};
+    const cuuint32_t box[4] = {64, 1, kBoxRows, 1};
+    return encode_map(map, base, 4, dims, strides, box);
 }
 
 }  // namespace hopper

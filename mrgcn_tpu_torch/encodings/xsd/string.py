@@ -3,15 +3,23 @@
 The port's copy of the run-time part of
 :mod:`mrgcn_tpu.encodings.xsd.string`: the byte-level tokenizer
 (vocab 259 = 256 bytes + PAD/CLS/SEP) that feeds the from-scratch text
-encoder, the lookup of a locally cached HuggingFace tokenizer, and the pad
-symbol. The vectorizer (``generate_features``) belongs to the ETL and is
-not ported.
+encoder, and the pad symbol. Where the feature's configured HuggingFace
+tokenizer is on disk (a directory or the hub cache, with its
+``config.json`` or ``tokenizer_config.json`` and its ``vocab.txt`` or
+``tokenizer.json``: what transformers' offline ``AutoTokenizer`` needs),
+the pad symbol is that tokenizer's id of the pad token, read from its
+vocabulary without transformers. The vectorizer (``generate_features``)
+belongs to the ETL and is not ported.
 """
 
 from __future__ import annotations
 
+import json
 import logging
-from typing import Dict, List
+from pathlib import Path
+from typing import Dict, List, Optional
+
+from mrgcn_tpu_torch.utils.hf import snapshot_dir
 
 logger = logging.getLogger(__name__)
 
@@ -41,40 +49,53 @@ class ByteTokenizer:
         return ids
 
 
-def load_tokenizer(feature_config: Dict):
-    """Resolve the tokenizer for a string-family feature config.
+def _vocabulary(directory: Path) -> Optional[Dict[str, int]]:
+    """Token -> id of a tokenizer directory: ``tokenizer.json``'s model
+    vocabulary and added tokens, else ``vocab.txt``'s lines."""
+    if (directory / "tokenizer.json").is_file():
+        spec = json.loads((directory / "tokenizer.json").read_text())
+        vocab = dict((spec.get("model") or {}).get("vocab") or {})
+        vocab.update({t["content"]: t["id"]
+                      for t in spec.get("added_tokens", [])})
+        return vocab
+    if (directory / "vocab.txt").is_file():
+        lines = (directory / "vocab.txt").read_text(
+            encoding="utf-8").splitlines()
+        return {token: i for i, token in enumerate(lines)}
+    return None
 
-    Tries the configured HuggingFace tokenizer from the local cache only
-    ; falls back to :class:`ByteTokenizer`.
-    """
+
+def load_vocabulary(feature_config: Dict) -> Optional[Dict[str, int]]:
+    """The vocabulary of the feature's configured HuggingFace tokenizer
+    where its files are on disk, else None (the byte-level tokenizer is
+    used). Nothing is fetched."""
     tok_cfg = feature_config.get("tokenizer")
-    if tok_cfg and "config" in tok_cfg:
-        spec = tok_cfg["config"]
-        # hub spec format: [repo, kind, model_name, ...] — take the model name
-        # (reference: mrgcn/models/utils.py:32-44)
-        name = next((s for s in reversed(spec) if "=" not in s), None)
-        if name:
-            try:
-                from mrgcn_tpu_torch.utils.hf import force_hf_offline
-                force_hf_offline()
-                from transformers import AutoTokenizer
-                tokenizer = AutoTokenizer.from_pretrained(
-                    name, local_files_only=True)
-                if tokenizer.pad_token is None and "pad_token" in tok_cfg:
-                    tokenizer.add_special_tokens(
-                        {"pad_token": tok_cfg["pad_token"]})
-                logger.info("Using HuggingFace tokenizer %s", name)
-                return tokenizer
-            except Exception:  # offline / not cached
-                logger.info("Pretrained tokenizer %s unavailable; "
-                            "using byte-level tokenizer", name)
-    return ByteTokenizer()
+    if not (tok_cfg and "config" in tok_cfg):
+        return None
+    # hub spec format: [repo, kind, model_name, ...] — take the model name
+    # (reference: mrgcn/models/utils.py:32-44)
+    name = next((s for s in reversed(tok_cfg["config"]) if "=" not in s),
+                None)
+    directory = snapshot_dir(name) if name else None
+    if directory is None or not any(
+            (directory / f).is_file()
+            for f in ("config.json", "tokenizer_config.json")):
+        logger.info("Pretrained tokenizer %s unavailable; using byte-level "
+                    "tokenizer", name)
+        return None
+    vocab = _vocabulary(directory)
+    if vocab is not None:
+        logger.info("Using HuggingFace tokenizer %s", name)
+    return vocab
 
 
 def pad_symbol_for(feature_config: Dict) -> int:
-    """The token id used for padding (reference: models/utils.py:61-65)."""
-    tokenizer = load_tokenizer(feature_config)
-    if isinstance(tokenizer, ByteTokenizer):
-        return tokenizer.pad_token_id
+    """The token id used for padding (reference: models/utils.py:61-65):
+    the configured tokenizer's id of its ``pad_token`` (a token it lacks
+    is added after its vocabulary, as transformers adds it), or the
+    byte-level tokenizer's PAD."""
+    vocab = load_vocabulary(feature_config)
+    if vocab is None:
+        return ByteTokenizer.PAD
     pad_token = feature_config["tokenizer"]["pad_token"]
-    return tokenizer.encode(pad_token, add_special_tokens=False)[0]
+    return vocab.get(pad_token, len(vocab))

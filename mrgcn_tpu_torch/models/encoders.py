@@ -5,11 +5,13 @@ Counterpart of :mod:`mrgcn_tpu.models.encoders`:
 * :class:`MLP` (numeric, boolean and temporal literals): Dense -> Dropout
   -> ReLU per layer, widths interpolated from input to output, kernels and
   biases U(0, 1) (reference: perceptron.py:6-46).
-* :class:`TextEncoder` with its pre-norm :class:`TextBlock` on the
-  single-head ``fused_core`` attention and the fused MLP, the JAX
-  encoder's default path: bf16 body (parameters, LayerNorm statistics and
-  the head stay f32), key-only padding mask, CLS pooling and the
-  reference's head (pre_fc -> ReLU -> dropout -> fc).
+* :class:`TextEncoder` with its pre-norm :class:`TextBlock`: every
+  attention path of the JAX encoder (``ATTN_IMPLS``: its ``qkv``,
+  ``query``/``key``/``value`` or flax multi-head trees, one head or
+  several) on the fused attention core, and the fused MLP; bf16 body
+  (parameters, LayerNorm statistics and the head stay f32), key-only
+  padding mask, CLS pooling and the reference's head (pre_fc -> ReLU ->
+  dropout -> fc).
 * :class:`TCNN` (WKT geometries, ``(N, C, L)``) in sizes S / M / L: f32
   Conv -> :class:`BatchNorm` -> ReLU stacks with max pooling, then the
   reference's head (reference: temporal_cnn.py:6-156).
@@ -24,12 +26,12 @@ Parameter names and layouts are the flax ones (``Dense_0.kernel`` as
 convolution's ``(3, 3, C_in / groups, C_out)``, ...), and the BatchNorm
 running statistics are buffers named as flax's ``batch_stats``
 (``BatchNorm_0.mean``, ``.var``), so the weight bridge maps the two
-packages by path. The other text paths raise ``NotImplementedError``
-naming their ROADMAP item.
+packages by path.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -40,9 +42,6 @@ from mrgcn_tpu_torch.encodings.features import TCNN_LENGTH_L, TCNN_LENGTH_S
 from mrgcn_tpu_torch.models import init as tinit
 from mrgcn_tpu_torch.ops.attention import fused_attention
 from mrgcn_tpu_torch.ops.fused_mlp import fused_mlp
-
-TODO_TEXT = "ROADMAP Queue 1, item 3c (multi-head and xla/flash attention)"
-
 
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``kernel (in, out)``, ``bias (out,)``, computed in
@@ -133,31 +132,139 @@ class DenseParams(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
 
+# TextEncoder's attention paths (the JAX package's ATTN_IMPLS): each names
+# a parameter tree, and every one runs the same attention core
+# (ops/attention.fused_attention); an unknown value raises
+ATTN_IMPLS = ("auto", "xla", "flash", "plain", "plain_fused", "fused_core")
+# the paths whose trees hold one (d, d) projection a role: one head only,
+# and the key-only mask
+SINGLE_HEAD_IMPLS = ("plain", "plain_fused", "fused_core")
+
+
+def resolve_attn_impl(attn_impl: str, num_heads: int,
+                      key_only_mask: bool = True) -> str:
+    """The path ``attn_impl`` takes: ``auto`` is ``fused_core`` with one
+    head and the key-only mask, ``xla`` otherwise
+    (``mrgcn_tpu.models.encoders.TextEncoder``). Raises on an unknown
+    value, and on a single-head path with more heads or the full mask."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"Unknown attn_impl {attn_impl!r} (check "
+                         f"MRGCN_TEXT_ATTN); expected one of {ATTN_IMPLS}")
+    if attn_impl == "auto":
+        return "fused_core" if num_heads == 1 and key_only_mask else "xla"
+    if attn_impl in SINGLE_HEAD_IMPLS and (num_heads != 1
+                                           or not key_only_mask):
+        raise ValueError(f"text attention {attn_impl!r} is single-head "
+                         "with the key-only mask; got "
+                         f"{num_heads} heads, key_only_mask={key_only_mask}")
+    return attn_impl
+
+
+class DenseGeneral(nn.Module):
+    """flax ``nn.DenseGeneral`` over the last axes: ``kernel`` of shape
+    ``(*in_shape, *out_shape)`` (flax's ``lecun_normal`` over the
+    flattened fans), ``bias`` of ``out_shape``, computed in ``dtype``."""
+
+    def __init__(self, in_shape: Tuple[int, ...], out_shape: Tuple[int, ...],
+                 generator: torch.Generator, dtype: torch.dtype):
+        super().__init__()
+        fan_in, fan_out = math.prod(in_shape), math.prod(out_shape)
+        self.kernel = nn.Parameter(tinit.lecun_normal(
+            (fan_in, fan_out), generator).reshape(*in_shape, *out_shape))
+        self.bias = nn.Parameter(torch.zeros(out_shape))
+        self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fan_in = math.prod(self.in_shape)
+        lead = x.shape[:x.dim() - len(self.in_shape)]
+        k = self.kernel.reshape(fan_in, -1).to(self.dtype)
+        y = torch.matmul(x.reshape(*lead, fan_in).to(self.dtype), k)
+        y = y + self.bias.reshape(-1).to(self.dtype)
+        return y.reshape(*lead, *self.out_shape)
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """flax ``nn.MultiHeadDotProductAttention``'s parameters (``query``,
+    ``key``, ``value``: kernel ``(d, h, d / h)``, bias ``(h, d / h)``;
+    ``out``: kernel ``(h, d / h, d)``, bias ``(d,)``) around the attention
+    core on the ``(N, L, h, d / h)`` heads, with the key-only mask: the
+    ``xla`` and ``flash`` paths."""
+
+    def __init__(self, model_dim: int, num_heads: int,
+                 generator: torch.Generator, dtype: torch.dtype):
+        super().__init__()
+        if model_dim % num_heads:
+            raise ValueError(f"{num_heads} heads do not divide "
+                             f"model_dim {model_dim}")
+        heads = (num_heads, model_dim // num_heads)
+        for name in ("query", "key", "value"):
+            setattr(self, name, DenseGeneral((model_dim,), heads, generator,
+                                             dtype))
+        self.out = DenseGeneral(heads, (model_dim,), generator, dtype)
+
+    def forward(self, y: torch.Tensor,
+                keys_valid: torch.Tensor) -> torch.Tensor:
+        out = fused_attention(self.query(y), self.key(y), self.value(y),
+                              keys_valid)
+        return self.out(out.reshape(*y.shape[:2], *self.out.in_shape))
+
+
 class TextBlock(nn.Module):
-    """One pre-norm transformer block: single-head fused attention (one
-    ``(d, 3d)`` QKV product, the fused core, the output Dense) and the
-    fused MLP, each added to the residual stream."""
+    """One pre-norm transformer block: attention (its parameter tree as
+    ``attn_impl`` names it) and the fused MLP, each added to the residual
+    stream.
+
+    * ``fused_core`` / ``plain_fused``: one ``(d, 3d)`` ``qkv`` product,
+      the core, the ``out`` Dense;
+    * ``plain``: ``query`` / ``key`` / ``value`` / ``out`` Dense;
+    * ``xla`` / ``flash``: flax's ``MultiHeadDotProductAttention_0``.
+
+    The core is :func:`..ops.attention.fused_attention` on every path (one
+    head: #6 / #7; several: #12). The MLP's parameters are ``Dense_0`` /
+    ``Dense_1`` whether the JAX package's ``MRGCN_TEXT_MLP`` picks its
+    fused kernel or two Dense layers (the same tree); the port runs the
+    fused MLP either way."""
 
     def __init__(self, model_dim: int, generator: torch.Generator,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 attn_impl: str = "fused_core", num_heads: int = 1):
         super().__init__()
         d = model_dim
         self.model_dim = d
         self.dtype = dtype
+        self.attn_impl = attn_impl
         self.LayerNorm_0 = LayerNorm(d, dtype)
-        self.qkv = Dense(d, 3 * d, generator, dtype=dtype)
-        self.out = Dense(d, d, generator, dtype=dtype)
+        if attn_impl in ("plain_fused", "fused_core"):
+            self.qkv = Dense(d, 3 * d, generator, dtype=dtype)
+        elif attn_impl == "plain":
+            for name in ("query", "key", "value"):
+                setattr(self, name, Dense(d, d, generator, dtype=dtype))
+        else:
+            self.MultiHeadDotProductAttention_0 = \
+                MultiHeadDotProductAttention(d, num_heads, generator, dtype)
+        if attn_impl in SINGLE_HEAD_IMPLS:
+            self.out = Dense(d, d, generator, dtype=dtype)
         self.LayerNorm_1 = LayerNorm(d, dtype)
         self.Dense_0 = DenseParams(d, 4 * d, generator)
         self.Dense_1 = DenseParams(4 * d, d, generator)
 
+    def attention(self, y: torch.Tensor,
+                  keys_valid: torch.Tensor) -> torch.Tensor:
+        d = self.model_dim
+        if self.attn_impl in ("plain_fused", "fused_core"):
+            qkv = self.qkv(y)
+            q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+        elif self.attn_impl == "plain":
+            q, k, v = self.query(y), self.key(y), self.value(y)
+        else:
+            return self.MultiHeadDotProductAttention_0(y, keys_valid)
+        return self.out(fused_attention(q, k, v, keys_valid))
+
     def forward(self, x: torch.Tensor,
                 keys_valid: torch.Tensor) -> torch.Tensor:
-        d, dt = self.model_dim, self.dtype
-        qkv = self.qkv(self.LayerNorm_0(x))
-        y = fused_attention(qkv[..., :d], qkv[..., d:2 * d],
-                            qkv[..., 2 * d:], keys_valid)
-        x = x + self.out(y)
+        dt = self.dtype
+        x = x + self.attention(self.LayerNorm_0(x), keys_valid)
         y = fused_mlp(self.LayerNorm_1(x), self.Dense_0.kernel.to(dt),
                       self.Dense_0.bias.to(dt), self.Dense_1.kernel.to(dt),
                       self.Dense_1.bias.to(dt))
@@ -167,21 +274,25 @@ class TextBlock(nn.Module):
 class TextEncoder(nn.Module):
     """Trainable sequence encoder with CLS pooling and the reference's head
     (pre_fc -> ReLU -> dropout -> fc). Tokens ``(N, L)`` int, ``pad_id``
-    marking padding; returns ``(N, output_dim)`` f32."""
+    marking padding; returns ``(N, output_dim)`` f32.
+
+    ``attn_impl`` (one of ``ATTN_IMPLS``; :func:`resolve_attn_impl`)
+    picks the blocks' attention tree; ``num_heads`` divides
+    ``model_dim``. ``key_only_mask = False`` stands for the JAX encoder's
+    full query x key mask: it gives the same valid rows (its padding query
+    rows reach no output), so the port masks keys alone either way; it
+    only moves ``auto`` to ``xla``, as there."""
 
     def __init__(self, output_dim: int, generator: torch.Generator,
                  vocab_size: int = 259, model_dim: int = 128,
                  num_heads: int = 1, num_layers: int = 2,
                  p_dropout: float = 0.2, max_len: int = 512,
                  pad_id: int = 256, dtype: torch.dtype = torch.bfloat16,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", key_only_mask: bool = True):
         super().__init__()
-        if attn_impl not in ("auto", "fused_core") or num_heads != 1:
-            raise NotImplementedError(
-                f"text attention {attn_impl!r} with {num_heads} head(s): "
-                f"only the single-head fused_core path is ported "
-                f"({TODO_TEXT})")
+        impl = resolve_attn_impl(attn_impl, num_heads, key_only_mask)
         d = model_dim
+        self.attn_impl = impl
         self.pad_id = pad_id
         self.p_dropout = p_dropout
         self.num_layers = num_layers
@@ -191,7 +302,8 @@ class TextEncoder(nn.Module):
         self.pos_embedding = nn.Parameter(tinit.normal(0.02)(
             (max_len, d), generator))
         for i in range(num_layers):
-            setattr(self, f"_TextBlock_{i}", TextBlock(d, generator, dtype))
+            setattr(self, f"_TextBlock_{i}", TextBlock(
+                d, generator, dtype, attn_impl=impl, num_heads=num_heads))
         self.LayerNorm_0 = LayerNorm(d, dtype)
         self.Dense_0 = Dense(d, d, generator,
                              kernel_init=tinit.torch_linear_kernel)

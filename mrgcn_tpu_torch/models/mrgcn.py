@@ -9,28 +9,31 @@ encoder outputs are placed into a dense ``(num_rows, X_width)`` feature
 matrix, which the R-GCN's input layer takes beside its identity weight.
 
 Encoders: the MLPs of numeric, boolean and temporal literals, the
-from-scratch text encoder, the temporal CNN of WKT geometries (``TCNN``,
-size S / M / L as the features' lengths pick it) and the image CNN
-(``ImageCNN``). Their BatchNorm running statistics are buffers of the
-model, so ``state_dict()`` carries them. A pretrained backbone found on
-disk (text or image) raises ``NotImplementedError`` naming its ROADMAP
-item; without one, both packages train the from-scratch encoder.
+temporal CNN of WKT geometries (``TCNN``, size S / M / L as the features'
+lengths pick it), and for strings and images either a frozen pretrained
+backbone with a trainable head (:mod:`.pretrained`: DistilBERT, where the
+string feature names a model whose ``config.json`` and
+``flax_model.msgpack`` are on disk; MobileNetV2, where the image feature
+names a model and a torchvision checkpoint is found through
+``MRGCN_VISION_WEIGHTS`` or the torch.hub cache) or, as in the JAX
+package where there is none, the from-scratch ``TextEncoder`` /
+``ImageCNN``. The BatchNorm running statistics of the trained encoders are
+buffers of the model, so ``state_dict()`` carries them; a frozen backbone
+is in neither ``state_dict()`` nor ``parameters()``.
 """
 
 from __future__ import annotations
 
-import glob
 import os
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from mrgcn_tpu_torch.models import mobilenet, pretrained
 from mrgcn_tpu_torch.models.encoders import MLP, TCNN, ImageCNN, TextEncoder
 from mrgcn_tpu_torch.models.rgcn import RGCN
 from mrgcn_tpu_torch.ops.placement import place_rows, place_rows_pre
-
-TODO_ENCODERS = "ROADMAP Queue 1, item 3c (pretrained backbones)"
 
 # datatypes handled per encoder family (reference: mrgcn.py:63-124)
 _MLP1 = ("xsd.boolean", "xsd.numeric")
@@ -73,48 +76,6 @@ def modality_output_dim(modules_config) -> int:
     return sum(dims)
 
 
-def _hub_model_name(hub_spec) -> Optional[str]:
-    """The model name of a torch.hub-style spec: its last positional
-    entry (``mrgcn_tpu.models.pretrained.hub_model_name``)."""
-    if not hub_spec:
-        return None
-    return next((s for s in reversed(hub_spec)
-                 if isinstance(s, str) and "=" not in s), None)
-
-
-def _backbone_cached(hub_spec) -> bool:
-    """Whether a pretrained language model for ``hub_spec`` is in the
-    local HuggingFace cache: where it is, the JAX package runs it frozen;
-    where it is not, both packages train the from-scratch text encoder."""
-    name = _hub_model_name(hub_spec)
-    if name is None:
-        return False
-    from mrgcn_tpu_torch.utils.hf import force_hf_offline
-    force_hf_offline()
-    try:
-        from transformers import AutoConfig
-        AutoConfig.from_pretrained(name, local_files_only=True)
-    except Exception:    # not installed, or not cached
-        return False
-    return True
-
-
-def _image_checkpoint() -> Optional[str]:
-    """A local MobileNetV2 checkpoint, found without network access:
-    ``MRGCN_VISION_WEIGHTS``, then the torch.hub cache under
-    ``$TORCH_HOME`` (``~/.cache/torch`` by default), as the JAX package
-    looks for one (``mrgcn_tpu.models.mobilenet.find_local_checkpoint``).
-    Where there is one, the JAX package runs it frozen; where there is
-    none, both packages train the from-scratch ``ImageCNN``."""
-    explicit = os.environ.get("MRGCN_VISION_WEIGHTS")
-    if explicit and os.path.exists(explicit):
-        return explicit
-    hub = os.environ.get("TORCH_HOME", os.path.expanduser("~/.cache/torch"))
-    hits = sorted(glob.glob(os.path.join(hub, "hub", "checkpoints",
-                                         "*mobilenet_v2*.pth")))
-    return hits[0] if hits else None
-
-
 class MRGCN(nn.Module):
     """Gated multimodal encoders + R-GCN.
 
@@ -125,7 +86,10 @@ class MRGCN(nn.Module):
     ``(model_config, transform_config, embedding_dim, dropout)``).
     ``forward`` takes
     ``features``: encoder name -> ``(data, node_idx, rows)`` tensors, as
-    :func:`..tasks.common.prepare_inputs` builds them.
+    :func:`..tasks.common.prepare_inputs` builds them. ``text_attn_impl``
+    picks the from-scratch text encoder's attention path (a checkpoint's
+    restore passes the reconciled one); None reads ``MRGCN_TEXT_ATTN``
+    (default ``auto``).
     """
 
     def __init__(self, hidden_dims: Sequence[int], modules_config,
@@ -135,7 +99,8 @@ class MRGCN(nn.Module):
                  use_bias: bool = False, text_vocab_size: int = 259,
                  text_pad_id: int = 256,
                  skip_encoders: Tuple[str, ...] = (),
-                 link_prediction: bool = False):
+                 link_prediction: bool = False,
+                 text_attn_impl: Optional[str] = None):
         super().__init__()
         self.hidden_dims = tuple(hidden_dims)
         self.modules_config = tuple(modules_config)
@@ -152,32 +117,35 @@ class MRGCN(nn.Module):
                               p_dropout=dropout)
             elif datatype in _TEXT:
                 model_cfg, dim_out, dropout = args
-                if model_cfg and _backbone_cached(model_cfg):
-                    raise NotImplementedError(
-                        f"pretrained text backbone {model_cfg}: "
-                        f"{TODO_ENCODERS}")
-                # the JAX package's attention override; only its default
-                # path is ported, the others raise
-                encoder = TextEncoder(
-                    dim_out, generator, vocab_size=text_vocab_size,
-                    pad_id=text_pad_id, p_dropout=dropout,
-                    attn_impl=os.environ.get("MRGCN_TEXT_ATTN", "auto"))
+                backbone = pretrained.load_text_backbone(model_cfg) \
+                    if model_cfg else None
+                if backbone is not None:
+                    encoder = pretrained.PretrainedTextEncoder(
+                        backbone, dim_out, generator, p_dropout=dropout)
+                else:
+                    encoder = TextEncoder(
+                        dim_out, generator, vocab_size=text_vocab_size,
+                        pad_id=text_pad_id, p_dropout=dropout,
+                        attn_impl=text_attn_impl
+                        or os.environ.get("MRGCN_TEXT_ATTN", "auto"))
             elif datatype == "ogc.wktLiteral":
                 feature_size, dim_out, size, dropout = args
                 encoder = TCNN(feature_size, dim_out, generator, size=size,
                                p_dropout=dropout)
             elif datatype == "blob.image":
                 model_cfg, transform, dim_out, dropout = args
-                checkpoint = _image_checkpoint() if model_cfg else None
+                checkpoint = mobilenet.find_local_checkpoint() \
+                    if model_cfg else None
                 if checkpoint is not None:
-                    raise NotImplementedError(
-                        f"pretrained image backbone {checkpoint}: "
-                        f"{TODO_ENCODERS}")
-                # one channel a letter of the image mode, as the image
-                # vectorizer counts them ("RGB": 3, "L": 1)
-                encoder = ImageCNN(dim_out, generator, p_dropout=dropout,
-                                   in_channels=len(transform.get("mode",
-                                                                 "RGB")))
+                    encoder = pretrained.PretrainedImageEncoder(
+                        mobilenet.load_image_backbone(checkpoint), dim_out,
+                        generator, p_dropout=dropout)
+                else:
+                    # one channel a letter of the image mode, as the image
+                    # vectorizer counts them ("RGB": 3, "L": 1)
+                    encoder = ImageCNN(
+                        dim_out, generator, p_dropout=dropout,
+                        in_channels=len(transform.get("mode", "RGB")))
             else:
                 raise ValueError(f"Datatype not supported: {datatype}")
             setattr(self, name, encoder)

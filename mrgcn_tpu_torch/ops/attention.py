@@ -1,11 +1,14 @@
-"""Fused single-head attention core: the CUDA kernels and their plain
-version.
+"""Fused attention core, one head or several: the CUDA kernels and their
+plain version.
 
-Counterpart of :mod:`mrgcn_tpu.ops.attention` (``fused_attention``):
-single-head attention over ``(N, L, d)`` with a key-only padding mask,
-the text encoder's regime. :func:`fused_attention` multiplies ``q`` by
-``1/sqrt(d)`` in the input type before the core, as the JAX wrapper does;
-the core computes
+Counterpart of :mod:`mrgcn_tpu.ops.attention` (``fused_attention``, the
+single-head core, kernels #6 / #7) and of the multi-head attention that
+``mrgcn_tpu.models.encoders._flash_attention_fn`` runs on the Pallas TPU
+FlashAttention kernels (#12): attention over ``(N, L, d)`` (one head) or
+``(N, L, H, d)`` (H heads of width d, flax's layout) with a key-only
+padding mask. :func:`fused_attention` multiplies ``q`` by ``1/sqrt(d)``
+in the input type before the core, as the JAX wrapper does; the core
+computes, for each sequence and head,
 
     s = q k^T (f32), s = -1e9 at padding keys, p = softmax(s) (f32),
     out = bf16(p) v   (f32 sums, cast to the input type)
@@ -13,22 +16,27 @@ the core computes
 and its backward recomputes ``p``. A padding key's logit is replaced by
 -1e9, as the plain chain (``xla_attention``) does, so a sequence whose keys
 are all padding gets a uniform softmax and no logit gradient at its padding
-keys.
+keys. Flash attention's segment ids differ from this key mask at padding
+query rows only (flash lets them attend padding keys); no output reaches
+those rows.
 
 The kernels (``csrc/fused_attention.cu``) are one tiled family for every
-``1 <= L <= 512``: a thread block owns ``KEY_TILE`` rows of one sequence a
-warpgroup and streams the other side through shared memory in tiles of
-``KEY_TILE`` rows, loaded by TMA and multiplied by ``wgmma``. The forward
-runs an online softmax over the key tiles; the backward is two launches,
-``dq`` with each row's softmax statistics, then the key-major ``dk`` /
-``dv``. Key tiles without a valid key are skipped; tiling and launch
-geometry live in the CUDA source alone. :func:`live_key_tiles` states the
-skipping rule in plain PyTorch, for the tests that hold the kernels to it.
+``1 <= L <= 512`` and every head count: a thread block owns ``KEY_TILE``
+rows of one head of one sequence a warpgroup and streams the other side
+through shared memory in tiles of ``KEY_TILE`` rows, loaded by TMA (by
+strides, in the ``(N, L, H, d)`` layout) and multiplied by ``wgmma``. The
+forward runs an online softmax over the key tiles; the backward is two
+launches, ``dq`` with each row's softmax statistics, then the key-major
+``dk`` / ``dv``. Key tiles without a valid key are skipped; tiling and
+launch geometry live in the CUDA source alone. :func:`live_key_tiles`
+states the skipping rule in plain PyTorch, for the tests that hold the
+kernels to it.
 
 CPU tensors take the plain version (:func:`attention_fwd_reference`,
 :func:`attention_bwd_reference`); CUDA tensors launch the kernels or
 raise. ``attention_fwd.launches`` and ``attention_bwd.launches`` count the
-calls that launched.
+single-head calls that launched (#6 / #7), ``.launches_heads`` the calls
+with more than one head (#12).
 """
 
 from __future__ import annotations
@@ -49,11 +57,9 @@ KEY_TILE = 64
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "mrgcn_attention_fwd_bf16": (
-        [_P, _P, _P, _P, _P, _I, _I, _I] + [_LL] * 6 + [_P], _I),
-    "mrgcn_attention_bwd_bf16": (
-        [_P] * 9 + [_I, _I, _I] + [_LL] * 6 + [_P], _I),
-    "mrgcn_attention_bwd_scratch_floats": ([_I, _I], _LL),
+    "mrgcn_attention_fwd_bf16": ([_P] * 5 + [_I] * 4 + [_P, _P], _I),
+    "mrgcn_attention_bwd_bf16": ([_P] * 9 + [_I] * 4 + [_P, _P], _I),
+    "mrgcn_attention_bwd_scratch_floats": ([_I, _I, _I], _LL),
     "mrgcn_attention_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -66,33 +72,55 @@ def _library():
 # plain version
 # --------------------------------------------------------------------------
 
+def heads_first(t: torch.Tensor) -> torch.Tensor:
+    """``(N, L, d)`` -> ``(N, 1, L, d)``; ``(N, L, H, d)`` ->
+    ``(N, H, L, d)`` (a view)."""
+    return t.unsqueeze(1) if t.dim() == 3 else t.transpose(1, 2)
+
+
+def heads_last(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`heads_first` for a tensor shaped as ``like``
+    was."""
+    return t.squeeze(1) if like.dim() == 3 else t.transpose(1, 2)
+
+
+def key_mask(keys_valid: torch.Tensor) -> torch.Tensor:
+    """``(N, L)`` -> ``(N, 1, 1, L)``, against ``(N, H, L, L)`` scores."""
+    return keys_valid[:, None, None, :]
+
+
 def _probabilities(q, k, keys_valid):
-    """f32 softmax of the masked scores, ``exp(s - max) / sum`` as
-    ``jax.nn.softmax`` computes it."""
+    """f32 softmax of the masked scores ``(N, H, L, L)`` of heads-first
+    ``q``, ``k``, ``exp(s - max) / sum`` as ``jax.nn.softmax`` computes
+    it."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    s = torch.where(keys_valid[:, None, :], s, torch.full_like(s, MASKED))
+    s = torch.where(key_mask(keys_valid), s, torch.full_like(s, MASKED))
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     return e / e.sum(dim=-1, keepdim=True)
 
 
 def attention_fwd_reference(q, k, v, keys_valid):
-    """Plain PyTorch version of the forward kernel (``q`` already scaled)."""
-    p = _probabilities(q, k, keys_valid).to(q.dtype)
-    return torch.matmul(p.float(), v.float()).to(q.dtype)
+    """Plain PyTorch version of the forward kernel (``q`` already scaled;
+    ``(N, L, d)`` or ``(N, L, H, d)``)."""
+    qh, kh, vh = map(heads_first, (q, k, v))
+    p = _probabilities(qh, kh, keys_valid).to(q.dtype)
+    return heads_last(torch.matmul(p.float(), vh.float()), q).to(q.dtype)
 
 
 def attention_bwd_reference(q, k, v, keys_valid, d_out):
     """Plain PyTorch version of the backward kernel: ``(dq, dk, dv)``."""
-    p = _probabilities(q, k, keys_valid)
-    do = d_out.to(q.dtype).float()
+    qh, kh, vh = map(heads_first, (q, k, v))
+    p = _probabilities(qh, kh, keys_valid)
+    do = heads_first(d_out.to(q.dtype)).float()
     dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), do)
-    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    dp = torch.matmul(do, vh.float().transpose(-1, -2))
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    ds = torch.where(keys_valid[:, None, :], ds, torch.zeros_like(ds))
+    ds = torch.where(key_mask(keys_valid), ds, torch.zeros_like(ds))
     ds = ds.to(q.dtype).float()
-    dq = torch.matmul(ds, k.float())
-    dk = torch.matmul(ds.transpose(-1, -2), q.float())
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dq = torch.matmul(ds, kh.float())
+    dk = torch.matmul(ds.transpose(-1, -2), qh.float())
+    return (heads_last(dq, q).to(q.dtype), heads_last(dk, q).to(k.dtype),
+            heads_last(dv, q).to(v.dtype))
 
 
 # --------------------------------------------------------------------------
@@ -121,14 +149,20 @@ def live_key_tiles(keys_valid: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def _strides(t: torch.Tensor, name: str):
-    """(stride over N, stride over L) in elements; the kernel reads 16-byte
-    vectors along d."""
-    if t.stride(2) != 1 or t.stride(0) % 8 or t.stride(1) % 8 \
+    """(stride over N, over L, over H) in elements of a ``(N, L, H, d)``
+    view; the kernel reads 16-byte vectors along d."""
+    if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) \
             or t.data_ptr() % 16:
         raise ValueError(f"fused_attention: {name} needs a contiguous last "
                          "dim, strides that are multiples of 8 and a "
                          "16-byte aligned start")
-    return t.stride(0), t.stride(1)
+    # a single head's stride is never stepped; the tensor map takes d
+    sh = t.stride(2) if t.shape[2] > 1 else t.shape[3]
+    return t.stride(0), t.stride(1), sh
+
+
+def _as_heads(t: torch.Tensor) -> torch.Tensor:
+    return t.unsqueeze(2) if t.dim() == 3 else t
 
 
 def _check_cuda_args(q, k, v, keys_valid):
@@ -139,11 +173,11 @@ def _check_cuda_args(q, k, v, keys_valid):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"fused_attention: the kernel takes bf16, "
                             f"{name} is {t.dtype}")
-        if t.dim() != 3 or t.shape != q.shape:
-            raise ValueError(f"fused_attention: {name} must be (N, L, d) "
-                             f"like q {tuple(q.shape)}, got "
+        if t.dim() not in (3, 4) or t.shape != q.shape:
+            raise ValueError(f"fused_attention: {name} must be (N, L, d) or "
+                             f"(N, L, H, d) like q {tuple(q.shape)}, got "
                              f"{tuple(t.shape)}")
-    N, L, d = q.shape
+    N, L, d = q.shape[0], q.shape[1], q.shape[-1]
     if keys_valid.shape != (N, L) or keys_valid.dtype != torch.bool \
             or keys_valid.device != q.device \
             or not keys_valid.is_contiguous():
@@ -154,8 +188,10 @@ def _check_cuda_args(q, k, v, keys_valid):
             f"fused_attention: the kernels take 1 <= L <= {MAX_LEN} (the "
             f"text encoder's tokenizer limit), got {L}")
     if d % 8 or not 0 < d <= MAX_DIM:
-        raise ValueError(f"fused_attention: the kernel takes d a multiple "
-                         f"of 8 up to {MAX_DIM}, got {d}")
+        raise ValueError(f"fused_attention: the kernel takes a head width "
+                         f"that is a multiple of 8 up to {MAX_DIM}, got {d}")
+    if q.dim() == 4 and q.shape[2] < 1:
+        raise ValueError("fused_attention: no heads")
 
 
 def _raise_on(rc: int, lib, what: str) -> None:
@@ -164,69 +200,82 @@ def _raise_on(rc: int, lib, what: str) -> None:
                            + lib.mrgcn_attention_error_string(rc).decode())
 
 
+def _stride_array(q, k, v):
+    strides = [st for name, t in (("q", q), ("k", k), ("v", v))
+               for st in _strides(_as_heads(t), name)]
+    return (ctypes.c_longlong * 9)(*strides)
+
+
+def _count(fn, heads: int) -> None:
+    if heads > 1:
+        fn.launches_heads += 1
+    else:
+        fn.launches += 1
+
+
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   keys_valid: torch.Tensor) -> torch.Tensor:
-    """Forward core on ``(N, L, d)`` inputs (``q`` already scaled),
-    ``keys_valid`` (N, L) bool. CPU: the plain version; CUDA: the kernel
-    (bf16; ``k``/``v`` may be strided slices) or raise."""
+    """Forward core on ``(N, L, d)`` or ``(N, L, H, d)`` inputs (``q``
+    already scaled), ``keys_valid`` (N, L) bool. CPU: the plain version;
+    CUDA: the kernel (bf16; any of them may be a strided view) or
+    raise."""
     if q.device.type == "cpu":
         return attention_fwd_reference(q, k, v, keys_valid)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: no kernel for device {q.device}")
     _check_cuda_args(q, k, v, keys_valid)
     lib = _library()
-    N, L, d = q.shape
-    out = torch.empty((N, L, d), dtype=q.dtype, device=q.device)
+    N, L, H, d = _as_heads(q).shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if N == 0:
         return out
+    strides = _stride_array(q, k, v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.mrgcn_attention_fwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), keys_valid.data_ptr(),
-            out.data_ptr(), N, L, d, *_strides(q, "q"), *_strides(k, "k"),
-            *_strides(v, "v"), stream)
+            out.data_ptr(), N, L, H, d, strides, stream)
     _raise_on(rc, lib, "attention_fwd")
-    attention_fwd.launches += 1
+    _count(attention_fwd, H)
     return out
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   keys_valid: torch.Tensor, d_out: torch.Tensor):
-    """Backward core: ``(dq, dk, dv)`` for the cotangent ``d_out`` (dq is
-    with respect to the scaled ``q``). CPU: the plain version; CUDA: the
-    kernel or raise."""
+    """Backward core: ``(dq, dk, dv)``, shaped as ``q``, for the cotangent
+    ``d_out`` (dq is with respect to the scaled ``q``). CPU: the plain
+    version; CUDA: the kernel or raise."""
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, keys_valid, d_out)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: no kernel for device {q.device}")
     _check_cuda_args(q, k, v, keys_valid)
     lib = _library()
-    N, L, d = q.shape
+    N, L, H, d = _as_heads(q).shape
     do = d_out.to(q.dtype).contiguous()
     if do.shape != q.shape or do.data_ptr() % 16:
-        raise ValueError("fused_attention: d_out must be (N, L, d) like q")
-    dq, dk, dv = (torch.empty((N, L, d), dtype=q.dtype, device=q.device)
+        raise ValueError("fused_attention: d_out must be shaped as q")
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
     if N == 0:
         return dq, dk, dv
     # each row's softmax statistics, from the dq kernel to the dk / dv one
-    stats = torch.empty(lib.mrgcn_attention_bwd_scratch_floats(N, L),
+    stats = torch.empty(lib.mrgcn_attention_bwd_scratch_floats(N, L, H),
                         dtype=torch.float32, device=q.device)
+    strides = _stride_array(q, k, v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.mrgcn_attention_bwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), keys_valid.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats.data_ptr(), N, L, d,
-            *_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"),
-            stream)
+            stats.data_ptr(), N, L, H, d, strides, stream)
     _raise_on(rc, lib, "attention_bwd")
-    attention_bwd.launches += 1
+    _count(attention_bwd, H)
     return dq, dk, dv
 
 
-attention_fwd.launches = 0
-attention_bwd.launches = 0
+attention_fwd.launches = attention_fwd.launches_heads = 0
+attention_bwd.launches = attention_bwd.launches_heads = 0
 
 
 class _AttentionCore(torch.autograd.Function):
@@ -245,10 +294,11 @@ class _AttentionCore(torch.autograd.Function):
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     keys_valid: torch.Tensor) -> torch.Tensor:
-    """Single-head attention with a key-only mask. ``q``/``k``/``v``:
-    ``(N, L, d)``; ``keys_valid``: ``(N, L)`` bool. The true ``1/sqrt(d)``
-    is folded into ``q`` in its own type before the core, as
-    ``mrgcn_tpu.ops.attention.fused_attention`` does."""
+    """Attention with a key-only mask. ``q``/``k``/``v``: ``(N, L, d)``
+    (one head) or ``(N, L, H, d)`` (H heads of width d); ``keys_valid``:
+    ``(N, L)`` bool. The true ``1/sqrt(d)`` is folded into ``q`` in its own
+    type before the core, as ``mrgcn_tpu.ops.attention.fused_attention``
+    and flax's ``dot_product_attention`` do."""
     d = q.shape[-1]
     q = q * torch.tensor(1.0 / math.sqrt(d), dtype=q.dtype)
     return _AttentionCore.apply(q, k, v, keys_valid.contiguous())

@@ -26,7 +26,8 @@ from __future__ import annotations
 
 import torch
 
-from mrgcn_tpu_torch.ops.attention import _probabilities
+from mrgcn_tpu_torch.ops.attention import (_probabilities, heads_first,
+                                           heads_last, key_mask)
 from mrgcn_tpu_torch.ops.fused_mlp import _gelu_tanh_grad, gelu_tanh
 
 RTOL = 2.0 ** -6
@@ -35,17 +36,20 @@ ATOL = 1e-6
 
 def attention_scales(q, k, v, keys_valid, d_out):
     """Scales of ``(out, dq, dk, dv)`` of the attention core (``q``
-    already scaled), as :func:`attention_bwd_reference` forms them."""
-    p = _probabilities(q, k, keys_valid)
-    do = d_out.to(q.dtype).float()
-    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    already scaled; ``(N, L, d)`` or ``(N, L, H, d)``), as
+    :func:`attention_bwd_reference` forms them."""
+    qh, kh, vh = map(heads_first, (q, k, v))
+    p = _probabilities(qh, kh, keys_valid)
+    do = heads_first(d_out.to(q.dtype)).float()
+    dp = torch.matmul(do, vh.float().transpose(-1, -2))
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    ds = torch.where(keys_valid[:, None, :], ds, torch.zeros_like(ds)).abs()
+    ds = torch.where(key_mask(keys_valid), ds, torch.zeros_like(ds)).abs()
     p_t = p.transpose(-1, -2)
-    return (torch.matmul(p, v.float().abs()),
-            torch.matmul(ds, k.float().abs()),
-            torch.matmul(ds.transpose(-1, -2), q.float().abs()),
-            torch.matmul(p_t, do.abs()))
+    return tuple(heads_last(t, q) for t in (
+        torch.matmul(p, vh.float().abs()),
+        torch.matmul(ds, kh.float().abs()),
+        torch.matmul(ds.transpose(-1, -2), qh.float().abs()),
+        torch.matmul(p_t, do.abs())))
 
 
 def mlp_scales(x, w1, b1, w2, b2, d_out):

@@ -61,10 +61,12 @@ K = (1, 3, 10)
 
 
 def build_model(inputs: RunInputs, config: Dict,
-                generator: torch.Generator) -> MRGCN:
+                generator: torch.Generator,
+                text_attn: Optional[str] = None) -> MRGCN:
     """The LP model (ReLU on every layer, DistMult relation vectors) with
     parameters drawn from ``generator`` (a CPU generator, so the draw does
-    not depend on the device), moved to the inputs' device."""
+    not depend on the device), moved to the inputs' device; ``text_attn``
+    is the text encoder's attention path (None: ``MRGCN_TEXT_ATTN``)."""
     model = MRGCN(hidden_dims=hidden_dims_from_config(config, None),
                   modules_config=inputs.modules_config,
                   num_relations=inputs.num_relations,
@@ -74,7 +76,8 @@ def build_model(inputs: RunInputs, config: Dict,
                   featureless=inputs.featureless,
                   use_bias=config["model"]["bias"],
                   text_vocab_size=inputs.text_vocab_size,
-                  text_pad_id=inputs.text_pad_id, link_prediction=True)
+                  text_pad_id=inputs.text_pad_id, link_prediction=True,
+                  text_attn_impl=text_attn)
     return model.to(inputs.device)
 
 
@@ -546,8 +549,13 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
                                        axis=0)
         data["valid"] = None
 
+    # the file is read before the model is built: its text-attention tree
+    # picks the path the model is built with
     state = tutils.load_checkpoint(checkpoint) if checkpoint else None
-    model = build_model(inputs, config, torch.Generator().manual_seed(seed))
+    text_attn = tutils.reconcile_text_attn(state["params"]) \
+        if state is not None and state["format"] != "torch" else None
+    model = build_model(inputs, config, torch.Generator().manual_seed(seed),
+                        text_attn=text_attn)
     optimizer = tutils.build_optimizer(model, config,
                                        inputs.optimizer_config, featureless)
     epoch = 0

@@ -41,10 +41,12 @@ logger = logging.getLogger(__name__)
 
 
 def build_model(inputs: RunInputs, config: Dict, num_classes: int,
-                generator: torch.Generator) -> MRGCN:
+                generator: torch.Generator,
+                text_attn: Optional[str] = None) -> MRGCN:
     """The model with parameters drawn from ``generator`` (a CPU generator,
     so the draw does not depend on the device), moved to the inputs'
-    device."""
+    device; ``text_attn`` is the text encoder's attention path (None:
+    ``MRGCN_TEXT_ATTN``)."""
     model = MRGCN(hidden_dims=hidden_dims_from_config(config, num_classes),
                   modules_config=inputs.modules_config,
                   num_relations=inputs.num_relations,
@@ -54,7 +56,7 @@ def build_model(inputs: RunInputs, config: Dict, num_classes: int,
                   featureless=inputs.featureless,
                   use_bias=config["model"]["bias"],
                   text_vocab_size=inputs.text_vocab_size,
-                  text_pad_id=inputs.text_pad_id)
+                  text_pad_id=inputs.text_pad_id, text_attn_impl=text_attn)
     return model.to(inputs.device)
 
 
@@ -239,11 +241,14 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
         Y_train = np.concatenate([Y_train, Y_valid], axis=0)
         Y_valid = None
 
-    # the file is read before the model is built: a tree the port cannot
-    # build is refused first
+    # the file is read before the model is built: its text-attention tree
+    # picks the path the model is built with
     state = tutils.load_checkpoint(checkpoint) if checkpoint else None
+    text_attn = tutils.reconcile_text_attn(state["params"]) \
+        if state is not None and state["format"] != "torch" else None
     model = build_model(inputs, config, num_classes,
-                        torch.Generator().manual_seed(seed))
+                        torch.Generator().manual_seed(seed),
+                        text_attn=text_attn)
     optimizer = tutils.build_optimizer(model, config,
                                        inputs.optimizer_config, featureless)
     epoch = 0

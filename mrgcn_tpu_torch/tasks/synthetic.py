@@ -17,13 +17,25 @@ smoke run (the repository holds no reference-produced file):
 :func:`save_reference_tar` writes a dataset in the upstream ``mkdataset``
 tarball layout, and :func:`save_reference_checkpoint` a ``torch.save``
 checkpoint with the reference's names for a port model's state.
+
+So are the pretrained backbones' files, with random weights from a seed
+(the published weights are not in the repository and nothing is
+fetched): :func:`save_distilbert_snapshot` writes a DistilBERT model in
+the HuggingFace hub cache's layout (``config.json``, a WordPiece-layout
+``vocab.txt`` and flax's ``flax_model.msgpack``) at
+``distilbert-base-multilingual-cased``'s published widths by default, and
+:func:`save_mobilenet_checkpoint` a torchvision-format MobileNetV2
+``.pth``. :func:`multimodal_features` draws WordPiece-like token strings
+for them with ``wordpiece_vocab``.
 """
 
 from __future__ import annotations
 
 import io
+import json
 import pickle
 import tarfile
+from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
@@ -34,6 +46,8 @@ from mrgcn_tpu_torch.data import artifact as artifact_io
 from mrgcn_tpu_torch.encodings.structure import GraphStructure, compute_norm
 from mrgcn_tpu_torch.encodings.xsd.string import ByteTokenizer
 from mrgcn_tpu_torch.models.encoders import MLP, TCNN
+from mrgcn_tpu_torch.models.pretrained import (PretrainedImageEncoder,
+                                               PretrainedTextEncoder)
 from mrgcn_tpu_torch.ops.rspmm import packing_factor
 from mrgcn_tpu_torch.tasks.torch_import import _tcnn_sequential_map
 
@@ -46,6 +60,21 @@ GYEAR_WIDTH = 6
 # is_interior_ring, sub_stop, full_stop) and the reference's cap on points
 # (reference: wktLiteral.py:20)
 WKT_ROWS, WKT_MAX_POINTS = 9, 64
+# distilbert-base-multilingual-cased's published config.json
+DISTILBERT_MULTILINGUAL = {
+    "activation": "gelu", "architectures": ["DistilBertForMaskedLM"],
+    "attention_dropout": 0.1, "dim": 768, "dropout": 0.1,
+    "hidden_dim": 3072, "initializer_range": 0.02,
+    "max_position_embeddings": 512, "model_type": "distilbert",
+    "n_heads": 12, "n_layers": 6, "output_past": True, "pad_token_id": 0,
+    "qa_dropout": 0.1, "seq_classif_dropout": 0.2,
+    "sinusoidal_pos_embds": False, "tie_weights_": True,
+    "vocab_size": 119547}
+# a BERT WordPiece vocabulary's special ids, and the first id of its
+# word pieces
+WORDPIECE_SPECIALS = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102,
+                      "[MASK]": 103}
+FIRST_WORDPIECE = 1000
 
 
 def multimodal_features(num_nodes: int, seed: int = 0,
@@ -53,7 +82,8 @@ def multimodal_features(num_nodes: int, seed: int = 0,
                         num_strings: int = 8_000,
                         max_len: int = 128, num_geometries: int = 0,
                         num_images: int = 0, image_size: int = 224,
-                        geometry_points=(4, WKT_MAX_POINTS)) -> dict:
+                        geometry_points=(4, WKT_MAX_POINTS),
+                        wordpiece_vocab: int = 0) -> dict:
     """``F`` with one encoding set each of ``xsd.numeric`` (one standard
     normal per node), ``xsd.gYear`` (``GYEAR_WIDTH`` values in [-1, 1])
     and ``xsd.string`` (byte tokens, lengths uniform in [1, max_len]), on
@@ -67,7 +97,10 @@ def multimodal_features(num_nodes: int, seed: int = 0,
     last point), lengths beside them; with ``num_images`` > 0, a
     ``blob.image`` set of ``(3, image_size, image_size)`` uint8 images.
     Both counts default to 0 and are drawn after the other sets, so those
-    stay as they were."""
+    stay as they were. With ``wordpiece_vocab`` > 0 the strings are
+    WordPiece-like token ids for a pretrained text backbone instead:
+    ``[CLS]`` (101), 1 to ``max_len`` ids uniform in ``[1000,
+    wordpiece_vocab)``, ``[SEP]`` (102); the tokenizer's pad is 0."""
     rng = np.random.default_rng(seed)
 
     def nodes(k):
@@ -78,11 +111,21 @@ def multimodal_features(num_nodes: int, seed: int = 0,
     years = rng.uniform(-1.0, 1.0, (num_years, GYEAR_WIDTH)).astype(
         np.float32)
     lengths = rng.integers(1, max_len + 1, num_strings)
-    tokens = rng.integers(0, ByteTokenizer.PAD, int(lengths.sum())).astype(
-        np.int32)
+    if wordpiece_vocab > 0:
+        tokens = rng.integers(FIRST_WORDPIECE, wordpiece_vocab,
+                              int(lengths.sum())).astype(np.int32)
+    else:
+        tokens = rng.integers(0, ByteTokenizer.PAD,
+                              int(lengths.sum())).astype(np.int32)
     strings = np.empty(num_strings, dtype=object)
     for i, part in enumerate(np.split(tokens, np.cumsum(lengths)[:-1])):
+        if wordpiece_vocab > 0:
+            part = np.concatenate([[WORDPIECE_SPECIALS["[CLS]"]], part,
+                                   [WORDPIECE_SPECIALS["[SEP]"]]]
+                                  ).astype(np.int32)
         strings[i] = part
+    if wordpiece_vocab > 0:
+        lengths = lengths + 2
     F = {
         "xsd.numeric": [[numeric, nodes(num_numeric),
                          np.ones(num_numeric, np.int32)]],
@@ -251,8 +294,10 @@ def reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     (the inverse of ``tasks/torch_import.map_state_dict``), as CPU
     tensors: the R-GCN's weights with the identity weight unpacked to
     ``(S*n, out)``, the relation vectors, the gates, and the MLP and TCNN
-    encoders (their running statistics too). Other encoders have no
-    reference counterpart and are left out."""
+    encoders (their running statistics too), and the pretrained encoders'
+    heads (``pre_fc`` / ``fc``) beside their frozen backbones'
+    ``base_model.*`` entries. Other encoders have no reference counterpart
+    and are left out."""
     sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     out: Dict[str, torch.Tensor] = {}
     names = {"weight_f": "weight_F", "comp_i": "weight_I_comp",
@@ -287,6 +332,14 @@ def reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
                 out[f"{prefix}.mlp.{3 * j}.bias"] = \
                     sd[f"{name}.Dense_{j}.bias"]
                 j += 1
+        elif isinstance(encoder, (PretrainedTextEncoder,
+                                  PretrainedImageEncoder)):
+            for j, ref in ((0, "pre_fc"), (1, "fc")):
+                out[f"{prefix}.{ref}.weight"] = \
+                    sd[f"{name}.Dense_{j}.kernel"].T.contiguous()
+                out[f"{prefix}.{ref}.bias"] = sd[f"{name}.Dense_{j}.bias"]
+            for key, t in encoder.backbone.state_dict().items():
+                out[f"{prefix}.base_model.{key}"] = t.detach().cpu()
         elif isinstance(encoder, TCNN):
             blocks = sorted({k.split(".")[1] for k in sd
                              if k.startswith(f"{name}._ConvBNRelu_")},
@@ -322,3 +375,109 @@ def save_reference_checkpoint(path: str, model: nn.Module, epoch: int,
                 "model_state_dict": reference_state_dict(model),
                 "optimizer_state_dict": {"state": {}, "param_groups": []},
                 "loss": np.float64(loss)}, path)
+
+
+# --------------------------------------------------------------------------
+# pretrained backbones' files, random weights
+# --------------------------------------------------------------------------
+
+def distilbert_params(config: Dict, seed: int = 0) -> Dict:
+    """A DistilBERT parameter tree in flax's layout
+    (``FlaxDistilBertModel.params``) at ``config``'s widths: embeddings
+    and kernels normal with the config's ``initializer_range``, biases 0,
+    LayerNorm scales 1, float32."""
+    rng = np.random.default_rng(seed)
+    std = float(config.get("initializer_range", 0.02))
+    dim, hidden = int(config["dim"]), int(config["hidden_dim"])
+
+    def normal(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    def dense(n_in, n_out):
+        return {"kernel": normal(n_in, n_out),
+                "bias": np.zeros(n_out, np.float32)}
+
+    def norm():
+        return {"scale": np.ones(dim, np.float32),
+                "bias": np.zeros(dim, np.float32)}
+
+    layers = {}
+    for i in range(int(config["n_layers"])):
+        layers[str(i)] = {
+            "attention": {name: dense(dim, dim) for name in
+                          ("q_lin", "k_lin", "v_lin", "out_lin")},
+            "sa_layer_norm": norm(),
+            "ffn": {"lin1": dense(dim, hidden), "lin2": dense(hidden, dim)},
+            "output_layer_norm": norm()}
+    return {"embeddings": {
+                "word_embeddings": {"embedding": normal(
+                    int(config["vocab_size"]), dim)},
+                "position_embeddings": {"embedding": normal(
+                    int(config["max_position_embeddings"]), dim)},
+                "LayerNorm": norm()},
+            "transformer": {"layer": layers}}
+
+
+def wordpiece_vocab_lines(vocab_size: int):
+    """A ``vocab.txt`` of ``vocab_size`` lines in BERT's layout: the
+    special tokens at their ids, unused slots, then word pieces."""
+    by_id = {i: t for t, i in WORDPIECE_SPECIALS.items()}
+    return [by_id.get(i, f"[unused{i}]" if i < FIRST_WORDPIECE
+                      else f"piece{i}") for i in range(vocab_size)]
+
+
+def save_distilbert_snapshot(cache_dir, name: str =
+                             "distilbert-base-multilingual-cased",
+                             config: Optional[Dict] = None, seed: int = 0,
+                             revision: str = "0" * 40) -> Path:
+    """Write a random DistilBERT (``config``: a ``config.json``,
+    ``DISTILBERT_MULTILINGUAL`` by default) into the hub cache
+    ``cache_dir`` as the hub lays out ``name`` (``models--<name>/refs/main``
+    naming ``snapshots/<revision>/``), with ``config.json``,
+    ``tokenizer_config.json``, a WordPiece ``vocab.txt`` and
+    ``flax_model.msgpack``. Returns the snapshot directory."""
+    from mrgcn_tpu_torch.utils import flax_msgpack
+    config = dict(config or DISTILBERT_MULTILINGUAL)
+    repo = Path(cache_dir) / ("models--" + name.replace("/", "--"))
+    snapshot = repo / "snapshots" / revision
+    snapshot.mkdir(parents=True, exist_ok=True)
+    (repo / "refs").mkdir(exist_ok=True)
+    (repo / "refs" / "main").write_text(revision)
+    (snapshot / "config.json").write_text(json.dumps(config, indent=2))
+    (snapshot / "tokenizer_config.json").write_text(json.dumps(
+        {"do_lower_case": False, "model_max_length": 512}))
+    (snapshot / "vocab.txt").write_text(
+        "\n".join(wordpiece_vocab_lines(int(config["vocab_size"]))) + "\n",
+        encoding="utf-8")
+    flax_msgpack.save(snapshot / "flax_model.msgpack",
+                      distilbert_params(config, seed))
+    return snapshot
+
+
+def save_mobilenet_checkpoint(path, seed: int = 0) -> None:
+    """Write a random MobileNetV2 state dict in torchvision's format
+    (``features.<i>...`` with BatchNorm running statistics, and the
+    ``classifier.1`` Linear the backbone drops) with ``torch.save``:
+    convolutions normal with variance 2 / fan-in, BatchNorm scales and
+    running variances in [0.5, 1.5], BatchNorm biases and running means
+    normal (0.1)."""
+    from mrgcn_tpu_torch.models.mobilenet import (HEAD_CHANNELS,
+                                                  MobileNetV2Features)
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for key, t in MobileNetV2Features().state_dict().items():
+        shape = tuple(t.shape)
+        if key.endswith("num_batches_tracked"):
+            value = torch.tensor(0)
+        elif t.dim() == 4:
+            fan_in = shape[1] * shape[2] * shape[3]
+            value = torch.randn(shape, generator=gen) * (2.0 / fan_in) ** 0.5
+        elif key.endswith((".weight", ".running_var")):
+            value = 0.5 + torch.rand(shape, generator=gen)
+        else:
+            value = 0.1 * torch.randn(shape, generator=gen)
+        sd[key] = value
+    sd["classifier.1.weight"] = 0.01 * torch.randn((1000, HEAD_CHANNELS),
+                                                   generator=gen)
+    sd["classifier.1.bias"] = torch.zeros(1000)
+    torch.save(sd, str(path))

@@ -16,6 +16,7 @@ whole parameter tree, the other labels' parameters masked
 from __future__ import annotations
 
 import logging
+import os
 import sys
 from typing import Dict, List, Optional, Tuple
 
@@ -23,7 +24,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from mrgcn_tpu_torch.models.encoders import TODO_TEXT
 from mrgcn_tpu_torch.tasks import torch_import
 from mrgcn_tpu_torch.tasks.jax_import import (load_jax_params,
                                               state_dict_to_batch_stats,
@@ -31,7 +31,6 @@ from mrgcn_tpu_torch.tasks.jax_import import (load_jax_params,
 
 logger = logging.getLogger(__name__)
 
-NOT_PORTED = "not yet ported to mrgcn_tpu_torch ({}); use mrgcn_tpu.run"
 
 # Parameters included in L1/L2 penalties: the reference penalises every
 # parameter whose torch name contains 'weight' (R-GCN weights, basis
@@ -370,12 +369,15 @@ def save_checkpoint(path: str, epoch: int, model: nn.Module,
         np.savez(f, **flat)
 
 
-# text-attention parameter trees a JAX checkpoint can carry, each known by
-# a key that only its _TextBlock subtree has (the JAX package's
-# tasks/utils._ATTN_TREE_FLAVOURS); the port builds the fused-QKV tree only
-_ATTN_TREE_FLAVOURS = (("MultiHeadDotProductAttention", "flax-MHA"),
-                       ("qkv", "fused-QKV"),
-                       ("query", "split-QKV"))
+# text-attention parameter trees a checkpoint can carry, each known by a
+# key that only its _TextBlock subtree has, with the attn_impl values that
+# build it and the one 'auto' is moved to (the JAX package's
+# tasks/utils._ATTN_TREE_FLAVOURS)
+_ATTN_TREE_FLAVOURS = (
+    ("MultiHeadDotProductAttention", "flax-MHA", ("xla", "flash"), "xla"),
+    ("qkv", "fused-QKV", ("plain_fused", "fused_core", "auto"), None),
+    ("query", "split-QKV", ("plain",), "plain"),
+)
 
 
 def _find_text_blocks(params, out: List) -> None:
@@ -388,20 +390,39 @@ def _find_text_blocks(params, out: List) -> None:
             _find_text_blocks(val, out)
 
 
-def check_text_attn(params: Dict) -> None:
-    """Refuse a checkpoint whose text encoder carries an attention tree
-    the port cannot build (flax's multi-head attention, split q / k / v),
-    before any model is built for it."""
+def reconcile_text_attn(params: Dict) -> Optional[str]:
+    """The text-attention impl a model restored from ``params`` (a
+    checkpoint's parameter tree) must be built with, before it is built:
+    None where the checkpoint has no from-scratch text encoder or
+    ``MRGCN_TEXT_ATTN`` (default ``auto``) already builds its tree; the
+    tree's impl where ``MRGCN_TEXT_ATTN`` is unset or ``auto``; else a
+    ``RuntimeError`` naming the setting that loads it. It writes nothing
+    to ``os.environ``: the answer holds for the model being restored
+    alone (``mrgcn_tpu.tasks.utils.reconcile_text_attn``)."""
     blocks: List = []
     _find_text_blocks(params, blocks)
     if not blocks:
-        return
-    for marker, flavour in _ATTN_TREE_FLAVOURS:
+        return None
+    flavour = None
+    for marker, name, compatible, fix in _ATTN_TREE_FLAVOURS:
         if any(k.startswith(marker) for k in blocks[0]):
-            if flavour != "fused-QKV":
-                raise NotImplementedError(NOT_PORTED.format(
-                    f"a {flavour} text-attention checkpoint: {TODO_TEXT}"))
-            return
+            flavour = (name, compatible, fix)
+            break
+    if flavour is None:
+        return None
+    name, compatible, fix = flavour
+    current = os.environ.get("MRGCN_TEXT_ATTN", "auto")
+    if current in compatible:
+        return None
+    if current == "auto" and fix is not None:
+        logger.warning(
+            "Checkpoint carries a %s text-attention param tree; selecting "
+            "attn_impl=%s for this restore", name, fix)
+        return fix
+    raise RuntimeError(
+        f"Checkpoint text-attention param tree is {name}, incompatible "
+        f"with MRGCN_TEXT_ATTN={current}; set MRGCN_TEXT_ATTN="
+        f"{fix or compatible[0]} to load it")
 
 
 def load_checkpoint(path: str) -> Dict:
@@ -430,7 +451,6 @@ def load_checkpoint(path: str) -> Dict:
              "opt_state": _unflatten_state(npz, "opt_state"),
              "batch_stats": _unflatten_state(npz, "batch_stats"),
              "format": "npz"}
-    check_text_attn(state["params"])
     return state
 
 

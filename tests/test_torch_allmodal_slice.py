@@ -39,8 +39,9 @@ on the CPU:
 * the bridge both ways (params and ``batch_stats``);
 * the CLI trains the artifact full batch and in mini-batches; early
   stopping restores the running statistics with the parameters; an image
-  ``model`` spec with a MobileNetV2 checkpoint on disk raises naming ROADMAP
-  item 3c, without one the model takes ``ImageCNN``.
+  ``model`` spec with a MobileNetV2 checkpoint on disk builds the frozen
+  backbone (its encoder held against the JAX package's within 1e-5 of the
+  largest entry), without one the model takes ``ImageCNN``.
 """
 
 import functools
@@ -408,6 +409,17 @@ def test_early_stop_restores_running_statistics(am_artifact, monkeypatch):
 
 
 def test_image_backbone_on_disk_raises(tmp_path, monkeypatch):
+    """An image ``model`` spec with a MobileNetV2 checkpoint on disk (which
+    raised before ROADMAP item 3c) builds the frozen backbone with its
+    head, from ``MRGCN_VISION_WEIGHTS`` or the torch.hub cache, exactly
+    where the JAX package's ``load_image_backbone`` takes it, and the
+    backbone holds the file's feature tensors bit for bit; without a checkpoint,
+    or without a model spec, the model takes ``ImageCNN``. (The encoder's
+    numbers against the JAX package's on one checkpoint and head:
+    ``tests/test_torch_pretrained.py``.)"""
+    from mrgcn_tpu.models import mobilenet as jmobilenet
+    from mrgcn_tpu_torch.models.pretrained import PretrainedImageEncoder
+    from mrgcn_tpu_torch.tasks.synthetic import save_mobilenet_checkpoint
     spec = ["pytorch/vision:v0.10.0", "mobilenet_v2"]
     args = (spec, TRANSFORM, 8, 0.0)
     monkeypatch.setenv("TORCH_HOME", str(tmp_path / "hub_home"))
@@ -420,15 +432,23 @@ def test_image_backbone_on_disk_raises(tmp_path, monkeypatch):
                      generator=torch.Generator(), featureless=False)
 
     assert isinstance(build(args).blob_image_0, enc.ImageCNN)
+    assert jmobilenet.load_image_backbone(spec) is None
     # as many input channels as the image mode has bands
     grey = build((None, {"mode": "L"}, 8, 0.0)).blob_image_0
     assert grey.Conv_0.kernel.shape == (3, 3, 1, 32)
     assert build(args).blob_image_0.Conv_0.kernel.shape == (3, 3, 3, 32)
     weights = tmp_path / "mobilenet_v2-b0353104.pth"
-    weights.write_bytes(b"not read")
+    save_mobilenet_checkpoint(weights, seed=0)
+    stored = torch.load(weights, weights_only=True)
     monkeypatch.setenv("MRGCN_VISION_WEIGHTS", str(weights))
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        build(args)
+    encoder = build(args).blob_image_0
+    assert isinstance(encoder, PretrainedImageEncoder)
+    assert jmobilenet.load_image_backbone(spec) is not None
+    held = encoder.backbone.state_dict()
+    # all of the file but torchvision's classifier, which no feature uses
+    assert sorted(held) == sorted(k for k in stored
+                                  if not k.startswith("classifier."))
+    assert all(torch.equal(v, stored[k]) for k, v in held.items())
     # no model spec: the from-scratch CNN, whatever is on disk
     assert isinstance(build((None, TRANSFORM, 8, 0.0)).blob_image_0,
                       enc.ImageCNN)
@@ -436,6 +456,6 @@ def test_image_backbone_on_disk_raises(tmp_path, monkeypatch):
     monkeypatch.delenv("MRGCN_VISION_WEIGHTS")
     cache = tmp_path / "hub_home" / "hub" / "checkpoints"
     cache.mkdir(parents=True)
-    (cache / weights.name).write_bytes(b"not read")
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        build(args)
+    weights.rename(cache / weights.name)
+    assert isinstance(build(args).blob_image_0, PretrainedImageEncoder)
+    assert jmobilenet.load_image_backbone(spec) is not None

@@ -22,13 +22,17 @@ where the JAX tree has an empty node). Held against ``mrgcn_tpu``:
 * a resumed port run equals an unbroken one (``p_dropout`` 0, rtol 1e-6);
 * link prediction: the JAX package saves, the port resumes with equal
   eval-mode ranks, and its epochs count on from the file's;
-* refusals: a legacy pickle checkpoint, a flax-MHA or split-QKV text tree
-  (ROADMAP item 3c), a file that does not fit the model;
+* a flax-MHA or split-QKV text tree loads through ``reconcile_text_attn``
+  into that path in both drivers, and resumes as the JAX package does; an
+  incompatible ``MRGCN_TEXT_ATTN`` raises in both;
+* refusals: a legacy pickle checkpoint, a file that does not fit the
+  model;
 * the CLI: ``--save_checkpoint`` writes ``<base>_model_state_<epoch>.npz``
   and ``--load_checkpoint`` prints ``[LOAD]``.
 """
 
 import functools
+import os
 import pickle
 
 import numpy as np
@@ -380,22 +384,45 @@ def _npz(path, flat):
 @pytest.mark.parametrize("marker,flavour", [
     ("MultiHeadDotProductAttention_0", "flax-MHA"),
     ("query", "split-QKV")])
-def test_unbuildable_text_tree_names_item_3c(tmp_path, marker, flavour):
-    flat = {"meta/epoch": np.asarray(1, np.int64),
-            "meta/loss": np.asarray(0.0, np.float64)}
-    tutils._flatten_state({"xsd_string_0": {"_TextBlock_0": {
-        marker: {"kernel": np.zeros((4, 4), np.float32)}}}}, "params", flat)
+def test_unbuildable_text_tree_names_item_3c(artifacts, tmp_path,
+                                             monkeypatch, marker, flavour):
+    """A checkpoint whose text encoder carries the flax-MHA or split-QKV
+    tree (refused before ROADMAP item 3c) loads. With ``MRGCN_TEXT_ATTN``
+    unset both drivers build that tree's path (``reconcile_text_attn``,
+    which leaves the environment alone) and resume: the epoch counts on
+    and the resumed epoch's loss agrees (rtol 1e-4, the multimodal slice's
+    bound). An explicit incompatible setting raises in both packages."""
+    impl = {"flax-MHA": "xla", "split-QKV": "plain"}[flavour]
+    strings = [f for f in ALLMODAL if f["datatype"] == "xsd.string"]
+    config = make_config("allmodal", 1, features=strings)
+    art = artifact_io.load(artifacts["allmodal"])
+    jart = jax_artifact_io.load(artifacts["allmodal"])
+    monkeypatch.setenv("MRGCN_TEXT_ATTN", impl)
+    first = nc.run(art, config, Rows(), False, "test", 0, CPU)
     path = str(tmp_path / "text.npz")
-    _npz(path, flat)
-    with pytest.raises(NotImplementedError, match="item 3c") as err:
-        tutils.load_checkpoint(path)
-    assert flavour in str(err.value)
-    # the fused-QKV tree the port builds loads
-    flat = {k: v for k, v in flat.items() if not k.startswith("params/")}
-    tutils._flatten_state({"xsd_string_0": {"_TextBlock_0": {
-        "qkv": {"kernel": np.zeros((4, 12), np.float32)}}}}, "params", flat)
-    _npz(path, flat)
-    assert tutils.load_checkpoint(path)["epoch"] == 1
+    tutils.save_checkpoint(path, first.epoch, first.model, first.optimizer,
+                           first.loss)
+    assert any(f"/_TextBlock_0/{marker}/" in k for k in layout(path))
+    monkeypatch.delenv("MRGCN_TEXT_ATTN")
+    assert tutils.reconcile_text_attn(tutils.load_checkpoint(path)[
+        "params"]) == jutils.reconcile_text_attn(jutils.load_checkpoint(
+            path)["params"]) == impl
+    got = nc.run(art, config, Rows(), False, "test", 0, CPU,
+                 checkpoint=path)
+    assert "MRGCN_TEXT_ATTN" not in os.environ
+    assert got.epoch == 2 and got.model.xsd_string_0.attn_impl == impl
+    rows = Rows()
+    _, want_epoch, *_ = jnc.run(jart, config, rows, False, "test", path, 0)
+    assert want_epoch == 2
+    np.testing.assert_allclose([h["train_loss"] for h in got.history],
+                               train_losses(rows.rows), rtol=1e-4)
+    monkeypatch.setenv("MRGCN_TEXT_ATTN", "fused_core")
+    for run in (lambda: nc.run(art, config, Rows(), False, "test", 0, CPU,
+                               checkpoint=path),
+                lambda: jnc.run(jart, config, Rows(), False, "test", path,
+                                0)):
+        with pytest.raises(RuntimeError, match=f"{flavour}.*{impl}"):
+            run()
 
 
 def test_legacy_pickle_and_mismatched_files_raise(artifacts, tmp_path):

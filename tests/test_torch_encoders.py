@@ -207,8 +207,22 @@ def test_text_encoder_param_names_are_the_jax_tree():
 @pytest.mark.parametrize("kw", [{"num_heads": 2}, {"attn_impl": "xla"},
                                 {"attn_impl": "flash"}])
 def test_unported_text_paths_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 3"):
-        enc.TextEncoder(4, GEN, **kw)
+    """The paths that raised before they were ported (ROADMAP item 3c: two
+    heads, ``xla``, ``flash``) now build and match the JAX encoder in f32
+    (``flash`` against the JAX ``xla`` path on the same tree, the JAX
+    ``flash`` being TPU-only; ``tests/test_torch_text_attn_paths.py``
+    holds every path)."""
+    tokens = text_tokens()
+    kw = dict(output_dim=4, model_dim=16, max_len=12, **kw)
+    jkw = dict(kw, attn_impl="xla") if kw.get("attn_impl") == "flash" \
+        else kw
+    jmod = jenc.TextEncoder(dtype=jnp.float32, **jkw)
+    variables = jmod.init(jax.random.PRNGKey(0), jnp.asarray(tokens))
+    mod = enc.TextEncoder(generator=GEN, dtype=torch.float32, **kw)
+    load_jax_params(mod, variables["params"])
+    np.testing.assert_allclose(
+        mod(torch.from_numpy(tokens)).detach().numpy(),
+        np.asarray(jmod.apply(variables, tokens)), rtol=1e-5, atol=1e-5)
 
 
 def test_initializers_match_flax_distributions():

@@ -534,6 +534,93 @@ def test_fused_attention_autograd_on_card_matches_cpu(cuda):
         assert_bf16_close(b, a, s.cpu(), name)
 
 
+def head_inputs(cuda, N, L, H, d, seed, holes=False):
+    """q, k, v (bf16, ``(N, L, H, d)`` views of the three ``(N, L, H d)``
+    projections, as the multi-head text path hands them over), a key mask
+    as :func:`attention_inputs` draws it, and a cotangent."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = (torch.randn(N, L, H * d, generator=gen).to(
+        cuda, torch.bfloat16).view(N, L, H, d) for _ in range(3))
+    _, _, _, valid, _ = attention_inputs(cuda, N, L, 8, seed, holes=holes)
+    do = torch.randn(N, L, H, d, generator=gen).to(cuda, torch.bfloat16)
+    return q * (1.0 / d ** 0.5), k, v, valid, do
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,L,H,d,holes", [
+    (13, 37, 2, 64, False), (16, 128, 4, 32, False), (9, 1, 8, 16, False),
+    (6, 200, 2, 64, True), (3, 512, 8, 16, True), (40, 129, 4, 32, True),
+    (300, 128, 8, 16, False), (5, 64, 3, 40, True), (4, 77, 12, 64, False)])
+def test_multi_head_attention_kernels_match_plain(cuda, N, L, H, d, holes):
+    """Kernel #12: the heads read by strides in the ``(N, L, H, d)``
+    layout, counted apart (``launches_heads``), each head's rows equal to
+    the single-head kernel's on that head alone."""
+    from mrgcn_tpu_torch.ops import attention as att
+    from mrgcn_tpu_torch.ops.kernel_bounds import attention_scales
+    q, k, v, valid, do = head_inputs(cuda, N, L, H, d, seed=N + L + H,
+                                     holes=holes)
+    scales = attention_scales(q, k, v, valid, do)
+    counts = (att.attention_fwd.launches, att.attention_bwd.launches,
+              att.attention_fwd.launches_heads,
+              att.attention_bwd.launches_heads)
+    out = att.attention_fwd(q, k, v, valid)
+    grads = att.attention_bwd(q, k, v, valid, do)
+    torch.cuda.synchronize()
+    assert (att.attention_fwd.launches, att.attention_bwd.launches,
+            att.attention_fwd.launches_heads,
+            att.attention_bwd.launches_heads) == (
+        counts[0], counts[1], counts[2] + 1, counts[3] + 1)
+    assert out.shape == q.shape and out.is_contiguous()
+    assert_bf16_close(out, att.attention_fwd_reference(q, k, v, valid),
+                      scales[0], "out")
+    want = att.attention_bwd_reference(q, k, v, valid, do)
+    for name, g, w, sc in zip(("dq", "dk", "dv"), grads, want, scales[1:]):
+        assert g.shape == q.shape
+        assert_bf16_close(g, w, sc, name)
+    assert torch.equal(out, att.attention_fwd(q, k, v, valid))
+    h = H - 1
+    one = [t[:, :, h].contiguous() for t in (q, k, v)]
+    assert torch.equal(out[:, :, h], att.attention_fwd(*one, valid))
+    for g, w in zip(grads, att.attention_bwd(*one, valid,
+                                             do[:, :, h].contiguous())):
+        assert torch.equal(g[:, :, h], w)
+
+
+@pytest.mark.gpu
+def test_multi_head_text_encoder_on_card_matches_cpu(cuda):
+    """A ``TextEncoder`` with four heads (``xla``'s tree) on the card (#12
+    forward and backward) against the same weights on the CPU: the bf16
+    encoder's card-vs-CPU bounds of ``chip_smoke.py`` (outputs 1e-2 of the
+    largest, gradients 1e-1 by norm). The key projection's bias is left
+    out: it shifts every score of a row by the same amount, which the
+    softmax does not see, so its gradient is 0 in exact arithmetic and
+    rounding noise on both sides."""
+    import copy
+
+    from mrgcn_tpu_torch.models.encoders import TextEncoder
+    from mrgcn_tpu_torch.ops import attention as att
+    gen = torch.Generator().manual_seed(0)
+    cpu = TextEncoder(8, gen, num_heads=4, attn_impl="xla", max_len=64)
+    card = copy.deepcopy(cpu).to(cuda)
+    tokens = torch.randint(0, 256, (50, 40), generator=gen)
+    tokens[torch.arange(40)[None, :] >= torch.randint(
+        1, 41, (50, 1), generator=gen)] = 256
+    heads = att.attention_bwd.launches_heads
+    outs = []
+    for model, device in ((cpu, "cpu"), (card, cuda)):
+        out = model(tokens.to(device))
+        (out ** 2).sum().backward()
+        outs.append(out.detach().cpu())
+    assert att.attention_bwd.launches_heads == heads + 2
+    assert float((outs[1] - outs[0]).abs().max()) \
+        <= 1e-2 * float(outs[0].abs().max())
+    for (name, a), b in zip(cpu.named_parameters(), card.parameters()):
+        if name.endswith(".key.bias"):
+            continue
+        err = float((b.grad.cpu() - a.grad).norm())
+        assert err <= 1e-1 * float(a.grad.norm()) + 1e-6, name
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("M,d,hd", [(1000, 128, 512), (37, 16, 64),
                                     (4101, 64, 256), (128, 128, 512),
@@ -617,6 +704,27 @@ def test_encoder_kernels_reject_bad_arguments(cuda):
     w1 = torch.zeros(24, 64, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="multiple of 16"):
         fm.mlp_fwd(x, w1, w1[0], w1.t(), x[0])
+
+
+@pytest.mark.gpu
+def test_multi_head_kernels_reject_bad_arguments(cuda):
+    """#12's wrapper: heads of another shape than q's, a head width that is
+    no multiple of 8, a head stride that is no multiple of 8, and a
+    cotangent of another shape raise before any launch."""
+    from mrgcn_tpu_torch.ops import attention as att
+    q, k, v, valid, do = head_inputs(cuda, 3, 20, 4, 16, seed=1)
+    before = att.attention_fwd.launches_heads
+    with pytest.raises(ValueError, match="like q"):
+        att.attention_fwd(q, k[:, :, :2], v, valid)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        odd = torch.zeros(3, 20, 4, 12, dtype=torch.bfloat16, device=cuda)
+        att.attention_fwd(odd, odd, odd, valid)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        wide = torch.zeros(3, 20, 4, 20, dtype=torch.bfloat16, device=cuda)
+        att.attention_fwd(q, wide[..., :16], v, valid)
+    with pytest.raises(ValueError, match="shaped as q"):
+        att.attention_bwd(q, k, v, valid, do[:, :, :2])
+    assert att.attention_fwd.launches_heads == before
 
 
 # --------------------------------------------------------------------------

@@ -197,8 +197,8 @@ def test_three_minibatch_epochs_match_jax(nc_artifact, task, monkeypatch):
 
     build = nc.build_model
 
-    def build_with_jax_params(*args):
-        model = build(*args)
+    def build_with_jax_params(*args, **kwargs):
+        model = build(*args, **kwargs)
         load_jax_params(model, jax.tree.map(np.asarray, params))
         return model
 

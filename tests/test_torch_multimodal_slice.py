@@ -244,15 +244,29 @@ def test_skipped_encoder_contributes_zeros(mm_artifact):
 
 
 def test_unported_text_attention_override_raises(mm_artifact, monkeypatch):
+    """``MRGCN_TEXT_ATTN=xla``, which raised before ROADMAP item 3c, builds
+    the flax multi-head tree in both drivers' models and matches the JAX
+    model at the logits; ``fused_core`` builds its own tree."""
     art = artifact_io.load(str(mm_artifact))
-    tin = prepare_inputs(art, make_config(), False, CPU)
+    config = make_config()
     monkeypatch.setenv("MRGCN_TEXT_ATTN", "xla")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        nc.build_model(tin, make_config(), len(art.class_map),
-                       torch.Generator().manual_seed(0))
+    Y_train = np.asarray(art.Y["train"]).reshape(-1, 2)
+    (jin, jbatch, jmodel, params), (tin, tbatch, tmodel) = both_sides(
+        art, config, Y_train, False)
+    assert "MultiHeadDotProductAttention_0" in \
+        params["xsd_string_0"]["_TextBlock_0"]
+    assert tmodel.xsd_string_0.attn_impl == "xla"
+    want = jmodel.apply({"params": params}, jbatch.features, jbatch.edges)
+    assert_logits_close(tmodel(tbatch.edges, tbatch.features), want)
     monkeypatch.setenv("MRGCN_TEXT_ATTN", "fused_core")
-    nc.build_model(tin, make_config(), len(art.class_map),
-                   torch.Generator().manual_seed(0))
+    model = nc.build_model(tin, config, len(art.class_map),
+                           torch.Generator().manual_seed(0))
+    assert hasattr(model.xsd_string_0._TextBlock_0, "qkv")
+    # the argument wins over the environment
+    model = nc.build_model(tin, config, len(art.class_map),
+                           torch.Generator().manual_seed(0),
+                           text_attn="plain")
+    assert model.xsd_string_0.attn_impl == "plain"
 
 
 class _NoRows:

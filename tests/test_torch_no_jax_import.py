@@ -1,13 +1,17 @@
-"""The port imports neither JAX nor the JAX package.
+"""The port imports neither JAX, the JAX package nor transformers.
 
 Every ``.py`` of ``mrgcn_tpu_torch/`` and ``chip_smoke.py`` is parsed with
-``ast`` and must hold no ``import jax``, ``import mrgcn_tpu`` or
-``from mrgcn_tpu... import`` (at any depth: inside functions too); and the
-CLI module imports, a link-prediction run trains, a mini-batch NC run
-trains one epoch (the host batch sampler and its native library
-included) and a full-batch NC run over all five modalities (the
-convolutional encoders) trains one epoch, in a subprocess in which both
-names are blocked (``sys.modules[name] = None``).
+``ast`` and must hold no ``import jax``, ``import mrgcn_tpu``, ``import
+transformers`` or ``from mrgcn_tpu... import`` (at any depth: inside
+functions too; the machine with the card has neither JAX nor
+transformers); and the CLI module imports, a link-prediction run trains,
+a mini-batch NC run trains one epoch (the host batch sampler and its
+native library included), a full-batch NC run over all five modalities
+(the convolutional encoders) trains one epoch, and so does one over
+strings and images on the pretrained backbones (a tiny DistilBERT in a
+hub cache and a MobileNetV2 checkpoint, written by the port), in a
+subprocess in which these names are blocked (``sys.modules[name] =
+None``).
 """
 
 import ast
@@ -18,7 +22,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mrgcn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mrgcn_tpu", "transformers",
+             "msgpack")
 SOURCES = sorted((REPO / "mrgcn_tpu_torch").rglob("*.py")) \
     + [REPO / "chip_smoke.py"]
 
@@ -41,6 +46,11 @@ def test_the_walk_finds_the_port():
             "mrgcn_tpu_torch/data/batching.py",
             "mrgcn_tpu_torch/data/native.py",
             "mrgcn_tpu_torch/ops/compose_kernels.py",
+            "mrgcn_tpu_torch/models/distilbert.py",
+            "mrgcn_tpu_torch/models/mobilenet.py",
+            "mrgcn_tpu_torch/models/pretrained.py",
+            "mrgcn_tpu_torch/utils/flax_msgpack.py",
+            "mrgcn_tpu_torch/utils/hf.py",
             "chip_smoke.py"} <= names
 
 
@@ -54,7 +64,8 @@ def test_source_imports_no_jax_and_no_jax_package(path):
 
 BLOCKED = """
 import sys
-for name in ("jax", "jaxlib", "flax", "optax", "mrgcn_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "mrgcn_tpu", "transformers",
+             "msgpack"):
     sys.modules[name] = None
 import os, tempfile
 os.environ["MRGCN_PLATFORM"] = "cpu"
@@ -117,8 +128,40 @@ with tempfile.TemporaryDirectory() as tmp:
                             features=chip_smoke.ALLMODAL)
     res = run.run_cli(["-c", cfg, "-i", art, "-o", tmp, "--dry_run"])
     assert res.model.modality_dim == 165 and len(res.history) == 1
+
+    # one epoch on the pretrained backbones: strings and images
+    from mrgcn_tpu_torch.models.pretrained import (PretrainedImageEncoder,
+                                                   PretrainedTextEncoder)
+    from mrgcn_tpu_torch.tasks import synthetic
+    tiny = dict(synthetic.DISTILBERT_MULTILINGUAL, dim=16, n_layers=1,
+                n_heads=2, hidden_dim=32, vocab_size=1100,
+                max_position_embeddings=16)
+    os.environ["HF_HUB_CACHE"] = os.path.join(tmp, "hub")
+    synthetic.save_distilbert_snapshot(os.environ["HF_HUB_CACHE"],
+                                       config=tiny)
+    os.environ["MRGCN_VISION_WEIGHTS"] = os.path.join(tmp, "mnv2.pth")
+    synthetic.save_mobilenet_checkpoint(os.environ["MRGCN_VISION_WEIGHTS"])
+    art = os.path.join(tmp, "bb.npz")
+    save_nc_artifact(art, n, R, rng.integers(0, n, E), rng.integers(0, n, E),
+                     rng.integers(0, R, E), rng.random(E).astype("float32"),
+                     rng.choice(n, 40, replace=False),
+                     rng.integers(0, 3, 40), 3, num_eval=10,
+                     F=multimodal_features(n, num_numeric=20, num_years=10,
+                                           num_strings=10, max_len=8,
+                                           num_images=6, image_size=32,
+                                           wordpiece_vocab=1100))
+    cfg = os.path.join(tmp, "bb.toml")
+    chip_smoke.write_config(Path(cfg), 1, 2, 8,
+                            features=("xsd.numeric", "xsd.gYear",
+                                      "xsd.string", "blob.image"),
+                            backbones=True)
+    res = run.run_cli(["-c", cfg, "-i", art, "-o", tmp, "--dry_run"])
+    assert isinstance(res.model.xsd_string_0, PretrainedTextEncoder)
+    assert isinstance(res.model.blob_image_0, PretrainedImageEncoder)
+    assert len(res.history) == 1
 loaded = [m for m in sys.modules if m.split(".")[0] in
-          ("jax", "jaxlib", "flax", "optax", "mrgcn_tpu")
+          ("jax", "jaxlib", "flax", "optax", "mrgcn_tpu", "transformers",
+           "msgpack")
           and sys.modules[m] is not None]
 assert not loaded, loaded
 print("ok-no-jax")
