@@ -5,7 +5,7 @@ Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, the CUDA toolkit (``nvcc``) and no network, and it fails (exit code
 other than 0, no result line) where CUDA is absent or the repository is not
 beside it. ``--only a,b`` runs some phases alone (``stream``, ``compose``,
-``nc``, ``backbones``, ``minibatch``, ``lp``, ``checkpoint``,
+``nc``, ``backbones``, ``minibatch``, ``lp``, ``checkpoint``, ``etl``,
 ``encoders``, ``text_attn``, ``agree``; ``scatter_dot``,
 the ``fused_scatter_dot`` cases of ``stream``; ``profile_stream``, the
 scatters' device time by kernel on every main-path stream; and
@@ -224,7 +224,24 @@ prints no result line. Phases, each printing its own lines:
    over 3 epochs. The composed identity layer's output and gradients on
    the card (``compose_table``, ``fused_place_scatter``,
    ``compose_grad_pass``, on a row slice of the parameter) within 1e-4 of
-   their largest entry of the CPU's.
+   their largest entry of the CPU's;
+9. the ETL (``etl``, run after the checkpoint phase): phase 4's graph
+   written as gzipped N-Triples (its 600,000 edges over 120 properties,
+   its 10,000 labels as target triples in 60 / 20 / 20 splits, and
+   phase 5's literal counts without the images, which need PIL: 20,000
+   doubles, 10,000 gYears, 8,000 strings of 1-128 bytes, 10,000 WKT
+   linestrings of 4-64 points, from seed 0, on four of the 120
+   properties, so that R stays 121 without inverse relations); the
+   port's ``mkdataset`` CLI builds it twice (host seconds by stage, the
+   artifact's bytes and the parser printed; equal arrays), the native
+   parser's triples held to the Python parser's on the context file;
+   the artifact trains ``EPOCHS`` epochs through ``run.run_cli`` at
+   ``configs/dmg.toml``'s model and feature widths (numeric, gYear,
+   string, WKT), the losses finite and falling and the launches by
+   kernel and route as in phase 5; then ``mkdataset`` on
+   ``benchmarks/parity/big/lp`` and 3 LP epochs at
+   ``configs/fb15k-237.toml``'s widths, the launches by kernel and route
+   those of the plans the planner builds for that artifact.
 
 Every kernel comparison checks bit identity across two runs, and the
 slice-shape ones time the kernel, the plain version and, where one PyTorch
@@ -1706,8 +1723,22 @@ def conv_algorithm_phase() -> None:
         print(f"[encoder] tcnn_S algorithms {proc.stdout.strip()}")
 
 
+def graph_lines(graph) -> list:
+    """A ``[graph]`` section's lines: ``graph``'s file paths, then its
+    ``structural`` entries under ``[graph.structural]`` (what ``mkdataset``
+    reads)."""
+    graph = dict(graph)
+    structural = graph.pop("structural", {})
+    lines = ["", "[graph]"]
+    lines += [f"{k} = {json.dumps(v)}" for k, v in graph.items()]
+    lines += ["", "[graph.structural]"]
+    lines += [f"{k} = {json.dumps(v)}" for k, v in structural.items()]
+    return lines
+
+
 def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
-                 features=(), task=None, backbones: bool = False) -> None:
+                 features=(), task=None, backbones: bool = False,
+                 graph=None) -> None:
     """``configs/dmg.toml``'s model section; of its features, the
     datatypes in ``features`` are included as DMG configures them (the
     string and image features without their pretrained ``model`` key and
@@ -1715,7 +1746,8 @@ def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
     whatever backbone a machine caches; with ``backbones`` with them, so
     the pretrained backbones run where their files are found), all others
     excluded. ``task`` adds ``[task]`` entries to the full-batch default
-    (``batchsize``, ``neighbor_fanout``, ``neighbor_fanout_rounds``)."""
+    (``batchsize``, ``neighbor_fanout``, ``neighbor_fanout_rounds``);
+    ``graph`` adds a ``[graph]`` section (``graph_lines``)."""
     with open(ROOT / "configs" / "dmg.toml", "rb") as f:
         dmg = tomllib.load(f)
     model = dict(dmg["model"], epoch=epochs, num_bases=num_bases)
@@ -1730,6 +1762,8 @@ def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
         lines += ["", "[[model.layers]]"]
         lines += [f"{k} = {json.dumps(hidden if k == 'hidden_nodes' else v)}"
                   for k, v in layer.items()]
+    if graph:
+        lines += graph_lines(graph)
     for feature in dmg["graph"]["features"]:
         lines += ["", "[[graph.features]]"]
         if feature["datatype"] in features:
@@ -1870,12 +1904,8 @@ def dense_routes(work, art: Path, x_width: int) -> dict:
         _, dense = nc_layer0_plans(work, torch.device("cpu"), labels,
                                    x_width)
         for name in streams:
-            stream = getattr(dense, name)
-            scatter = "fused_place_scatter" if stream.rel_const \
-                else "sorted_scatter"
-            kernel = ROW_KERNELS[scatter][0 if stream.rows_sorted else 1]
-            counts[scatter, kernel] = counts.get((scatter, kernel), 0) \
-                + times
+            key = stream_route(getattr(dense, name), False)
+            counts[key] = counts.get(key, 0) + times
     return counts
 
 
@@ -1936,7 +1966,8 @@ def slice_phase(work, tmp: Path, tag: str, kernels, F=None,
           f"{tag}: featureless is {res.model.featureless}")
     stats = {k: t for k, t in res.model.state_dict().items()
              if ".BatchNorm_" in k and k.endswith((".mean", ".var"))}
-    check(bool(stats) == ("blob.image" in features and F is not None),
+    check(bool(stats) == (F is not None and bool(
+        {"blob.image", "ogc.wktLiteral"} & set(features))),
           f"{tag}: {len(stats)} BatchNorm statistics")
     for k, t in stats.items():
         init = 0.0 if k.endswith(".mean") else 1.0
@@ -2104,13 +2135,14 @@ def minibatch_phase(work, tmp: Path, F) -> dict:
 
 def write_lp_config(path: Path, epochs: int, hidden: int, eval_interval: int,
                     name: str = "FB15K237_SYNTH", full_graph: bool = True,
-                    layers: int = 2) -> None:
+                    layers: int = 2, graph=None) -> None:
     """``configs/fb15k-237.toml``'s model section (2 bases, lr 0.01) with
     ``layers`` ``hidden``-wide R-GCN layers, the config's two unless the
     depth is cut (the link-prediction task reads all but the last
     ``[[model.layers]]`` entry, so the file gets one more), on the full
     graph (``gcn_batchsize`` and ``test_batchsize`` -1) or, with
-    ``full_graph`` off, in the file's own node-sliced batches (32, 500)."""
+    ``full_graph`` off, in the file's own node-sliced batches (32, 500);
+    ``graph`` adds a ``[graph]`` section (``graph_lines``)."""
     with open(ROOT / "configs" / "fb15k-237.toml", "rb") as f:
         fb = tomllib.load(f)
     model = dict(fb["model"], epoch=epochs)
@@ -2128,6 +2160,8 @@ def write_lp_config(path: Path, epochs: int, hidden: int, eval_interval: int,
     for entry in [layer] * layers + [{"type": layer["type"]}]:
         lines += ["", "[[model.layers]]"]
         lines += [f"{k} = {json.dumps(v)}" for k, v in entry.items()]
+    if graph:
+        lines += graph_lines(graph)
     path.write_text("\n".join(lines) + "\n")
 
 
@@ -2321,7 +2355,7 @@ def route_fork_basis(step, steps: int) -> dict:
             busy[name].append(profile_steps(
                 f"LP step, basis backward via {name}", step, steps,
                 top=6)[0])
-            calls = 3 + steps
+            calls = 3 + 2 * steps     # profile_steps' warm-ups too
             rows_launched = counters["fused_scatter_dot"].launches_rows
             check(rows_launched == (2 * calls if name == "fused_scatter_dot"
                                     else 0),
@@ -2403,8 +2437,9 @@ def compose_route_profile(work, tmp: Path, device, steps: int) -> dict:
             ms, _, by_name = profile_steps(
                 f"featureless NC step, compose route {name}", step, steps,
                 top=8)
+            check(by_name, f"compose route {name}: no split by kernel")
             busy[name].append(ms)
-            calls = 3 + steps
+            calls = 3 + 2 * steps     # profile_steps' warm-ups too
             for kernel, on in (("compose_table", name in ("kernels",
                                                            "table")),
                                ("compose_grad_pass", name in ("kernels",
@@ -2441,19 +2476,27 @@ def profile_steps(label: str, step, steps: int, top: int = 25):
     warm-up calls: host time per call, device time by kernel name (the
     ``top`` largest), and the card's busy share of the synchronised host
     time. Returns (device busy ms, host ms, device ms by kernel name) per
-    call."""
+    call. The trace loses kernels at its start (one of five launches of a
+    short kernel, or all of them), so the profiler's own warm-up cycle
+    traces ``steps`` calls and drops them before the ``steps`` calls that
+    are read. Where the trace still shows no device time, the device time
+    a call is taken by CUDA events instead (it then includes the card's
+    idle gaps) and the split by kernel is empty."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(3):
         step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):          # the warm-up cycle, then the one read
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+            prof.step()
 
     def device_us(event):
         return getattr(event, "self_device_time_total",
@@ -2467,7 +2510,12 @@ def profile_steps(label: str, step, steps: int, top: int = 25):
                      and not e.key.startswith("Optimizer.")),
                     key=device_us, reverse=True)
     busy_ms = sum(device_us(e) for e in events) / 1e3 / steps
-    check(busy_ms > 0, "profile: the trace shows no device time")
+    if busy_ms <= 0:
+        busy_ms = time_ms(step)
+        print(f"[profile] {label} {wall_ms:.3f} ms by host clock; the trace "
+              f"shows no device time: {busy_ms:.3f} ms a call by CUDA "
+              "events, no split by kernel")
+        return busy_ms, wall_ms, {}
     by_name = {e.key: device_us(e) / 1e3 / steps for e in events
                if device_us(e) > 0}
     print(f"[profile] {label} {wall_ms:.3f} ms by host clock, device busy "
@@ -2638,6 +2686,7 @@ def profile_multimodal_phase(work, tmp: Path, device, steps: int = 5,
           f"{torch.cuda.max_memory_allocated()} bytes")
     busy, wall, by_name = profile_steps(
         f"{tag} NC step (X_width {inputs.X_width})", step, steps, top=40)
+    check(by_name, f"{tag}: no split by kernel")
     rest = dict(by_name)
     for what, names, *unless in PROFILE_GROUPS:
         mine = [k for k in rest if any(n in k for n in names)
@@ -3971,6 +4020,301 @@ def backbones_phase(work, tmp: Path) -> dict:
     return paths
 
 
+EX = "http://example.org/"
+XSD = "http://www.w3.org/2001/XMLSchema#"
+# the etl phase's literals: the all-modality path's counts, without the
+# images (PIL decodes them; the card's machine need not have it, and the
+# CPU tests hold the image vectorizer against the JAX package's)
+ETL_LITERALS = {"xsd.numeric": 20_000, "xsd.gYear": 10_000,
+                "xsd.string": 8_000, "ogc.wktLiteral": 10_000}
+ETL_FEATURES = tuple(ETL_LITERALS)
+ETL_LP_EPOCHS = 3
+
+
+def write_etl_graph(work, directory: Path, seed: int = 0) -> dict:
+    """``work``'s graph as gzipped N-Triples under ``directory``: each of
+    its property edges (the self-loops are the model's own) as
+    ``<e{src}> <p{rel}> <e{dst}>``, its labels as ``<e{i}> <hasClass>
+    <class{c}>`` in 60 / 20 / 20 train / valid / test splits, and the
+    literals of ``ETL_LITERALS`` drawn from ``seed``: doubles, gYears of
+    1000-2024, strings of 1-128 ASCII bytes and WKT linestrings of 4-64
+    points, each on an entity drawn at random (every entity that no edge
+    touches takes a number first, so every label's node is in the graph)
+    through the properties ``p0`` to ``p3``, so that the properties stay
+    ``work``'s 120 and R its 121 without inverse relations. Returns the
+    ``[graph]`` paths."""
+    import gzip
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = work["n"]
+    loops = work["rel"] == work["R"] - 1
+    src, dst, rel = (work[k][~loops].tolist() for k in ("src", "dst", "rel"))
+    lines = [f"<{EX}e{s}> <{EX}p{r}> <{EX}e{d}> .\n"
+             for s, r, d in zip(src, rel, dst)]
+    touched = np.zeros(n, dtype=bool)
+    touched[work["src"][~loops]] = touched[work["dst"][~loops]] = True
+    alphabet = np.array(list("abcdefghijklmnopqrstuvwxyz"
+                             "ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789 "))
+    for k, (datatype, count) in enumerate(ETL_LITERALS.items()):
+        subjects = rng.integers(0, n, count)
+        if k == 0:
+            untouched = np.flatnonzero(~touched)
+            subjects[:len(untouched)] = untouched
+        if datatype == "xsd.numeric":
+            objects = [f'"{v!r}"^^<{XSD}double>'
+                       for v in rng.normal(0.0, 100.0, count).tolist()]
+        elif datatype == "xsd.gYear":
+            objects = [f'"{y}"^^<{XSD}gYear>'
+                       for y in rng.integers(1000, 2025, count).tolist()]
+        elif datatype == "xsd.string":
+            objects = ['"' + "".join(rng.choice(alphabet, size)) +
+                       f'"^^<{XSD}string>'
+                       for size in rng.integers(1, 129, count).tolist()]
+        else:
+            objects = []
+            for size in rng.integers(4, 65, count).tolist():
+                xy = rng.uniform(-90.0, 90.0, (size, 2))
+                objects.append('"LINESTRING (' + ", ".join(
+                    f"{x:.6f} {y:.6f}" for x, y in xy.tolist()) +
+                    f')"^^<http://www.opengis.net/ont/geosparql#wktLiteral>')
+        lines += [f"<{EX}e{s}> <{EX}p{k}> {o} .\n"
+                  for s, o in zip(subjects.tolist(), objects)]
+    paths = {"context": directory / "context.nt.gz"}
+    labels = list(zip(work["labels_idx"].tolist(),
+                      work["labels_cls"].tolist()))
+    cut = (int(0.6 * len(labels)), int(0.8 * len(labels)))
+    splits = {"train": labels[:cut[0]], "valid": labels[cut[0]:cut[1]],
+              "test": labels[cut[1]:]}
+    for split, rows in splits.items():
+        paths[split] = directory / f"{split}.nt.gz"
+    with gzip.open(paths["context"], "wt", compresslevel=1) as f:
+        f.writelines(lines)
+    for split, rows in splits.items():
+        with gzip.open(paths[split], "wt", compresslevel=1) as f:
+            f.writelines(f"<{EX}e{i}> <{EX}hasClass> <{EX}class{c}> .\n"
+                         for i, c in rows)
+    return {k: str(v) for k, v in paths.items()}
+
+
+def term_keys(triples) -> list:
+    """Each term of each triple as (class, text, language, datatype)."""
+    return [tuple((type(t).__name__, str(t), getattr(t, "language", None),
+                   getattr(t, "datatype", None)) for t in triple)
+            for triple in triples]
+
+
+def same_artifacts(a, b) -> bool:
+    """Two loaded artifacts with equal arrays, bit for bit."""
+    import numpy as np
+
+    def flat(art):
+        out = [np.asarray([art.structure.num_nodes,
+                           art.structure.num_relations])]
+        out += [getattr(art.structure, k) for k in ("src", "dst", "rel",
+                                                    "norm")]
+        for datatype in sorted(art.F):
+            for enc, idx, lengths in art.F[datatype]:
+                out += list(enc) if enc.dtype == object else [enc]
+                out += [idx, lengths]
+        out += [art.Y[k] for k in sorted(art.Y)]
+        out += [art.data[k] for k in sorted(art.data)]
+        return out
+
+    fa, fb = flat(a), flat(b)
+    return len(fa) == len(fb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and x.tobytes() == y.tobytes() for x, y in zip(fa, fb)) \
+        and a.sample_map == b.sample_map and a.class_map == b.class_map
+
+
+def etl_build(cfg: Path, out: Path) -> tuple:
+    """``mrgcn_tpu_torch.mkdataset``'s CLI (``build_cli``) into ``out``:
+    the artifact's path and the host seconds by stage."""
+    from mrgcn_tpu_torch import mkdataset
+    out.mkdir()
+    t0 = time.perf_counter()
+    path, stages = mkdataset.build_cli(["-c", str(cfg), "-o",
+                                        str(out) + os.sep])
+    stages["total"] = time.perf_counter() - t0
+    return Path(path), stages
+
+
+def stream_route(stream, place: bool) -> tuple:
+    """``(scatter, kernel)`` a planned stream launches: a placement or a
+    relation-constant stream ``fused_place_scatter``, any other
+    ``sorted_scatter``, each on its row-segmented kernel where the
+    planner marks the stream ``rows_sorted``."""
+    scatter = "fused_place_scatter" if place or stream.rel_const \
+        else "sorted_scatter"
+    return scatter, ROW_KERNELS[scatter][0 if stream.rows_sorted else 1]
+
+
+def lp_planned_launches(art: Path, cfg: Path, steps: int,
+                        forwards: int) -> dict:
+    """The kernel launches of ``steps`` full-graph LP training steps and
+    ``forwards`` evaluation forwards, by kernel and route, as the planner
+    builds this artifact's plans (``tasks/common.prepare_inputs``, on the
+    CPU) and the layers choose among them (``models/rgcn.RGCNLayer``):
+    the input layer on the composed table (``compose_table``,
+    ``compose_grad_pass``, its ``fwd`` and ``bwd_table`` placed) or, over
+    the table's budget, on the basis streams (``fused_place_scatter``
+    forward, ``fused_scatter_dot`` once a basis backward); the second
+    layer on its ``fwd`` and ``bwd_h`` streams where it has a plan it
+    takes."""
+    import torch
+    from mrgcn_tpu_torch.config import load_config
+    from mrgcn_tpu_torch.data import artifact as artifact_io
+    from mrgcn_tpu_torch.ops import relational as rl
+    from mrgcn_tpu_torch.tasks.common import prepare_inputs
+    config = load_config(str(cfg))
+    inputs = prepare_inputs(artifact_io.load(str(art)), config, True,
+                            torch.device("cpu"))
+    d0, d1 = inputs.hidden_dims[:2]
+    bases = int(config["model"]["num_bases"])
+    plan_i = inputs.edges.plan_for(d0, d0, identity=True)
+    plan_f = inputs.edges.plan_for(d0, d1)
+    check(plan_i is not None, "etl lp: no input-layer plan")
+    want = {}
+
+    def add(key, n):
+        want[key] = want.get(key, 0) + n
+
+    over = rl.composed_table_elems(inputs.num_relations, inputs.num_nodes,
+                                   d0, n_in_rows=plan_i.n_in_rows) \
+        > rl.COMPOSED_TABLE_MAX_ELEMS
+    check(not over or (plan_i.kind == "identity_basis"
+                       and 0 < bases <= rl.MAX_BASIS_STREAMS),
+          "etl lp: the input layer takes the unplanned path")
+    add(stream_route(plan_i.fwd, True), steps + forwards)
+    if over:
+        add(("fused_scatter_dot", ROW_KERNELS["fused_scatter_dot"][0]),
+            bases * steps)
+    else:
+        add(("compose_table", None), steps + forwards)
+        add(("compose_grad_pass", None), steps)
+        add(stream_route(plan_i.bwd_table, True), steps)
+    if plan_f is not None and (plan_f.fwd.rel_const or d0 * d1 <= 4096):
+        add(stream_route(plan_f.fwd, False), steps + forwards)
+        add(stream_route(plan_f.bwd_h, False), steps)
+    return want
+
+
+def etl_phase(work, tmp: Path) -> dict:
+    """The port's ETL on the card's host, then its artifacts trained on the
+    card: (a) ``work``'s graph written as N-Triples (``write_etl_graph``);
+    (b) ``mkdataset``'s CLI over it, timed by stage, twice (equal arrays),
+    with the native parser's triples held to the Python parser's on the
+    context file; (c) ``EPOCHS`` NC epochs through ``run.run_cli`` at
+    ``configs/dmg.toml``'s model and feature widths (``slice_phase``: the
+    launches by kernel and route against the planner), the losses finite
+    and falling; (d) ``mkdataset`` on ``benchmarks/parity/big/lp`` and
+    ``ETL_LP_EPOCHS`` LP epochs at ``configs/fb15k-237.toml``'s widths,
+    the launches against ``lp_planned_launches``."""
+    import torch
+    from mrgcn_tpu_torch import run
+    from mrgcn_tpu_torch.data import artifact as artifact_io
+    from mrgcn_tpu_torch.data import native, ntriples
+    print("[etl] images left out of the graph: PIL decodes them and the "
+          "card's machine need not have it; tests/test_torch_etl_*.py hold "
+          "the image vectorizer against the JAX package's on the CPU")
+    t0 = time.perf_counter()
+    data = tmp / "etl_data"
+    data.mkdir()
+    graph = write_etl_graph(work, data)
+    graph["structural"] = {"include_inverse_properties": False,
+                           "exclude_properties": [],
+                           "separate_literals": False,
+                           "multiprocessing": False}
+    write_s = time.perf_counter() - t0
+    cfg = tmp / "etl_nc.toml"
+    write_config(cfg, EPOCHS, work["num_bases"], work["hidden"],
+                 features=ETL_FEATURES,
+                 task={"target_property": f"{EX}hasClass",
+                       "target_property_inv": ""}, graph=graph)
+    art, stages = etl_build(cfg, tmp / "etl_out1")
+    art2, stages2 = etl_build(cfg, tmp / "etl_out2")
+    first, second = artifact_io.load(str(art)), artifact_io.load(str(art2))
+    check(same_artifacts(first, second), "etl: two builds differ")
+    parser = "native" if native.get_lib() is not None else "python"
+    if parser == "native":
+        t1 = time.perf_counter()
+        check(term_keys(native.parse_file_native(graph["context"]))
+              == term_keys(ntriples.parse_file(graph["context"])),
+              "etl: the native and the Python parser differ")
+        print(f"[etl] native triples equal the Python parser's on the "
+              f"context file ({time.perf_counter() - t1:.1f} s)")
+    A = first.structure
+    check(A.num_relations == work["R"],
+          f"etl: R = {A.num_relations}, not {work['R']}")
+    check(sum(len(v) for v in first.Y.values()) == len(work["labels_idx"]),
+          "etl: labels lost")
+    report = {"write_s": write_s, "stages_s": stages,
+              "second_build_stages_s": stages2, "parser": parser,
+              "artifact_bytes": art.stat().st_size,
+              "num_nodes": A.num_nodes, "num_relations": A.num_relations,
+              "num_edges": A.num_edges,
+              "encoding_sets": {k: len(v) for k, v in first.F.items()}}
+    print(f"[etl] {json.dumps(report)}")
+
+    # (c) train it: the slice phase on the artifact and config above
+    shutil.copy(art, tmp / "etl_nc.npz")
+    etl_work = dict(work, n=A.num_nodes, src=A.src, dst=A.dst, rel=A.rel,
+                    norm=A.norm)
+    nc = slice_phase(etl_work, tmp, "etl_nc",
+                     {"sorted_scatter": 1, "fused_place_scatter": 2,
+                      **dict.fromkeys(ENCODER_KERNELS, 2)},
+                     F=first.F, features=ETL_FEATURES)
+    check(nc["train_loss"][-1] < nc["train_loss"][0],
+          f"etl: the NC loss did not fall: {nc['train_loss']}")
+    del first, second
+
+    # (d) link prediction on the parity graph's own artifact
+    big = ROOT / "benchmarks" / "parity" / "big"
+    with open(big / "lp_config.toml", "rb") as f:
+        structural = tomllib.load(f)["graph"]["structural"]
+    lp_cfg = tmp / "etl_lp.toml"
+    write_lp_config(lp_cfg, ETL_LP_EPOCHS, LP_HIDDEN, LP_EVAL_INTERVAL,
+                    name="ETL_LP", graph={
+                        **{s: str(big / "lp" / f"{s}.nt.gz")
+                           for s in ("train", "valid", "test")},
+                        "structural": structural})
+    lp_art, lp_stages = etl_build(lp_cfg, tmp / "etl_lp_out")
+    counters = start_path()
+    t0 = time.perf_counter()
+    res = run.run_cli(["-c", str(lp_cfg), "-i", str(lp_art), "-o",
+                       str(tmp) + os.sep, "--dry_run", "--test"])
+    wall = time.perf_counter() - t0
+    launches = read_launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in res.history]
+    check(len(losses) == ETL_LP_EPOCHS
+          and all(math.isfinite(x) for x in losses),
+          f"etl lp: losses {losses}")
+    forwards = 1 + sum((h["train_mrr"] is not None)
+                       + (h["valid_mrr"] is not None) for h in res.history)
+    want = lp_planned_launches(lp_art, lp_cfg, ETL_LP_EPOCHS, forwards)
+    got = {}
+    for name in ("compose_table", "compose_grad_pass"):
+        if launches[name]:
+            got[name, None] = launches[name]
+    for name in ("fused_place_scatter", "sorted_scatter",
+                 "fused_scatter_dot"):
+        for kernel, n in by_route(launches, name).items():
+            if n:
+                got[name, kernel] = n
+    check(got == want, f"etl lp: launches {got}; the planner's {want}")
+    secs = [h["seconds"] for h in res.history]
+    lp = {"path": "etl_lp", "epochs": ETL_LP_EPOCHS, "loss": losses,
+          "etl_stages_s": lp_stages, "first_epoch_s": secs[0],
+          "epoch_s_after_first": secs[1:],
+          "epoch_s_median_after_first": statistics.median(secs[1:]),
+          "test_mrr": res.mrr, "peak_mem_bytes": peak, "cli_wall_s": wall,
+          "launches": launches,
+          "routes": {f"{n}.{k}": c for (n, k), c in got.items()}}
+    print(f"[slice] {json.dumps(lp)}")
+    return {"etl_nc": dict(nc, etl=report), "etl_lp": lp}
+
+
 # kernel -> (source, the TPU kernel it replaces, the timed row that goes
 # into the kernels line: the call its main path makes)
 SOURCES = {
@@ -4020,7 +4364,7 @@ STREAM_KERNELS = ("sorted_scatter", "sorted_gather", "fused_scatter_dot",
                   "fused_place_scatter")
 ENCODER_KERNELS = ("attention_fwd", "attention_bwd", "mlp_fwd", "mlp_bwd")
 PHASES = ("stream", "compose", "nc", "backbones", "minibatch", "lp",
-          "checkpoint", "encoders", "text_attn", "agree")
+          "checkpoint", "etl", "encoders", "text_attn", "agree")
 EXTRA_PHASES = ("profile", "profile_mb", "profile_att",   # only with
                 "profile_mm", "profile_stream",            # --only
                 "profile_allmodal", "profile_backbones",
@@ -4112,6 +4456,9 @@ def main(argv=None) -> None:
         if "checkpoint" in phases:
             paths.update(checkpoint_phase(work, tmp))
             lap("checkpoint")
+        if "etl" in phases:
+            paths.update(etl_phase(work, tmp))
+            lap("etl")
         if "profile_stream" in phases:
             profile_stream_phase(work, plan, device)
         del plan

@@ -1,8 +1,7 @@
-"""Host-side utilities: config access, path checks, seeding.
+"""Host-side utilities: config access, path checks, seeding, and the
+ETL's graph stripping and triple indexing.
 
-The port's copy of the run-time part of :mod:`mrgcn_tpu.data.utils`
-(the graph-stripping and triple-indexing helpers belong to the ETL and
-are not ported).
+The port's copy of :mod:`mrgcn_tpu.data.utils`.
 """
 
 from __future__ import annotations
@@ -12,8 +11,11 @@ import os
 import random
 from os import F_OK, R_OK, W_OK, access
 from os.path import split
+from typing import Dict
 
 import numpy as np
+
+from mrgcn_tpu_torch.data.rdf import IRI
 
 logger = logging.getLogger(__name__)
 
@@ -46,6 +48,10 @@ def is_writable(filename: str) -> bool:
     return True
 
 
+def is_gzip(filename: str) -> bool:
+    return filename.endswith(".gz")
+
+
 def set_seed(seed: int = -1) -> int:
     """Seed Python/NumPy RNGs; torch generators are seeded from the returned
     seed. ``seed < 0`` draws a random seed (reference: data/utils.py:52-62)."""
@@ -58,3 +64,30 @@ def set_seed(seed: int = -1) -> int:
 
     logger.debug("Setting seed to %d", seed)
     return seed
+
+
+def strip_graph(kg, config: Dict) -> None:
+    """Remove inverse target relations from the knowledge graph ``kg`` to
+    prevent label leakage (reference: data/utils.py:64-80)."""
+    target_property_inv = config["task"]["target_property_inv"]
+    if target_property_inv == "":
+        return
+
+    n = len(kg)
+    kg.remove_triples(kg.triples((None, IRI(target_property_inv), None),
+                                 separate_literals=False))
+    m = len(kg)
+    logger.debug("stripped %d triples (%d remain)", n - m, m)
+
+
+def triples_to_indices(kg, node_map: Dict, edge_map: Dict,
+                       separate_literals: bool = False) -> np.ndarray:
+    """Convert a triple split (a knowledge graph) to an ``(n, 3)`` int32
+    index array, rows sorted (reference: data/utils.py:88-93)."""
+    data = np.zeros((len(kg), 3), dtype=np.int32)
+    for i, (s, p, o) in enumerate(
+            kg.triples(separate_literals=separate_literals)):
+        data[i] = (node_map[s], edge_map[p], node_map[o])
+    # canonical row order: the artifact (and every batch and corruption
+    # drawn from it) must not follow the order in which triples were read
+    return data[np.lexsort((data[:, 2], data[:, 1], data[:, 0]))]

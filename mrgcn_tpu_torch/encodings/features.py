@@ -1,29 +1,30 @@
-"""Run-time feature assembly and preprocessing.
+"""Feature dispatch, assembly and preprocessing.
 
-The port's copy of the run-time part of
-:mod:`mrgcn_tpu.encodings.features` (reference:
-mrgcn/encodings/graph_features.py): from an artifact's per-datatype
-encoding sets to model inputs. It covers
+The port's copy of :mod:`mrgcn_tpu.encodings.features` (reference:
+mrgcn/encodings/graph_features.py). It covers
 
+  * the ETL's dispatch: the 33 concrete XSD/OGC/kgbench datatypes map onto
+    the 9 encoder families via the XSD hierarchy walk
+    (:func:`feature_module`), whose per-datatype vectorizers
+    :func:`construct_features` runs;
   * weight-sharing merges of per-predicate encoding sets, with the
     reference's duplicate-node rules (continuous: mean; discrete tokens:
     column-wise majority vote; geometries and images: mean of padded);
   * Bernoulli noise injection and IQR outlier trim/removal;
   * ``modules_config``, which tells the model which encoders to build;
   * :func:`densify`: ragged sets are padded once per run, not per batch.
-
-The per-datatype vectorizers and ``construct_features`` belong to the ETL
-and are not ported.
 """
 
 from __future__ import annotations
 
 import logging
+from importlib import import_module
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
 from mrgcn_tpu_torch.data.utils import getConfParam
+from mrgcn_tpu_torch.encodings.xsd_hierarchy import XSDHierarchy
 
 logger = logging.getLogger(__name__)
 
@@ -31,10 +32,90 @@ AVAILABLE_FEATURES = {"xsd.boolean", "xsd.numeric", "xsd.string",
                       "xsd.anyURI", "blob.image", "ogc.wktLiteral",
                       "xsd.date", "xsd.dateTime", "xsd.gYear"}
 
+# encoder family -> vectorizer module
+_MODULES = {
+    "xsd.numeric": "mrgcn_tpu_torch.encodings.xsd.numeric",
+    "xsd.boolean": "mrgcn_tpu_torch.encodings.xsd.boolean",
+    "xsd.date": "mrgcn_tpu_torch.encodings.xsd.temporal",
+    "xsd.dateTime": "mrgcn_tpu_torch.encodings.xsd.temporal",
+    "xsd.gYear": "mrgcn_tpu_torch.encodings.xsd.temporal",
+    "xsd.string": "mrgcn_tpu_torch.encodings.xsd.string",
+    "xsd.anyURI": "mrgcn_tpu_torch.encodings.xsd.string",
+    "ogc.wktLiteral": "mrgcn_tpu_torch.encodings.ogc.wkt",
+    "blob.image": "mrgcn_tpu_torch.encodings.blob.image",
+}
+
 # TCNN size thresholds (reference: mrgcn/models/temporal_cnn.py:7-9)
 TCNN_LENGTH_S = 20
 TCNN_LENGTH_M = 100
 TCNN_LENGTH_L = 300
+
+
+def feature_module(hierarchy: XSDHierarchy, feature_name: str
+                   ) -> Optional[str]:
+    """Resolve a configured datatype to its encoder family
+    (reference: graph_features.py:98-114)."""
+    if feature_name in AVAILABLE_FEATURES:
+        return feature_name
+    if not feature_name.startswith("xsd"):
+        return None
+
+    local = feature_name[4:]
+    if local not in hierarchy:
+        return None
+    for feature in AVAILABLE_FEATURES:
+        if not feature.startswith("xsd"):
+            continue
+        if hierarchy.subtypeof(feature[4:], local):
+            return feature
+    return None
+
+
+def construct_features(nodes_map: Dict, kg, feature_configs: Sequence[Dict],
+                       separate_literals: bool) -> Dict[str, List]:
+    """Run vectorizers for all included datatypes
+    (reference: graph_features.py:22-61)."""
+    hierarchy = XSDHierarchy()
+
+    # literal objects only — that is all the vectorizers look up — over
+    # the columnar scan (the full-object map cost ~0.15 s per 160k
+    # triples; literals are typically a small fraction)
+    from mrgcn_tpu_torch.data.rdf import Literal, UniqueLiteral
+    node_predicate_map: Dict[object, set] = {}
+    s_col, p_col, o_col = kg.columns()
+    if separate_literals:
+        for s, p, o in zip(s_col, p_col, o_col):
+            if isinstance(o, Literal):
+                node_predicate_map.setdefault(
+                    UniqueLiteral(s, p, o), set()).add(p)
+    else:
+        for p, o in zip(p_col, o_col):
+            if isinstance(o, Literal):
+                node_predicate_map.setdefault(o, set()).add(p)
+
+    # one literal-index pass instead of a full nodes_map scan per
+    # vectorizer (encodings/common.IndexedNodesMap)
+    from mrgcn_tpu_torch.encodings.common import IndexedNodesMap
+    nodes_map = IndexedNodesMap.build(nodes_map)
+
+    features: Dict[str, List] = {}
+    for feature_config in feature_configs:
+        if not feature_config["include"]:
+            continue
+
+        feature_name = feature_config["datatype"]
+        family = feature_module(hierarchy, feature_name)
+        if family is None:
+            logger.debug("Specified feature not available: %s", feature_name)
+            continue
+
+        module = import_module(_MODULES[family])
+        encoding = module.generate_features(nodes_map, node_predicate_map,
+                                            feature_config)
+        if encoding is not None:
+            features[feature_name] = encoding
+
+    return features
 
 
 def features_included(config: Dict) -> Set[str]:

@@ -1,10 +1,18 @@
 """Graph structure: relation-partitioned COO adjacency.
 
-The port's copy of the run-time part of
-:mod:`mrgcn_tpu.encodings.structure`: :class:`GraphStructure`,
-:func:`compute_norm` and :func:`group_by_relation`. Building the structure
-from a parsed knowledge graph (``generate``) belongs to the ETL, which is
-not ported; artifacts written by ``mrgcn_tpu.mkdataset`` carry it.
+The port's copy of :mod:`mrgcn_tpu.encodings.structure`:
+:class:`GraphStructure`, :func:`generate` (the ETL's build of it from a
+parsed knowledge graph), :func:`compute_norm` and
+:func:`group_by_relation`. ``pad_edges`` serves only the device mesh and
+waits for ROADMAP Queue 1 item 6.
+
+Semantics preserved exactly:
+  * deterministic node order: atoms in first-appearance order, then a
+    stable sort by string form (reference: graph_structure.py:16-20);
+  * relation order: properties sorted by string form; for each included
+    property the forward relation, then (optionally) its inverse; the
+    self-loop identity relation last (reference: graph_structure.py:33-38,
+    78-106).
 
 The graph is kept as flat edge arrays ``(src, dst, rel, norm)``; ``norm``
 is the per-relation in-row degree normalisation ``D^-1 A``
@@ -14,10 +22,16 @@ relation comes last and has norm 1.
 
 from __future__ import annotations
 
+import itertools
+import logging
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
+
+from mrgcn_tpu_torch.data.kg import KnowledgeGraph
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass
@@ -58,6 +72,126 @@ class GraphStructure:
             shape=(self.num_nodes, self.num_relations * self.num_nodes))
 
 
+def generate(kg: KnowledgeGraph, config: dict) -> Tuple[GraphStructure,
+                                                        Dict, Dict]:
+    """Build the graph structure from a knowledge graph.
+
+    Returns ``(structure, nodes_map, properties_map)`` where ``properties_map``
+    enumerates *all* properties (including excluded ones) in sorted order —
+    the reference does the same and uses it as the edge index for link
+    prediction (reference: graph_structure.py:16-17, mkdataset.py:49-57).
+    """
+    structural = config["graph"]["structural"]
+    separate_literals = structural["separate_literals"]
+    include_inverse = structural["include_inverse_properties"]
+    exclude_properties = set(structural.get("exclude_properties", []))
+
+    # columnar scan: one zip over the triple set instead of per-triple
+    # generators (~4x on the whole generate() at 160k triples)
+    s_col, p_col, o_col = kg.columns()
+    properties = sorted(set(p_col), key=str)
+    properties_map = {p: i for i, p in enumerate(properties)}
+
+    if separate_literals:
+        atoms = KnowledgeGraph.sort_atoms(kg.atoms(True))
+    else:
+        # same dedup semantics AND ORDER as atoms(False) (s, o per triple,
+        # first appearance), C-speed via dict.fromkeys. Order matters:
+        # sort_atoms is a stable str-keyed sort, so atoms whose str() ties
+        # (e.g. "2000"^^gYear vs "2000"^^integer) keep their encounter
+        # order — a plain set here would make node indexing follow the
+        # interpreter's randomized str hashing.
+        interleaved = itertools.chain.from_iterable(zip(s_col, o_col))
+        atoms = KnowledgeGraph.sort_atoms(dict.fromkeys(interleaved))
+    nodes_map = {node: i for i, node in enumerate(atoms)}
+    num_nodes = len(nodes_map)
+
+    included = [p for p in properties if str(p) not in exclude_properties
+                and p not in exclude_properties]
+    included_rank = {p: k for k, p in enumerate(included)}
+    rel_stride = 2 if include_inverse else 1
+    num_relations = len(included) * rel_stride + 1  # + self-loop identity
+
+    logger.debug("Generating %d relation partitions over %d nodes",
+                 num_relations, num_nodes)
+
+    # Single pass over the triples: map to (s, k, o) index rows, then group
+    # per relation with numpy. (The reference re-scans the whole graph once
+    # per property — reference: graph_structure.py:78-91 — and offers a
+    # multiprocessing pool to compensate; one pass makes that moot, so the
+    # flag is read and has no effect.)
+    if structural.get("multiprocessing", False):
+        logger.debug("multiprocessing = true has no effect: the structure "
+                     "is built in one columnar pass")
+    s_idx, k_idx, o_idx = _index_triples(kg, nodes_map, included_rank,
+                                         separate_literals)
+
+    src_parts: List[np.ndarray] = []
+    dst_parts: List[np.ndarray] = []
+    rel_parts: List[np.ndarray] = []
+    if len(s_idx):
+        order = np.argsort(k_idx, kind="stable")
+        s_sorted, k_sorted, o_sorted = s_idx[order], k_idx[order], \
+            o_idx[order]
+        src_parts.append(s_sorted)
+        dst_parts.append(o_sorted)
+        rel_parts.append(k_sorted * rel_stride)
+        if include_inverse:
+            src_parts.append(o_sorted)
+            dst_parts.append(s_sorted)
+            rel_parts.append(k_sorted * rel_stride + 1)
+
+    # Self-loop identity relation, normalised weight 1
+    # (reference: graph_structure.py:33-35).
+    loop = np.arange(num_nodes, dtype=np.int32)
+    src_parts.append(loop)
+    dst_parts.append(loop)
+    rel_parts.append(np.full(num_nodes, num_relations - 1, dtype=np.int32))
+
+    src = np.concatenate(src_parts)
+    dst = np.concatenate(dst_parts)
+    rel = np.concatenate(rel_parts)
+    norm = compute_norm(src, rel, num_nodes, num_relations)
+
+    structure = GraphStructure(num_nodes=num_nodes,
+                               num_relations=num_relations,
+                               src=src, dst=dst, rel=rel, norm=norm,
+                               nodes_map=nodes_map,
+                               properties_map=properties_map)
+    return structure, nodes_map, properties_map
+
+
+def _index_triples(kg: KnowledgeGraph, nodes_map: Dict, included_rank: Dict,
+                   separate_literals: bool):
+    """One pass: triples -> (s_idx, prop_rank, o_idx) int32 arrays.
+
+    Dictionary lookups run as C-level maps over the zipped columns (no
+    per-triple tuple unpack, no generator): ~3x a list-comprehension loop
+    at 160k triples.
+    """
+    s_col, p_col, o_col = kg.columns()
+    if separate_literals:
+        from mrgcn_tpu_torch.data.rdf import Literal, UniqueLiteral
+        o_col = tuple(UniqueLiteral(s, p, o)
+                      if isinstance(o, Literal) else o
+                      for s, p, o in zip(s_col, p_col, o_col))
+    n = len(s_col)
+    if n == 0:
+        empty = np.empty(0, dtype=np.int32)
+        return empty, empty, empty
+    k_arr = np.fromiter(
+        (v if v is not None else -1
+         for v in map(included_rank.get, p_col)),
+        dtype=np.int32, count=n)
+    s_arr = np.fromiter(map(nodes_map.__getitem__, s_col),
+                        dtype=np.int32, count=n)
+    o_arr = np.fromiter(map(nodes_map.__getitem__, o_col),
+                        dtype=np.int32, count=n)
+    if (k_arr < 0).any():  # excluded properties
+        keep = k_arr >= 0
+        return s_arr[keep], k_arr[keep], o_arr[keep]
+    return s_arr, k_arr, o_arr
+
 
 def compute_norm(src: np.ndarray, rel: np.ndarray, num_nodes: int,
                  num_relations: int) -> np.ndarray:
@@ -67,7 +201,6 @@ def compute_norm(src: np.ndarray, rel: np.ndarray, num_nodes: int,
     _, inverse, counts = np.unique(key, return_inverse=True,
                                    return_counts=True)
     return (1.0 / counts[inverse]).astype(np.float32)
-
 
 
 @dataclass

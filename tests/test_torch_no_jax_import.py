@@ -11,7 +11,9 @@ native library included), a full-batch NC run over all five modalities
 strings and images on the pretrained backbones (a tiny DistilBERT in a
 hub cache and a MobileNetV2 checkpoint, written by the port), in a
 subprocess in which these names are blocked (``sys.modules[name] =
-None``).
+None``). In another such subprocess the port's ``mkdataset`` CLI builds an
+artifact from N-Quads and gzipped N-Triples, its strings tokenized by the
+port's WordPiece from a ``vocab.txt`` snapshot, and ``run`` trains it.
 """
 
 import ast
@@ -51,6 +53,11 @@ def test_the_walk_finds_the_port():
             "mrgcn_tpu_torch/models/pretrained.py",
             "mrgcn_tpu_torch/utils/flax_msgpack.py",
             "mrgcn_tpu_torch/utils/hf.py",
+            "mrgcn_tpu_torch/mkdataset.py",
+            "mrgcn_tpu_torch/data/kg.py",
+            "mrgcn_tpu_torch/encodings/xsd/wordpiece.py",
+            "mrgcn_tpu_torch/encodings/ogc/wkt.py",
+            "mrgcn_tpu_torch/encodings/blob/image.py",
             "chip_smoke.py"} <= names
 
 
@@ -173,3 +180,74 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok-no-jax")
+
+
+BLOCKED_ETL = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "mrgcn_tpu", "transformers",
+             "tokenizers", "msgpack"):
+    sys.modules[name] = None
+import gzip, json, os, tempfile
+from pathlib import Path
+os.environ["MRGCN_PLATFORM"] = "cpu"
+from tests import synth
+from mrgcn_tpu_torch import mkdataset, run
+with tempfile.TemporaryDirectory() as tmp:
+    paths = synth.make_nc_dataset(os.path.join(tmp, "data"),
+                                  num_entities=30, with_strings=True)
+    quads = os.path.join(tmp, "data", "context.nq")
+    with gzip.open(paths["context"], "rt") as f, open(quads, "w") as g:
+        for line in f:
+            g.write(line.rstrip().rstrip(".") + " <http://example.org/g> .\\n")
+    paths["context"] = quads
+    vocab = os.path.join(tmp, "wordpiece")
+    os.mkdir(vocab)
+    Path(vocab, "vocab.txt").write_text("\\n".join(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "alpha", "beta",
+         "common", "text", "##a"]) + "\\n")
+    Path(vocab, "config.json").write_text(json.dumps(
+        {"model_type": "distilbert"}))
+    config = synth.nc_config(paths, with_strings=True, epochs=1)
+    cfg = os.path.join(tmp, "etl.toml")
+    lines = [f'name = "{config["name"]}"', "[graph]"]
+    lines += [f'{k} = "{paths[k]}"' for k in ("context", "train", "valid",
+                                             "test")]
+    lines += ["[graph.structural]", "include_inverse_properties = true",
+              "exclude_properties = []", "separate_literals = false",
+              "multiprocessing = false"]
+    for feat in config["graph"]["features"]:
+        lines += ["[[graph.features]]"] + [
+            f"{k} = {json.dumps(v)}" for k, v in feat.items()]
+        if feat["datatype"] == "xsd.string":
+            lines += [f"tokenizer.config = {json.dumps(['hf', 'tokenizer', vocab])}",
+                      'tokenizer.pad_token = "[PAD]"']
+    lines += ["[task]", 'type = "node classification"',
+              'target_property = "http://example.org/hasClass"',
+              'target_property_inv = ""', "seed = 1",
+              "[model]", "epoch = 1", "num_bases = 2",
+              "[[model.layers]]", "hidden_nodes = 8",
+              "[[model.layers]]", 'type = "mrgcn"']
+    Path(cfg).write_text("\\n".join(lines) + "\\n")
+    assert mkdataset.main(["-c", cfg, "-o", tmp]) == 0
+    art = next(p for p in os.listdir(tmp) if p.endswith(".npz"))
+    from mrgcn_tpu_torch.data import artifact
+    F = artifact.load(os.path.join(tmp, art)).F
+    ids = {int(i) for enc, _, _ in F["xsd.string"] for s in enc for i in s}
+    assert ids <= set(range(10)) and {2, 3, 5, 7, 8} <= ids, ids
+    res = run.run_cli(["-c", cfg, "-i", os.path.join(tmp, art), "-o", tmp,
+                       "--dry_run"])
+    assert len(res.history) == 1
+loaded = [m for m in sys.modules if m.split(".")[0] in
+          ("jax", "jaxlib", "flax", "optax", "mrgcn_tpu", "transformers",
+           "tokenizers", "msgpack")
+          and sys.modules[m] is not None]
+assert not loaded, loaded
+print("ok-etl-no-jax")
+"""
+
+
+def test_port_mkdataset_runs_with_jax_and_transformers_blocked():
+    proc = subprocess.run([sys.executable, "-c", BLOCKED_ETL], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok-etl-no-jax")
