@@ -241,7 +241,13 @@ prints no result line. Phases, each printing its own lines:
    kernel and route as in phase 5; then ``mkdataset`` on
    ``benchmarks/parity/big/lp`` and 3 LP epochs at
    ``configs/fb15k-237.toml``'s widths, the launches by kernel and route
-   those of the plans the planner builds for that artifact.
+   those of the plans the planner builds for that artifact; then the
+   same graph written by this script as gzipped Turtle, RDF/XML and
+   JSON-LD (in the N-Triples file's triple order), each built by the
+   CLI (host seconds by stage and the files' bytes printed) with arrays
+   equal to the N-Triples build, the parity NC graph as TriG and under
+   ``.n3``, ``.owl`` and ``.json`` names likewise, and the Turtle build
+   trained as above.
 
 Every kernel comparison checks bit identity across two runs, and the
 slice-shape ones time the kernel, the plain version and, where one PyTorch
@@ -264,6 +270,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -4139,6 +4146,196 @@ def etl_build(cfg: Path, out: Path) -> tuple:
     return Path(path), stages
 
 
+# the N-Triples lines chip_smoke and the parity graphs write: subject,
+# predicate, object as written (a literal with its escapes, language tag or
+# datatype), one statement a line
+NT_LINE = re.compile(r"(<[^>]*>|_:\S+) (<[^>]*>) (.+) \.\s*$")
+NT_ESCAPES = re.compile(r"\\(?:u([0-9A-Fa-f]{4})|U([0-9A-Fa-f]{8})|(.))")
+NT_CHARS = {"t": "\t", "b": "\b", "n": "\n", "r": "\r", "f": "\f",
+            '"': '"', "'": "'", "\\": "\\"}
+# serialisation -> the extension its files take in the etl phase's step (e)
+SERIALISATIONS = {"turtle": ".ttl", "rdfxml": ".rdf", "jsonld": ".jsonld"}
+RDF_NS = "http://www.w3.org/1999/02/22-rdf-syntax-ns#"
+PN_LOCAL = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_-]*")   # a safe Turtle local
+
+
+def open_text(path: Path, mode: str):
+    """``path`` as UTF-8 text, through gzip (level 1) where it ends in
+    ``.gz``."""
+    import gzip
+    if str(path).endswith(".gz"):
+        return gzip.open(path, mode + "t", encoding="utf-8", compresslevel=1)
+    return open(path, mode, encoding="utf-8")
+
+
+def read_nt(path: Path) -> list:
+    """The statements of an N-Triples file as written: ``(subject,
+    predicate, object)`` term texts; comments and blank lines skipped,
+    anything else raises."""
+    triples = []
+    with open_text(path, "r") as f:
+        for line in f:
+            if not line.strip() or line.lstrip().startswith("#"):
+                continue
+            m = NT_LINE.match(line)
+            check(m is not None, f"{path}: not a statement: {line!r}")
+            triples.append(m.groups())
+    return triples
+
+
+def nt_literal(term: str) -> tuple:
+    """An N-Triples literal's ``(lexical form, language, datatype)``, its
+    escapes undone."""
+    end = term.rindex('"')
+    suffix = term[end + 1:]
+
+    def unescape(m):
+        u4, u8, c = m.groups()
+        return chr(int(u4 or u8, 16)) if c is None else NT_CHARS[c]
+
+    lexical = NT_ESCAPES.sub(unescape, term[1:end])
+    language = suffix[1:] if suffix.startswith("@") else None
+    datatype = suffix[3:-1] if suffix.startswith("^^") else None
+    return lexical, language, datatype
+
+
+def turtle_term(term: str, prefixes: dict) -> str:
+    """A term text in Turtle: an IRI under a prefix as a prefixed name,
+    anything else as N-Triples writes it (Turtle reads that too)."""
+    if term.startswith("<"):
+        for name, ns in prefixes.items():
+            local = term[1 + len(ns):-1]
+            if term.startswith("<" + ns) and PN_LOCAL.fullmatch(local):
+                return f"{name}:{local}"
+    return term
+
+
+def write_turtle(triples, path: Path, prefixes: dict,
+                 graph: str = None) -> None:
+    """``triples`` as Turtle in their order: ``@prefix`` lines, prefixed
+    names, ``;`` over consecutive statements of one subject, literals as
+    N-Triples writes them (``"..."^^<dt>``). With ``graph``, TriG: every
+    statement in the block ``GRAPH <graph> { ... }``."""
+    with open_text(path, "w") as f:
+        f.writelines(f"@prefix {k}: <{v}> .\n" for k, v in prefixes.items())
+        if graph:
+            f.write(f"GRAPH <{graph}> {{\n")
+        last = None
+        for s, p, o in triples:
+            p, o = turtle_term(p, prefixes), turtle_term(o, prefixes)
+            if s == last:
+                f.write(f" ;\n    {p} {o}")
+            else:
+                f.write(f"{' .' if last else ''}\n{turtle_term(s, prefixes)} "
+                        f"{p} {o}")
+            last = s
+        f.write(" .\n}\n" if graph else " .\n")
+
+
+def write_rdfxml(triples, path: Path) -> None:
+    """``triples`` as RDF/XML in their order: one ``rdf:Description`` a
+    run of statements on one subject, each predicate a property element in
+    a namespace declared on ``rdf:RDF``, ``rdf:resource`` / ``rdf:nodeID``
+    objects, literals as XML-escaped text with ``rdf:datatype`` or
+    ``xml:lang``."""
+    from xml.sax.saxutils import escape, quoteattr
+    spaces = {}
+    for _, p, _ in triples:
+        if p not in spaces:
+            m = re.fullmatch(r"<(.*[/#])([A-Za-z_][A-Za-z0-9_.-]*)>", p)
+            check(m is not None, f"no XML name for the predicate {p}")
+            spaces[p] = m.groups()
+    names = {ns: f"ns{i}" for i, ns in
+             enumerate(dict.fromkeys(ns for ns, _ in spaces.values()))}
+    qname = {p: f"{names[ns]}:{local}" for p, (ns, local) in spaces.items()}
+
+    def node(term: str, attr: str) -> str:
+        if term.startswith("_:"):
+            return f"rdf:nodeID={quoteattr(term[2:])}"
+        return f"rdf:{attr}={quoteattr(term[1:-1])}"
+
+    with open_text(path, "w") as f:
+        f.write('<?xml version="1.0" encoding="utf-8"?>\n'
+                f'<rdf:RDF xmlns:rdf="{RDF_NS}"' + "".join(
+                    f" xmlns:{n}={quoteattr(ns)}" for ns, n in names.items())
+                + ">\n")
+        last = None
+        for s, p, o in triples:
+            if s != last:
+                if last is not None:
+                    f.write("</rdf:Description>\n")
+                f.write(f"<rdf:Description {node(s, 'about')}>\n")
+                last = s
+            if not o.startswith('"'):
+                f.write(f"  <{qname[p]} {node(o, 'resource')}/>\n")
+                continue
+            lexical, language, datatype = nt_literal(o)
+            attr = f" xml:lang={quoteattr(language)}" if language else \
+                f" rdf:datatype={quoteattr(datatype)}" if datatype else ""
+            f.write(f"  <{qname[p]}{attr}>"
+                    f"{escape(lexical, {chr(13): '&#13;'})}</{qname[p]}>\n")
+        if last is not None:
+            f.write("</rdf:Description>\n")
+        f.write("</rdf:RDF>\n")
+
+
+def write_jsonld(triples, path: Path) -> None:
+    """``triples`` as JSON-LD in their order: an ``@graph`` array of node
+    objects, a new one where the subject changes or a predicate would
+    come back after another, objects as ``{"@id"}`` references and
+    literals as value objects whose ``@value`` is the lexical form (with
+    ``@type`` or ``@language``)."""
+    nodes, node, last = [], None, None
+    for s, p, o in triples:
+        sid = s[1:-1] if s.startswith("<") else s
+        key = p[1:-1]
+        if node is None or node["@id"] != sid or (key in node
+                                                  and key != last):
+            node = {"@id": sid}
+            nodes.append(node)
+        if o.startswith('"'):
+            lexical, language, datatype = nt_literal(o)
+            value = {"@value": lexical}
+            if language:
+                value["@language"] = language
+            elif datatype:
+                value["@type"] = datatype
+        else:
+            value = {"@id": o[1:-1] if o.startswith("<") else o}
+        node.setdefault(key, []).append(value)
+        last = key
+    with open_text(path, "w") as f:
+        f.write(json.dumps({"@graph": nodes}))
+
+
+def write_serialised(triples, path: Path, serialisation: str) -> None:
+    """``triples`` (``read_nt``'s) in ``path`` as ``serialisation``:
+    ``turtle``, ``trig``, ``rdfxml`` or ``jsonld``."""
+    if serialisation in ("turtle", "trig"):
+        write_turtle(triples, path, {"ex": EX},
+                     graph=f"{EX}graph" if serialisation == "trig" else None)
+    elif serialisation == "rdfxml":
+        write_rdfxml(triples, path)
+    else:
+        check(serialisation == "jsonld", f"unknown {serialisation}")
+        write_jsonld(triples, path)
+
+
+def serialise_graph(graph: dict, directory: Path, serialisation: str,
+                    ext: str) -> dict:
+    """Each N-Triples file of a ``[graph]`` section written again under
+    ``directory`` as ``serialisation`` with extension ``ext`` (gzipped
+    where the source is); returns the new section's paths."""
+    directory.mkdir(exist_ok=True)
+    out = {}
+    for split, src in graph.items():
+        name = Path(src).name.split(".")[0] + ext + \
+            (".gz" if src.endswith(".gz") else "")
+        out[split] = str(directory / name)
+        write_serialised(read_nt(Path(src)), Path(out[split]), serialisation)
+    return out
+
+
 def stream_route(stream, place: bool) -> tuple:
     """``(scatter, kernel)`` a planned stream launches: a placement or a
     relation-constant stream ``fused_place_scatter``, any other
@@ -4209,7 +4406,10 @@ def etl_phase(work, tmp: Path) -> dict:
     launches by kernel and route against the planner), the losses finite
     and falling; (d) ``mkdataset`` on ``benchmarks/parity/big/lp`` and
     ``ETL_LP_EPOCHS`` LP epochs at ``configs/fb15k-237.toml``'s widths,
-    the launches against ``lp_planned_launches``."""
+    the launches against ``lp_planned_launches``; (e) (a)'s graph as
+    Turtle, RDF/XML and JSON-LD and the parity graph as TriG, ``.n3``,
+    ``.owl`` and ``.json``, each build equal to its N-Triples build
+    (``serialisation_builds``), and the Turtle build trained as (c)."""
     import torch
     from mrgcn_tpu_torch import run
     from mrgcn_tpu_torch.data import artifact as artifact_io
@@ -4251,6 +4451,8 @@ def etl_phase(work, tmp: Path) -> dict:
     report = {"write_s": write_s, "stages_s": stages,
               "second_build_stages_s": stages2, "parser": parser,
               "artifact_bytes": art.stat().st_size,
+              "file_bytes": sum(Path(p).stat().st_size for k, p in
+                                graph.items() if k != "structural"),
               "num_nodes": A.num_nodes, "num_relations": A.num_relations,
               "num_edges": A.num_edges,
               "encoding_sets": {k: len(v) for k, v in first.F.items()}}
@@ -4312,7 +4514,82 @@ def etl_phase(work, tmp: Path) -> dict:
           "launches": launches,
           "routes": {f"{n}.{k}": c for (n, k), c in got.items()}}
     print(f"[slice] {json.dumps(lp)}")
-    return {"etl_nc": dict(nc, etl=report), "etl_lp": lp}
+
+    # (e) the same graph in the other serialisations, built and trained
+    serialised = serialisation_builds(cfg, art, graph, data, tmp)
+    ttl = artifact_io.load(str(tmp / "etl_nc_turtle.npz"))
+    nc_ttl = slice_phase(etl_work, tmp, "etl_nc_turtle",
+                         {"sorted_scatter": 1, "fused_place_scatter": 2,
+                          **dict.fromkeys(ENCODER_KERNELS, 2)},
+                         F=ttl.F, features=ETL_FEATURES)
+    check(nc_ttl["train_loss"][-1] < nc_ttl["train_loss"][0],
+          f"etl turtle: the NC loss did not fall: {nc_ttl['train_loss']}")
+    return {"etl_nc": dict(nc, etl=report), "etl_lp": lp,
+            "etl_nc_turtle": dict(nc_ttl, serialisations=serialised)}
+
+
+def build_with_files(cfg: Path, paths: dict, tmp: Path, tag: str) -> tuple:
+    """``etl_build`` of a copy of ``cfg`` (``<tag>.toml``) whose ``[graph]``
+    files are ``paths``, into ``<tag>_out``."""
+    body = cfg.read_text()
+    for split, path in paths.items():
+        body = re.sub(rf"^{split} = .*$", f"{split} = {json.dumps(path)}",
+                      body, count=1, flags=re.M)
+    (tmp / f"{tag}.toml").write_text(body)
+    return etl_build(tmp / f"{tag}.toml", tmp / f"{tag}_out")
+
+
+def serialisation_builds(cfg: Path, art: Path, graph: dict, data: Path,
+                         tmp: Path) -> dict:
+    """The etl phase's step (e): ``graph``'s N-Triples files (step (a))
+    written again as gzipped Turtle, RDF/XML and JSON-LD by
+    ``serialise_graph``, each built by ``mkdataset``'s CLI with ``cfg``
+    and held array for array to ``art`` (step (b)'s build), the Turtle
+    build kept as ``etl_nc_turtle.npz`` for training; then
+    ``benchmarks/parity/big``'s NC graph as TriG and as Turtle, RDF/XML
+    and JSON-LD under ``.n3``, ``.owl`` and ``.json`` names, each build
+    held to that graph's N-Triples build. Returns the seconds and bytes
+    of each."""
+    from mrgcn_tpu_torch.data import artifact as artifact_io
+    want = artifact_io.load(str(art))
+    files = {k: v for k, v in graph.items() if k != "structural"}
+    out = {}
+    for serialisation, ext in SERIALISATIONS.items():
+        t0 = time.perf_counter()
+        paths = serialise_graph(files, data / serialisation, serialisation,
+                                ext)
+        write_s = time.perf_counter() - t0
+        built, stages = build_with_files(cfg, paths, tmp,
+                                         f"etl_{serialisation}")
+        check(same_artifacts(artifact_io.load(str(built)), want),
+              f"etl: the {serialisation} build differs from N-Triples'")
+        if serialisation == "turtle":
+            shutil.copy(built, tmp / "etl_nc_turtle.npz")
+        out[serialisation] = {
+            "write_s": write_s, "stages_s": stages,
+            "file_bytes": sum(Path(p).stat().st_size
+                              for p in paths.values())}
+        print(f"[etl] {serialisation}: {json.dumps(out[serialisation])}")
+    del want
+
+    big = ROOT / "benchmarks" / "parity" / "big"
+    nt = {split: str(big / "nc" / f"{split}.nt.gz")
+          for split in ("context", "train", "valid", "test")}
+    reference, _ = build_with_files(big / "nc_config.toml", nt, tmp,
+                                    "parity_nt")
+    want = artifact_io.load(str(reference))
+    for serialisation, ext in (("trig", ".trig"), ("turtle", ".n3"),
+                               ("rdfxml", ".owl"), ("jsonld", ".json")):
+        paths = serialise_graph(nt, data / f"parity{ext}", serialisation,
+                                ext)
+        built, stages = build_with_files(big / "nc_config.toml", paths, tmp,
+                                         f"parity_{ext[1:]}")
+        check(same_artifacts(artifact_io.load(str(built)), want),
+              f"etl: the parity graph's {ext} build differs from N-Triples'")
+        out[f"parity{ext}"] = {"stages_s": stages}
+    print("[etl] the parity graph as .trig, .n3, .owl and .json: each "
+          "build equals the N-Triples build")
+    return out
 
 
 # kernel -> (source, the TPU kernel it replaces, the timed row that goes

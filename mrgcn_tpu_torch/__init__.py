@@ -14,7 +14,7 @@ both packages read the same datasets. The port imports ``torch`` and never
 def _version() -> str:
     """The version both packages share: installed metadata first, then the
     repository's ``pyproject.toml`` (the package runs uninstalled from the
-    repository root)."""
+    repository root), else ``"0+unknown"``."""
     from importlib.metadata import PackageNotFoundError, version
     try:
         return version("mrgcn_tpu")
@@ -27,7 +27,9 @@ def _version() -> str:
     try:
         with open(pyproject, "rb") as f:
             return tomllib.load(f)["project"]["version"]
-    except OSError:
+    except (OSError, KeyError, tomllib.TOMLDecodeError):
+        # no file, no [project].version, or a malformed file: the package
+        # still imports
         return "0+unknown"
 
 

@@ -4,38 +4,27 @@ The port's copy of :mod:`mrgcn_tpu.data.kg`. Mirrors the behavioural
 contract of the reference's rdflib wrapper
 (reference: mrgcn/data/io/knowledge_graph.py:18-228): a de-duplicated triple
 store with deterministic atom enumeration, optional per-occurrence literal
-separation (``UniqueLiteral``), and graph subtraction for target-relation
-stripping: what the ETL reads (the JAX package's statistics and sampling
-generators are not copied). The port reads N-Triples and N-Quads (plain
-or gzipped); the other serialisations raise, naming the ROADMAP item that
-ports them.
+separation (``UniqueLiteral``), property frequencies, and graph subtraction
+for target-relation stripping. It reads every serialisation the JAX
+package reads, plain or gzipped: N-Triples, N-Quads, Turtle, TriG, RDF/XML
+and JSON-LD (the documented subset of :mod:`.jsonld`).
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Dict, Iterable, Iterator, List
+from collections import Counter
+from typing import Dict, Iterable, Iterator, List, Optional
 
 from mrgcn_tpu_torch.data.ntriples import Triple, Term, parse_file
-from mrgcn_tpu_torch.data.rdf import Literal, UniqueLiteral
+from mrgcn_tpu_torch.data.rdf import BNode, Literal, UniqueLiteral
 
 logger = logging.getLogger(__name__)
 
-TODO_SERIALISATIONS = "ROADMAP Queue 1, item 7b (Turtle / TriG, RDF/XML, " \
-    "JSON-LD)"
-# extension -> the serialisation the JAX package reads there and the port
-# does not yet
-_UNPORTED = {"ttl": "Turtle", "turtle": "Turtle", "n3": "Turtle",
-             "trig": "TriG", "rdf": "RDF/XML", "rdfs": "RDF/XML",
-             "owl": "RDF/XML", "xml": "RDF/XML", "jsonld": "JSON-LD",
-             "json": "JSON-LD"}
-
 
 def _format_of(path: str) -> str:
-    """RDF serialisation by extension (.gz-transparent): ``ntriples`` or
-    ``nquads``. Turtle, TriG, RDF/XML and JSON-LD raise ``ValueError``
-    naming ROADMAP item 7b; any other extension raises as in the JAX
-    package. The reference defers to rdflib's format guessing
+    """RDF serialisation by extension (.gz-transparent). The reference
+    defers to rdflib's format guessing
     (reference: data/io/knowledge_graph.py:45-56)."""
     stem = path[:-3] if path.endswith(".gz") else path
     ext = stem.rsplit(".", 1)[-1].lower() if "." in stem else ""
@@ -43,16 +32,25 @@ def _format_of(path: str) -> str:
         return "ntriples"
     if ext in ("nq", "nquads"):
         return "nquads"   # graph labels parsed and ignored
-    if ext in _UNPORTED:
-        raise ValueError(
-            f"{_UNPORTED[ext]} input ({path}) is not ported yet: "
-            f"{TODO_SERIALISATIONS}. Convert it to N-Triples first, e.g. "
-            f"with `rapper` or rdflib.")
+    if ext in ("ttl", "turtle", "n3"):
+        return "turtle"
+    if ext == "trig":
+        return "trig"     # graph labels parsed and ignored
+    if ext in ("rdf", "rdfs", "owl", "xml"):
+        return "rdfxml"
+    if ext in ("jsonld", "json"):
+        return "jsonld"   # fail-loud subset, see data/jsonld.py
     raise ValueError(
         f"Unsupported RDF serialisation {'.' + ext if ext else path!r}: "
-        f"{path}. Supported: N-Triples (.nt[.gz]) and N-Quads (.nq[.gz]). "
-        f"Convert other serialisations to N-Triples first, e.g. with "
-        f"`rapper` or rdflib.")
+        f"{path}. Supported: N-Triples (.nt[.gz]), N-Quads (.nq[.gz]), "
+        f"Turtle (.ttl/.n3[.gz]), TriG (.trig[.gz]), RDF/XML "
+        f"(.rdf/.rdfs/.owl/.xml[.gz]) and JSON-LD (.jsonld[.gz], "
+        f"documented subset). Convert other serialisations to N-Triples "
+        f"first, e.g. with `rapper` or rdflib.")
+
+
+_NAMES = {"ntriples": "N-Triples", "nquads": "N-Quads", "turtle": "Turtle",
+          "trig": "TriG", "rdfxml": "RDF/XML", "jsonld": "JSON-LD"}
 
 
 def _read_path(path: str):
@@ -61,28 +59,40 @@ def _read_path(path: str):
     the file reads, else the Python parser, which gives the same triples
     (the JAX package falls back on any exception, silently; the port only
     where :func:`..native.parse_file_native` returns None, which it logs).
-    N-Quads takes the Python parser, which drops graph labels. Fails
-    loudly when a non-empty file parses to zero triples: a silent empty
-    graph poisons everything downstream."""
+    N-Quads takes the Python parser, which drops graph labels; Turtle /
+    TriG, RDF/XML (relative IRIs against the file's ``file:`` URI, as
+    rdflib does) and JSON-LD their own readers. Fails loudly when a
+    non-empty file parses to zero triples: a silent empty graph poisons
+    everything downstream."""
     fmt = _format_of(path)
-    if fmt == "nquads":
+    if fmt in ("turtle", "trig"):
+        from mrgcn_tpu_torch.data import turtle
+        triples = turtle.parse_file(path, trig=(fmt == "trig"))
+    elif fmt == "jsonld":
+        from mrgcn_tpu_torch.data import jsonld
+        triples = jsonld.parse_file(path)
+    elif fmt == "rdfxml":
+        # relative IRIs against the document's URI, as rdflib resolves
+        # them: otherwise cross-file references to one IRI diverge
+        import pathlib
+        from mrgcn_tpu_torch.data import rdfxml
+        base = pathlib.Path(path).absolute().as_uri()
+        triples = rdfxml.parse_file(path, base_iri=base)
+    elif fmt == "nquads":
         # only this dispatch path accepts the N-Quads graph label; the
         # native fast path does not, so quads stay on the Python path
         triples = list(parse_file(path, allow_quads=True))
-        if not triples and _has_content(path):
-            raise ValueError(
-                f"{path}: no valid N-Quads statements found in a "
-                "non-empty file — wrong serialisation?")
-        return triples
-
-    from mrgcn_tpu_torch.data.native import parse_file_native
-    triples = parse_file_native(path)
-    if triples is None:
-        triples = list(parse_file(path))
+    else:
+        from mrgcn_tpu_torch.data.native import parse_file_native
+        triples = parse_file_native(path)
+        if triples is None:
+            triples = list(parse_file(path))
     if not triples and _has_content(path):
+        hint = " (Turtle needs a .ttl extension)" if fmt == "ntriples" \
+            else ""
         raise ValueError(
-            f"{path}: no valid N-Triples statements found in a non-empty "
-            "file — wrong serialisation? (Turtle needs a .ttl extension)")
+            f"{path}: no valid {_NAMES[fmt]} statements found in a "
+            f"non-empty file — wrong serialisation?{hint}")
     return triples
 
 
@@ -102,11 +112,12 @@ def _has_content(path: str) -> bool:
 class KnowledgeGraph:
     """Deduped, insertion-ordered triples plus convenience generators.
 
-    Construct from one N-Triples / N-Quads path (plain or ``.gz``) or a
-    list of them.
+    Construct from one RDF path (any serialisation of :func:`_format_of`,
+    plain or ``.gz``) or a list of them, another graph, an iterable of
+    triples, or nothing (empty graph).
     """
 
-    def __init__(self, source):
+    def __init__(self, source=None):
         # dedup container with INSERTION order (dict, not set): every
         # generator — atoms(), columns(), triples() — iterates in
         # parse/first-appearance order, so node indexing, edge order and
@@ -115,9 +126,21 @@ class KnowledgeGraph:
         # whenever distinct terms share a sort key (e.g. "2000"^^gYear vs
         # "2000"^^integer under separate_literals=false).
         self._triples: Dict[Triple, None] = {}
-        for path in [source] if isinstance(source, str) else source:
-            self._triples.update(dict.fromkeys(_read_path(path)))
 
+        if source is None:
+            pass
+        elif isinstance(source, str):
+            self._triples.update(dict.fromkeys(_read_path(source)))
+        elif isinstance(source, (list, tuple)) and source \
+                and isinstance(source[0], str):
+            for path in source:
+                self._triples.update(dict.fromkeys(_read_path(path)))
+        elif isinstance(source, KnowledgeGraph):
+            self._triples.update(source._triples)
+        else:  # iterable of triples
+            self._triples.update(dict.fromkeys(source))
+
+        self._property_distribution = Counter(p for _, p, _ in self._triples)
         logger.debug("Knowledge graph imported (%d facts)", len(self._triples))
 
     # -- basics --------------------------------------------------------
@@ -125,11 +148,21 @@ class KnowledgeGraph:
     def __len__(self) -> int:
         return len(self._triples)
 
+    def __contains__(self, triple: Triple) -> bool:
+        return triple in self._triples
+
     def __enter__(self) -> "KnowledgeGraph":
         return self
 
     def __exit__(self, *exc) -> None:
         self._triples.clear()
+
+    def add(self, triple: Triple) -> None:
+        # a duplicate is a no-op (set semantics): the distribution keeps
+        # counting the deduped store, or property_frequency over-counts
+        if triple not in self._triples:
+            self._triples[triple] = None
+            self._property_distribution[triple[1]] += 1
 
     def remove_triples(self, triples: Iterable[Triple]) -> int:
         """Subtract triples; returns the number removed.
@@ -141,6 +174,7 @@ class KnowledgeGraph:
         for t in set(triples):
             if t in self._triples:
                 del self._triples[t]
+                self._property_distribution[t[1]] -= 1
                 removed += 1
         return removed
 
@@ -182,6 +216,76 @@ class KnowledgeGraph:
                     continue
                 seen.add(atom)
                 yield atom
+
+    def non_terminal_atoms(self) -> Iterator[Term]:
+        # dict.fromkeys, not a set: first-appearance order, like the rest
+        # of the generators
+        yield from dict.fromkeys(s for s, _, _ in self._triples)
+
+    def terminal_atoms(self) -> Iterator[Term]:
+        """Objects that never appear as subjects
+        (reference: knowledge_graph.py:89-96)."""
+        non_terminal = frozenset(self.non_terminal_atoms())
+        for _, _, o in self._triples:
+            if o not in non_terminal:
+                yield o
+
+    def _property_kinds(self):
+        """One pass: properties used with >=1 non-literal object vs
+        literal-only properties."""
+        objecttype, any_prop = set(), set()
+        for _, p, o in self._triples:
+            any_prop.add(p)
+            if type(o) is not Literal:
+                objecttype.add(p)
+        return objecttype, any_prop - objecttype
+
+    def objecttype_properties(self) -> Iterator[Term]:
+        """Properties used with at least one non-literal object
+        (reference: knowledge_graph.py:113-122)."""
+        yield from self._property_kinds()[0]
+
+    def datatype_properties(self) -> Iterator[Term]:
+        """Properties used exclusively with literal objects
+        (reference: knowledge_graph.py:124-132)."""
+        yield from self._property_kinds()[1]
+
+    def attributes(self) -> Iterator[Literal]:
+        for _, _, o in self._triples:
+            if type(o) is Literal:
+                yield o
+
+    def entities(self, omit_blank_nodes: bool = False) -> Iterator[Term]:
+        for res in self.atoms():
+            if isinstance(res, Literal) or \
+                    (omit_blank_nodes and type(res) is BNode):
+                continue
+            yield res
+
+    def properties(self) -> Iterator[Term]:
+        for _, p, _ in self._triples:
+            yield p
+
+    # -- statistics -----------------------------------------------------
+
+    def property_frequency(self, prop: Optional[Term] = None):
+        if prop is None:
+            return self._property_distribution
+        return self._property_distribution.get(prop, 0)
+
+    def attribute_frequency(self, prop: Term, limit: Optional[int] = None):
+        freq = Counter(o for _, p, o in self._triples if p == prop)
+        return freq.most_common(limit)
+
+    # -- operators --------------------------------------------------------
+
+    def sample(self, strategy=None, **kwargs) -> "KnowledgeGraph":
+        """Sample this graph with a user-provided strategy object
+        (reference: knowledge_graph.py:161-169)."""
+        if strategy is None:
+            raise ValueError("Strategy cannot be left undefined")
+        logger.debug("Sampling graph")
+        return strategy.sample(self, **kwargs)
 
     # -- determinism ----------------------------------------------------
 

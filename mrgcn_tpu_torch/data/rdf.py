@@ -110,3 +110,32 @@ class UniqueLiteral(Literal):
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return f"UniqueLiteral({self.lexical!r}, s={self.s!r}, p={self.p!r})"
+
+
+def keep_generated_apart(triples: list, generated: list, labels: set,
+                         stem: str) -> list:
+    """``triples`` with a reader's generated blank nodes kept apart from
+    the document's own labels.
+
+    A reader names the blank nodes it makes ``<stem>0``, ``<stem>1``, ...
+    in order (``generated``: those objects) and keeps a document's
+    ``_:x`` as ``x`` (``labels``: every label it read, graph labels
+    included). Where a label in a triple equals a generated one, the
+    JAX package's reader merges two different nodes; here each generated
+    node is renamed ``<prefix><n>``, with a prefix that no label in the
+    triples starts with. Nodes are told apart by identity, so the pass
+    over the triples runs only where ``labels`` may clash."""
+    names = {f"{stem}{i}" for i in range(len(generated))}
+    if labels.isdisjoint(names):
+        return triples
+    made = {id(b) for b in generated}
+    used = {t for triple in triples for t in triple
+            if type(t) is BNode and id(t) not in made}
+    if used.isdisjoint(names):
+        return triples
+    prefix = stem + "_"
+    while any(label.startswith(prefix) for label in used):
+        prefix += "_"
+    renamed = {id(b): BNode(f"{prefix}{i}") for i, b in enumerate(generated)}
+    return [tuple(renamed.get(id(t), t) for t in triple)
+            for triple in triples]

@@ -8,8 +8,10 @@ Both packages' ``KnowledgeGraph`` must hold equal triples, in equal order
 comments, a malformed line and an N-Quads graph label, plain and gzipped.
 In the port, the native C++ parser and the Python parser give equal
 triples; where the native library cannot be built the port parses with
-Python and says so at warning level. Turtle, TriG, RDF/XML and JSON-LD
-raise, naming ROADMAP item 7b.
+Python and says so at warning level. Every extension the JAX package
+reads (Turtle, TriG, RDF/XML, JSON-LD; plain and gzipped) dispatches to
+the same serialisation in the port, with equal graphs
+(``tests/test_torch_etl_serialisations.py`` holds the readers themselves).
 """
 
 import gzip
@@ -102,14 +104,43 @@ def test_native_parser_equals_python(name, small):
     assert keys(got) == keys(ntriples.parse_file(path))
 
 
-@pytest.mark.parametrize("ext", [".ttl", ".n3", ".turtle", ".trig",
-                                 ".rdf", ".rdfs", ".owl", ".xml", ".jsonld",
-                                 ".json", ".ttl.gz", ".jsonld.gz"])
-def test_unported_serialisations_raise_naming_the_item(ext, tmp_path):
-    path = tmp_path / f"graph{ext}"
-    path.write_text("")
-    with pytest.raises(ValueError, match="item 7b"):
-        tkg.KnowledgeGraph(str(path))
+# one small document a serialisation: prefixes, a relative IRI (RDF/XML:
+# against the file's URI), a blank node, literals with a language and a
+# datatype
+DOCS = {
+    "turtle": """@prefix x: <http://x/> .
+        x:a x:p x:b , [ x:q "v"@en ] ; x:r 42 .
+        _:b1 x:p "2000"^^<http://www.w3.org/2001/XMLSchema#gYear> .""",
+    "trig": """@prefix x: <http://x/> .
+        x:a x:p x:b .
+        GRAPH x:g { x:b x:p [ x:q "v"@en ] . _:b1 x:r 1.5 }""",
+    "rdfxml": """<?xml version="1.0"?>
+        <rdf:RDF xmlns:rdf="http://www.w3.org/1999/02/22-rdf-syntax-ns#"
+                 xmlns:x="http://x/">
+          <rdf:Description rdf:about="local">
+            <x:p rdf:resource="http://x/b"/>
+            <x:q xml:lang="en">v</x:q>
+            <x:r rdf:parseType="Resource"><x:s>1</x:s></x:r>
+          </rdf:Description>
+        </rdf:RDF>""",
+    "jsonld": """{"@context": {"x": "http://x/", "@vocab": "http://x/"},
+        "@graph": [{"@id": "x:a", "p": [{"@id": "x:b"}, {"q": "v"}],
+                    "r": 42, "s": {"@value": "v", "@language": "en"}}]}""",
+}
+EXTENSION_DOCS = {".ttl": "turtle", ".n3": "turtle", ".turtle": "turtle",
+                  ".trig": "trig", ".rdf": "rdfxml", ".rdfs": "rdfxml",
+                  ".owl": "rdfxml", ".xml": "rdfxml", ".jsonld": "jsonld",
+                  ".json": "jsonld", ".ttl.gz": "turtle",
+                  ".jsonld.gz": "jsonld"}
+
+
+@pytest.mark.parametrize("ext", list(EXTENSION_DOCS))
+def test_every_extension_dispatches_as_the_jax_package(ext, tmp_path):
+    path = write(tmp_path / f"graph{ext}", [DOCS[EXTENSION_DOCS[ext]]])
+    assert tkg._format_of(path) == jkg._format_of(path)
+    want = keys(jkg.KnowledgeGraph(path).triples(separate_literals=False))
+    got = keys(tkg.KnowledgeGraph(path).triples(separate_literals=False))
+    assert got == want and len(got) >= 4
 
 
 def test_unknown_extension_raises(tmp_path):
