@@ -6,7 +6,7 @@ card, the CUDA toolkit (``nvcc``) and no network, and it fails (exit code
 other than 0, no result line) where CUDA is absent or the repository is not
 beside it. ``--only a,b`` runs some phases alone (``stream``, ``compose``,
 ``nc``, ``backbones``, ``minibatch``, ``lp``, ``checkpoint``, ``etl``,
-``encoders``, ``text_attn``, ``agree``; ``scatter_dot``,
+``encoders``, ``text_attn``, ``agree``, ``mesh``; ``scatter_dot``,
 the ``fused_scatter_dot`` cases of ``stream``; ``profile_stream``, the
 scatters' device time by kernel on every main-path stream; and
 ``profile`` /
@@ -247,7 +247,29 @@ prints no result line. Phases, each printing its own lines:
    CLI (host seconds by stage and the files' bytes printed) with arrays
    equal to the N-Triples build, the parity NC graph as TriG and under
    ``.n3``, ``.owl`` and ``.json`` names likewise, and the Turtle build
-   trained as above.
+   trained as above;
+10. multi-device training (``mesh``, ``mrgcn_tpu_torch.parallel``):
+   (a) a world of one rank over NCCL through ``parallel.mesh.launch``
+   trains phase 4's featureless model at DMG width, its losses and
+   state the single-device run's to the bit (where the single-device run
+   repeats itself to the bit); (b) worlds ``"2"`` and ``"2x2"`` on the
+   one card over gloo with CUDA tensors (NCCL refuses two ranks on one
+   GPU): featureless NC at DMG width and full-graph LP at FB15k-237's
+   width (3 epochs), multimodal and all-modality NC on the small graph (2
+   epochs; the image CNN's body in f32, its twin) and node-sliced LP on a
+   small LP graph (1 epoch, its ReLU inputs that change side against the
+   single-device run counted), each held to the single-device run on the
+   card: the first step's loss within 1e-5 relative, every gradient
+   within 1e-4 of its largest entry (the text and image encoders', each
+   as one vector, by norm within ``MESH_NORM_RTOL``), the running
+   statistics within 1e-5;
+   later losses within 1e-3, test accuracy within one node, the trained
+   state bit-equal on every rank, each rank's launches by kernel and
+   route the single-device run's; epoch times, bytes handed to the
+   collectives a step and each rank's peak memory printed (ranks sharing
+   one card: not a scaling figure); (c) the same over NCCL, one card a
+   rank, where the machine has two cards or more, else ``mesh nccl
+   multi-card: not run`` is printed.
 
 Every kernel comparison checks bit identity across two runs, and the
 slice-shape ones time the kernel, the plain version and, where one PyTorch
@@ -280,6 +302,9 @@ import time
 import tomllib
 from pathlib import Path
 from types import SimpleNamespace
+
+from mrgcn_tpu_torch.parallel.parity import (kernel_counters, read_launches,
+                                             reset_launches)
 
 ROOT = Path(__file__).resolve().parent
 EPOCHS = 5
@@ -1817,52 +1842,6 @@ def train_via_cli(tmp: Path, tag: str, work, epochs, num_bases,
                             *extra])
     finally:
         os.environ.pop("MRGCN_PLATFORM", None)
-
-
-def kernel_counters() -> dict:
-    """Each kernel's wrapper, whose ``launches`` counts its launches; the
-    scatters' ``launches_rows`` counts those on their row-segmented
-    kernel; the attention wrappers' ``launches_heads`` their launches with
-    more than one head (#12), which ``launches`` leaves out."""
-    from mrgcn_tpu_torch.ops import attention as att
-    from mrgcn_tpu_torch.ops import compose_kernels as ck
-    from mrgcn_tpu_torch.ops import fused_mlp as fm
-    from mrgcn_tpu_torch.ops import sorted_stream as ss
-    return {"sorted_scatter": ss.sorted_scatter,
-            "sorted_gather": ss.sorted_gather,
-            "fused_place_scatter": ss.fused_place_scatter,
-            "fused_scatter_dot": ss.fused_scatter_dot,
-            "compose_grad_pass": ss.compose_grad_pass,
-            "compose_table": ck.compose_table,
-            "canonical_copy": ck.canonical_copy,
-            "attention_fwd": att.attention_fwd,
-            "attention_bwd": att.attention_bwd,
-            "mlp_fwd": fm.mlp_fwd, "mlp_bwd": fm.mlp_bwd}
-
-
-# the counts apart from ``launches``: {attribute: suffix of its key}
-SUB_COUNTS = {"launches_rows": "rows", "launches_heads": "heads"}
-
-
-def reset_launches(counters) -> None:
-    for fn in counters.values():
-        fn.launches = 0
-        for attr in SUB_COUNTS:
-            if hasattr(fn, attr):
-                setattr(fn, attr, 0)
-
-
-def read_launches(counters) -> dict:
-    """``{name: launches}``, ``{name}.rows`` for each kernel with a
-    row-segmented route (the launches on it) and ``{name}.heads`` for the
-    attention wrappers (their multi-head launches, #12)."""
-    out = {}
-    for name, fn in counters.items():
-        out[name] = fn.launches
-        for attr, suffix in SUB_COUNTS.items():
-            if hasattr(fn, attr):
-                out[f"{name}.{suffix}"] = getattr(fn, attr)
-    return out
 
 
 def by_route(launches: dict, name: str) -> dict:
@@ -4594,6 +4573,289 @@ def serialisation_builds(cfg: Path, art: Path, graph: dict, data: Path,
 
 # kernel -> (source, the TPU kernel it replaces, the timed row that goes
 # into the kernels line: the call its main path makes)
+# the mesh phase: epochs of the full-width worlds (DMG-width featureless
+# NC, FB15k-237-width LP), of the small parity graph's, of node-sliced LP
+MESH_EPOCHS, MESH_SMALL_EPOCHS, MESH_SLICED_EPOCHS = 3, 2, 1
+# the worlds that share the one card over gloo (or take a card a rank
+# over NCCL), and the jobs of ``mesh_jobs`` each runs: the small graphs'
+# only in "2x2", where rows split over data and basis weights over model
+MESH_WORLDS = {"2": ("dmg", "lp"),
+               "2x2": ("dmg", "lp", "mm", "am", "lp_sliced")}
+
+
+def mesh_jobs(work, tmp: Path) -> dict:
+    """The mesh phase's workloads as ``parallel.parity`` jobs (configs
+    without a mesh; each world adds its spec): featureless NC at DMG
+    width, full-graph LP at FB15k-237 width (the artifact ``main`` wrote),
+    multimodal and all-modality NC on the small parity graph (the image
+    CNN in f64, its twin: the bf16 body drifts by bf16 steps under batch
+    statistics between any two sums, and in f32 one ReLU input on the
+    other side of zero in a rank's order of sums moves gradients by
+    percents) and node-sliced LP on a small LP graph (its ReLU inputs
+    kept)."""
+    from mrgcn_tpu_torch import run
+    from mrgcn_tpu_torch.tasks.synthetic import (multimodal_features,
+                                                 save_lp_artifact,
+                                                 save_nc_artifact)
+    small = small_graph()
+    feats = dict(seed=0, num_numeric=600, num_years=300, num_strings=240,
+                 max_len=128)
+    specs = {
+        "dmg": (work, None, (), MESH_EPOCHS),
+        "mm": (small, multimodal_features(small["n"], **feats), MULTIMODAL,
+               MESH_SMALL_EPOCHS),
+        "am": (small, multimodal_features(
+            small["n"], num_geometries=300, num_images=120,
+            image_size=IMAGE_SIDE, **feats), ALLMODAL, MESH_SMALL_EPOCHS)}
+    jobs = {}
+    for tag, (graph, F, features, epochs) in specs.items():
+        art, cfg = tmp / f"mesh_{tag}.npz", tmp / f"mesh_{tag}.toml"
+        save_nc_artifact(str(art), graph["n"], graph["R"], graph["src"],
+                         graph["dst"], graph["rel"], graph["norm"],
+                         graph["labels_idx"], graph["labels_cls"],
+                         graph["num_classes"], seed=0,
+                         num_eval=min(1000, graph["n"] // 20), F=F)
+        write_config(cfg, epochs, graph["num_bases"], graph["hidden"],
+                     features=features)
+        jobs[tag] = {"task": "nc", "artifact": str(art),
+                     "config": run.load_config(str(cfg)),
+                     "featureless": F is None, "image_f64": tag == "am"}
+    cfg = tmp / "mesh_lp.toml"
+    write_lp_config(cfg, MESH_EPOCHS, LP_HIDDEN, eval_interval=MESH_EPOCHS)
+    jobs["lp"] = {"task": "lp", "artifact": str(tmp / "lp.npz"),
+                  "config": run.load_config(str(cfg))}
+    art, cfg = tmp / "mesh_lp_small.npz", tmp / "mesh_lp_sliced.toml"
+    save_lp_artifact(str(art), num_nodes=3000, num_props=12,
+                     num_train=20_000, num_valid=1000, num_test=1500, seed=0)
+    write_lp_config(cfg, MESH_SLICED_EPOCHS, LP_HIDDEN,
+                    eval_interval=MESH_SLICED_EPOCHS, full_graph=False)
+    jobs["lp_sliced"] = {"task": "lp", "artifact": str(art), "relu": True,
+                         "config": run.load_config(str(cfg))}
+    return jobs
+
+
+# encoders held by norm, each as one vector of all its gradients: the
+# from-scratch text encoder's body is bf16 (a rank sums its rows'
+# gradients in bf16, the embedding's backward among them, and the ranks'
+# sums meet in f32: they differ from one device's by bf16 steps)
+MESH_NORM_ENCODERS = ("xsd_string_", "xsd_anyURI_")
+MESH_NORM_RTOL = 1e-2
+
+
+def relative_max(got: dict, want: dict) -> dict:
+    """Each gradient's largest difference over the largest entry of
+    ``want``; an encoder of ``MESH_NORM_ENCODERS`` as one entry (``name.*``),
+    the norm of its gradients' difference over the norm of its gradients.
+    A convolution's bias ahead of BatchNorm has gradient 0 in exact
+    arithmetic: its difference is taken over its encoder's largest
+    gradient entry."""
+    import numpy as np
+    out, groups = {}, {}
+    for name, w in want.items():
+        d = got[name] - w
+        top = name.split(".")[0]
+        if name.startswith(MESH_NORM_ENCODERS):
+            e, n = groups.get(top, (0.0, 0.0))
+            groups[top] = (e + float(np.square(d).sum()),
+                           n + float(np.square(w).sum()))
+            continue
+        scale = float(np.abs(w).max())
+        if re.search(r"\.Conv_\d+\.bias$", name):
+            scale = max(float(np.abs(v).max()) for k, v in want.items()
+                        if k.startswith(top + "."))
+        out[name] = float(np.abs(d).max() / max(scale, 1e-30))
+    for top, (e, n) in groups.items():
+        out[f"{top}.*"] = (e / max(n, 1e-60)) ** 0.5
+    return out
+
+
+def mesh_world(label: str, spec: str, backend: str, devices, jobs: dict,
+               refs: dict, smi: str) -> dict:
+    """One world's ranks through ``parallel.mesh.launch``: the first step
+    and the tasks' own ``run`` of each job, held against the
+    single-device run on this card (``refs``): the first step's loss
+    within 1e-5 relative and every gradient within 1e-4 of its largest
+    entry; later epochs' losses within 1e-3 relative, NC test accuracy
+    within one test node; the trained state bit-equal on every rank;
+    each rank's launches by kernel and route equal to the single-device
+    run's. Prints the epoch times, the bytes handed to the collectives per
+    step and each rank's peak memory, all of ranks sharing one card where
+    the devices repeat."""
+    import numpy as np
+    from mrgcn_tpu_torch.parallel import mesh as pmesh
+    from mrgcn_tpu_torch.parallel import parity
+    mine = []
+    for tag, job in jobs.items():
+        config = parity.with_mesh(job["config"], spec)
+        mine += [{**job, "work": "first_step", "config": config},
+                 {**job, "work": "train", "config": config}]
+    t0 = time.perf_counter()
+    ranks = pmesh.launch(parity.rank_worker, len(devices), backend, devices,
+                         args=(mine,))
+    wall = time.perf_counter() - t0
+    print(f"[mesh] {label}: {len(devices)} ranks, {len(jobs)} jobs, "
+          f"{wall:.1f} s from the first spawn to the last join")
+    shared = len(set(map(str, devices))) < len(devices)
+    summary = {"world": label, "spec": spec, "backend": backend,
+               "ranks": len(devices), "wall_s": wall, "jobs": {}}
+    for j, tag in enumerate(jobs):
+        first = [r[2 * j] for r in ranks]
+        runs = [r[2 * j + 1] for r in ranks]
+        ref_first, ref_run = refs[tag]["first"], refs[tag]["train"]
+        what = f"mesh {label} {tag}"
+        loss_err = abs(first[0]["loss"] - ref_first["loss"]) \
+            / abs(ref_first["loss"])
+        grad_err = relative_max(first[0]["grads"], ref_first["grads"])
+        stat_err = relative_max(first[0]["batch_stats"],
+                                ref_first["batch_stats"])
+        key = "train_loss" if ref_run["history"] and \
+            "train_loss" in ref_run["history"][0] else "loss"
+        got_l = [h[key] for h in runs[0]["history"]]
+        want_l = [h[key] for h in ref_run["history"]]
+        later = max(abs(a - b) / abs(b) for a, b in zip(got_l, want_l))
+        flips = None
+        if "relu_inputs" in ref_first:
+            flips = {i: int(((first[0]["relu_inputs"][i] > 0)
+                             != (y > 0)).sum())
+                     for i, y in ref_first["relu_inputs"].items()}
+        report = {
+            "first_loss_rel_err": loss_err,
+            "grad_err_max": max(grad_err.values()),
+            "grad_err_worst": max(grad_err, key=grad_err.get),
+            "grad_err_by_module": {
+                top: max(e for k, e in grad_err.items()
+                         if k.split(".")[0] == top)
+                for top in {k.split(".")[0] for k in grad_err}},
+            "batch_stats_rel_err_max": max(stat_err.values(), default=0.0),
+            "losses": got_l, "single_device_losses": want_l,
+            "later_loss_rel_err": later,
+            "epoch_s_by_rank": [[h["seconds"] for h in r["history"]]
+                                for r in runs],
+            "single_device_epoch_s": [h["seconds"]
+                                      for h in ref_run["history"]],
+            "bytes_per_step_by_rank": [r["bytes_per_step"] for r in runs],
+            "first_step_wall_s": first[0]["wall_s"],
+            "run_wall_s": runs[0]["wall_s"],
+            "peak_bytes_by_rank": [r["peak_bytes"] for r in runs],
+            "single_device_peak_bytes": ref_run["peak_bytes"],
+            "launches_rank0": runs[0]["launches"],
+            **({"relu_flips_first_step": flips} if flips is not None
+               else {})}
+        if "acc" in ref_run:
+            n_test = len(ref_run["labels"])
+            report["test_acc"] = [runs[0]["acc"], ref_run["acc"]]
+        summary["jobs"][tag] = report
+        print(f"[mesh] {label} {tag} ({smi}; ranks sharing one card, not a "
+              f"scaling figure)" if shared else
+              f"[mesh] {label} {tag} ({smi})", json.dumps(report))
+        check(loss_err <= 1e-5, f"{what}: first loss rel err {loss_err}")
+        check(all(err <= (MESH_NORM_RTOL if name.endswith(".*") else 1e-4)
+                  for name, err in grad_err.items()),
+              f"{what}: gradients {grad_err}")
+        check(max(stat_err.values(), default=0.0) <= 1e-5,
+              f"{what}: running statistics {stat_err}")
+        check(later <= 1e-3, f"{what}: losses {got_l} vs {want_l}")
+        check(len({r["digest"] for r in runs}) == 1,
+              f"{what}: the ranks' trained states differ")
+        if "acc" in ref_run:
+            check(abs(runs[0]["acc"] - ref_run["acc"]) * n_test <= 1 + 1e-6,
+                  f"{what}: test accuracy {runs[0]['acc']} vs "
+                  f"{ref_run['acc']}")
+        for r in runs:
+            check(r["launches"] == ref_run["launches"],
+                  f"{what}: rank {r['rank']} launched {r['launches']}, the "
+                  f"single-device run {ref_run['launches']}")
+    return summary
+
+
+def mesh_phase(work, tmp: Path, smi: str) -> dict:
+    """Multi-device training on the card: (a) a world of one rank over
+    NCCL through ``parallel.mesh.launch``, its collectives sent through
+    NCCL although the groups hold one rank (``one_rank_collectives``):
+    featureless DMG-width NC trained, its losses the single-device run's
+    to the bit (else within 1e-5, where a second single-device run does
+    not repeat the first to the bit: layer 1's ``index_add_`` sums in
+    another order each run),
+    and the multimodal first step (the encoders' all-gathers and their
+    reduce-scatters) held as (b) holds it; (b) worlds ``"2"`` and
+    ``"2x2"`` on this one card over gloo (NCCL refuses two ranks on one
+    GPU), each holding its jobs of ``MESH_WORLDS`` against the
+    single-device run (``mesh_world``); (c) the same over NCCL, one card a
+    rank, where there are two cards or more. Returns each world's launch
+    counts by path for the kernels line."""
+    import torch
+    from mrgcn_tpu_torch.parallel import mesh as pmesh
+    from mrgcn_tpu_torch.parallel import parity
+    t_phase = time.perf_counter()
+    jobs = mesh_jobs(work, tmp)
+    refs = {}
+    for tag, job in jobs.items():
+        start_path()
+        refs[tag] = {"first": parity.first_step(job),
+                     "train": parity.train(job)}
+    paths = {}
+    # (a) NCCL on the card, one rank, every collective through NCCL
+    one_rank = {"one_rank_collectives": True}
+    one = pmesh.launch(parity.rank_worker, 1, "nccl", ["cuda:0"], args=([
+        {**jobs["dmg"], **one_rank, "work": "train",
+         "config": parity.with_mesh(jobs["dmg"]["config"], "1x1")},
+        {**jobs["mm"], **one_rank, "work": "first_step",
+         "config": parity.with_mesh(jobs["mm"]["config"], "1x1")}],))[0]
+    run, first = one
+    got = [h["train_loss"] for h in run["history"]]
+    want = [h["train_loss"] for h in refs["dmg"]["train"]["history"]]
+    bits = run["digest"] == refs["dmg"]["train"]["digest"]
+    # a second single-device run only where the losses differ: does that
+    # run repeat itself to the bit?
+    repeats = got == want or parity.train(jobs["dmg"])["digest"] \
+        == refs["dmg"]["train"]["digest"]
+    traffic = {k: run["traffic"][k] + first["traffic"][k]
+               for k in run["traffic"]}
+    grad_err = relative_max(first["grads"], refs["mm"]["first"]["grads"])
+    loss_err = abs(first["loss"] - refs["mm"]["first"]["loss"]) \
+        / abs(refs["mm"]["first"]["loss"])
+    print(f"[mesh] nccl 1 rank dmg losses {got}, single device {want}; "
+          f"the state equal to the bit: {bits}; the losses equal, or the "
+          f"single-device run repeats itself to the bit: {repeats}; bytes "
+          f"through NCCL "
+          f"{traffic}; mm first step: loss rel err {loss_err}, worst "
+          f"gradient {max(grad_err.values())} "
+          f"({max(grad_err, key=grad_err.get)})")
+    if repeats:
+        check(got == want, "mesh nccl 1 rank: losses differ from the "
+              "single-device run, which repeats itself to the bit")
+    else:
+        check(max(abs(a - b) / abs(b) for a, b in zip(got, want)) <= 1e-5,
+              f"mesh nccl 1 rank: losses {got} vs {want}")
+    check(all(v > 0 for v in traffic.values()),
+          f"mesh nccl 1 rank: a collective did not run: {traffic}")
+    check(loss_err <= 1e-5 and all(
+        err <= (MESH_NORM_RTOL if name.endswith(".*") else 1e-4)
+        for name, err in grad_err.items()),
+        f"mesh nccl 1 rank mm: loss {loss_err}, gradients {grad_err}")
+    paths["mesh_nccl_1_dmg"] = {"launches": run["launches"]}
+    # (b) gloo worlds sharing this card; (c) NCCL over cards
+    worlds = [(f"gloo {spec}", spec, "gloo") for spec in MESH_WORLDS]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        worlds += [(f"nccl {spec}", spec, "nccl") for spec in MESH_WORLDS
+                   if math.prod(pmesh.mesh_shape(spec)) <= cards]
+    else:
+        print(f"mesh nccl multi-card: not run ({cards} card)")
+    for label, spec, backend in worlds:
+        data, model = pmesh.mesh_shape(spec)
+        devices = ["cuda:0"] * (data * model) if backend == "gloo" \
+            else [f"cuda:{i}" for i in range(data * model)]
+        summary = mesh_world(label, spec, backend, devices,
+                             {tag: jobs[tag] for tag in MESH_WORLDS[spec]},
+                             refs, smi)
+        for tag, report in summary["jobs"].items():
+            paths[f"mesh_{backend}_{spec}_{tag}"] = {
+                "launches": report["launches_rank0"]}
+    print(f"[mesh] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 SOURCES = {
     "sorted_scatter": ("mrgcn_tpu_torch/csrc/sorted_scatter.cu",
                        "mrgcn_tpu/ops/pallas_gather.py:247", "dense_bwd_h"),
@@ -4641,7 +4903,7 @@ STREAM_KERNELS = ("sorted_scatter", "sorted_gather", "fused_scatter_dot",
                   "fused_place_scatter")
 ENCODER_KERNELS = ("attention_fwd", "attention_bwd", "mlp_fwd", "mlp_bwd")
 PHASES = ("stream", "compose", "nc", "backbones", "minibatch", "lp",
-          "checkpoint", "etl", "encoders", "text_attn", "agree")
+          "checkpoint", "etl", "encoders", "text_attn", "agree", "mesh")
 EXTRA_PHASES = ("profile", "profile_mb", "profile_att",   # only with
                 "profile_mm", "profile_stream",            # --only
                 "profile_allmodal", "profile_backbones",
@@ -4777,6 +5039,9 @@ def main(argv=None) -> None:
             lp_agreement(tmp, "lp_small", 3, ranks=True, sliced=(256, 500))
             lp_agreement(tmp, "lp", 1)     # full width: one step
             lap("agree")
+        if "mesh" in phases:
+            paths.update(mesh_phase(work, tmp, smi))
+            lap("mesh")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[card] {smi}")

@@ -3,8 +3,9 @@
 The port's copy of :mod:`mrgcn_tpu.encodings.structure`:
 :class:`GraphStructure`, :func:`generate` (the ETL's build of it from a
 parsed knowledge graph), :func:`compute_norm` and
-:func:`group_by_relation`. ``pad_edges`` serves only the device mesh and
-waits for ROADMAP Queue 1 item 6.
+:func:`group_by_relation`. The JAX copy's ``pad_edges`` has no
+counterpart: no module calls it, and the device mesh pads its edges
+through :func:`mrgcn_tpu_torch.parallel.mesh.pad_edges_for_mesh`.
 
 Semantics preserved exactly:
   * deterministic node order: atoms in first-appearance order, then a

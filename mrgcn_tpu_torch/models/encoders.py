@@ -27,11 +27,20 @@ convolution's ``(3, 3, C_in / groups, C_out)``, ...), and the BatchNorm
 running statistics are buffers named as flax's ``batch_stats``
 (``BatchNorm_0.mean``, ``.var``), so the weight bridge maps the two
 packages by path.
+
+Under a device mesh an encoder may run on this rank's block of its rows
+(:class:`RowShard`, set by :class:`..models.mrgcn.MRGCN` around the call):
+:class:`BatchNorm` then takes its batch statistics over every rank's rows,
+and :func:`dropout` draws the mask of all rows and keeps the rank's block,
+so both equal the single-device run's.
 """
 
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
+from contextvars import ContextVar
+from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -42,6 +51,42 @@ from mrgcn_tpu_torch.encodings.features import TCNN_LENGTH_L, TCNN_LENGTH_S
 from mrgcn_tpu_torch.models import init as tinit
 from mrgcn_tpu_torch.ops.attention import fused_attention
 from mrgcn_tpu_torch.ops.fused_mlp import fused_mlp
+from mrgcn_tpu_torch.parallel import collectives as coll
+
+
+@dataclass(frozen=True)
+class RowShard:
+    """The encoder in progress sees rows ``[start, start + n)`` of
+    ``total``; the other rows are on the other ranks of ``group``."""
+
+    group: object
+    start: int
+    total: int
+
+
+_ROW_SHARD: ContextVar[Optional[RowShard]] = ContextVar("row_shard",
+                                                        default=None)
+
+
+@contextmanager
+def row_shard(shard: RowShard):
+    """Run the encoders inside on a block of rows (see :class:`RowShard`)."""
+    token = _ROW_SHARD.set(shard)
+    try:
+        yield
+    finally:
+        _ROW_SHARD.reset(token)
+
+
+def dropout(x: torch.Tensor, p: float, train: bool) -> torch.Tensor:
+    """``F.dropout``; on a block of rows (:func:`row_shard`), the mask of
+    every row is drawn, as the single-device run draws it, and this
+    block's rows kept."""
+    shard = _ROW_SHARD.get()
+    if shard is None or not train or p == 0.0:
+        return F.dropout(x, p, training=train)
+    mask = F.dropout(x.new_ones((shard.total,) + tuple(x.shape[1:])), p)
+    return x * mask[shard.start:shard.start + x.shape[0]]
 
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``kernel (in, out)``, ``bias (out,)``, computed in
@@ -115,7 +160,7 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         for i in range(self.num_layers):
             x = getattr(self, f"Dense_{i}")(x)
-            x = F.dropout(x, self.p_dropout, training=train)
+            x = dropout(x, self.p_dropout, train)
             x = torch.relu(x)
         return x
 
@@ -323,7 +368,7 @@ class TextEncoder(nn.Module):
             x = getattr(self, f"_TextBlock_{i}")(x, keys_valid)
         x = self.LayerNorm_0(x)
         pooled = torch.relu(self.Dense_0(x[:, 0].float()))
-        pooled = F.dropout(pooled, self.p_dropout, training=train)
+        pooled = dropout(pooled, self.p_dropout, train)
         return self.Dense_1(pooled)
 
 
@@ -365,7 +410,10 @@ class BatchNorm(nn.Module):
     ``0.9 * running + 0.1 * batch``, where the batch variance is the biased
     one, ``E[x^2] - E[x]^2``, as flax keeps it (torch's ``BatchNorm*d``
     would keep the unbiased one). Without it the running statistics
-    normalize and the buffers stay. The output has the input's dtype."""
+    normalize and the buffers stay. The output has the input's dtype. On a
+    block of rows (:func:`row_shard`) the batch statistics are those of
+    every rank's rows: the per-rank sums are all-reduced in f32 (f64 for
+    an f64 input), the mean first, then the squared deviations from it."""
 
     def __init__(self, features: int, momentum: float = 0.9,
                  epsilon: float = 1e-5):
@@ -381,6 +429,9 @@ class BatchNorm(nn.Module):
         if not train:
             return F.batch_norm(x, self.mean, self.var, self.scale,
                                 self.bias, training=False, eps=self.epsilon)
+        shard = _ROW_SHARD.get()
+        if shard is not None:
+            return self._across_ranks(x, shard)
         count = x.numel() // x.shape[1]
         if count == 1:
             # torch takes no batch statistics of one value per channel;
@@ -399,11 +450,33 @@ class BatchNorm(nn.Module):
                              self.bias, training=True, momentum=1.0,
                              eps=self.epsilon)
             batch_var = batch_var * ((count - 1) / count)
-        with torch.no_grad():
-            m = self.momentum
-            self.mean.copy_(m * self.mean + (1 - m) * batch_mean)
-            self.var.copy_(m * self.var + (1 - m) * batch_var)
+        self._update(batch_mean, batch_var)
         return y
+
+    @torch.no_grad()
+    def _update(self, batch_mean: torch.Tensor,
+                batch_var: torch.Tensor) -> None:
+        m = self.momentum
+        self.mean.copy_(m * self.mean + (1 - m) * batch_mean)
+        self.var.copy_(m * self.var + (1 - m) * batch_var)
+
+    def _across_ranks(self, x: torch.Tensor, shard: RowShard
+                      ) -> torch.Tensor:
+        """Training-mode batch norm of this rank's rows with the statistics
+        of all rows (two all-reduces, each the transpose of its own
+        backward)."""
+        axes = [0] + list(range(2, x.ndim))
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        count = shard.total * (x[:1, :1].numel())
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = coll.all_reduce(xf.sum(axes), shard.group) / count
+        centred = xf - mean.view(shape)
+        var = coll.all_reduce(centred.square().sum(axes), shard.group) \
+            / count
+        y = centred * torch.rsqrt(var + self.epsilon).view(shape) \
+            * self.scale.view(shape) + self.bias.view(shape)
+        self._update(mean.detach(), var.detach())
+        return y.to(x.dtype)
 
 
 class Conv(nn.Module):
@@ -522,7 +595,7 @@ class TCNN(nn.Module):
         # flatten as the JAX package's (N, L', C') rows are, l-major
         x = x.transpose(1, 2).reshape(x.shape[0], -1)
         x = torch.relu(self.Dense_0(x))
-        x = F.dropout(x, self.p_dropout, training=train)
+        x = dropout(x, self.p_dropout, train)
         return self.Dense_1(x)
 
 
@@ -600,5 +673,5 @@ class ImageCNN(nn.Module):
             x = getattr(self, name)(x, train)
         x = x.float().mean(dim=(2, 3))          # global average pool
         x = torch.relu(self.Dense_0(x))
-        x = F.dropout(x, self.p_dropout, training=train)
+        x = dropout(x, self.p_dropout, train)
         return self.Dense_1(x)

@@ -20,6 +20,11 @@ package where there is none, the from-scratch ``TextEncoder`` /
 ``ImageCNN``. The BatchNorm running statistics of the trained encoders are
 buffers of the model, so ``state_dict()`` carries them; a frozen backbone
 is in neither ``state_dict()`` nor ``parameters()``.
+
+Under a device mesh (``mesh``, set by :func:`..parallel.mesh.shard_params`)
+an encoder whose feature rows are split over ``data`` runs on this rank's
+block of them (:func:`..models.encoders.row_shard`) and its output is
+all-gathered before placement, so every rank holds the same node matrix.
 """
 
 from __future__ import annotations
@@ -31,9 +36,12 @@ import torch
 from torch import nn
 
 from mrgcn_tpu_torch.models import mobilenet, pretrained
-from mrgcn_tpu_torch.models.encoders import MLP, TCNN, ImageCNN, TextEncoder
+from mrgcn_tpu_torch.models.encoders import (MLP, TCNN, ImageCNN, RowShard,
+                                             TextEncoder, row_shard)
 from mrgcn_tpu_torch.models.rgcn import RGCN
 from mrgcn_tpu_torch.ops.placement import place_rows, place_rows_pre
+from mrgcn_tpu_torch.parallel import collectives as coll
+from mrgcn_tpu_torch.parallel import mesh as pmesh
 
 # datatypes handled per encoder family (reference: mrgcn.py:63-124)
 _MLP1 = ("xsd.boolean", "xsd.numeric")
@@ -107,6 +115,7 @@ class MRGCN(nn.Module):
         self.num_nodes = num_nodes
         self.featureless = featureless
         self.skip_encoders = tuple(skip_encoders)
+        self.mesh = None
         self.names = module_names(self.modules_config)
         self.encoder_dims: Dict[str, int] = {}
         for name, (datatype, args) in zip(self.names, self.modules_config):
@@ -202,8 +211,8 @@ class MRGCN(nn.Module):
                                         device=device))
                 continue
             data, node_idx, *pre = entry
-            out = getattr(self, name)(self._prepare(datatype, args, data),
-                                      train=train)
+            out = self._encode(name, self._prepare(datatype, args, data),
+                               node_idx.shape[0], train)
             out = (out * self.gate_weights[i]).float()
             if pre:
                 cols.append(place_rows_pre(out, node_idx, pre[0]))
@@ -212,6 +221,21 @@ class MRGCN(nn.Module):
         if not cols:
             return torch.zeros(num_rows, self.modality_dim, device=device)
         return torch.cat(cols, dim=1)
+
+    def _encode(self, name: str, x: torch.Tensor, num_rows: int,
+                train: bool) -> torch.Tensor:
+        """Encoder ``name`` over its rows ``x``; where ``x`` holds this
+        rank's block of the ``num_rows`` rows
+        (:func:`..parallel.mesh.shard_features`), over the block, gathered
+        to every row."""
+        encoder = getattr(self, name)
+        if self.mesh is None or not pmesh.rows_split(self.mesh, num_rows):
+            return encoder(x, train=train)
+        group = self.mesh.data_group
+        start = self.mesh.data_rank * x.shape[0]
+        with row_shard(RowShard(group, start, num_rows)):
+            out = encoder(x, train=train)
+        return coll.all_gather_rows(out, group)
 
     def forward(self, edges, features: Optional[Dict] = None,
                 train: bool = False,

@@ -25,11 +25,10 @@ import logging
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from mrgcn_tpu_torch.models import init as tinit
-from mrgcn_tpu_torch.models.encoders import Dense
+from mrgcn_tpu_torch.models.encoders import Dense, dropout
 from mrgcn_tpu_torch.utils.hf import resolve_snapshot
 
 logger = logging.getLogger(__name__)
@@ -85,7 +84,7 @@ class _Head(nn.Module):
 
     def head(self, pooled: torch.Tensor, train: bool) -> torch.Tensor:
         x = torch.relu(self.Dense_0(pooled))
-        x = F.dropout(x, self.p_dropout, training=train)
+        x = dropout(x, self.p_dropout, train)
         return self.Dense_1(x)
 
 

@@ -34,6 +34,7 @@ from torch import nn
 from mrgcn_tpu_torch.models import init as tinit
 from mrgcn_tpu_torch.ops import relational as rl
 from mrgcn_tpu_torch.ops import rspmm
+from mrgcn_tpu_torch.parallel import collectives as coll
 
 
 @dataclass
@@ -46,6 +47,10 @@ class EdgeBlock:
     (None in full-batch mode, where ``dst`` does). The ``grp_*`` arrays are the relation-grouped layout
     (``structure.group_by_relation``); ``plans`` the sorted-stream
     :class:`..ops.relational.LayerPlans` keyed ``"kin:kout[:id]"``.
+
+    Under a device mesh (:mod:`..parallel.mesh`) ``mesh`` is set and the
+    edge arrays, groups and plans are this rank's share of the edges: a
+    layer sums its partial aggregates over the mesh's ``data`` group.
     """
 
     src: torch.Tensor
@@ -61,6 +66,7 @@ class EdgeBlock:
     group_rel: Optional[torch.Tensor] = None
     group_size: Optional[int] = None
     plans: Optional[dict] = None
+    mesh: Optional[object] = None
 
     def plan_for(self, in_width: int, out_width: int,
                  identity: bool = False):
@@ -162,11 +168,13 @@ class RGCNLayer(nn.Module):
 
     def forward(self, H: Optional[torch.Tensor],
                 edges: EdgeBlock) -> torch.Tensor:
+        # under a mesh the aggregate over this rank's edges is partial: it
+        # sums over data at the end
         out = 0.0
         if self.input_layer:
             plan_i = edges.plan_for(self.out_dim, self.out_dim,
                                     identity=True)
-            weight_i = getattr(self, self.weight_i_name)
+            weight_i = coll.gather_basis(getattr(self, self.weight_i_name))
             # the planned op gathers from the composed (R * rows, lanes)
             # table; where that table is over budget (link prediction:
             # hundreds of relations, wide rows) the basis-stream op
@@ -202,30 +210,33 @@ class RGCNLayer(nn.Module):
                     weight_i[:, :self.num_nodes, :self.out_dim], edges.src,
                     edges.identity_dst, edges.rel, edges.norm,
                     edges.num_out, comp=self.comp_i)
-            if self.featureless:
-                return out if self.bias is None else out + self.bias
 
-        in_dim = H.shape[-1]
-        plan_f = edges.plan_for(in_dim, self.out_dim)
-        # the JAX layer leaves a plan without relation-constant slabs to
-        # the grouped path when the layer is wide (its dense_basis variant
-        # is off by default); otherwise a plan means dense_aggregate
-        if plan_f is not None and not plan_f.fwd.rel_const \
-                and in_dim * self.out_dim > 4096:
-            plan_f = None
-        if plan_f is not None:
-            W = rspmm._compose_weights(self.weight_f, self.comp_f)
-            agg = rl.dense_aggregate(H, W, plan_f, in_dim, self.out_dim)
-        elif edges.grouped:
-            agg = rspmm.transform_aggregate_grouped(
-                H, edges.grp_src, edges.grp_dst, edges.grp_norm,
-                edges.group_rel, edges.group_size, edges.num_out,
-                self.weight_f, comp=self.comp_f)
-        else:
-            agg = rspmm.transform_aggregate(
-                H, edges.src, edges.dst, edges.rel, edges.norm,
-                edges.num_out, self.weight_f, comp=self.comp_f)
-        out = out + agg
+        if not self.featureless:
+            in_dim = H.shape[-1]
+            weight_f = coll.gather_basis(self.weight_f)
+            plan_f = edges.plan_for(in_dim, self.out_dim)
+            # the JAX layer leaves a plan without relation-constant slabs
+            # to the grouped path when the layer is wide (its dense_basis
+            # variant is off by default); otherwise a plan means
+            # dense_aggregate
+            if plan_f is not None and not plan_f.fwd.rel_const \
+                    and in_dim * self.out_dim > 4096:
+                plan_f = None
+            if plan_f is not None:
+                W = rspmm._compose_weights(weight_f, self.comp_f)
+                agg = rl.dense_aggregate(H, W, plan_f, in_dim, self.out_dim)
+            elif edges.grouped:
+                agg = rspmm.transform_aggregate_grouped(
+                    H, edges.grp_src, edges.grp_dst, edges.grp_norm,
+                    edges.group_rel, edges.group_size, edges.num_out,
+                    weight_f, comp=self.comp_f)
+            else:
+                agg = rspmm.transform_aggregate(
+                    H, edges.src, edges.dst, edges.rel, edges.norm,
+                    edges.num_out, weight_f, comp=self.comp_f)
+            out = out + agg
+        if edges.mesh is not None:
+            out = coll.all_reduce(out, edges.mesh.data_group)
         return out if self.bias is None else out + self.bias
 
 

@@ -189,7 +189,9 @@ def build_layer_plans(src, dst, rel, norm, num_nodes: int, k_in: int,
                       edge_block: int = EDGE_BLOCK, kind: str = "dense",
                       num_out_nodes: Optional[int] = None,
                       num_in_nodes: Optional[int] = None,
-                      device=None) -> LayerPlans:
+                      device=None,
+                      rel_const_override: Optional[dict] = None
+                      ) -> LayerPlans:
     """The sorted edge streams for one layer shape, built in numpy and
     returned as tensors on ``device`` (CPU by default).
 
@@ -198,6 +200,9 @@ def build_layer_plans(src, dst, rel, norm, num_nodes: int, k_in: int,
     variant (plain block splits, ``bwd_h`` aliases ``fwd``);
     ``"identity_basis"`` adds a real dst-sorted ``bwd_h``.
     ``num_out_nodes``/``num_in_nodes`` make the layer rectangular.
+    ``rel_const_override``: a dense plan's relation-constant decisions,
+    made elsewhere (:func:`shard_layer_plans` makes them on the full edge
+    set).
     """
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
@@ -247,8 +252,8 @@ def build_layer_plans(src, dst, rel, norm, num_nodes: int, k_in: int,
         fwd = mk(src, flat_row, out_row)
         bwd_h = mk(in_row, rel, in_row)
     else:
-        rc = _rel_const_decisions(src, dst, rel, num_nodes, k_in, k_out,
-                                  row_block, edge_block)
+        rc = rel_const_override or _rel_const_decisions(
+            src, dst, rel, num_nodes, k_in, k_out, row_block, edge_block)
         if rc["fwd"]:
             fwd_key = (out_row // row_block) * R_num + rel
             fwd = mk(fwd_key, flat_row, out_row, split_key=fwd_key,
@@ -269,6 +274,35 @@ def build_layer_plans(src, dst, rel, norm, num_nodes: int, k_in: int,
                        num_out_nodes=int(num_out_nodes or 0),
                        num_in_nodes=int(num_in_nodes or 0))
     return plans if device is None else plans.to(device)
+
+
+def shard_layer_plans(src, dst, rel, norm, num_nodes: int, k_in: int,
+                      k_out: int, num_shards: int, shard: int,
+                      row_block: int = ROW_BLOCK,
+                      edge_block: int = EDGE_BLOCK, kind: str = "dense",
+                      num_out_nodes: Optional[int] = None,
+                      num_in_nodes: Optional[int] = None,
+                      device=None) -> LayerPlans:
+    """The sorted streams of shard ``shard`` of ``num_shards`` for mesh
+    training (the JAX package's ``shard_layer_plans``, one shard of its
+    stack): edges are dealt round-robin, and the shard's streams are built
+    from its edges alone. The relation-constant decision is made once on
+    the full edge set, so every shard takes the same kernel routes. A rank
+    runs the single-device engine on its own shard, so the padding to a
+    common stacked shape that ``shard_map`` needs has no counterpart."""
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    rel = np.asarray(rel, dtype=np.int64)
+    norm = np.asarray(norm, dtype=np.float32)
+    rc = _rel_const_decisions(src, dst, rel, num_nodes, k_in, k_out,
+                              row_block, edge_block)
+    mine = np.arange(len(src)) % num_shards == shard
+    return build_layer_plans(src[mine], dst[mine], rel[mine], norm[mine],
+                             num_nodes, k_in, k_out, row_block=row_block,
+                             edge_block=edge_block, kind=kind,
+                             num_out_nodes=num_out_nodes,
+                             num_in_nodes=num_in_nodes, device=device,
+                             rel_const_override=rc)
 
 
 def composed_table_elems(num_relations: int, num_nodes: int,
@@ -302,11 +336,13 @@ def plans_for_layers(src, dst, rel, norm, num_nodes: int, layer_shapes,
                      identity_basis: bool = False,
                      num_out_nodes: Optional[int] = None,
                      num_in_nodes: Optional[int] = None,
-                     device=None) -> dict:
+                     device=None, num_shards: int = 1,
+                     shard: int = 0) -> dict:
     """One :class:`LayerPlans` per distinct (k_in, k_out) pair, keyed
     ``"kin:kout"`` (``":id"``/``":idb"`` suffix for identity plans).
     ``layer_shapes``: (in_width, out_width) pairs; ``in_width=None`` marks
-    the featureless identity gather."""
+    the featureless identity gather. ``num_shards > 1`` builds shard
+    ``shard``'s streams for mesh training (:func:`shard_layer_plans`)."""
     id_kind = "identity_basis" if identity_basis else "identity"
     id_key = "idb" if identity_basis else "id"
     pairs = set()
@@ -316,12 +352,19 @@ def plans_for_layers(src, dst, rel, norm, num_nodes: int, layer_shapes,
             pairs.add((k_out, k_out, id_kind))
         else:
             pairs.add((packing_factor(int(in_w)), k_out, "dense"))
+
+    def build(ki, ko, kind):
+        kw = dict(row_block=row_block, edge_block=edge_block, kind=kind,
+                  num_out_nodes=num_out_nodes, num_in_nodes=num_in_nodes,
+                  device=device)
+        if num_shards > 1:
+            return shard_layer_plans(src, dst, rel, norm, num_nodes, ki, ko,
+                                     num_shards, shard, **kw)
+        return build_layer_plans(src, dst, rel, norm, num_nodes, ki, ko,
+                                 **kw)
+
     return {f"{ki}:{ko}:{id_key}" if kind == id_kind else f"{ki}:{ko}":
-            build_layer_plans(src, dst, rel, norm, num_nodes, ki, ko,
-                              row_block=row_block, edge_block=edge_block,
-                              kind=kind, num_out_nodes=num_out_nodes,
-                              num_in_nodes=num_in_nodes, device=device)
-            for ki, ko, kind in sorted(pairs)}
+            build(ki, ko, kind) for ki, ko, kind in sorted(pairs)}
 
 
 # --------------------------------------------------------------------------

@@ -18,15 +18,27 @@ The device comes from ``MRGCN_PLATFORM`` (``cpu``, else CUDA; see
 
     MRGCN_PLATFORM=cpu python -m mrgcn_tpu_torch.run -c cfg.toml \\
         -i dataset.npz --dry_run --test -v
+
+A device mesh (``MRGCN_MESH`` or ``[task] mesh``: ``N``, ``DxM``, ``auto``;
+:mod:`mrgcn_tpu_torch.parallel.mesh`) runs the task in one process per
+device, started here: NCCL with one card a rank on CUDA (a spec asking
+for more ranks than there are cards raises), gloo over as many CPU
+processes as the spec names with ``MRGCN_PLATFORM=cpu`` (where ``auto``
+raises). Rank 0 writes the TSV, the log, ``--save_output`` and the
+checkpoint; every rank trains the same numbers.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import logging
 import os
 import sys
 from time import time
+
+import torch
 
 from mrgcn_tpu_torch import __version__
 from mrgcn_tpu_torch.config import load_config
@@ -34,9 +46,10 @@ from mrgcn_tpu_torch.data import artifact as artifact_io
 from mrgcn_tpu_torch.data.tsv import TSV
 from mrgcn_tpu_torch.data.reference_tar import artifact_from_reference_tar
 from mrgcn_tpu_torch.data.utils import is_readable, is_writable, set_seed
-from mrgcn_tpu_torch.utils.logging import init_logger
+from mrgcn_tpu_torch.parallel import mesh as pmesh
 from mrgcn_tpu_torch.tasks import link_prediction, node_classification
 from mrgcn_tpu_torch.tasks import utils as tutils
+from mrgcn_tpu_torch.utils.logging import init_logger
 from mrgcn_tpu_torch.utils.device import select_device
 from mrgcn_tpu_torch.utils.profiling import profile_session
 
@@ -106,7 +119,8 @@ def _lp_summary(test_split: str, filter_ranks: bool, mrr, hits) -> str:
 
 def run_cli(argv=None):
     """Everything ``main`` does, returning the task's result
-    (``NCResult`` or ``LPResult``)."""
+    (``NCResult`` or ``LPResult``; from a mesh, rank 0's, without the
+    model and the optimizer, which stay in the ranks)."""
     timestamp = int(time())
     args = _parser().parse_args(argv)
 
@@ -122,12 +136,47 @@ def run_cli(argv=None):
     if not is_writable(base):
         raise OSError(f"output not writable: {base}")
 
+    device = select_device()
+    spec = pmesh.mesh_spec(config)
+    if spec in pmesh.NO_MESH:
+        return _run(args, config, base, device)
+    cards = None if device.type == "cpu" else torch.cuda.device_count()
+    data, model = pmesh.mesh_shape(spec, cards)
+    world = data * model
+    if device.type == "cpu":
+        backend, devices = "gloo", ["cpu"] * world
+    else:
+        backend, devices = "nccl", [f"cuda:{i}" for i in range(world)]
+    argv = sys.argv[1:] if argv is None else list(argv)
+    # no limit on the run's wall time: a hung rank fails in its
+    # collective after ``pmesh.TIMEOUT`` seconds of waiting there
+    results = pmesh.launch(_rank_run, world, backend, devices,
+                           args=(argv, base), timeout=None)
+    return results[0]
+
+
+def _rank_run(rank: int, argv, base: str):
+    """One rank of a mesh run: the task in this rank's world; rank 0
+    writes the files and the standard output."""
+    args = _parser().parse_args(argv)
+    config = load_config(args.config)
+    if rank == 0:
+        result = _run(args, config, base, select_device())
+    else:
+        args.dry_run, args.verbose, args.save_output = True, 0, False
+        with open(os.devnull, "w") as null, \
+                contextlib.redirect_stdout(null):
+            result = _run(args, config, base, select_device())
+    return dataclasses.replace(result, model=None, optimizer=None)
+
+
+def _run(args, config, base: str, device):
     init_logger(base + ".log", args.dry_run, args.verbose)
     acc_writer = TSV(base + "_acc.tsv", "w", args.dry_run)
     logging.debug("Arguments:\n%s", "\n".join(
         f"\t{k}: {getattr(args, k)}" for k in vars(args)))
 
-    device = select_device()
+    task = config["task"]["type"]
     seed = set_seed(config["task"]["seed"])
     test_split = "test" if args.test else "valid"
     features_cfg = config["graph"].get("features", [])
@@ -162,6 +211,7 @@ def run_cli(argv=None):
             _save_ranks(base, filter_ranks, result.ranks)
     acc_writer.close()
 
+    # under a mesh every rank gathers its basis slices; rank 0 writes
     if args.save_checkpoint:
         f_state = base + f"_model_state_{result.epoch}.npz"
         tutils.save_checkpoint(f_state, result.epoch, result.model,

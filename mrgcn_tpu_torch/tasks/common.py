@@ -3,13 +3,14 @@
 Counterpart of :mod:`mrgcn_tpu.tasks.common`. The artifact format, the
 feature pipeline (``setup_features``, ``densify``, the tokenizer's pad id)
 and the graph structure are the port's own copies of the JAX package's
-host modules, under the same relative names.
+host modules, under the same relative names. Under a device mesh
+(:mod:`..parallel.mesh`) the inputs are this rank's share: the edges and
+their plans split over ``data``, the feature rows where they divide.
 """
 
 from __future__ import annotations
 
 import logging
-import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -28,27 +29,12 @@ from mrgcn_tpu_torch.models.mrgcn import module_names
 from mrgcn_tpu_torch.models.rgcn import EdgeBlock
 from mrgcn_tpu_torch.ops import relational as rl
 from mrgcn_tpu_torch.ops.placement import build_rows
+from mrgcn_tpu_torch.parallel.mesh import (shard_inputs,
+                                           shard_restricted_block)
 
 logger = logging.getLogger(__name__)
 
 _TEXT = ("xsd.string", "xsd.anyURI")
-
-TODO_MESH = "ROADMAP Queue 1, item 6 (multi-device)"
-# mesh specs that ask for no mesh (one device)
-NO_MESH = ("", "0", "1", "none", "off")
-
-
-def reject_mesh(config: Dict) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP item 6 where a device
-    mesh is asked for: ``MRGCN_MESH`` first, then ``[task] mesh``, as the
-    JAX package reads them (``parallel/mesh.mesh_from_config``). The port
-    trains on one device."""
-    spec = os.environ.get("MRGCN_MESH") \
-        or config.get("task", {}).get("mesh", "")
-    spec = str(spec).strip().lower()
-    if spec not in NO_MESH:
-        raise NotImplementedError(f"device mesh {spec!r}: {TODO_MESH}")
-
 
 @dataclass
 class RunInputs:
@@ -126,10 +112,13 @@ def _feature_tensors(X, modules_config, num_nodes: int, device,
 
 
 def prepare_inputs(artifact: Artifact, config: Dict, featureless: bool,
-                   device: torch.device) -> RunInputs:
+                   device: torch.device, mesh=None) -> RunInputs:
     """Model inputs on ``device``: the encoders' feature arrays (padded
     once, with their placement maps), and the full-graph edge block with
-    its relation-grouped layout and sorted-stream plans."""
+    its relation-grouped layout and sorted-stream plans. Under ``mesh``
+    the plans are built for this rank's share of the edges, and the edges
+    and feature rows are split over ``data``
+    (:func:`..parallel.mesh.shard_inputs`)."""
     structure = artifact.structure
     n = structure.num_nodes
 
@@ -167,10 +156,11 @@ def prepare_inputs(artifact: Artifact, config: Dict, featureless: bool,
     plans = rl.plans_for_layers(structure.src, structure.dst,
                                 structure.rel, structure.norm, n,
                                 _layer_shapes(dims, X_width, featureless),
-                                identity_basis=basis, device=device)
+                                identity_basis=basis, device=device,
+                                **_shards(mesh))
     edges = _edge_block(structure.src, structure.dst, structure.rel,
                         structure.norm, n, None, device, plans=plans)
-    return RunInputs(edges=edges, optimizer_config=optimizer_config,
+    inputs = RunInputs(edges=edges, optimizer_config=optimizer_config,
                      num_nodes=n, num_relations=structure.num_relations,
                      structure=structure, hidden_dims=dims, device=device,
                      identity_basis=basis, features=features,
@@ -178,6 +168,15 @@ def prepare_inputs(artifact: Artifact, config: Dict, featureless: bool,
                      modules_config=modules_config, X_width=X_width,
                      featureless=featureless, text_vocab_size=text_vocab,
                      text_pad_id=text_pad_id)
+    if mesh is None:
+        return inputs
+    return shard_inputs(mesh, inputs)
+
+
+def _shards(mesh) -> Dict:
+    """The planner's shard arguments: this rank's share of ``data``."""
+    return {} if mesh is None else {"num_shards": mesh.data,
+                                    "shard": mesh.data_rank}
 
 
 def _filter_remap(src, dst, rel, norm, out_nodes):
@@ -196,7 +195,7 @@ def restricted_layer_edges(structure, out_nodes: np.ndarray,
                            X_width: int = 0, featureless: bool = True,
                            identity_basis: bool = False,
                            group_size: int = 64, min_shrink: float = 0.9,
-                           device=None) -> Tuple:
+                           device=None, mesh=None) -> Tuple:
     """Per-layer EdgeBlocks for a full-batch pass whose loss reads only
     ``out_nodes`` (sorted unique global node ids).
 
@@ -208,6 +207,11 @@ def restricted_layer_edges(structure, out_nodes: np.ndarray,
     the other restricted layers run the relation-grouped path. When a
     frontier stops shrinking (>= ``min_shrink * num_nodes``) the layers
     below reuse ``full_edges``.
+
+    ``mesh``: the input layer's plans are built for this rank's share of
+    the edges, and every restricted block is padded and split over
+    ``data`` (:func:`..parallel.mesh.shard_restricted_block`); the reused
+    ``full_edges`` are already the rank's share.
     """
     src = np.asarray(structure.src)
     dst = np.asarray(structure.dst)
@@ -230,7 +234,7 @@ def restricted_layer_edges(structure, out_nodes: np.ndarray,
                     src_l, dst_l, rel_l, norm_l, n,
                     _layer_shapes((first_dim,), X_width, featureless),
                     identity_basis=identity_basis, num_out_nodes=num_out,
-                    device=device)
+                    device=device, **_shards(mesh))
             blocks[0] = _edge_block(src_l, dst_l, rel_l, norm_l, num_out,
                                     None, device, plans=plans,
                                     group_size=group_size)
@@ -250,6 +254,9 @@ def restricted_layer_edges(structure, out_nodes: np.ndarray,
                                     num_out, int(len(F_cur)), device,
                                     group_size=group_size)
         F_next = F_cur
+    if mesh is not None:
+        blocks = [b if b is full_edges else shard_restricted_block(mesh, b)
+                  for b in blocks]
     return tuple(blocks)
 
 

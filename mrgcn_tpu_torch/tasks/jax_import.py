@@ -25,6 +25,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from mrgcn_tpu_torch.parallel import mesh as pmesh
+
 
 def params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """Nested dict of arrays -> flat ``{"a.b.c": tensor}`` state dict."""
@@ -80,7 +82,12 @@ def load_jax_params(model: nn.Module, params: Mapping,
                     batch_stats: Optional[Mapping] = None) -> None:
     """Copy JAX params, and the ``batch_stats`` of a model with BatchNorm,
     into ``model`` in place; names and shapes must match exactly
-    (``load_state_dict(strict=True)``)."""
-    model.load_state_dict({**params_to_state_dict(params),
-                           **params_to_state_dict(batch_stats or {})},
-                          strict=True)
+    (``load_state_dict(strict=True)``). A model on a device mesh takes the
+    whole tree and keeps, for each basis slice, its rank's slice
+    (:func:`..parallel.mesh.share_of`)."""
+    sd = {**params_to_state_dict(params),
+          **params_to_state_dict(batch_stats or {})}
+    for name, p in model.named_parameters():
+        if name in sd and tuple(sd[name].shape) == pmesh.full_shape(p):
+            sd[name] = pmesh.share_of(p, sd[name])
+    model.load_state_dict(sd, strict=True)

@@ -31,8 +31,10 @@ Corruption and the update are separate functions (:func:`make_corruptor`'s
 be fed to both packages. A checkpoint resumes the run: the epochs (and
 with them the ranking cadence) count on from the file's, and the
 corruption and sampling generators restart at the seed, as in the JAX
-package. A device mesh raises ``NotImplementedError`` naming its ROADMAP
-item.
+package. Under a device mesh (:mod:`..parallel.mesh`) the full graph runs
+on this rank's share of the edges and feature rows, node-sliced batches
+run whole on every rank, and every rank corrupts and ranks on the same
+(replicated) embeddings.
 """
 
 from __future__ import annotations
@@ -51,9 +53,10 @@ from mrgcn_tpu_torch.data import batching
 from mrgcn_tpu_torch.data.artifact import Artifact
 from mrgcn_tpu_torch.models.mrgcn import MRGCN
 from mrgcn_tpu_torch.ops import distmult
+from mrgcn_tpu_torch.parallel import mesh as pmesh
 from mrgcn_tpu_torch.tasks import utils as tutils
 from mrgcn_tpu_torch.tasks.common import (RunInputs, hidden_dims_from_config,
-                                          prepare_inputs, reject_mesh)
+                                          prepare_inputs)
 
 logger = logging.getLogger(__name__)
 
@@ -355,15 +358,17 @@ def lp_loss(model: MRGCN, batch: LPBatch, triples: torch.Tensor,
 def loss_and_grads(model: MRGCN, batch: LPBatch, triples: torch.Tensor,
                    labels: torch.Tensor, weights: torch.Tensor,
                    adv_alpha: float = 0.0, l1: float = 0.0, l2: float = 0.0,
-                   generator: Optional[torch.Generator] = None
-                   ) -> torch.Tensor:
+                   generator: Optional[torch.Generator] = None,
+                   mesh=None) -> torch.Tensor:
     """The loss of :func:`lp_loss` for given corrupted triples, with its
-    gradients left in the parameters' ``.grad``."""
+    gradients left in the parameters' ``.grad``: under ``mesh`` this
+    rank's share of them (1 / world of the loss), which the optimizer's
+    step sums."""
     model.train()
     model.zero_grad(set_to_none=True)
     loss = lp_loss(model, batch, triples, labels, weights, adv_alpha, l1,
                    l2, generator)
-    loss.backward()
+    (loss if mesh is None else loss / mesh.world).backward()
     return loss.detach()
 
 
@@ -392,7 +397,7 @@ def train_step(model: MRGCN, optimizer: tutils.ClippedAdam,
                                        dev_batch.pool, b.num_pool,
                                        generator)
     loss = loss_and_grads(model, b, triples, labels, weights, adv_alpha,
-                          l1, l2, generator)
+                          l1, l2, generator, optimizer.mesh)
     optimizer.step()
     return loss
 
@@ -537,10 +542,13 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
     tsv_writer.writerow(header)
 
     task = config["task"]
-    reject_mesh(config)
+    mesh = pmesh.mesh_from_config(config, device)
 
-    inputs = prepare_inputs(artifact, config, featureless, device)
+    inputs = prepare_inputs(artifact, config, featureless, device, mesh)
     featureless = inputs.featureless
+    if mesh is not None:
+        logger.info("Training under device mesh data=%d model=%d (rank %d)",
+                    mesh.data, mesh.model, mesh.rank)
 
     data = {k: np.asarray(v) for k, v in artifact.data.items()}
     if test_split == "test":
@@ -556,8 +564,11 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
         if state is not None and state["format"] != "torch" else None
     model = build_model(inputs, config, torch.Generator().manual_seed(seed),
                         text_attn=text_attn)
+    if mesh is not None:
+        pmesh.shard_params(mesh, model)
     optimizer = tutils.build_optimizer(model, config,
-                                       inputs.optimizer_config, featureless)
+                                       inputs.optimizer_config, featureless,
+                                       mesh)
     epoch = 0
     if state is not None:
         print("[LOAD] Loading model state", end="")

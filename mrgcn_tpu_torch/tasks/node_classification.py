@@ -15,7 +15,10 @@ validation labels merge in test mode; loss and accuracy are per-batch
 means). Losses stay on the device and are read once per epoch. A
 checkpoint (:func:`..tasks.utils.load_checkpoint`) resumes the run: the
 epochs count on from the file's, and dropout and sampling restart at the
-seed, as in the JAX package.
+seed, as in the JAX package. Under a device mesh (``MRGCN_MESH`` or
+``[task] mesh``, in a world of one process per device:
+:mod:`..parallel.mesh`) the full batch runs on this rank's share of the
+edges and feature rows, and mini-batches run whole on every rank.
 """
 
 from __future__ import annotations
@@ -32,9 +35,10 @@ import torch.nn.functional as F
 from mrgcn_tpu_torch.data import batching
 from mrgcn_tpu_torch.data.artifact import Artifact
 from mrgcn_tpu_torch.models.mrgcn import MRGCN
+from mrgcn_tpu_torch.parallel import mesh as pmesh
 from mrgcn_tpu_torch.tasks import utils as tutils
 from mrgcn_tpu_torch.tasks.common import (RunInputs, hidden_dims_from_config,
-                                          prepare_inputs, reject_mesh,
+                                          prepare_inputs,
                                           restricted_layer_edges)
 
 logger = logging.getLogger(__name__)
@@ -116,7 +120,8 @@ def make_batches(inputs: RunInputs, label_rows: np.ndarray, batchsize: int,
                 inputs.structure, uniq, num_layers, inputs.edges,
                 first_dim=inputs.hidden_dims[0], X_width=inputs.X_width,
                 featureless=inputs.featureless,
-                identity_basis=inputs.identity_basis, device=inputs.device)
+                identity_basis=inputs.identity_basis, device=inputs.device,
+                mesh=inputs.edges.mesh)
             idx = inverse.astype(np.int32)
         else:
             edges = inputs.edges
@@ -151,21 +156,33 @@ def make_batches(inputs: RunInputs, label_rows: np.ndarray, batchsize: int,
             for (f, e, i, t, w), n in zip(put, num_real)]
 
 
-def train_step(model: MRGCN, optimizer: tutils.ClippedAdam, batch: NCBatch,
-               l1: float, l2: float,
-               generator: Optional[torch.Generator] = None):
-    """One optimizer step; returns (loss incl. penalties, accuracy) as
-    0-dim tensors."""
+def loss_and_grads(model: MRGCN, batch: NCBatch, l1: float, l2: float,
+                   generator: Optional[torch.Generator] = None,
+                   mesh=None):
+    """The training forward's loss (incl. penalties) and accuracy as 0-dim
+    tensors, with the loss's gradients left in the parameters' ``.grad``:
+    under ``mesh`` this rank's share of them (1 / world of the loss),
+    which the optimizer's step sums."""
     model.train()
-    optimizer.zero_grad()
+    model.zero_grad(set_to_none=True)
     out = model(batch.edges, batch.features, train=True,
                 generator=generator)
     loss, acc, _, _ = _loss_and_metrics(out, batch.idx, batch.targets,
                                         batch.weights)
     loss = loss + tutils.regularization(model, l1, l2)
-    loss.backward()
-    optimizer.step()
+    (loss if mesh is None else loss / mesh.world).backward()
     return loss.detach(), acc.detach()
+
+
+def train_step(model: MRGCN, optimizer: tutils.ClippedAdam, batch: NCBatch,
+               l1: float, l2: float,
+               generator: Optional[torch.Generator] = None):
+    """One optimizer step; returns (loss incl. penalties, accuracy) as
+    0-dim tensors."""
+    loss, acc = loss_and_grads(model, batch, l1, l2, generator,
+                               optimizer.mesh)
+    optimizer.step()
+    return loss, acc
 
 
 @torch.no_grad()
@@ -224,14 +241,18 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
         checkpoint: Optional[str] = None) -> NCResult:
     """Full training + final evaluation on ``device``, from the state in
     ``checkpoint`` when one is given (its epochs count on). A device mesh
-    (``MRGCN_MESH``, ``[task] mesh``) raises ``NotImplementedError``."""
-    reject_mesh(config)
+    (``MRGCN_MESH``, ``[task] mesh``) trains on this process's world; it
+    raises outside one."""
+    mesh = pmesh.mesh_from_config(config, device)
     tsv_writer.writerow(["epoch", "training_loss", "training_accurary",
                          "validation_loss", "validation_accuracy",
                          "test_loss", "test_accuracy"])
 
-    inputs = prepare_inputs(artifact, config, featureless, device)
+    inputs = prepare_inputs(artifact, config, featureless, device, mesh)
     featureless = inputs.featureless
+    if mesh is not None:
+        logger.info("Training under device mesh data=%d model=%d (rank %d)",
+                    mesh.data, mesh.model, mesh.rank)
 
     Y = {k: np.asarray(v).reshape(-1, 2) for k, v in artifact.Y.items()}
     num_classes = len(artifact.class_map)
@@ -249,8 +270,11 @@ def run(artifact: Artifact, config: Dict, tsv_writer, featureless: bool,
     model = build_model(inputs, config, num_classes,
                         torch.Generator().manual_seed(seed),
                         text_attn=text_attn)
+    if mesh is not None:
+        pmesh.shard_params(mesh, model)
     optimizer = tutils.build_optimizer(model, config,
-                                       inputs.optimizer_config, featureless)
+                                       inputs.optimizer_config, featureless,
+                                       mesh)
     epoch = 0
     if state is not None:
         print("[LOAD] Loading model state", end="")

@@ -44,6 +44,7 @@ from torch import nn
 
 from mrgcn_tpu_torch.models.encoders import _TCNN_PLANS
 from mrgcn_tpu_torch.ops.rspmm import packing_factor
+from mrgcn_tpu_torch.parallel import mesh as pmesh
 from mrgcn_tpu_torch.tasks.jax_import import (state_dict_to_batch_stats,
                                               state_dict_to_params)
 
@@ -125,8 +126,9 @@ def map_state_dict(state_dict: Dict[str, np.ndarray], model: nn.Module
     ``model``'s parameters and running statistics. Returns ``(params,
     batch_stats, unmapped)``: the trees, the model's own values where the
     checkpoint has none, and the checkpoint keys without a counterpart.
-    A key that maps with the wrong shape raises."""
-    sd = model.state_dict()
+    A key that maps with the wrong shape raises. A model on a mesh maps
+    onto its whole weights (:func:`..parallel.mesh.full_state_dict`)."""
+    sd = pmesh.full_state_dict(model)
     params = copy.deepcopy(state_dict_to_params(sd))
     batch_stats = copy.deepcopy(state_dict_to_batch_stats(sd))
     unmapped: List[str] = []

@@ -11,6 +11,14 @@ is optax's state of ``clip_by_global_norm`` chained with
 ``multi_transform``: one Adam state per parameter group (label) over the
 whole parameter tree, the other labels' parameters masked
 (:func:`optax_opt_state`, :func:`restore_opt_state`).
+
+Under a device mesh (:mod:`..parallel.mesh`) the optimizer sums the
+ranks' gradient shares before it clips, the clip's norm counts each basis
+slice once, and the penalties count each slice once too. A checkpoint
+holds the whole weights: saving gathers the slices and rank 0 writes a
+file laid out as a single-device run's; restoring loads the whole tree and
+keeps each rank's slice, so a file saved under one spec resumes under
+another, or under none.
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from mrgcn_tpu_torch.parallel import collectives as coll
+from mrgcn_tpu_torch.parallel import mesh as pmesh
 from mrgcn_tpu_torch.tasks import torch_import
 from mrgcn_tpu_torch.tasks.jax_import import (load_jax_params,
                                               state_dict_to_batch_stats,
@@ -49,7 +59,9 @@ def weight_mask(model: nn.Module) -> Dict[str, bool]:
 
 def regularization(model: nn.Module, l1_lambda: float,
                    l2_lambda: float) -> torch.Tensor:
-    """L1/L2 penalty over weight-like parameters."""
+    """L1/L2 penalty over weight-like parameters; a basis slice's penalty
+    is summed over its ``model`` group, so the penalty is the whole
+    weight's on every rank."""
     first = next(model.parameters())
     total = torch.zeros((), dtype=torch.float32, device=first.device)
     if l1_lambda <= 0 and l2_lambda <= 0:
@@ -58,10 +70,15 @@ def regularization(model: nn.Module, l1_lambda: float,
     for name, p in model.named_parameters():
         if not mask[name]:
             continue
+        terms = []
         if l1_lambda > 0:
-            total = total + l1_lambda * p.abs().sum()
+            terms.append(l1_lambda * p.abs().sum())
         if l2_lambda > 0:
-            total = total + l2_lambda * (p ** 2).sum()
+            terms.append(l2_lambda * (p ** 2).sum())
+        s = pmesh.basis_slice(p)
+        for term in terms:
+            total = total + (term if s is None
+                             else coll.all_reduce(term, s.group))
     return total
 
 
@@ -109,18 +126,31 @@ class ClippedAdam:
     The JAX package's clip scales by ``max_norm / norm``;
     ``clip_grad_norm_`` by ``max_norm / (norm + 1e-6)``, a relative
     difference of about 1e-6 once the clip engages.
+
+    Under ``mesh`` a step first sums the ranks' gradient shares
+    (:func:`..parallel.mesh.reduce_gradients`), then clips by the global
+    norm with each basis slice counted once (:func:`..parallel.mesh.
+    grad_norm`, then ``clip_grads_with_norm_``, as ``clip_grad_norm_``
+    clips): every rank then steps the same numbers.
     """
 
-    def __init__(self, groups, max_norm: float = 1.0):
+    def __init__(self, groups, max_norm: float = 1.0, mesh=None):
         self.adam = torch.optim.Adam(groups)
         self.params = [p for g in groups for p in g["params"]]
         self.max_norm = max_norm
+        self.mesh = mesh
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
 
     def step(self) -> None:
-        nn.utils.clip_grad_norm_(self.params, self.max_norm)
+        if self.mesh is None:
+            nn.utils.clip_grad_norm_(self.params, self.max_norm)
+        else:
+            pmesh.reduce_gradients(self.mesh, self.params)
+            nn.utils.clip_grads_with_norm_(
+                self.params, self.max_norm,
+                pmesh.grad_norm(self.mesh, self.params))
         self.adam.step()
 
     def state_dict(self) -> Dict:
@@ -128,8 +158,9 @@ class ClippedAdam:
 
 
 def build_optimizer(model: nn.Module, config: Dict, optimizer_config: Dict,
-                    featureless: bool) -> ClippedAdam:
-    """Clip + Adam with the reference's parameter groups."""
+                    featureless: bool, mesh=None) -> ClippedAdam:
+    """Clip + Adam with the reference's parameter groups (over this rank's
+    basis slices under ``mesh``)."""
     base_lr = config["model"]["learning_rate"]
     base_wd = config["model"].get("weight_decay", 0.0)
     optimizer_config = optimizer_config or {}
@@ -148,7 +179,7 @@ def build_optimizer(model: nn.Module, config: Dict, optimizer_config: Dict,
             groups[lbl] = {"params": [], "label": lbl,
                            **_group_kwargs(cfg, base_lr, base_wd, lbl)}
         groups[lbl]["params"].append(p)
-    return ClippedAdam(list(groups.values()))
+    return ClippedAdam(list(groups.values()), mesh=mesh)
 
 
 def _to_host(obj):
@@ -266,7 +297,8 @@ def optax_opt_state(model: nn.Module, optimizer: ClippedAdam) -> Dict:
     parameters that had a gradient; optax counts each label's steps,
     every label on every step, so ``count`` is the optimizer's step count
     and a parameter without torch state (a zero-gated encoder's) holds
-    zeros, as optax does."""
+    zeros, as optax does. A basis slice's moments are gathered to the
+    whole weight's (collective over ``model``)."""
     adam = optimizer.adam
     names = {p: n for n, p in model.named_parameters()}
     steps = [float(st["step"]) for st in adam.state.values() if "step" in st]
@@ -286,9 +318,11 @@ def optax_opt_state(model: nn.Module, optimizer: ClippedAdam) -> Dict:
                 if name not in own:
                     node[leaf] = {}
                 elif tkey in own[name]:
-                    node[leaf] = own[name][tkey].detach().cpu().numpy()
+                    node[leaf] = pmesh.whole(p, own[name][tkey]) \
+                        .detach().cpu().numpy()
                 else:
-                    node[leaf] = np.zeros(tuple(p.shape), dtype=np.float32)
+                    node[leaf] = np.zeros(pmesh.full_shape(p),
+                                          dtype=np.float32)
             state[jkey] = tree
         outer, adam_at = _adam_index(group)
         chain = {} if outer == "0" else {"0": {}}
@@ -316,9 +350,9 @@ def restore_opt_state(model: nn.Module, optimizer: ClippedAdam,
                       stored: Dict) -> None:
     """Load a checkpoint's optax state (a nested dict, as
     :func:`load_checkpoint` reads it) into ``optimizer``: every parameter
-    of a group takes its label's ``count`` as its step and its moments.
-    A file whose labels, layout or shapes do not fit the optimizer
-    raises."""
+    of a group takes its label's ``count`` as its step and its moments
+    (a basis slice its slice of them). A file whose labels, layout or
+    shapes do not fit the optimizer raises."""
     adam = optimizer.adam
     inner = stored["1"]["inner_states"]
     labels = {g["label"] for g in adam.param_groups}
@@ -343,10 +377,11 @@ def restore_opt_state(model: nn.Module, optimizer: ClippedAdam,
             entry = {"step": torch.tensor(count, dtype=torch.float32)}
             for jkey, tkey in moments.items():
                 value = _leaf(found[jkey], names[p])
-                if value.shape != tuple(p.shape):
+                if value.shape != pmesh.full_shape(p):
                     raise ValueError(f"checkpoint {jkey} of {names[p]} is "
                                      f"{value.shape}, the parameter "
-                                     f"{tuple(p.shape)}")
+                                     f"{pmesh.full_shape(p)}")
+                value = pmesh.share_of(p, value)
                 entry[tkey] = torch.from_numpy(np.array(value))
             state[index] = entry
     sd["state"] = state
@@ -357,11 +392,15 @@ def save_checkpoint(path: str, epoch: int, model: nn.Module,
                     optimizer: ClippedAdam, loss: float) -> None:
     """Write ``{epoch, parameters, optimizer state, running statistics,
     loss}`` as the JAX package's pickle-free ``.npz``; every tensor goes
-    to the host once and from there into the file."""
-    sd = model.state_dict()
+    to the host once and from there into the file. Under a mesh every rank
+    calls it: the basis slices are gathered, and rank 0 writes."""
+    sd = pmesh.full_state_dict(model)
+    opt_state = optax_opt_state(model, optimizer)
+    if optimizer.mesh is not None and optimizer.mesh.rank != 0:
+        return
     flat: Dict = {}
     _flatten_state(state_dict_to_params(sd), "params", flat)
-    _flatten_state(optax_opt_state(model, optimizer), "opt_state", flat)
+    _flatten_state(opt_state, "opt_state", flat)
     _flatten_state(state_dict_to_batch_stats(sd), "batch_stats", flat)
     flat["meta/epoch"] = np.asarray(epoch, dtype=np.int64)
     flat["meta/loss"] = np.asarray(float(loss), dtype=np.float64)
@@ -460,7 +499,8 @@ def restore_checkpoint(model: nn.Module, optimizer: ClippedAdam,
     device) and ``optimizer``; returns the checkpoint's epoch. Parameters
     and running statistics load strictly (names and shapes must match); a
     reference ``torch.save`` state dict is mapped onto the model's own
-    tree first and leaves the optimizer fresh."""
+    tree first and leaves the optimizer fresh. Under a mesh each rank
+    keeps its slices of the whole weights the file holds."""
     if state["format"] == "torch":
         params, batch_stats, _ = torch_import.map_state_dict(
             state["model_state_dict"], model)

@@ -20,7 +20,10 @@ element, ``|got - want| <= 2^-6 (|want| + scale) + 1e-6``, where ``scale`` is th
 absolute values (``mrgcn_tpu_torch.ops.kernel_bounds``). Both sides sum
 in f32 in different orders, so an intermediate that is rounded to bf16
 (the probabilities, the hidden activations, the outputs) can land one
-bf16 step (at most 2^-7 of its size) apart.
+bf16 step (at most 2^-7 of its size) apart. The multi-device worlds
+(``mrgcn_tpu_torch.parallel``: gloo ranks sharing card 0, and NCCL with one
+card a rank where there are two) against the single-device run on the
+card: outputs and gradients within 1e-5 of their largest entry.
 """
 
 import numpy as np
@@ -895,3 +898,66 @@ def test_compose_packed_on_card_matches_cpu(cuda, R, B, rows, L):
     for got, want in zip(*found):
         scale = float(want.abs().max())
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+
+
+def mesh_layer_jobs(seed=3, n=400, R=6, E=3000):
+    """Two R-GCNs on a random graph, as ``parallel.parity.layers`` jobs: a
+    featureless one on identity plans and one over 12 features on dense
+    plans (``row_block`` 16, ``edge_block`` 8), with parameters drawn from
+    a seed."""
+    from mrgcn_tpu_torch.models.rgcn import RGCN
+    from mrgcn_tpu_torch.tasks.jax_import import state_dict_to_params
+    rng = np.random.default_rng(seed)
+    graph = (rng.integers(0, n, E).astype(np.int32),
+             rng.integers(0, n, E).astype(np.int32),
+             rng.integers(0, R, E).astype(np.int32),
+             rng.random(E).astype(np.float32), n)
+    jobs = []
+    for featureless, hidden in ((True, (16, 5)), (False, (16, 8))):
+        shapes = [(None, hidden[0]), (hidden[0], hidden[1])]
+        if not featureless:
+            shapes.append((12, hidden[0]))
+        model = dict(hidden_dims=hidden, num_relations=R, num_nodes=n,
+                     num_bases=4, featureless=featureless,
+                     in_dim=None if featureless else 12)
+        params = state_dict_to_params(RGCN(
+            generator=torch.Generator().manual_seed(seed), **model)
+            .state_dict())
+        jobs.append({"work": "layers", "graph": graph, "model": model,
+                     "plans": dict(row_block=16, edge_block=8,
+                                   shapes=shapes),
+                     "params": params,
+                     "X": None if featureless else rng.standard_normal(
+                         (n, 12)).astype(np.float32),
+                     "cot": rng.standard_normal(
+                         (n, hidden[1])).astype(np.float32)})
+    return jobs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,spec", [("gloo", "2"), ("gloo", "2x2"),
+                                          ("nccl", "2")])
+def test_mesh_world_on_cards_matches_single_device(cuda, backend, spec):
+    """A world of ranks on the card(s) (gloo: every rank on card 0, as
+    NCCL refuses two ranks on one card; NCCL: one card a rank, skipped
+    with fewer than two): each R-GCN's output and every gradient within
+    1e-5 of the largest entry of the single-device run on the card."""
+    from mrgcn_tpu_torch.parallel import mesh as pmesh
+    from mrgcn_tpu_torch.parallel import parity
+    data, model = pmesh.mesh_shape(spec)
+    world = data * model
+    if backend == "nccl" and torch.cuda.device_count() < world:
+        pytest.skip(f"NCCL takes one card a rank: {world} needed")
+    devices = [f"cuda:{i if backend == 'nccl' else 0}"
+               for i in range(world)]
+    jobs = mesh_layer_jobs()
+    want = [parity.layers(job, cuda) for job in jobs]
+    ranks = pmesh.launch(parity.rank_worker, world, backend, devices,
+                         args=([{**job, "mesh": spec} for job in jobs],))
+    for got, ref in zip(ranks[0], want):
+        scale = float(np.abs(ref["out"]).max())
+        assert float(np.abs(got["out"] - ref["out"]).max()) <= 1e-5 * scale
+        assert sorted(got["grads"]) == sorted(ref["grads"])
+        for name, g in ref["grads"].items():
+            err = float(np.abs(got["grads"][name] - g).max())
+            assert err <= 1e-5 * float(np.abs(g).max()), name

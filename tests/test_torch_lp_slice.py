@@ -407,6 +407,8 @@ def test_unported_lp_paths_raise(lp_artifact):
                                 2)
     assert len(sliced) > 1 and all(b.num_valid < tin.num_nodes
                                    for b in sliced)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # a device mesh is ported: the task trains in a world of one
+    # process per device, and raises outside one
+    with pytest.raises(RuntimeError, match="no torch.distributed world"):
         lp.run(art, make_config(mesh="4"), TSV("", "w", dry_run=True),
                True, "test", 0, CPU)

@@ -14,6 +14,9 @@ subprocess in which these names are blocked (``sys.modules[name] =
 None``). In another such subprocess the port's ``mkdataset`` CLI builds an
 artifact from N-Quads and gzipped N-Triples, its strings tokenized by the
 port's WordPiece from a ``vocab.txt`` snapshot, and ``run`` trains it.
+The ranks of a mesh world (``parallel.mesh.launch``, spawned processes)
+train link prediction and report that none of these names is among their
+modules.
 """
 
 import ast
@@ -173,6 +176,32 @@ loaded = [m for m in sys.modules if m.split(".")[0] in
 assert not loaded, loaded
 print("ok-no-jax")
 """
+
+
+def test_mesh_ranks_import_no_jax(tmp_path, monkeypatch):
+    """A world's ranks (spawned processes of the port's own worker) train
+    link prediction under a mesh without importing any of these names."""
+    from mrgcn_tpu_torch.config import apply_defaults
+    from mrgcn_tpu_torch.parallel import mesh as pmesh
+    from mrgcn_tpu_torch.parallel import parity
+    from mrgcn_tpu_torch.tasks.synthetic import save_lp_artifact
+    monkeypatch.setenv("MRGCN_PLATFORM", "cpu")
+    monkeypatch.delenv("MRGCN_MESH", raising=False)
+    art = str(tmp_path / "lp.npz")
+    save_lp_artifact(art, num_nodes=60, num_props=3, num_train=200,
+                     num_valid=30, num_test=30)
+    config = apply_defaults({
+        "name": "LP", "graph": {},
+        "task": {"type": "link prediction", "seed": 0, "mesh": "2"},
+        "model": {"epoch": 1, "num_bases": 2,
+                  "layers": [{"hidden_nodes": 8}, {"type": "mrgcn"}]}})
+    jobs = [{"work": "train", "task": "lp", "artifact": art,
+             "config": config},
+            {"work": "loaded", "mesh": "2", "names": FORBIDDEN}]
+    for rank in pmesh.launch(parity.rank_worker, 2, "gloo", ["cpu"] * 2,
+                             args=(jobs,)):
+        assert len(rank[0]["history"]) == 1
+        assert rank[1] == []
 
 
 def test_port_runs_with_jax_and_the_jax_package_blocked():

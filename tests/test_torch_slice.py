@@ -215,16 +215,17 @@ def test_unported_paths_raise(small_artifact, tmp_path, monkeypatch):
     assert torch_run.run_cli(args + [f"--load_checkpoint={saved}"]).epoch \
         == 2
     # link prediction is ported, node-sliced batches too; a device mesh
-    # still names its item
+    # is ported, and 'auto' (every card) raises on the CPU, which counts
+    # processes, not cards
     cfg = tmp_path / "lp.toml"
     cfg.write_text('name = "LP"\n[task]\ntype = "link prediction"\n'
-                   'seed = 0\ngcn_batchsize = 8\nmesh = "4"\n[model]\nepoch = 1\n'
+                   'seed = 0\ngcn_batchsize = 8\nmesh = "auto"\n[model]\nepoch = 1\n'
                    '[[model.layers]]\nhidden_nodes = 8\n'
                    '[[model.layers]]\ntype = "mrgcn"\n')
     art = tmp_path / "lp.npz"
     save_lp_artifact(str(art), num_nodes=60, num_props=3, num_train=200,
                      num_valid=30, num_test=30)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="number of processes"):
         torch_run.main(["-c", str(cfg), "-i", str(art), "--dry_run"])
 
 

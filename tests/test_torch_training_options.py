@@ -2,9 +2,10 @@
 early stopping's restore, and the optimizer's per-group options.
 
 * A device mesh asked for through ``MRGCN_MESH`` or ``[task] mesh``
-  raises ``NotImplementedError`` naming ROADMAP item 6 in both drivers;
-  the values that mean one device (``"1"``, ``"off"``) train exactly as
-  no mesh does.
+  trains one process per device (``tests/test_torch_mesh.py``); a task's
+  ``run`` called with one outside a ``torch.distributed`` world raises in
+  both tasks; the values that mean one device (``"1"``, ``"off"``) train
+  exactly as no mesh does.
 * Early stopping: both packages train the same small featureless graph
   from the same initial parameters past a stop (patience 2, the warm-up
   delay cut from 10 epochs to 2) and restore the best state. They stop
@@ -115,7 +116,7 @@ def train_one_epoch(task, artifacts, mesh=None, env=None, monkeypatch=None):
 def test_a_device_mesh_raises_in_both_drivers(task, source, nc_artifact,
                                               lp_artifact, monkeypatch):
     monkeypatch.delenv("MRGCN_MESH", raising=False)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(RuntimeError, match="no torch.distributed world"):
         train_one_epoch(task, (nc_artifact, lp_artifact),
                         mesh="4" if source == "config" else None,
                         env="2x2" if source == "environment" else None,
