@@ -344,7 +344,8 @@ AGREE_ALLMODAL_RTOL = 5e-3
 # (compose_table) and its backward (compose_grad_pass)
 COMPOSE_PER_STEP = {"compose_table": 1, "compose_grad_pass": 1}
 KERNEL_SOURCES = ("sorted_scatter", "sorted_gather", "fused_place_scatter",
-                  "scatter_dot", "compose", "fused_attention", "fused_mlp")
+                  "scatter_dot", "compose", "fused_attention",
+                  "fused_attention_heads", "fused_mlp")
 # configs/fb15k-237.toml trains 20 epochs and ranks every 10. The f32 loss
 # sits at ln 2 until epoch 20 (the scores start near 1e-5 and the mean
 # BCE's gradient entries below Adam's eps, so the parameters creep) and
@@ -396,7 +397,7 @@ def build_kernels() -> None:
               f"{kl.path.relative_to(ROOT)}")
         for line in kl.ptxas_log.splitlines():
             if any(w in line for w in ("Compiling", "registers", "spill",
-                                       "smem")):
+                                       "smem", "Performance Loss")):
                 print(f"[build]   {line.strip()}")
 
 
@@ -1305,10 +1306,12 @@ def ptxas_report(name: str) -> dict:
     for line in _build.load(name).ptxas_log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            plain = re.search(r"([a-z_]+_kernel)(?:IL[ib](\d+)E)?",
+            plain = re.search(r"([a-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?",
                               m.group(1))
+            args = re.findall(r"L[ib](\d+)E", plain.group(2) or "") \
+                if plain else []
             entry = m.group(1) if plain is None else plain.group(1) + (
-                f"<{plain.group(2)}>" if plain.group(2) else "")
+                f"<{', '.join(args)}>" if args else "")
             report[entry] = {}
             continue
         if entry is None:
@@ -3547,35 +3550,73 @@ def sdpa_heads(q, k, v, valid, do=None):
     return both
 
 
+def ex2_rate() -> float:
+    """ex2 a second of the card: 16 a clock an SM (the special-function
+    units of Hopper's four SM partitions) at the SMs' highest clock."""
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 16.0 * sms * mhz * 1e6
+
+
 def heads_kernel_phase(device) -> dict:
-    """#12 (the attention kernels with H = 2, 4, 8 heads of width 128 / H)
-    against their plain versions: N = 8,000, L = 128 and N = 2,000,
-    L = 512, ragged, all-valid and holed masks, every output element held
-    by ``check_bf16``; two runs bit-identical; each head of one case equal
-    bit for bit to the single-head kernel on that head alone. The
-    8,000 x 128 ragged cases are timed beside the plain version and SDPA
-    (the library's forward, and its forward + backward less the forward),
-    with their bound: the bytes of q, every row, and k and v at real keys
-    (all L keys of a sequence without one), of the output (and in the
-    backward of do, dq, dk and dv) over the card's memory rate, and
-    4 (forward) or 10 (backward) x (real keys x L x 128) FLOP over the bf16
-    tensor-core peak; the 2,000 x 512 ragged cases time the kernel and
-    SDPA (their plain backward's intermediates are 17 GB a tensor at
-    H = 8). Returns the rows by kernel."""
+    """#12 (the attention kernels with H = 2, 4, 8 heads of width 128 / H,
+    ``csrc/fused_attention_heads.cu``) against their plain versions:
+    N = 8,000, L = 128 and N = 2,000, L = 512, ragged, all-valid and
+    holed masks, and two small cases of groups whose last one is short
+    (3 heads of 40, 16 of 8), every output element held by
+    ``check_bf16``; two runs bit-identical; every head of the ragged
+    8,000 x 128 and small cases equal bit for bit to the single-head
+    kernel (#6 / #7) on that head alone, and the digest of the single-head
+    outputs, heads side by side, the multi-head digest. Each case prints
+    its ``head_plan``; every instantiation of the library builds with no
+    spilled register (``ptxas -v``). The ragged 8,000 x 128 cases are
+    timed beside the plain version and SDPA (the library's forward, and
+    its forward + backward less the forward), the ragged 2,000 x 512 ones
+    beside SDPA (their plain backward's intermediates are 17 GB a tensor
+    at H = 8). The bound is the largest of three times: the bytes of q,
+    every row, and k and v at real keys (all L keys of a sequence without
+    one), of the output (and in the backward of do, dq, dk and dv) over
+    the card's memory rate; 4 (forward) or 10 (backward) x (real keys x
+    L x 128) FLOP over the bf16 tensor-core peak; and H x (real keys x
+    L) ex2, once forward and once backward (the least any design
+    recomputes), over ``ex2_rate``. Returns the rows by kernel."""
     import torch
     from mrgcn_tpu_torch.ops import attention as att
     from mrgcn_tpu_torch.ops.kernel_bounds import attention_scales
     gen = torch.Generator(device=device).manual_seed(12)
     rows = {"attention_heads_fwd": [], "attention_heads_bwd": []}
+    report = ptxas_report("fused_attention_heads")
+    for kernel_name, used in report.items():
+        print(f"[kernel] fused_attention_heads.cu {kernel_name}: "
+              f"{json.dumps(used)}")
+    check(len(report) == 12 and all(
+        u["spill_store_bytes"] == u["spill_load_bytes"] == 0
+        for u in report.values()),
+        f"fused_attention_heads: spilled registers or missing "
+        f"instantiations: {report}")
+    ex2_per_s = ex2_rate()
+    print(f"[kernel] ex2 rate {ex2_per_s:.4g} /s")
     faulthandler.dump_traceback_later(500, exit=True)
     short, long = HEAD_SHAPES
-    for (N, L), H, mask in (
-            [(short, H, "ragged") for H in HEAD_COUNTS]
-            + [(long, H, "ragged") for H in HEAD_COUNTS]
-            + [(short, H, "all") for H in HEAD_COUNTS]
-            + [(long, H, "holes") for H in HEAD_COUNTS]):
-        label = f"h{H}_{N}x{L}" + ("" if mask == "ragged" else f"_{mask}")
-        q, k, v, valid, do = heads_case(gen, N, L, H, device, mask)
+    for (N, L), H, mask, D in (
+            [(short, H, "ragged", 128) for H in HEAD_COUNTS]
+            + [(long, H, "ragged", 128) for H in HEAD_COUNTS]
+            + [(short, H, "all", 128) for H in HEAD_COUNTS]
+            + [(long, H, "holes", 128) for H in HEAD_COUNTS]
+            + [((300, 200), 3, "holes", 120), ((300, 128), 16, "ragged",
+                                                128)]):
+        d = D // H
+        label = f"h{H}_{N}x{L}" + ("" if mask == "ragged" else f"_{mask}") \
+            + ("" if d == 128 // H else f"_d{d}")
+        plan = att.head_plan(H, d, L)
+        print(f"[kernel] #12 {label}: {plan} (forward groups "
+              f"{len(plan.groups(H))}, backward {len(plan.groups(H, True))})")
+        q, k, v, valid, do = heads_case(gen, N, L, H, device, mask, D)
         per_chunk = max(1, PLAIN_CHUNK_BYTES // (6 * H * L * L * 4))
         scales = chunked(attention_scales, q, k, v, valid, do,
                          rows=per_chunk)
@@ -3587,16 +3628,17 @@ def heads_kernel_phase(device) -> dict:
             att.attention_bwd_reference, q, k, v, valid, do,
             rows=per_chunk)
         real = valid.sum(dim=1)
-        pairs = float(real.sum()) * L * 128
+        pairs = float(real.sum()) * L * D
         kv_rows = int(torch.where(real > 0, real, torch.full_like(real, L))
                       .sum())
-        qkv_bytes = (N * L + 2 * kv_rows) * 128 * 2 + valid.numel()
+        qkv_bytes = (N * L + 2 * kv_rows) * D * 2 + valid.numel()
+        ex2 = float(H) * kv_rows * L
         for name, kernel, plain, sc, work, library in (
                 ("attention_heads_fwd", fwd, plain_fwd, scales[:1],
-                 (qkv_bytes + N * L * 128 * 2, 4 * pairs),
+                 (qkv_bytes + N * L * D * 2, 4 * pairs),
                  sdpa_heads(q, k, v, valid)),
                 ("attention_heads_bwd", bwd, plain_bwd, scales[1:],
-                 (qkv_bytes + 4 * N * L * 128 * 2, 10 * pairs),
+                 (qkv_bytes + 4 * N * L * D * 2, 10 * pairs),
                  sdpa_heads(q, k, v, valid, do))):
             got, again, want = kernel(), kernel(), plain()
             torch.cuda.synchronize()
@@ -3612,34 +3654,52 @@ def heads_kernel_phase(device) -> dict:
                    "max_err_over_bound": max(r for _, r in errs),
                    "digest": digest(outs)}
             del got, again, want, outs, wants, agains
-            if mask == "ragged" and (N, L) == short:
-                row.update(timed_pair(kernel, plain, library))
+            if mask == "ragged" and (N, L) in HEAD_SHAPES:
+                if (N, L) == short:
+                    row.update(timed_pair(kernel, plain, library))
+                else:
+                    row.update(ms=time_ms(kernel), plain_ms=None,
+                               library_ms=time_ms(library))
                 row.update(bound(work[0], work[1], BF16_FLOPS))
-            elif mask == "ragged":
-                row.update(ms=time_ms(kernel), plain_ms=None,
-                           library_ms=time_ms(library))
-                row.update(bound(work[0], work[1], BF16_FLOPS))
+                terms = {"bytes": work[0] / HBM_BYTES_S * 1e3,
+                         "tensor": work[1] / BF16_FLOPS * 1e3,
+                         "ex2": ex2 / ex2_per_s * 1e3}
+                row.update(ex2=int(ex2), bound_terms_ms=terms,
+                           bound_ms=max(terms.values()),
+                           bound_term=max(terms, key=terms.get))
+                row["bound_by"] = "bytes" if row["bound_term"] == "bytes" \
+                    else "operations"
+                row["fraction_of_bound"] = row["bound_ms"] / row["ms"]
             rows[name].append(row)
         if "library_ms" in rows["attention_heads_bwd"][-1]:
             f_row, b_row = (rows[n][-1] for n in rows)
             b_row["library_fwd_bwd_ms"] = b_row["library_ms"]
             b_row["library_ms"] = b_row["library_ms"] - f_row["library_ms"]
+        if (N, L) not in HEAD_SHAPES or (mask == "ragged"
+                                         and (N, L) == short):
+            # each head alone through the single-head kernel: the same bits
+            out = att.attention_fwd(q, k, v, valid)
+            dq, dk, dv = att.attention_bwd(q, k, v, valid, do)
+            single = [[], [], [], []]
+            for h in range(H):
+                one = [t[:, :, h].contiguous() for t in (q, k, v)]
+                got = (att.attention_fwd(*one, valid), *att.attention_bwd(
+                    *one, valid, do[:, :, h].contiguous()))
+                for i, (g, w) in enumerate(zip((out, dq, dk, dv), got)):
+                    check(torch.equal(g[:, :, h], w),
+                          f"{label}: head {h}'s output {i} differs from "
+                          "the single-head kernel's")
+                    single[i].append(w)
+            one_digests = [digest([torch.stack(single[0], dim=2)]),
+                           digest([torch.stack(t, dim=2)
+                                   for t in single[1:]])]
+            for name, one_digest in zip(rows, one_digests):
+                rows[name][-1]["digest_single_head"] = one_digest
+                check(one_digest == rows[name][-1]["digest"],
+                      f"{name} {label}: the single-head digest differs")
+            del out, dq, dk, dv, one, got, single
         for name in rows:
             print(f"[kernel] {name} {json.dumps(rows[name][-1])}")
-        if (N, L) == short and mask == "ragged":
-            # one head alone through the single-head kernel: the same bits
-            h = H - 1
-            one = [t[:, :, h].contiguous() for t in (q, k, v)]
-            out = att.attention_fwd(q, k, v, valid)
-            check(torch.equal(out[:, :, h], att.attention_fwd(*one, valid)),
-                  f"{label}: head {h} differs from the single-head kernel")
-            dq, dk, dv = att.attention_bwd(q, k, v, valid, do)
-            for g, w in zip((dq, dk, dv), att.attention_bwd(
-                    *one, valid, do[:, :, h].contiguous())):
-                check(torch.equal(g[:, :, h], w),
-                      f"{label}: head {h}'s gradients differ from the "
-                      "single-head kernel's")
-            del out, dq, dk, dv, one
         del q, k, v, valid, do, scales
         torch.cuda.empty_cache()
     faulthandler.cancel_dump_traceback_later()
@@ -4880,12 +4940,12 @@ SOURCES = {
     "mlp_bwd": ("mrgcn_tpu_torch/csrc/fused_mlp.cu",
                 "mrgcn_tpu/ops/fused_mlp.py:48", "slice"),
     # #12: the multi-head path (the Pallas TPU FlashAttention forward, dq
-    # and dkv kernels behind _flash_attention_fn); the attention kernels
-    # with a head axis, counted apart in the wrappers' launches_heads
-    "attention_heads_fwd": ("mrgcn_tpu_torch/csrc/fused_attention.cu",
+    # and dkv kernels behind _flash_attention_fn); the grouped-head
+    # kernels, counted apart in the wrappers' launches_heads
+    "attention_heads_fwd": ("mrgcn_tpu_torch/csrc/fused_attention_heads.cu",
                             "mrgcn_tpu/models/encoders.py:150",
                             "h4_8000x128"),
-    "attention_heads_bwd": ("mrgcn_tpu_torch/csrc/fused_attention.cu",
+    "attention_heads_bwd": ("mrgcn_tpu_torch/csrc/fused_attention_heads.cu",
                             "mrgcn_tpu/models/encoders.py:150",
                             "h4_8000x128"),
 }
@@ -5077,7 +5137,8 @@ def main(argv=None) -> None:
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             **{key: timed[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "bytes", "flops", "bound_f32_fma_ms", "place_dot_ms")
+                "bytes", "flops", "bound_f32_fma_ms", "place_dot_ms",
+                "ex2", "bound_terms_ms", "fraction_of_bound")
                if key in timed},
             "ms_by_case": {r["label"]: r["ms"] for r in rows[name]
                            if "ms" in r}})

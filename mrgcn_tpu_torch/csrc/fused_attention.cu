@@ -1,6 +1,7 @@
 // Fused attention core for Hopper (sm_90a), forward and backward, for the
-// text encoder's sequences (up to 512 tokens, its tokenizer's limit), with
-// one head or several.
+// text encoder's sequences (up to 512 tokens, its tokenizer's limit), one
+// head. Several heads (H > 1, kernel #12) run fused_attention_heads.cu,
+// which repeats this file's arithmetic head by head.
 //
 // Forward, per sequence n and head h (q already multiplied by
 // 1/sqrt(d), d the head's width):
@@ -15,26 +16,20 @@
 // Replaces: mrgcn_tpu/ops/attention.py::_fwd_kernel and ::_bwd_kernel (the
 // TPU kernels behind fused_attention, single-head). Those run G = 8
 // sequences per step of an in-order grid with the (L, L) probabilities
-// held in VMEM, and pad L and d to 128 and N to a multiple of 8. With H > 1
-// heads it also replaces the multi-head path of
-// mrgcn_tpu/models/encoders.py::_flash_attention_fn, which calls the Pallas
-// TPU FlashAttention kernels (forward, dq, dkv) on (N, H, L, d) with segment
-// ids from the key mask: the same math on every row a caller can observe
-// (flash lets padding queries attend padding keys; those rows reach no
-// output).
+// held in VMEM, and pad L and d to 128 and N to a multiple of 8. It is
+// also the one-head case of mrgcn_tpu/models/encoders.py::
+// _flash_attention_fn (every MRGCN path builds one head).
 //
-// Heads: q, k, v (and dout) are (N, L, H, d) as flax lays them out, read
-// by strides through 4-d tensor maps, no permute copy; out, dq, dk, dv are
-// written in the same contiguous layout. Every block owns one (sequence,
-// head) pair: the grid walks (sequence, head, row tile), and the tiling
-// below is the single-head one for every H. A head narrower than 128
-// columns is filled with zeros by the copy engine, and the score products
-// take only the 16-column steps that hold any of it: the kernels are
-// templates on that count (KS = 1, 2, 4, 8 for d up to 16, 32, 64, 128),
-// as a bound known only at run time kept ptxas from issuing a chain's
-// wgmma back to back (#7 at one head 17-34 % slower on the H100). The
-// second products still run over 128 columns, so at H = 8 the tensor
-// cores do 8x the useful work of one 128-wide head.
+// Layout: q, k, v (and dout) are (N, L, d), or (N, L, 1, d) as flax lays
+// a head out, read by strides through 4-d tensor maps, no permute copy;
+// out, dq, dk, dv are written in the same contiguous layout. The grid
+// walks (sequence, head, row tile); the wrapper hands it H = 1. A head
+// narrower than 128 columns is filled with zeros by the copy engine, and
+// the score products take only the 16-column steps that hold any of it:
+// the kernels are templates on that count (KS = 1, 2, 4, 8 for d up to
+// 16, 32, 64, 128), as a bound known only at run time kept ptxas from
+// issuing a chain's wgmma back to back (#7 at one head 17-34 % slower on
+// the H100). The second products run over all 128 columns.
 //
 // Masking follows the plain chain (xla_attention): a padding key's logit
 // is replaced by -1e9, not offset by it, so a sequence whose keys are all
@@ -106,7 +101,7 @@
 //  * Deterministic: every output element is summed by one thread in a
 //    fixed order; no atomics on device memory.
 //  * Limits: L <= 512, d <= 128 and a multiple of 8 (the wrapper checks).
-//    Heads: H >= 1.
+//    Heads: H >= 1 here; the wrapper sends only H = 1.
 
 #include <math.h>
 

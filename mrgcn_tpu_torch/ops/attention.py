@@ -20,17 +20,22 @@ keys. Flash attention's segment ids differ from this key mask at padding
 query rows only (flash lets them attend padding keys); no output reaches
 those rows.
 
-The kernels (``csrc/fused_attention.cu``) are one tiled family for every
-``1 <= L <= 512`` and every head count: a thread block owns ``KEY_TILE``
-rows of one head of one sequence a warpgroup and streams the other side
-through shared memory in tiles of ``KEY_TILE`` rows, loaded by TMA (by
-strides, in the ``(N, L, H, d)`` layout) and multiplied by ``wgmma``. The
-forward runs an online softmax over the key tiles; the backward is two
-launches, ``dq`` with each row's softmax statistics, then the key-major
-``dk`` / ``dv``. Key tiles without a valid key are skipped; tiling and
-launch geometry live in the CUDA source alone. :func:`live_key_tiles`
-states the skipping rule in plain PyTorch, for the tests that hold the
-kernels to it.
+One head (``(N, L, d)``, or ``H = 1``) runs ``csrc/fused_attention.cu``
+(#6 / #7): one tiled family for every ``1 <= L <= 512``; a thread block
+owns ``KEY_TILE`` rows of one sequence a warpgroup and streams the other
+side through shared memory in tiles of ``KEY_TILE`` rows, loaded by TMA
+and multiplied by ``wgmma``. The forward runs an online softmax over the
+key tiles; the backward is two launches, ``dq`` with each row's softmax
+statistics, then the key-major ``dk`` / ``dv``. Key tiles without a valid
+key are skipped. :func:`live_key_tiles` states the skipping rule in plain
+PyTorch, for the tests that hold the kernels to it.
+
+More heads (#12) run ``csrc/fused_attention_heads.cu``: the same walks, but
+a block owns a group of heads of one sequence, each head in its own
+shared-memory slab of its padded width, and every product runs at that
+width; each head's sums are the single-head kernel's, in its order.
+:func:`head_plan` is the launch plan the wrappers hand that library (it
+checks the plan against ``(H, d)``).
 
 CPU tensors take the plain version (:func:`attention_fwd_reference`,
 :func:`attention_bwd_reference`); CUDA tensors launch the kernels or
@@ -43,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -64,8 +70,76 @@ _SIGNATURES = {
 }
 
 
+_HEADS_SIGNATURES = {
+    "mrgcn_attention_heads_fwd_bf16": ([_P] * 5 + [_I] * 4 + [_P]
+                                       + [_I] * 3 + [_P], _I),
+    "mrgcn_attention_heads_bwd_bf16": ([_P] * 9 + [_I] * 4 + [_P]
+                                       + [_I] * 3 + [_P], _I),
+    "mrgcn_attention_heads_bwd_scratch_floats": ([_I, _I, _I], _LL),
+    "mrgcn_attention_heads_error_string": ([_I], ctypes.c_char_p),
+}
+
+
 def _library():
     return _build.bind("fused_attention", _SIGNATURES)
+
+
+def _heads_library():
+    return _build.bind("fused_attention_heads", _HEADS_SIGNATURES)
+
+
+# --------------------------------------------------------------------------
+# the multi-head kernels' launch plan
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class HeadPlan:
+    """How the multi-head kernels group ``H`` heads of width ``d``: each
+    head in a shared-memory slab of ``dpad`` columns in a ``swizzle``-byte
+    swizzle, ``fwd_heads`` heads a forward block, ``bwd_heads`` a backward
+    block (the last group of each may hold fewer)."""
+
+    dpad: int
+    swizzle: int
+    fwd_heads: int
+    bwd_heads: int
+
+    def groups(self, H: int, backward: bool = False) -> list:
+        """The heads of each group, in order."""
+        g = self.bwd_heads if backward else self.fwd_heads
+        return [list(range(h, min(h + g, H))) for h in range(0, H, g)]
+
+
+def _check_shape(L: int, d: int) -> None:
+    """The kernels' limits, raised on with a message (the C entry points
+    refuse the same shapes)."""
+    if not 0 < L <= MAX_LEN:
+        raise NotImplementedError(
+            f"fused_attention: the kernels take 1 <= L <= {MAX_LEN} (the "
+            f"text encoder's tokenizer limit), got {L}")
+    if d % 8 or not 0 < d <= MAX_DIM:
+        raise ValueError(f"fused_attention: the kernel takes a head width "
+                         f"that is a multiple of 8 up to {MAX_DIM}, got {d}")
+
+
+def head_plan(H: int, d: int, L: int) -> HeadPlan:
+    """The multi-head kernels' plan for ``H >= 2`` heads of width ``d`` over
+    ``L`` tokens: ``dpad`` the next power of two >= max(d, 16), the swizzle
+    one slab row; a forward tile holds 64 columns below ``dpad = 64``, else
+    ``MAX_DIM``; a backward block two heads up to ``dpad = 32``, else one
+    (the widths the card ran fastest at with no spilled register:
+    ``csrc/fused_attention_heads.cu``)."""
+    if H < 2:
+        raise ValueError(f"head_plan: the multi-head kernels take H >= 2, "
+                         f"got {H}")
+    _check_shape(L, d)
+    dpad = 16
+    while dpad < d:
+        dpad *= 2
+    fwd = (64 if dpad <= 32 else MAX_DIM) // dpad
+    bwd = 2 if dpad <= 32 else 1
+    return HeadPlan(dpad=dpad, swizzle=min(128, 2 * dpad),
+                    fwd_heads=min(H, fwd), bwd_heads=min(H, bwd))
 
 
 # --------------------------------------------------------------------------
@@ -183,21 +257,15 @@ def _check_cuda_args(q, k, v, keys_valid):
             or not keys_valid.is_contiguous():
         raise ValueError("fused_attention: keys_valid must be a contiguous "
                          f"(N, L) bool tensor on {q.device}")
-    if not 0 < L <= MAX_LEN:
-        raise NotImplementedError(
-            f"fused_attention: the kernels take 1 <= L <= {MAX_LEN} (the "
-            f"text encoder's tokenizer limit), got {L}")
-    if d % 8 or not 0 < d <= MAX_DIM:
-        raise ValueError(f"fused_attention: the kernel takes a head width "
-                         f"that is a multiple of 8 up to {MAX_DIM}, got {d}")
+    _check_shape(L, d)
     if q.dim() == 4 and q.shape[2] < 1:
         raise ValueError("fused_attention: no heads")
 
 
-def _raise_on(rc: int, lib, what: str) -> None:
+def _raise_on(rc: int, error_string, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch failed: "
-                           + lib.mrgcn_attention_error_string(rc).decode())
+                           + error_string(rc).decode())
 
 
 def _stride_array(q, k, v):
@@ -224,18 +292,25 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: no kernel for device {q.device}")
     _check_cuda_args(q, k, v, keys_valid)
-    lib = _library()
     N, L, H, d = _as_heads(q).shape
+    plan = head_plan(H, d, L) if H > 1 else None
+    lib = _heads_library() if plan else _library()
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if N == 0:
         return out
     strides = _stride_array(q, k, v)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), keys_valid.data_ptr(),
+            out.data_ptr(), N, L, H, d, strides)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.mrgcn_attention_fwd_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), keys_valid.data_ptr(),
-            out.data_ptr(), N, L, H, d, strides, stream)
-    _raise_on(rc, lib, "attention_fwd")
+        if plan:
+            rc = lib.mrgcn_attention_heads_fwd_bf16(
+                *args, plan.dpad, plan.fwd_heads, plan.swizzle, stream)
+            error_string = lib.mrgcn_attention_heads_error_string
+        else:
+            rc = lib.mrgcn_attention_fwd_bf16(*args, stream)
+            error_string = lib.mrgcn_attention_error_string
+    _raise_on(rc, error_string, "attention_fwd")
     _count(attention_fwd, H)
     return out
 
@@ -250,8 +325,9 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: no kernel for device {q.device}")
     _check_cuda_args(q, k, v, keys_valid)
-    lib = _library()
     N, L, H, d = _as_heads(q).shape
+    plan = head_plan(H, d, L) if H > 1 else None
+    lib = _heads_library() if plan else _library()
     do = d_out.to(q.dtype).contiguous()
     if do.shape != q.shape or do.data_ptr() % 16:
         raise ValueError("fused_attention: d_out must be shaped as q")
@@ -260,16 +336,24 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if N == 0:
         return dq, dk, dv
     # each row's softmax statistics, from the dq kernel to the dk / dv one
-    stats = torch.empty(lib.mrgcn_attention_bwd_scratch_floats(N, L, H),
-                        dtype=torch.float32, device=q.device)
+    scratch = (lib.mrgcn_attention_heads_bwd_scratch_floats if plan
+               else lib.mrgcn_attention_bwd_scratch_floats)
+    stats = torch.empty(scratch(N, L, H), dtype=torch.float32,
+                        device=q.device)
     strides = _stride_array(q, k, v)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), keys_valid.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats.data_ptr(), N, L, H, d, strides)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.mrgcn_attention_bwd_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), keys_valid.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats.data_ptr(), N, L, H, d, strides, stream)
-    _raise_on(rc, lib, "attention_bwd")
+        if plan:
+            rc = lib.mrgcn_attention_heads_bwd_bf16(
+                *args, plan.dpad, plan.bwd_heads, plan.swizzle, stream)
+            error_string = lib.mrgcn_attention_heads_error_string
+        else:
+            rc = lib.mrgcn_attention_bwd_bf16(*args, stream)
+            error_string = lib.mrgcn_attention_error_string
+    _raise_on(rc, error_string, "attention_bwd")
     _count(attention_bwd, H)
     return dq, dk, dv
 

@@ -553,11 +553,19 @@ def head_inputs(cuda, N, L, H, d, seed, holes=False):
 @pytest.mark.parametrize("N,L,H,d,holes", [
     (13, 37, 2, 64, False), (16, 128, 4, 32, False), (9, 1, 8, 16, False),
     (6, 200, 2, 64, True), (3, 512, 8, 16, True), (40, 129, 4, 32, True),
-    (300, 128, 8, 16, False), (5, 64, 3, 40, True), (4, 77, 12, 64, False)])
+    (300, 128, 8, 16, False), (5, 64, 3, 40, True), (4, 77, 12, 64, False),
+    (7, 100, 4, 8, False), (6, 70, 5, 24, True), (5, 130, 2, 128, True),
+    (4, 300, 16, 8, False), (6, 65, 10, 8, True), (5, 191, 6, 16, False),
+    (5, 90, 3, 16, True), (3, 512, 2, 128, False)])
 def test_multi_head_attention_kernels_match_plain(cuda, N, L, H, d, holes):
     """Kernel #12: the heads read by strides in the ``(N, L, H, d)``
     layout, counted apart (``launches_heads``), each head's rows equal to
-    the single-head kernel's on that head alone."""
+    the single-head kernel's on that head alone. Every padded width
+    (d = 8, 16, 24, 40, 64, 128: dpad 16 to 128) and groups whose last one
+    is short (``head_plan``: forward H = 3 at d = 40, 5 at 24, 6 at 16,
+    10 at 8; backward 5 at 24, 3 at 16);
+    sequence 1 has no valid key (a uniform softmax), sequence 0 one: its
+    ds is 0, so its dq is exactly 0."""
     from mrgcn_tpu_torch.ops import attention as att
     from mrgcn_tpu_torch.ops.kernel_bounds import attention_scales
     q, k, v, valid, do = head_inputs(cuda, N, L, H, d, seed=N + L + H,
@@ -580,6 +588,8 @@ def test_multi_head_attention_kernels_match_plain(cuda, N, L, H, d, holes):
     for name, g, w, sc in zip(("dq", "dk", "dv"), grads, want, scales[1:]):
         assert g.shape == q.shape
         assert_bf16_close(g, w, sc, name)
+    assert int(valid[0].sum()) == 1 and not bool(valid[1].any())
+    assert int(torch.count_nonzero(grads[0][0])) == 0
     assert torch.equal(out, att.attention_fwd(q, k, v, valid))
     h = H - 1
     one = [t[:, :, h].contiguous() for t in (q, k, v)]
