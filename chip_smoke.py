@@ -5,8 +5,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, the CUDA toolkit (``nvcc``) and no network, and it fails (exit code
 other than 0, no result line) where CUDA is absent or the repository is not
 beside it. ``--only a,b`` runs some phases alone (``stream``, ``compose``,
-``nc``, ``backbones``, ``minibatch``, ``lp``, ``checkpoint``, ``etl``,
-``encoders``, ``text_attn``, ``agree``, ``mesh``; ``scatter_dot``,
+``nc``, ``backbones``, ``minibatch``, ``lp``, ``wide_basis``,
+``checkpoint``, ``etl``, ``encoders``, ``text_attn``, ``agree``,
+``mesh``; ``scatter_dot``,
 the ``fused_scatter_dot`` cases of ``stream``; ``profile_stream``, the
 scatters' device time by kernel on every main-path stream; and
 ``profile`` /
@@ -150,8 +151,11 @@ prints no result line. Phases, each printing its own lines:
    ``sorted_scatter``'s row-segmented kernel once a step and once for the
    test forward, at both widths), each count exact; on the
    link-prediction path every
-   ``fused_place_scatter`` launch on the row-segmented kernel (one a step
-   and one an evaluation) and ``fused_scatter_dot`` two a step; the
+   ``fused_place_scatter`` launch on the row-segmented kernel (two a step
+   and two an evaluation: layer 0, and layer 1 on ``dense_basis``),
+   ``fused_scatter_dot`` two a step and ``sorted_scatter`` one a step
+   (layer 1's backward, 512-lane lines), as the planner gives them
+   (``lp_planned_launches``); the
    mini-batch and node-sliced paths run the unplanned layers, and any
    scatter they launch must be on its row-segmented kernel. Then,
    counted apart from every
@@ -162,7 +166,16 @@ prints no result line. Phases, each printing its own lines:
    launches ``sorted_gather``), at full width: within 1e-4 of the largest
    value. No entry point differentiates ``sorted_scatter`` through
    autograd, so ``sorted_gather`` reads 0 launches on every path; this
-   check's launches stand under ``gradient_check_launches``;
+   check's launches stand under ``gradient_check_launches``. Then the
+   wide-line basis engine (``wide_basis``) on the same graph as the task
+   builds it: layer 1's ``dense_basis`` against the relation-grouped
+   layer it replaced, forward and backward at full width on the same
+   inputs, output and every gradient within 1e-4 of the largest entry,
+   each timed with its peak bytes; and the kernels on the engine's
+   streams against their plain versions, timed: ``sorted_scatter`` on
+   the ``bwd_h`` stream with 512- and 1,024-lane lines (2 and 4 bases),
+   ``fused_place_scatter`` on the ``1:1`` dense ``fwd`` stream, each
+   longest row held to a float64 sum;
 7. the fused attention and fused MLP kernels, forward and backward,
    against their plain versions at the multimodal slice's shapes
    (attention N=8,000, L=128, d=128; MLP 1,024,000 rows, 128 -> 512 ->
@@ -2243,20 +2256,25 @@ def lp_slice_phase(tmp: Path, plan, num_relations: int, device) -> dict:
         check(len(ranks) == n_test and min(ranks) >= 1
               and max(ranks) <= 14_541, f"lp: {kind} ranks out of range")
         check(0.0 < res.mrr[kind] <= 1.0, f"lp: {kind} MRR {res.mrr[kind]}")
-    # per training step: one fused_place_scatter forward, one
-    # fused_scatter_dot per basis backward, every one the row-segmented
-    # kernel (the planner marks fwd and bwd_h rows_sorted); each
-    # evaluation (train, valid, the final test: one graph slice each)
-    # adds a forward
+    # per training step: layer 0's fused_place_scatter forward and one
+    # fused_scatter_dot per basis backward, layer 1's (dense_basis)
+    # fused_place_scatter forward and one sorted_scatter of 512-lane lines
+    # backward, every one the row-segmented kernel (the planner marks
+    # the streams rows_sorted); each evaluation (train, valid, the final
+    # test: one graph slice each) adds the two forwards
     evals = 1 + sum((h["train_mrr"] is not None)
                     + (h["valid_mrr"] is not None) for h in res.history)
-    check(by_route(launches, "fused_place_scatter")
-          == {ROW_KERNELS["fused_place_scatter"][0]: LP_EPOCHS + evals,
-              ROW_KERNELS["fused_place_scatter"][1]: 0}
-          and by_route(launches, "fused_scatter_dot")
-          == {ROW_KERNELS["fused_scatter_dot"][0]: 2 * LP_EPOCHS}
-          and launches["sorted_scatter"] == 0,
-          f"lp: launches {launches} ({evals} evaluations)")
+    want = lp_planned_launches(tmp / "lp.npz", cfg, LP_EPOCHS, evals)
+    rows_of = {name: ROW_KERNELS[name][0] for name in ROW_KERNELS}
+    check(routed(launches) == want
+          and want == {
+              ("fused_place_scatter", rows_of["fused_place_scatter"]):
+              2 * (LP_EPOCHS + evals),
+              ("fused_scatter_dot", rows_of["fused_scatter_dot"]):
+              2 * LP_EPOCHS,
+              ("sorted_scatter", rows_of["sorted_scatter"]): LP_EPOCHS},
+          f"lp: launches {routed(launches)}; the planner's {want} "
+          f"({evals} evaluations)")
     secs = [h["seconds"] for h in res.history]
     summary = {"path": "lp_fb15k237_synth", "epochs": LP_EPOCHS,
                "cuts": "full graph (gcn_batchsize and test_batchsize -1, "
@@ -2275,6 +2293,200 @@ def lp_slice_phase(tmp: Path, plan, num_relations: int, device) -> dict:
                "basis_gradient_rel_err": errs}
     print(f"[slice] {json.dumps(summary)}")
     return summary
+
+
+def routed(launches: dict) -> dict:
+    """``{(name, kernel): n}`` of the launches that are not 0: the compose
+    kernels by name, the scatters by route (``by_route``)."""
+    got = {}
+    for name in ("compose_table", "compose_grad_pass"):
+        if launches[name]:
+            got[name, None] = launches[name]
+    for name in ("fused_place_scatter", "sorted_scatter",
+                 "fused_scatter_dot"):
+        for kernel, n in by_route(launches, name).items():
+            if n:
+                got[name, kernel] = n
+    return got
+
+
+def wide_kernel_cases(plan, dense_plan, device, rows) -> None:
+    """The kernels on the wide-line engine's streams, each against its
+    plain version, timed beside the library call with its bound, its
+    longest row held to a float64 sum: ``sorted_scatter`` on LP's
+    dst-sorted ``bwd_h`` stream with the engine's wide messages (2 planes
+    of 256 lanes, the layers' B = 2; 4 planes, ``MAX_BASIS_STREAMS``),
+    norm-scaled as the engine scales them, against ``index_add_``; and
+    ``fused_place_scatter`` on the ``1:1`` dense plan's ``fwd`` stream
+    (layer 1 on ``dense_basis``: out 200 in 256 lanes) against expand +
+    ``index_add_``. A sum over many edges is held to ``ATOL + RTOL``
+    times the sum of its terms' absolute values (``compare_stream``)."""
+    import torch
+    from mrgcn_tpu_torch.ops import sorted_stream as ss
+    from mrgcn_tpu_torch.ops.relational import line_width
+    gen = torch.Generator(device=device).manual_seed(6)
+    d, L1 = LP_HIDDEN, line_width(1, LP_HIDDEN)
+    for name, stream, out_rows in (
+            ("sorted_scatter", plan.bwd_h, plan.n_in_rows),
+            ("fused_place_scatter", dense_plan.fwd, dense_plan.n_out_rows)):
+        check(stream.rows_sorted and not stream.rel_const,
+              f"wide_basis: the planner did not mark the {name} stream "
+              "rows_sorted")
+        local, blk, rb, eb = stream.scatter_local, stream.scatter_blk, \
+            stream.row_block, stream.edge_block
+        hrows = edge_rows(local, blk, rb, out_rows)
+        real = int((hrows < out_rows).sum())
+        degree = torch.bincount(hrows[hrows < out_rows],
+                                minlength=out_rows)
+        for B in ((2, 4) if name == "sorted_scatter" else (1,)):
+            L = B * L1
+            label = (f"lp_bwd_h_wide_{L}" if name == "sorted_scatter"
+                     else "lp_dense_fwd")
+            shape = {**stream_shape(stream, out_rows, L), "rows_sorted":
+                     True, "real_edges": real,
+                     "longest_row": int(degree.max())}
+            E = stream.num_padded_edges
+            if name == "sorted_scatter":
+                terms = torch.randn(E, L, generator=gen, device=device) \
+                    * stream.norm[:, None]
+                args = (terms, local, blk, out_rows, rb, eb)
+
+                def kernel(args=args):
+                    return ss.sorted_scatter(*args, rows_sorted=True)
+
+                def plain(args=args):
+                    return ss.sorted_scatter_reference(*args)
+
+                work = scatter_work(real, L, L, local, blk, out_rows, L)
+            else:
+                V = torch.randn(E, d, generator=gen, device=device)
+                args = (V, stream.out_mod, stream.norm, local, blk,
+                        out_rows, 1, L, rb, eb)
+                terms = ss.expand_sub(V * stream.norm[:, None],
+                                      stream.out_mod, 1, L)
+                shape.update(Lv=d, k=1)
+
+                def kernel(args=args):
+                    return ss.fused_place_scatter(*args, rows_sorted=True)
+
+                def plain(args=args):
+                    return ss.fused_place_scatter_reference(*args)
+
+                work = scatter_work(real, d + 2, 2 * d, local, blk,
+                                    out_rows, L)
+            sums = torch.zeros(out_rows + 1, L, device=device).index_add_(
+                0, hrows, terms.abs())[:out_rows]
+            row = compare_stream(
+                name, label, kernel, plain,
+                lambda t=terms: torch.zeros(out_rows + 1, L, device=device)
+                .index_add_(0, hrows, t), work, shape=shape, scales=[sums])
+            row["longest_row_rel_err"] = longest_row_check(
+                name, label, kernel, hrows, degree, (terms,))
+            rows[name].append(row)
+            print(f"[kernel] {name} {label}: {row['ms']:.3f} ms, plain "
+                  f"{row['plain_ms']:.3f} ms, index_add_ "
+                  f"{row['library_ms']:.3f} ms; bound {row['bound_ms']:.3f}"
+                  f" ms ({row['bound_by']})")
+            del terms, sums, args
+            torch.cuda.empty_cache()
+
+
+def dense_vs_grouped(edges, num_relations: int, device, smi: str) -> dict:
+    """LP's layer 1 at full width on the card: ``dense_basis``, the route
+    the layer takes, against the relation-grouped layer it replaces
+    (``rspmm.transform_aggregate_grouped``) on the same inputs: a
+    ReLU-like ``H`` (nodes x 200), 2 bases, the graph's coefficients
+    drawn at random, a random cotangent. The output and the gradients of
+    ``H``, the bases and the coefficients within 1e-4 of their largest
+    entry; forward and backward of each timed by CUDA events (grouped,
+    dense, dense, grouped), with the peak bytes each allocates above its
+    inputs."""
+    import torch
+    from mrgcn_tpu_torch.ops import relational as rl
+    from mrgcn_tpu_torch.ops import rspmm
+    d, B = LP_HIDDEN, 2
+    plan = edges.plan_for(d, d)
+    check(plan is not None and plan.kind == "dense" and plan.k_in == 1
+          and not plan.fwd.rel_const and edges.grouped,
+          "wide_basis: LP's layer 1 has no dense plan without "
+          "relation-constant slabs, or no relation groups")
+    gen = torch.Generator(device=device).manual_seed(7)
+    n = edges.num_out
+    H = torch.relu(torch.randn(n, d, generator=gen, device=device)) \
+        .requires_grad_()
+    basis = (torch.randn(B, d, d, generator=gen, device=device)
+             * d ** -0.5).requires_grad_()
+    comp = torch.randn(num_relations, B, generator=gen, device=device) \
+        .requires_grad_()
+    cot = torch.randn(n, d, generator=gen, device=device)
+    routes = {
+        "dense_basis": lambda: rl.dense_basis(H, basis, comp, plan, d, d),
+        "grouped": lambda: rspmm.transform_aggregate_grouped(
+            H, edges.grp_src, edges.grp_dst, edges.grp_norm,
+            edges.group_rel, edges.group_size, edges.num_out, basis,
+            comp=comp)}
+
+    def step(fn):
+        out = fn()
+        return [out.detach()] + list(torch.autograd.grad(
+            out, (H, basis, comp), cot))
+
+    got, want = step(routes["dense_basis"]), step(routes["grouped"])
+    errs = {}
+    for label, g, w in zip(("out", "d_H", "d_basis", "d_comp"), got, want):
+        check(bool(torch.isfinite(g).all()),
+              f"wide_basis: dense_basis' {label} is not finite")
+        errs[label] = float((g - w).abs().max() / w.abs().max())
+    del got, want
+    peaks = {}
+    for name, fn in routes.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(fn)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+    times = timed_pair(lambda: step(routes["dense_basis"]),
+                       lambda: step(routes["grouped"]))
+    summary = {"shape": {"nodes": n, "edges": int(edges.src.shape[0]),
+                         "relations": num_relations, "in": d, "out": d,
+                         "bases": B, "group_size": edges.group_size},
+               "rel_err": errs, "dense_basis_ms": times["ms_runs"],
+               "grouped_ms": times["plain_ms_runs"],
+               "peak_bytes_above_inputs": peaks, "card": smi}
+    print(f"[wide_basis] LP layer 1, dense_basis against the grouped "
+          f"layer it replaces, forward and backward: "
+          f"{json.dumps(summary)}")
+    print(f"[wide_basis] dense_basis {times['ms']:.3f} ms, grouped "
+          f"{times['plain_ms']:.3f} ms; peaks "
+          f"{peaks['dense_basis'] / 2 ** 30:.2f} / "
+          f"{peaks['grouped'] / 2 ** 30:.2f} GiB; error over the largest "
+          f"entry {json.dumps(errs)} (bound 1e-4) ({smi})")
+    check(max(errs.values()) <= 1e-4, "wide_basis: dense_basis differs "
+          f"from the grouped layer ({errs})")
+    return summary
+
+
+def wide_basis_phase(tmp: Path, plan, device, smi: str, rows) -> dict:
+    """The wide-line basis engine that LP's layer 1 runs (the ``lp`` phase
+    drives it through the CLI and counts its launches), on LP's full
+    graph as the task builds it: (a) ``dense_vs_grouped``; (b)
+    ``wide_kernel_cases`` on layer 0's ``bwd_h`` stream (``plan``) and
+    layer 1's dense ``fwd``."""
+    import torch
+    from mrgcn_tpu_torch import run
+    from mrgcn_tpu_torch.tasks.common import prepare_inputs
+    cfg = tmp / "lp_wide.toml"
+    write_lp_config(cfg, 1, LP_HIDDEN, 1)
+    inputs = prepare_inputs(run.artifact_io.load(str(tmp / "lp.npz")),
+                            run.load_config(str(cfg)), True, device)
+    out = dense_vs_grouped(inputs.edges, inputs.num_relations, device, smi)
+    wide_kernel_cases(plan, inputs.edges.plan_for(LP_HIDDEN, LP_HIDDEN),
+                      device, rows)
+    del inputs
+    torch.cuda.empty_cache()
+    return out
 
 
 def profile_phase(work, tmp: Path, device, steps: int = 3) -> None:
@@ -4396,7 +4608,10 @@ def lp_planned_launches(art: Path, cfg: Path, steps: int,
     the table's budget, on the basis streams (``fused_place_scatter``
     forward, ``fused_scatter_dot`` once a basis backward); the second
     layer on its ``fwd`` and ``bwd_h`` streams where it has a plan it
-    takes."""
+    takes, or, where that plan has no relation-constant slabs, is wide
+    and the weights are a few bases, ``dense_basis``'s
+    ``fused_place_scatter`` forward on ``fwd`` and its ``sorted_scatter``
+    backward on ``bwd_h``."""
     import torch
     from mrgcn_tpu_torch.config import load_config
     from mrgcn_tpu_torch.data import artifact as artifact_io
@@ -4431,6 +4646,11 @@ def lp_planned_launches(art: Path, cfg: Path, steps: int,
         add(stream_route(plan_i.bwd_table, True), steps)
     if plan_f is not None and (plan_f.fwd.rel_const or d0 * d1 <= 4096):
         add(stream_route(plan_f.fwd, False), steps + forwards)
+        add(stream_route(plan_f.bwd_h, False), steps)
+    elif plan_f is not None and plan_f.k_in == 1 \
+            and plan_f.kind == "dense" \
+            and 0 < bases <= rl.MAX_BASIS_STREAMS:
+        add(stream_route(plan_f.fwd, True), steps + forwards)
         add(stream_route(plan_f.bwd_h, False), steps)
     return want
 
@@ -4534,15 +4754,7 @@ def etl_phase(work, tmp: Path) -> dict:
     forwards = 1 + sum((h["train_mrr"] is not None)
                        + (h["valid_mrr"] is not None) for h in res.history)
     want = lp_planned_launches(lp_art, lp_cfg, ETL_LP_EPOCHS, forwards)
-    got = {}
-    for name in ("compose_table", "compose_grad_pass"):
-        if launches[name]:
-            got[name, None] = launches[name]
-    for name in ("fused_place_scatter", "sorted_scatter",
-                 "fused_scatter_dot"):
-        for kernel, n in by_route(launches, name).items():
-            if n:
-                got[name, kernel] = n
+    got = routed(launches)
     check(got == want, f"etl lp: launches {got}; the planner's {want}")
     secs = [h["seconds"] for h in res.history]
     lp = {"path": "etl_lp", "epochs": ETL_LP_EPOCHS, "loss": losses,
@@ -4963,7 +5175,8 @@ STREAM_KERNELS = ("sorted_scatter", "sorted_gather", "fused_scatter_dot",
                   "fused_place_scatter")
 ENCODER_KERNELS = ("attention_fwd", "attention_bwd", "mlp_fwd", "mlp_bwd")
 PHASES = ("stream", "compose", "nc", "backbones", "minibatch", "lp",
-          "checkpoint", "etl", "encoders", "text_attn", "agree", "mesh")
+          "wide_basis", "checkpoint", "etl", "encoders", "text_attn",
+          "agree", "mesh")
 EXTRA_PHASES = ("profile", "profile_mb", "profile_att",   # only with
                 "profile_mm", "profile_stream",            # --only
                 "profile_allmodal", "profile_backbones",
@@ -5052,6 +5265,9 @@ def main(argv=None) -> None:
         if "lp" in phases:
             paths["lp"] = lp_slice_phase(tmp, plan, num_relations, device)
             lap("lp")
+        if "wide_basis" in phases:
+            wide_basis_phase(tmp, plan, device, smi, rows)
+            lap("wide_basis")
         if "checkpoint" in phases:
             paths.update(checkpoint_phase(work, tmp))
             lap("checkpoint")

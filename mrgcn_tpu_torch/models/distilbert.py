@@ -6,14 +6,18 @@ in float32), built from a model directory's ``config.json`` and its
 ``flax_model.msgpack`` (:mod:`..utils.flax_msgpack`), so both packages
 read the same files:
 
-* word and learned position embeddings, summed, then LayerNorm
-  (epsilon 1e-12);
+* word and position embeddings, summed, then LayerNorm (epsilon
+  1e-12); the position embeddings are learned, or with
+  ``sinusoidal_pos_embds`` fixed: ``sin`` on the even and ``cos`` on the
+  odd columns of ``pos / 10000^(2j / dim)`` (column ``2j`` and ``2j + 1``
+  share ``j``), as transformers' ``positional_encoding`` has them;
 * per layer: ``q_lin`` / ``k_lin`` / ``v_lin`` / ``out_lin`` over
   ``n_heads`` heads, the query scaled by ``1 / sqrt(dim / n_heads)``,
   ``1e30`` taken off the scores of keys where the attention mask is 0,
   an f32 softmax; ``sa_layer_norm`` of the attention output plus its
-  input, ``ffn.lin1`` -> exact (erf) GELU -> ``ffn.lin2``,
-  ``output_layer_norm`` of that plus its input;
+  input, ``ffn.lin1`` -> the config's ``activation`` (exact (erf) GELU,
+  the default, or ReLU) -> ``ffn.lin2``, ``output_layer_norm`` of that
+  plus its input;
 * the output is the last layer's hidden state ``(N, L, dim)``.
 
 Kernels are flax's ``(in, out)``; they stay in that layout. The model is
@@ -61,6 +65,21 @@ class _Dense(nn.Module):
         return torch.matmul(x, self.kernel) + self.bias
 
 
+# the feed-forward activations the config's ``activation`` may name
+ACTIVATIONS = {"gelu": F.gelu, "relu": F.relu}
+
+
+def sinusoidal_positions(positions: int, dim: int) -> np.ndarray:
+    """``(positions, dim)`` f32: ``sin`` on the even and ``cos`` on the odd
+    columns of ``pos / 10000^(2 (j // 2) / dim)``, computed in float64."""
+    pos = np.arange(positions)[:, None]
+    j = np.arange(dim)[None, :]
+    angles = pos * (1 / np.power(10000, (2 * (j // 2)) / np.float32(dim)))
+    angles[:, 0::2] = np.sin(angles[:, 0::2])
+    angles[:, 1::2] = np.cos(angles[:, 1::2])
+    return angles.astype(np.float32)
+
+
 def _layer_norm(tree: Dict) -> LayerNorm:
     ln = LayerNorm(len(tree["scale"]), torch.float32, epsilon=1e-12)
     ln.scale = _frozen(tree["scale"])
@@ -70,7 +89,7 @@ def _layer_norm(tree: Dict) -> LayerNorm:
 
 class _Block(nn.Module):
 
-    def __init__(self, tree: Dict, n_heads: int):
+    def __init__(self, tree: Dict, n_heads: int, activation):
         super().__init__()
         att = tree["attention"]
         for name in ("q_lin", "k_lin", "v_lin", "out_lin"):
@@ -80,6 +99,7 @@ class _Block(nn.Module):
         self.lin2 = _Dense(tree["ffn"]["lin2"])
         self.output_layer_norm = _layer_norm(tree["output_layer_norm"])
         self.n_heads = n_heads
+        self.activation = activation
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         n, L, dim = x.shape
@@ -96,7 +116,7 @@ class _Block(nn.Module):
         p = torch.softmax(scores, dim=-1)
         context = torch.matmul(p, v).transpose(1, 2).reshape(n, L, dim)
         x = self.sa_layer_norm(self.out_lin(context) + x)
-        y = self.lin2(F.gelu(self.lin1(x)))
+        y = self.lin2(self.activation(self.lin1(x)))
         return self.output_layer_norm(y + x)
 
 
@@ -112,13 +132,11 @@ class DistilBert(nn.Module):
             raise NotImplementedError(
                 f"text backbone of type {config.get('model_type')!r}: the "
                 "port runs DistilBERT only")
-        if config.get("sinusoidal_pos_embds", False):
+        activation = config.get("activation", "gelu")
+        if activation not in ACTIVATIONS:
             raise NotImplementedError(
-                "DistilBERT with sinusoidal position embeddings")
-        if config.get("activation", "gelu") != "gelu":
-            raise NotImplementedError(
-                f"DistilBERT activation {config.get('activation')!r}; the "
-                "port runs gelu")
+                f"DistilBERT activation {activation!r}; the port runs "
+                f"{' and '.join(ACTIVATIONS)}")
         if "embeddings" not in params and "distilbert" in params:
             params = params["distilbert"]     # saved from a head model
         self.dim = int(config["dim"])
@@ -126,12 +144,16 @@ class DistilBert(nn.Module):
         self.hidden_dim = int(config["hidden_dim"])
         emb = params["embeddings"]
         self.word_embeddings = _frozen(emb["word_embeddings"]["embedding"])
+        # fixed sinusoids carry no parameters in the flax tree
         self.position_embeddings = _frozen(
-            emb["position_embeddings"]["embedding"])
+            sinusoidal_positions(int(config["max_position_embeddings"]),
+                                 self.dim)
+            if config.get("sinusoidal_pos_embds", False)
+            else emb["position_embeddings"]["embedding"])
         self.LayerNorm = _layer_norm(emb["LayerNorm"])
         layers = params["transformer"]["layer"]
         self.layers = nn.ModuleList(
-            _Block(layers[str(i)], self.n_heads)
+            _Block(layers[str(i)], self.n_heads, ACTIVATIONS[activation])
             for i in range(int(config["n_layers"])))
         want = (int(config["vocab_size"]), self.dim)
         if tuple(self.word_embeddings.shape) != want:

@@ -9,7 +9,11 @@ half of the input layer runs on the sorted-stream engine
 budget); a layer over features
 runs :func:`..ops.relational.dense_aggregate` where the edges carry a plan
 for its shape, else the relation-grouped path
-(:func:`..ops.rspmm.transform_aggregate_grouped`). Mini-batch blocks carry
+(:func:`..ops.rspmm.transform_aggregate_grouped`); where that plan has no
+relation-constant slabs and the layer is wide, a layer of a few bases
+runs the wide-line basis engine instead
+(:func:`..ops.relational.dense_basis`: link prediction's 200 x 200
+layer). Mini-batch blocks carry
 no plans (their ``dst_global`` is set): their identity half runs
 :func:`..ops.rspmm.gather_aggregate_packed` or
 :func:`..ops.rspmm.gather_aggregate` on the global node ids, an ungrouped
@@ -215,14 +219,24 @@ class RGCNLayer(nn.Module):
             in_dim = H.shape[-1]
             weight_f = coll.gather_basis(self.weight_f)
             plan_f = edges.plan_for(in_dim, self.out_dim)
-            # the JAX layer leaves a plan without relation-constant slabs
-            # to the grouped path when the layer is wide (its dense_basis
-            # variant is off by default); otherwise a plan means
-            # dense_aggregate
+            # a plan without relation-constant slabs would apply the
+            # weights through a per-edge (E, in, out) gather: a wide layer
+            # (link prediction's 200 x 200) of a few bases takes the stream
+            # engine through the per-basis projections instead
+            # (dense_basis: the grouped path's sums on wide lines), any
+            # other the relation-grouped path
+            dense_basis_plan = None
             if plan_f is not None and not plan_f.fwd.rel_const \
                     and in_dim * self.out_dim > 4096:
+                if (self.comp_f is not None and plan_f.k_in == 1
+                        and plan_f.kind == "dense"
+                        and 0 < self.num_bases <= rl.MAX_BASIS_STREAMS):
+                    dense_basis_plan = plan_f
                 plan_f = None
-            if plan_f is not None:
+            if dense_basis_plan is not None:
+                agg = rl.dense_basis(H, weight_f, self.comp_f,
+                                     dense_basis_plan, in_dim, self.out_dim)
+            elif plan_f is not None:
                 W = rspmm._compose_weights(weight_f, self.comp_f)
                 agg = rl.dense_aggregate(H, W, plan_f, in_dim, self.out_dim)
             elif edges.grouped:

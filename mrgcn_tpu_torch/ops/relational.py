@@ -18,6 +18,11 @@ full-batch path:
   composes the basis tables per edge instead, for graphs whose composed
   table is over budget; :func:`dense_aggregate` is the layer over node
   features. No E-sized tensor crosses between differently sorted streams.
+* **The wide-line basis engine.** :func:`stream_basis_aggregate` runs a
+  basis layer over one combined ``(rows, B*L)`` table, one wide line per
+  edge and pass; :func:`dense_basis` feeds it the per-basis projections of
+  a wide layer over node features whose plan has no relation-constant
+  slabs (link prediction's 200 x 200 layer).
 """
 
 from __future__ import annotations
@@ -585,6 +590,136 @@ def featureless_basis(comp: torch.Tensor, packed: torch.Tensor,
             "featureless_basis needs identity_basis plans (plain identity "
             "plans alias bwd_h to the fwd stream: silently wrong d_packed)")
     return _FeaturelessBasis.apply(comp, packed, plans, out_dim)
+
+
+# --------------------------------------------------------------------------
+# wide-line basis engine: one combined (rows, B*L) table per layer
+# --------------------------------------------------------------------------
+
+def _plane_select(g: torch.Tensor, b: int, L: int, mod: torch.Tensor,
+                  k: int, d: int) -> torch.Tensor:
+    """Plane ``b``'s logical sub-rows ``(E, d)`` of gathered wide lines
+    ``(E, B*L)``."""
+    return _select_sub(g[:, b * L:(b + 1) * L], mod, k, d)
+
+
+class _StreamBasisAggregate(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, comp, wide, plans, out_dim):
+        f = plans.fwd
+        k = plans.k_in
+        B = comp.shape[1]
+        L = wide.shape[1] // B
+        w = comp[f.rel.long()]                              # (E, B)
+        g = wide[f.gather_row.long()]                       # (E, B*L)
+        v = 0.0
+        for b in range(B):
+            v = v + w[:, b:b + 1] * _plane_select(g, b, L, f.in_mod, k,
+                                                  out_dim)
+        del g
+        out = _place_scatter(v, f.out_mod, f, plans.n_out_rows, plans.k_out,
+                             out_dim, line_width(plans.k_out, out_dim))
+        ctx.save_for_backward(comp, wide)
+        ctx.plans, ctx.out_dim = plans, out_dim
+        return unpack_rows(out, plans.k_out, plans.out_nodes, out_dim)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        comp, wide = ctx.saved_tensors
+        plans, out_dim = ctx.plans, ctx.out_dim
+        R, B = comp.shape
+        L = wide.shape[1] // B
+        k = plans.k_in
+        h = plans.bwd_h
+        d_out_p = pack_rows(d_out.contiguous(), plans.k_out,
+                            plans.n_out_rows)
+        # one d_out gather on the dst-sorted stream, shared by both grads
+        d_vh = _gather_sub(d_out_p, h.src_row, h.out_mod, plans.k_out,
+                           out_dim)                         # (E, out)
+        w_h = comp[h.rel.long()]                            # (E, B)
+
+        # d_wide: one scatter of the combined lines
+        # d_wide[row(dst_e), b*L:] += norm_e comp[rel_e, b] d_out[src_e]
+        E = d_vh.shape[0]
+        msgs = d_vh.new_zeros(E, B, k, L // k)
+        slot = h.in_mod.long() if k > 1 else 0
+        edges = torch.arange(E, device=d_vh.device)
+        for b in range(B):
+            msgs[edges, b, slot, :out_dim] = \
+                (d_vh * w_h[:, b:b + 1]) * h.norm[:, None]
+        d_wide = sorted_scatter(msgs.reshape(E, B * L), h.scatter_local,
+                                h.scatter_blk, wide.shape[0], h.row_block,
+                                h.edge_block, rows_sorted=h.rows_sorted)
+        del msgs
+
+        # d_comp on the same stream: one re-gather of the combined lines
+        dvn = d_vh * h.norm[:, None]
+        g = wide[h.gather_row.long()]                       # (E, B*L)
+        per_edge = torch.stack(
+            [(dvn * _plane_select(g, b, L, h.in_mod, k, out_dim)).sum(dim=1)
+             for b in range(B)], dim=1)                     # (E, B)
+        d_comp = torch.zeros(R, B, dtype=per_edge.dtype,
+                             device=per_edge.device
+                             ).index_add_(0, h.rel.long(), per_edge)
+        return d_comp.to(comp.dtype), d_wide.to(wide.dtype), None, None
+
+
+def stream_basis_aggregate(comp: torch.Tensor, wide: torch.Tensor,
+                           plans: LayerPlans, out_dim: int) -> torch.Tensor:
+    """Basis-stream layer over a combined table: the ``B`` per-basis planes
+    lie side by side in one ``(rows, B*L)`` array, so every per-edge pass
+    moves one wide line instead of ``B`` separate ``L``-lane lines:
+
+        ``out[s] = sum_e norm_e sum_b comp[rel_e, b]
+        wide[row(dst_e), b*L : b*L + out_dim]``
+
+    ``comp``: ``(R, B)``; ``wide``: ``(n_in_rows, B*L)``, e.g. the padded
+    per-basis projections of :func:`dense_basis`. Returns
+    ``(out_nodes, out_dim)``.
+
+    Forward on the src-sorted ``fwd`` stream: one ``(E, B*L)`` gather, the
+    per-basis sum, one :func:`fused_place_scatter`. Backward on the
+    dst-sorted ``bwd_h`` stream: one :func:`sorted_scatter` of the
+    ``(E, B*L)`` messages into ``d_wide`` and, for ``d_comp``, one wide
+    re-gather, a per-basis dot and an ``index_add_`` over the relations.
+    ``plans`` must be of kind ``"identity_basis"`` or ``"dense"``: plain
+    identity plans alias ``bwd_h`` to the ``fwd`` stream, which would give
+    silently wrong gradients.
+    """
+    if plans.kind not in ("identity_basis", "dense"):
+        raise ValueError(
+            "stream_basis_aggregate needs a real dst-sorted bwd_h stream "
+            "(identity_basis or dense plans; plain identity plans alias "
+            "bwd_h to the fwd stream: silently wrong gradients)")
+    return _StreamBasisAggregate.apply(comp, wide, plans, out_dim)
+
+
+def dense_basis(H: torch.Tensor, basis: torch.Tensor, comp: torch.Tensor,
+                plans: LayerPlans, in_dim: int, out_dim: int
+                ) -> torch.Tensor:
+    """Dense basis-decomposed layer as a stream op:
+    ``out[s] = sum_e norm_e H[dst_e] @ (sum_b comp[rel_e, b] basis[b])``,
+    rewritten through the per-basis projections ``H @ basis``, an
+    ``(n, B*out)`` tensor at node scale, so that all edge-scale work runs
+    on :func:`stream_basis_aggregate` with wide lines. ``d_H`` and
+    ``d_basis`` come from autograd of the node-scale product.
+
+    Needs ``plans.k_in == 1`` (wide rows index nodes directly) and a real
+    ``bwd_h`` stream (``kind="dense"``). ``basis``: ``(B, in, out)``;
+    ``comp``: ``(R, B)``.
+    """
+    del in_dim
+    if plans.k_in != 1:
+        raise ValueError("dense_basis gathers node rows (k_in must be 1)")
+    n = H.shape[0]
+    B = comp.shape[1]
+    L = line_width(1, out_dim)
+    flat = torch.einsum("ni,bio->nbo", H, basis)            # (n, B, out)
+    wide = torch.nn.functional.pad(
+        flat, (0, L - out_dim, 0, 0, 0, plans.n_in_rows - n)
+    ).reshape(plans.n_in_rows, B * L)
+    return stream_basis_aggregate(comp, wide, plans, out_dim)
 
 
 # --------------------------------------------------------------------------

@@ -35,7 +35,7 @@ rank, as the JAX package replicates its bucketed mini-batch programs.
 The spec is the JAX package's (:func:`mesh_spec`): ``MRGCN_MESH`` first,
 then ``[task] mesh``; ``""``, ``"0"``, ``"1"``, ``"none"``, ``"off"`` ask
 for one device, ``"N"`` for ``data = N``, ``"DxM"`` for ``data = D, model
-= M``, ``"auto"`` for every visible card.
+= M``, ``"auto"`` for every visible card (on the CPU: one process).
 """
 
 from __future__ import annotations
@@ -76,16 +76,15 @@ def mesh_spec(config: Dict) -> str:
 def mesh_shape(spec: str, cards: Optional[int] = None
                ) -> Optional[Tuple[int, int]]:
     """``(data, model)`` of a spec, or None for one device. ``cards`` is
-    the number of visible cards (None on the CPU, where a spec must give
-    a number of processes): ``"auto"`` takes them all, and a spec asking
-    for more ranks than there are cards raises."""
+    the number of visible cards (None on the CPU): ``"auto"`` takes them
+    all, and on the CPU one process, as the JAX package's ``"auto"`` takes
+    the one device of its default CPU backend; a spec asking for more
+    ranks than there are cards raises."""
     if spec in NO_MESH:
         return None
     if spec == "auto":
         if cards is None:
-            raise ValueError("mesh 'auto' takes every visible card; on the "
-                             "CPU give the number of processes ('4', "
-                             "'2x2')")
+            return None
         data, model = cards, 1
     else:
         try:
@@ -160,7 +159,7 @@ def mesh_from_config(config: Dict, device: torch.device) -> Optional[Mesh]:
     ``run`` called directly, not through ``python -m mrgcn_tpu_torch.run``
     or :func:`launch`) or with another number of ranks raises."""
     spec = mesh_spec(config)
-    if spec in NO_MESH:
+    if spec in NO_MESH or (spec == "auto" and device.type == "cpu"):
         return None
     if not dist.is_initialized():
         raise RuntimeError(

@@ -24,7 +24,8 @@ A device mesh (``MRGCN_MESH`` or ``[task] mesh``: ``N``, ``DxM``, ``auto``;
 device, started here: NCCL with one card a rank on CUDA (a spec asking
 for more ranks than there are cards raises), gloo over as many CPU
 processes as the spec names with ``MRGCN_PLATFORM=cpu`` (where ``auto``
-raises). Rank 0 writes the TSV, the log, ``--save_output`` and the
+runs one process, as the JAX package's ``auto`` takes the one device of
+its default CPU backend). Rank 0 writes the TSV, the log, ``--save_output`` and the
 checkpoint; every rank trains the same numbers.
 """
 
@@ -141,7 +142,10 @@ def run_cli(argv=None):
     if spec in pmesh.NO_MESH:
         return _run(args, config, base, device)
     cards = None if device.type == "cpu" else torch.cuda.device_count()
-    data, model = pmesh.mesh_shape(spec, cards)
+    shape = pmesh.mesh_shape(spec, cards)
+    if shape is None:          # "auto" on the CPU: one process
+        return _run(args, config, base, device)
+    data, model = shape
     world = data * model
     if device.type == "cpu":
         backend, devices = "gloo", ["cpu"] * world

@@ -319,12 +319,16 @@ def check_row_kernels(pargs, msgs):
                                          (64, 40, 96, 4, 21),
                                          (512, 256, 256, 1, 200),
                                          (64, 40, 640, 2, 320),
-                                         (16, 8, 128, 8, 11)])
+                                         (16, 8, 128, 8, 11),
+                                         (512, 256, 512, 1, 200),
+                                         (512, 256, 1024, 1, 200)])
 def test_row_scatter_kernels_match_plain(cuda, rb, eb, L, k, d, strided):
     """The row-segmented kernels of ``fused_place_scatter`` (k 8, 4, 1,
     2; odd widths; lines of 640 lanes, two column tiles) and
     ``sorted_scatter`` on row-sorted streams with a hub row over many
-    chunks and an all-padding slab inside its run."""
+    chunks and an all-padding slab inside its run; lines of 512 and
+    1,024 lanes are the wide-line basis engine's (2 and 4 planes of 256
+    lanes)."""
     check_row_kernels(*row_scatter_case(cuda, rb, eb, L, k, d, strided,
                                         seed=rb + L + d))
 
@@ -432,6 +436,58 @@ def test_featureless_basis_on_card_matches_cpu(cuda, out_dim, B):
         results.append([t.detach().cpu() for t in (out, c.grad, p.grad)])
     for got, want in zip(results[1], results[0]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["stream_basis_aggregate", "dense_basis"])
+def test_wide_basis_ops_on_card_match_cpu(cuda, op):
+    """The wide-line basis engine on the card against the CPU (the plain
+    versions): 40 relations over few row blocks, so the dense plan has no
+    relation-constant slabs (the link-prediction regime), 2 bases, width
+    200 (512-lane wide lines), on identity-basis plans (a combined table)
+    and on dense ones (``dense_basis``'s per-basis projections). Forward
+    and every gradient within 1e-4; each op launches the row-segmented
+    ``fused_place_scatter`` forward and the row-segmented
+    ``sorted_scatter`` backward."""
+    from mrgcn_tpu_torch.ops import relational as rl
+    from mrgcn_tpu_torch.ops import sorted_stream as ss
+    rng = np.random.default_rng(3)
+    n, R, E, B, d = 300, 40, 2000, 2, 200
+    src, dst, rel = (rng.integers(0, hi, E) for hi in (n, n, R))
+    norm = rng.random(E).astype(np.float32)
+    kind = "identity_basis" if op == "stream_basis_aggregate" else "dense"
+    plans = rl.build_layer_plans(src, dst, rel, norm, n, 1, 1,
+                                 row_block=64, edge_block=32, kind=kind)
+    assert not plans.fwd.rel_const and plans.bwd_h.rows_sorted
+    comp = rng.standard_normal((R, B)).astype(np.float32)
+    first = rng.standard_normal(
+        (plans.n_in_rows, B * 256) if kind == "identity_basis"
+        else (n, d)).astype(np.float32)
+    basis = rng.standard_normal((B, d, d)).astype(np.float32) * 0.1
+    cot = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    results, launched = [], {}
+    for device in (torch.device("cpu"), cuda):
+        leaves = [torch.tensor(a, device=device, requires_grad=True)
+                  for a in ((comp, first) if kind == "identity_basis"
+                            else (first, basis, comp))]
+        p = plans.to(device)
+        before = {f: (f.launches, f.launches_rows) for f in
+                  (ss.sorted_scatter, ss.fused_place_scatter)}
+        if op == "stream_basis_aggregate":
+            out = rl.stream_basis_aggregate(*leaves, p, d)
+        else:
+            out = rl.dense_basis(*leaves, p, d, d)
+        out.backward(cot.to(device))
+        torch.cuda.synchronize()
+        launched = {f.__name__: (f.launches - b[0], f.launches_rows - b[1])
+                    for f, b in before.items()}
+        results.append([t.detach().cpu() for t in
+                        [out] + [x.grad for x in leaves]])
+    assert launched == {"sorted_scatter": (1, 1),
+                        "fused_place_scatter": (1, 1)}
+    for got, want in zip(results[1], results[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
 
 
 def assert_bf16_close(got, want, scale, what):

@@ -10,18 +10,22 @@ one go (a module fixture), through the workers of
 
 * Specs: ``parallel.mesh.mesh_shape`` gives the JAX package's mesh shapes
   for every spec ``mesh_from_config`` takes, ``MRGCN_MESH`` before
-  ``[task] mesh``; specs that the CPU cannot serve (``auto``, more ranks
-  than cards, malformed) raise with their counts, and a task asked for
-  a mesh outside a world raises.
+  ``[task] mesh``; ``auto`` takes every visible card, and on the CPU one
+  process (the JAX package's default CPU backend has one device), and
+  trains there as the JAX package's task runner does; specs that the devices
+  cannot serve (more ranks than cards, malformed) raise with their
+  counts, and a task asked for a mesh outside a world raises.
 * Plans and padding (numpy, no world): each shard's streams from
   ``shard_layer_plans`` equal the real entries of the JAX package's
   stacked slice, for 4 shards of the small NC graph's ``8:8:id`` and dense
   plans and LP's ``1:1:idb``; ``pad_edges_for_mesh`` equals the JAX one.
 * Layers: a featureless R-GCN on identity plans, the same on the
   basis-stream route (the composed-table budget forced down, as
-  ``tests/test_torch_basis.py`` does), and an R-GCN over features on dense
-  plans: output and every gradient within 1e-5 of the largest entry of
-  the port's single-device layer and within 1e-4 of the JAX package's.
+  ``tests/test_torch_basis.py`` does), an R-GCN over features on dense
+  plans, and an LP-shaped R-GCN whose layer 1 runs the wide-line basis
+  engine (``dense_basis``): output and every
+  gradient within 1e-5 of the largest entry of the port's single-device
+  layer and within 1e-4 of the JAX package's.
 * Tasks, one step from the JAX package's initial parameters (the weight
   bridge): featureless NC restricted and unrestricted (labels on every
   node), LP on the full graph (both packages fed the triples the ranks
@@ -128,8 +132,10 @@ def test_environment_comes_before_the_config(monkeypatch):
 
 
 def test_specs_the_devices_cannot_serve_raise(monkeypatch):
-    with pytest.raises(ValueError, match="number of processes"):
-        pmesh.mesh_shape("auto")
+    # auto: one process on the CPU, every visible card on CUDA
+    assert pmesh.mesh_shape("auto") is None
+    assert pmesh.mesh_from_config({"task": {"mesh": "auto"}},
+                                  torch.device("cpu")) is None
     assert pmesh.mesh_shape("auto", cards=3) == (3, 1)
     with pytest.raises(ValueError, match="8 ranks.*4 card"):
         pmesh.mesh_shape("4x2", cards=4)
@@ -361,7 +367,46 @@ def layer_cases():
                         "X": None if featureless else X, "cot": cot,
                         "table_max": 1 if basis else None},
                        {"out": np.asarray(want), "grads": np_tree(grads)})
+    cases["wide"] = wide_layer_case()
     return cases
+
+
+def wide_layer_case():
+    """An LP-shaped R-GCN (hidden 200 x 200, 2 bases): the composed-table
+    budget forced down and 40 relations, so that layer 0 takes the basis
+    stream and layer 1's plan, without relation-constant slabs, the
+    wide-line basis engine (``dense_basis``); the JAX side takes no plans
+    (its XLA paths: the same sums)."""
+    src, dst, rel, norm, n, R = random_graph(seed=29, n=120, R=40, E=900)
+    hidden = (200, 200)
+    shapes = [(None, 200), (200, 200)]
+    assert not rl.plans_for_layers(src, dst, rel, norm, n, shapes[1:],
+                                   row_block=16, edge_block=8)["1:1"] \
+        .fwd.rel_const
+    jmodel = JaxRGCN(hidden_dims=hidden, num_relations=R, num_nodes=n,
+                     num_bases=2, featureless=True)
+    jedges = JaxEdgeBlock(src=jnp.asarray(src), dst=jnp.asarray(dst),
+                          rel=jnp.asarray(rel), norm=jnp.asarray(norm),
+                          num_out=n)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(2), None,
+                                  jedges)["params"]
+    cot = np.random.default_rng(6).standard_normal((n, 200)).astype(
+        np.float32)
+
+    def fwd_bwd(p, c):
+        out, vjp = jax.vjp(lambda q: jmodel.apply({"params": q}, None,
+                                                  jedges), p)
+        return out, vjp(c)[0]
+
+    want, grads = jax.jit(fwd_bwd)(params, jnp.asarray(cot))
+    return ({"work": "layers", "graph": (src, dst, rel, norm, n),
+             "plans": dict(row_block=16, edge_block=8, identity_basis=True,
+                           shapes=shapes),
+             "model": dict(hidden_dims=hidden, num_relations=R, num_nodes=n,
+                           num_bases=2, featureless=True),
+             "params": np_tree(params), "X": None, "cot": cot,
+             "table_max": 1},
+            {"out": np.asarray(want), "grads": np_tree(grads)})
 
 
 def assert_grads_close(got, want, rel, what):
@@ -482,7 +527,7 @@ def worlds(artifacts, tmp_path_factory):
 
 
 @pytest.mark.parametrize("spec", SPECS)
-@pytest.mark.parametrize("case", ["identity", "basis", "dense"])
+@pytest.mark.parametrize("case", ["identity", "basis", "dense", "wide"])
 def test_layers_match_single_device_and_jax(worlds, spec, case):
     refs, port, got = worlds
     key = f"layer_{case}"
@@ -617,6 +662,45 @@ def test_cli_trains_under_a_mesh_and_writes_once(artifacts, tmp_path):
     rows = tsvs[0].read_text().splitlines()
     assert len(rows) == 1 + 2 + 1
     assert len(list(tmp_path.glob("NC*_model_state_2.npz"))) == 1
+
+
+def test_auto_on_the_cpu_trains_as_the_jax_package_does(artifacts, tmp_path,
+                                                        monkeypatch):
+    """``mesh = "auto"`` on the CPU runs one process in the port's CLI
+    (no world is started) and trains as the JAX package's task runner
+    (``tasks.node_classification.run``) does under the same config: both
+    resume the port's checkpoint and their epochs' losses agree within
+    1e-4 relative. (The JAX package takes every local device: the 8
+    virtual CPU devices of tests/conftest.py here, one on a default CPU
+    backend.)"""
+    from mrgcn_tpu.config import load_config as jax_load_config
+    from mrgcn_tpu_torch import run
+    monkeypatch.setenv("MRGCN_PLATFORM", "cpu")
+    monkeypatch.delenv("MRGCN_MESH", raising=False)
+    monkeypatch.setattr(pmesh, "launch", None)     # no world may start
+    cfg = tmp_path / "nc.toml"
+    cfg.write_text('name = "NC"\n[task]\ntype = "node classification"\n'
+                   'seed = 0\nmesh = "auto"\n[model]\nepoch = 2\n'
+                   'num_bases = 4\nl2_lambda = 5e-4\n'
+                   '[[model.layers]]\nhidden_nodes = 16\n'
+                   '[[model.layers]]\ntype = "mrgcn"\n')
+    args = ["-c", str(cfg), "-i", artifacts["nc"], "-o", str(tmp_path),
+            "--test"]
+    first = run.run_cli(args + ["--dry_run", "--save_checkpoint"])
+    assert first.model is not None and first.epoch == 2
+    (saved,) = tmp_path.glob("NC*_model_state_2.npz")
+    got = run.run_cli(args + ["--dry_run", f"--load_checkpoint={saved}"])
+
+    rows = []
+    writer = type("Rows", (), {"writerow": lambda _, r: rows.append(r)})()
+    config = jax_load_config(str(cfg))
+    assert jmesh.mesh_from_config(config) is not None
+    _, epoch, *_ = jnc.run(jax_artifact_io.load(artifacts["nc"]), config,
+                           writer, True, "test", str(saved), 0)
+    want = [float(r[1]) for r in rows[1:] if r[0] != "-1"]
+    assert epoch == got.epoch == 4 and len(want) == 2
+    np.testing.assert_allclose([h["train_loss"] for h in got.history],
+                               want, rtol=1e-4)
 
 
 def test_the_cli_world_has_no_deadline(artifacts, tmp_path, monkeypatch):

@@ -293,11 +293,42 @@ def test_backbone_is_frozen_and_off_the_tree(tmp_path):
 def test_unsupported_text_backbones_raise():
     params = synthetic.distilbert_params(TINY)
     DistilBert(TINY, params)
-    for bad, match in (({"sinusoidal_pos_embds": True}, "sinusoidal"),
-                       ({"activation": "relu"}, "activation"),
+    for bad, match in (({"activation": "silu"}, "activation 'silu'"),
                        ({"model_type": "bert"}, "DistilBERT only")):
         with pytest.raises(NotImplementedError, match=match):
             DistilBert(dict(TINY, **bad), params)
+
+
+@pytest.mark.parametrize("options", [
+    {"sinusoidal_pos_embds": True}, {"activation": "relu"},
+    {"sinusoidal_pos_embds": True, "activation": "relu"}],
+    ids=["sinusoidal", "relu", "both"])
+def test_distilbert_config_options_match_flax(offline_hub, options):
+    """DistilBERT's fixed sinusoidal position embeddings and its ReLU
+    feed-forward: the port against ``FlaxDistilBertModel`` built from the
+    same config with random parameters (nothing fetched), within 1e-5 of
+    the largest entry."""
+    from transformers import DistilBertConfig, FlaxDistilBertModel
+    cfg = DistilBertConfig(vocab_size=64, dim=32, n_layers=2, n_heads=2,
+                           hidden_dim=64, max_position_embeddings=64,
+                           **options)
+    flax_model = FlaxDistilBertModel(cfg, seed=3)
+    emb = flax_model.params["embeddings"]
+    assert ("position_embeddings" in emb) \
+        != options.get("sinusoidal_pos_embds", False)
+    tokens = tiny_tokens()
+    want = np.asarray(flax_model(tokens, attention_mask=(tokens > 0)
+                                 .astype("i4"))[0])
+    model = DistilBert(cfg.to_dict(), flax_model.params)
+    ids = torch.from_numpy(tokens)
+    assert max_rel(model(ids, attention_mask=ids > 0).numpy(), want) \
+        <= 1e-5
+    if options.get("sinusoidal_pos_embds"):
+        from transformers.models.distilbert.modeling_flax_distilbert \
+            import positional_encoding
+        np.testing.assert_array_equal(model.position_embeddings.numpy(),
+                                      np.asarray(positional_encoding(64,
+                                                                     32))[0])
 
 
 # --------------------------------------------------------------------------
