@@ -5,7 +5,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, the CUDA toolkit (``nvcc``) and no network, and it fails (exit code
 other than 0, no result line) where CUDA is absent or the repository is not
 beside it. ``--only a,b`` runs some phases alone (``stream``, ``compose``,
-``nc``, ``backbones``, ``minibatch``, ``lp``, ``wide_basis``,
+``nc``, ``backbones``, ``backbones_bert``, ``minibatch``, ``lp``,
+``wide_basis``,
 ``checkpoint``, ``etl``, ``encoders``, ``text_attn``, ``agree``,
 ``mesh``; ``scatter_dot``,
 the ``fused_scatter_dot`` cases of ``stream``; ``profile_stream``, the
@@ -114,7 +115,19 @@ prints no result line. Phases, each printing its own lines:
    (60 strings, 40 images) the first epoch's loss card against CPU within
    1e-4 and each encoder (backbone outputs, head gradients) within 1e-4;
    and a checkpoint that holds the heads and no backbone tensor, from
-   which a restored run gives the same eval-mode logits (1e-5);
+   which a restored run gives the same eval-mode logits (1e-5). Then
+   (``backbones_bert``) the multimodal graph, no images, on random
+   ``bert-base-multilingual-cased`` and ``roberta-base`` at their
+   published widths (12 layers, 768 wide, 12 heads, hidden 3,072;
+   vocabularies 119,547 and 50,265; the tokenizer's files beside them,
+   RoBERTa's a small byte-level BPE whose pad is 1), 8,000 strings of
+   3-130 ids (RoBERTa's ``<s>`` ... ``</s>``, padded with 1), 3 epochs
+   each through the CLI: the same checks of launches and backbone, each
+   step's time, device time (CUDA events) and peak printed beside the
+   card; on a small graph the first loss and the backbone's output card
+   against CPU (1e-4), and for RoBERTa the pad mask on the card (pads
+   changed under the mask move no real token's output; a padded row
+   pools as it does alone);
 6. the link-prediction path, this slice's main path: the same CLI with
    ``[task] type = 'link prediction'`` on a synthetic graph at FB15k-237's
    sizes (14,541 entities, 475 relations, 272,115 / 17,535 / 20,466
@@ -1786,7 +1799,7 @@ def graph_lines(graph) -> list:
 
 def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
                  features=(), task=None, backbones: bool = False,
-                 graph=None) -> None:
+                 graph=None, text_model=None) -> None:
     """``configs/dmg.toml``'s model section; of its features, the
     datatypes in ``features`` are included as DMG configures them (the
     string and image features without their pretrained ``model`` key and
@@ -1795,7 +1808,9 @@ def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
     the pretrained backbones run where their files are found), all others
     excluded. ``task`` adds ``[task]`` entries to the full-batch default
     (``batchsize``, ``neighbor_fanout``, ``neighbor_fanout_rounds``);
-    ``graph`` adds a ``[graph]`` section (``graph_lines``)."""
+    ``graph`` adds a ``[graph]`` section (``graph_lines``); ``text_model``
+    ``(name, pad token)`` names another model and tokenizer in the string
+    feature's specs, and its pad token."""
     with open(ROOT / "configs" / "dmg.toml", "rb") as f:
         dmg = tomllib.load(f)
     model = dict(dmg["model"], epoch=epochs, num_bases=num_bases)
@@ -1813,6 +1828,12 @@ def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
     if graph:
         lines += graph_lines(graph)
     for feature in dmg["graph"]["features"]:
+        if text_model and "tokenizer" in feature:
+            name, pad_token = text_model
+            feature = dict(feature, model=[*feature["model"][:-1], name],
+                           tokenizer={"config": [
+                               *feature["tokenizer"]["config"][:-1], name],
+                               "pad_token": pad_token})
         lines += ["", "[[graph.features]]"]
         if feature["datatype"] in features:
             lines += [f"{k} = {toml_value(v)}" for k, v in feature.items()
@@ -1825,7 +1846,8 @@ def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
 
 def train_via_cli(tmp: Path, tag: str, work, epochs, num_bases,
                   platform=None, F=None, task=None, graph=None,
-                  features=MULTIMODAL, extra=(), backbones=False):
+                  features=MULTIMODAL, extra=(), backbones=False,
+                  text_model=None):
     """``run.run_cli`` on ``work``'s graph; with ``F`` (literal features,
     or a function that draws them, called only where the artifact is not
     yet written) the config includes the ``features`` datatypes. The
@@ -1833,7 +1855,8 @@ def train_via_cli(tmp: Path, tag: str, work, epochs, num_bases,
     artifact ``<graph or tag>.npz``, so runs on one graph share its file;
     ``platform`` sets ``MRGCN_PLATFORM`` for the run alone; ``extra``
     adds CLI arguments (the checkpoint flags); ``backbones`` keeps the
-    features' pretrained ``model`` specs (``write_config``)."""
+    features' pretrained ``model`` specs, ``text_model`` renames the
+    string feature's (``write_config``)."""
     from mrgcn_tpu_torch import run
     from mrgcn_tpu_torch.tasks.synthetic import save_nc_artifact
     art = tmp / f"{graph or tag}.npz"
@@ -1848,7 +1871,7 @@ def train_via_cli(tmp: Path, tag: str, work, epochs, num_bases,
     if not cfg.exists():
         write_config(cfg, epochs, num_bases, work["hidden"],
                      features=features if F else (), task=task,
-                     backbones=backbones)
+                     backbones=backbones, text_model=text_model)
     os.environ.pop("MRGCN_PLATFORM", None)
     if platform is not None:
         os.environ["MRGCN_PLATFORM"] = platform
@@ -1884,9 +1907,10 @@ def start_path() -> dict:
     return counters
 
 
-def dense_routes(work, art: Path, x_width: int) -> dict:
+def dense_routes(work, art: Path, x_width: int, epochs: int = EPOCHS
+                 ) -> dict:
     """``{(scatter, kernel): launches}`` of the dense half of layer 0 in
-    ``EPOCHS`` training steps (its ``fwd`` and ``bwd_h`` streams) and the
+    ``epochs`` training steps (its ``fwd`` and ``bwd_h`` streams) and the
     test split's forward, read from the planner: layer 0 restricted to the
     frontier of the NC run's own labels (train and valid merged, as
     ``--test`` merges them; then the test split's), at ``x_width``. A
@@ -1901,7 +1925,7 @@ def dense_routes(work, art: Path, x_width: int) -> dict:
     counts = {}
     for labels, streams, times in (
             (np.concatenate([Y["train"], Y["valid"]])[:, 0],
-             ("fwd", "bwd_h"), EPOCHS),
+             ("fwd", "bwd_h"), epochs),
             (Y["test"][:, 0], ("fwd",), 1)):
         _, dense = nc_layer0_plans(work, torch.device("cpu"), labels,
                                    x_width)
@@ -1913,8 +1937,8 @@ def dense_routes(work, art: Path, x_width: int) -> dict:
 
 def slice_phase(work, tmp: Path, tag: str, kernels, F=None,
                 features=MULTIMODAL, backbones=False, absent=(),
-                inspect=None) -> dict:
-    """Train ``EPOCHS`` NC epochs through the CLI with every launch count
+                inspect=None, epochs: int = EPOCHS, text_model=None) -> dict:
+    """Train ``epochs`` NC epochs through the CLI with every launch count
     set to 0 just before and read just after; ``kernels`` names each
     kernel the path runs with its least launch count per epoch. With
     ``F``, the config includes ``features``. The identity layer's compose
@@ -1927,36 +1951,39 @@ def slice_phase(work, tmp: Path, tag: str, kernels, F=None,
     routes the planner gives them (``dense_routes``). Over the image and
     WKT features, every BatchNorm's running statistics must be finite and
     moved from their 0 / 1 init. With ``backbones`` the string and image
-    features keep their pretrained ``model`` specs; each kernel named in
-    ``absent`` must launch no time; ``inspect(res)`` adds checks of the
-    trained model and returns entries for the summary."""
+    features keep their pretrained ``model`` specs (``text_model``: see
+    ``write_config``); each kernel named in ``absent`` must launch no
+    time; ``inspect(res)`` adds checks of the trained model and returns
+    entries for the summary."""
     import torch
     counters = start_path()
     t0 = time.perf_counter()
-    res = train_via_cli(tmp, tag, work, EPOCHS, work["num_bases"], F=F,
-                        features=features, backbones=backbones)
+    res = train_via_cli(tmp, tag, work, epochs, work["num_bases"], F=F,
+                        features=features, backbones=backbones,
+                        text_model=text_model)
     wall = time.perf_counter() - t0
     launches = read_launches(counters)
     peak = torch.cuda.max_memory_allocated()
     for name, per_step in COMPOSE_PER_STEP.items():
-        want = per_step * (EPOCHS + (name == "compose_table"))
+        want = per_step * (epochs + (name == "compose_table"))
         check(launches[name] == want,
               f"{tag}: {name} launched {launches[name]} times, not {want}")
     scatters = ("fused_place_scatter", "sorted_scatter")
     want = {(name, kernel): 0 for name in scatters
             for kernel in ROW_KERNELS[name]}
     want["fused_place_scatter", ROW_KERNELS["fused_place_scatter"][0]] = \
-        2 * EPOCHS + 1
+        2 * epochs + 1
     if F is not None:
         for key, n in dense_routes(work, tmp / f"{tag}.npz",
-                                   multimodal_width(features)).items():
+                                   multimodal_width(features),
+                                   epochs).items():
             want[key] += n
     got = {(name, kernel): n for name in scatters
            for kernel, n in by_route(launches, name).items()}
     check(got == want, f"{tag}: scatters launched {got}; want {want}")
 
     losses = [h["train_loss"] for h in res.history]
-    check(len(losses) == EPOCHS, f"{tag}: trained {len(losses)} epochs")
+    check(len(losses) == epochs, f"{tag}: trained {len(losses)} epochs")
     check(all(math.isfinite(x) for x in losses + [res.loss]),
           f"{tag}: non-finite loss: {losses}, test {res.loss}")
     devices = {t.device.type for t in res.model.state_dict().values()}
@@ -1975,15 +2002,15 @@ def slice_phase(work, tmp: Path, tag: str, kernels, F=None,
         init = 0.0 if k.endswith(".mean") else 1.0
         check(bool((t != init).any()), f"{tag}: {k} never moved")
     for name, per_epoch in kernels.items():
-        check(launches[name] >= per_epoch * EPOCHS,
+        check(launches[name] >= per_epoch * epochs,
               f"{tag}: {name} launched {launches[name]} times in "
-              f"{EPOCHS} epochs")
+              f"{epochs} epochs")
     for name in absent:
         check(launches[name] == 0, f"{tag}: {name} launched "
               f"{launches[name]} times")
     extra = inspect(res) if inspect else {}
     secs = [h["seconds"] for h in res.history]
-    summary = {"path": tag, "epochs": EPOCHS, "train_loss": losses,
+    summary = {"path": tag, "epochs": epochs, "train_loss": losses,
                "test_loss": res.loss, "test_acc": res.acc,
                "first_epoch_s": secs[0], "epoch_s_after_first": secs[1:],
                "epoch_s_median_after_first": statistics.median(secs[1:]),
@@ -4122,11 +4149,11 @@ def backbone_files(tmp: Path) -> dict:
     6 layers, 12 heads, hidden 3,072, vocabulary 119,547, 512 positions)
     in a hub cache that ``HF_HUB_CACHE`` names, and a torchvision-format
     MobileNetV2 ``.pth`` that ``MRGCN_VISION_WEIGHTS`` names."""
-    from mrgcn_tpu_torch.tasks.synthetic import (save_distilbert_snapshot,
-                                                 save_mobilenet_checkpoint)
+    from mrgcn_tpu_torch.tasks.synthetic import (
+        save_mobilenet_checkpoint, save_text_backbone_snapshot)
     t0 = time.perf_counter()
     hub = tmp / "hub"
-    snapshot = save_distilbert_snapshot(hub, seed=0)
+    snapshot = save_text_backbone_snapshot(hub, seed=0)
     pth = tmp / "mobilenet_v2-random.pth"
     save_mobilenet_checkpoint(pth, seed=0)
     os.environ["HF_HUB_CACHE"] = str(hub)
@@ -4139,11 +4166,29 @@ def backbone_files(tmp: Path) -> dict:
     return files
 
 
-def backbones_unchanged(model, files) -> dict:
-    """The trained model's frozen backbones, on the card, against the
-    files they were loaded from: bit-equal; and the heads moved off their
+def backbones_unchanged(label: str, pairs) -> dict:
+    """Each trained encoder's frozen backbone, on the card, against
+    ``fresh``, the module loaded anew from its file (``pairs`` of
+    ``(encoder, fresh)``): bit-equal; and the encoder's head moved off its
     zero biases."""
     import torch
+    for encoder, fresh in pairs:
+        mine = encoder.backbone.state_dict()
+        check(all(t.device.type == "cuda" for t in mine.values()),
+              f"{label}: a backbone tensor is off the card")
+        check(all(torch.equal(t.cpu(), fresh.state_dict()[k])
+                  for k, t in mine.items()),
+              f"{label}: {type(encoder).__name__}'s backbone changed")
+        for j in (0, 1):
+            check(bool(getattr(encoder, f"Dense_{j}").bias.ne(0).any()),
+                  f"{label}: {type(encoder).__name__}'s head never moved")
+    return {"backbone_tensors": sum(len(e.backbone.state_dict())
+                                    for e, _ in pairs)}
+
+
+def both_backbones_unchanged(model, files) -> dict:
+    """The DistilBERT and MobileNetV2 of the ``backbones`` phase's trained
+    model (``backbones_unchanged``)."""
     from mrgcn_tpu_torch.models.distilbert import DistilBert
     from mrgcn_tpu_torch.models.mobilenet import load_image_backbone
     from mrgcn_tpu_torch.models.pretrained import (PretrainedImageEncoder,
@@ -4152,20 +4197,9 @@ def backbones_unchanged(model, files) -> dict:
     check(isinstance(text, PretrainedTextEncoder)
           and isinstance(image, PretrainedImageEncoder),
           f"backbones: built {type(text).__name__}, {type(image).__name__}")
-    for encoder, fresh in ((text, DistilBert.from_pretrained(
-            files["snapshot"])), (image, load_image_backbone(
-                str(files["pth"])))):
-        mine = encoder.backbone.state_dict()
-        check(all(t.device.type == "cuda" for t in mine.values()),
-              "backbones: a backbone tensor is off the card")
-        check(all(torch.equal(t.cpu(), fresh.state_dict()[k])
-                  for k, t in mine.items()),
-              f"backbones: {type(encoder).__name__}'s backbone changed")
-        for j in (0, 1):
-            check(bool(getattr(encoder, f"Dense_{j}").bias.ne(0).any()),
-                  f"backbones: {type(encoder).__name__}'s head never moved")
-    return {"backbone_tensors": len(text.backbone.state_dict())
-            + len(image.backbone.state_dict())}
+    return backbones_unchanged("backbones", (
+        (text, DistilBert.from_pretrained(files["snapshot"])),
+        (image, load_image_backbone(str(files["pth"])))))
 
 
 def backbone_agreement(tmp: Path, files) -> dict:
@@ -4270,11 +4304,196 @@ def backbones_phase(work, tmp: Path) -> dict:
                 work["n"],
                 wordpiece_vocab=DISTILBERT_MULTILINGUAL["vocab_size"]),
             features=ALLMODAL, backbones=True, absent=ENCODER_KERNELS,
-            inspect=lambda res: backbones_unchanged(res.model, files))}
+            inspect=lambda res: both_backbones_unchanged(res.model,
+                                                         files))}
         paths["nc_backbones"].update(backbone_agreement(tmp, files))
     finally:
         os.environ.pop("HF_HUB_CACHE", None)
         os.environ.pop("MRGCN_VISION_WEIGHTS", None)
+    return paths
+
+
+# the text backbones of the backbones_bert phase: (the model's hub name,
+# its published config.json in tasks/synthetic, the tokenizer's pad token,
+# the multimodal_features argument that draws its string ids, the pad id)
+TEXT_BACKBONES = {
+    "bert": ("bert-base-multilingual-cased", "BERT_MULTILINGUAL", "[PAD]",
+             "wordpiece_vocab", 0),
+    "roberta": ("roberta-base", "ROBERTA_BASE", "<pad>", "bpe_vocab", 1)}
+TEXT_BACKBONE_EPOCHS = 3
+# strings of the small graph the text backbones run on card and CPU
+TEXT_BACKBONE_SMALL_STRINGS = 24
+
+
+@contextlib.contextmanager
+def step_events(task):
+    """CUDA events around each of ``task``'s training steps in a run:
+    yields the list of ``(start, end)`` pairs."""
+    import torch
+    events, step = [], task.train_step
+
+    def timed(*args, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        out = step(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    task.train_step = timed
+    try:
+        yield events
+    finally:
+        task.train_step = step
+
+
+def text_backbone_agreement(tmp: Path, kind: str) -> dict:
+    """The small graph (``TEXT_BACKBONE_SMALL_STRINGS`` strings of 3-130
+    ids) on ``kind``'s backbone, one epoch through the CLI on the card and
+    the CPU: the loss within 1e-4 relative, and the backbone's last hidden
+    state over the graph's token rows within 1e-4 of its largest entry.
+    For RoBERTa (pad 1, ``<s>`` 0) also, on the card: the ids under a
+    zero mask changed from the pad to another id leave every real token's
+    output as it was, and each padded row's pooled output is the row's
+    own, run alone at its length (1e-4 of the largest entry)."""
+    import torch
+    from mrgcn_tpu_torch import run
+    from mrgcn_tpu_torch.tasks import synthetic
+    from mrgcn_tpu_torch.tasks.common import prepare_inputs
+    name, config_name, pad_token, strings, pad = TEXT_BACKBONES[kind]
+    config = getattr(synthetic, config_name)
+    small = small_graph()
+    F = functools.partial(
+        synthetic.multimodal_features, small["n"], seed=0, num_numeric=600,
+        num_years=300, num_strings=TEXT_BACKBONE_SMALL_STRINGS, max_len=128,
+        **{strings: config["vocab_size"]})
+    tag = f"small_{kind}"
+    runs = [train_via_cli(tmp, tag, small, 1, 4, platform=platform, F=F,
+                          backbones=True, text_model=(name, pad_token))
+            for platform in (None, "cpu")]
+    a, b = (r.history[0]["train_loss"] for r in runs)
+    loss_err = abs(a - b) / abs(b)
+    cfg = run.load_config(str(tmp / f"{tag}.toml"))
+    art = run.artifact_io.load(str(tmp / f"{tag}.npz"))
+    tokens = prepare_inputs(art, cfg, False, torch.device("cpu")) \
+        .features["xsd_string_0"][0]
+    encoders = [r.model.xsd_string_0 for r in runs]
+    check(all(e.pad_id == pad for e in encoders),
+          f"{tag}: the encoders mask {[e.pad_id for e in encoders]}")
+    devices = [next(r.model.parameters()).device for r in runs]
+    hidden = []
+    for encoder, device in zip(encoders, devices):
+        ids = tokens.to(device)
+        hidden.append(encoder.backbone(ids, attention_mask=ids != pad)
+                      .cpu())
+    hidden_err = float((hidden[0] - hidden[1]).abs().max()
+                       / hidden[1].abs().max())
+    print(f"[backbones_bert] {tag} ({tuple(tokens.shape)} tokens): first "
+          f"epoch loss cuda {a} cpu {b}, rel err {loss_err:.3g} (bound "
+          f"1e-4); backbone output err over the largest {hidden_err:.3g} "
+          "(bound 1e-4)")
+    check(loss_err <= 1e-4, f"{tag}: the first losses differ ({loss_err})")
+    check(hidden_err <= 1e-4,
+          f"{tag}: the backbone's outputs differ ({hidden_err})")
+    out = {"small_loss": {"cuda": a, "cpu": b}, "small_loss_err": loss_err,
+           "small_backbone_err": hidden_err}
+    if kind != "roberta":
+        return out
+    encoder, ids = encoders[0], tokens.to(devices[0])
+    real = ids != pad
+    check(bool((ids[:, 0] == 0).all()) and not bool(real.all()),
+          f"{tag}: rows without <s> first, or no padding")
+    with torch.no_grad():
+        want = encoder.backbone(ids, attention_mask=real)
+        moved = encoder.backbone(torch.where(real, ids, 5),
+                                 attention_mask=real)
+        pad_err = float((moved - want)[real].abs().max()
+                        / want[real].abs().max())
+        pooled = encoder.features(ids)
+        alone = max(
+            float((encoder.features(ids[i:i + 1, :int(n)])[0] - pooled[i])
+                  .abs().max() / pooled.abs().max())
+            for i, n in enumerate(real.sum(dim=1).tolist())
+            if n < ids.shape[1])
+    print(f"[backbones_bert] {tag}: pads changed to id 5 under the mask, "
+          f"real tokens' outputs moved {pad_err:.3g} of the largest (bound "
+          f"1e-6); padded rows pooled alone against in the batch "
+          f"{alone:.3g} (bound 1e-4)")
+    check(pad_err <= 1e-6, f"{tag}: a masked pad's id moved the outputs")
+    check(alone <= 1e-4, f"{tag}: a pad moved a row's pooled output")
+    return {**out, "masked_pad_err": pad_err, "row_alone_err": alone}
+
+
+def text_backbone_phase(work, tmp: Path, smi: str) -> dict:
+    """``backbones_bert``: the multimodal graph (numeric, gYear and
+    string features; no images, so the step is the text backbone's)
+    through the CLI for ``TEXT_BACKBONE_EPOCHS`` epochs on each of
+    ``TEXT_BACKBONES`` at its published widths, random weights from seed
+    0 written into a hub cache that ``HF_HUB_CACHE`` names (the
+    tokenizer's files with them: WordPiece, or a small byte-level BPE
+    whose pad is 1); 8,000 strings of 3-130 ids (RoBERTa's framed by
+    ``<s>`` 0 and ``</s>`` 2, padded with 1). Each run: finite losses,
+    the multimodal path's launches by route with #6-#9 at 0
+    (``slice_phase``), the backbone bit-equal to its file after training
+    and the heads moved (``backbones_unchanged``), the step's time by the
+    CLI, its device time by CUDA events and the peak, beside the card;
+    then the small graph card against CPU (``text_backbone_agreement``)."""
+    import torch
+    from mrgcn_tpu_torch.models.bert import Bert
+    from mrgcn_tpu_torch.models.pretrained import PretrainedTextEncoder
+    from mrgcn_tpu_torch.tasks import node_classification as nc
+    from mrgcn_tpu_torch.tasks import synthetic
+    hub = tmp / "hub_text"
+    os.environ["HF_HUB_CACHE"] = str(hub)
+    paths = {}
+    try:
+        for kind, (name, config_name, pad_token, strings, pad) in \
+                TEXT_BACKBONES.items():
+            config = getattr(synthetic, config_name)
+            t0 = time.perf_counter()
+            snapshot = synthetic.save_text_backbone_snapshot(
+                hub, name, config=config, seed=0)
+            write_s = time.perf_counter() - t0
+
+            def unchanged(res, snapshot=snapshot, kind=kind, pad=pad):
+                text = res.model.xsd_string_0
+                check(isinstance(text, PretrainedTextEncoder)
+                      and isinstance(text.backbone, Bert)
+                      and text.backbone.model_type == kind
+                      and text.pad_id == pad,
+                      f"{kind}: built {type(text).__name__} on "
+                      f"{type(getattr(text, 'backbone', None)).__name__}")
+                return backbones_unchanged(kind, ((
+                    text, Bert.from_pretrained(snapshot)),))
+
+            with step_events(nc) as events:
+                summary = slice_phase(
+                    work, tmp, f"dmg_synth_{kind}",
+                    {"sorted_scatter": 1, "fused_place_scatter": 3},
+                    F=functools.partial(
+                        synthetic.multimodal_features, work["n"], seed=0,
+                        **{strings: config["vocab_size"]}),
+                    backbones=True, absent=ENCODER_KERNELS,
+                    epochs=TEXT_BACKBONE_EPOCHS,
+                    text_model=(name, pad_token), inspect=unchanged)
+            torch.cuda.synchronize()
+            device_ms = [a.elapsed_time(b) for a, b in events]
+            summary.update(snapshot_write_s=write_s,
+                           step_device_ms=device_ms)
+            print(f"[backbones_bert] {kind} ({name}, {smi}): epoch "
+                  f"{summary['epoch_s_median_after_first']:.4f} s "
+                  f"(median after the first; all {summary['epoch_s_after_first']}"
+                  f"), a training step's device time by CUDA events "
+                  f"{statistics.median(device_ms[1:]):.2f} ms (all "
+                  f"{[round(x, 2) for x in device_ms]}), peak "
+                  f"{summary['peak_mem_bytes']} B; files written in "
+                  f"{write_s:.1f} s")
+            summary.update(text_backbone_agreement(tmp, kind))
+            paths[f"nc_{kind}"] = summary
+            shutil.rmtree(hub, ignore_errors=True)
+    finally:
+        os.environ.pop("HF_HUB_CACHE", None)
     return paths
 
 
@@ -5174,9 +5393,9 @@ ROW_KERNELS = {
 STREAM_KERNELS = ("sorted_scatter", "sorted_gather", "fused_scatter_dot",
                   "fused_place_scatter")
 ENCODER_KERNELS = ("attention_fwd", "attention_bwd", "mlp_fwd", "mlp_bwd")
-PHASES = ("stream", "compose", "nc", "backbones", "minibatch", "lp",
-          "wide_basis", "checkpoint", "etl", "encoders", "text_attn",
-          "agree", "mesh")
+PHASES = ("stream", "compose", "nc", "backbones", "backbones_bert",
+          "minibatch", "lp", "wide_basis", "checkpoint", "etl", "encoders",
+          "text_attn", "agree", "mesh")
 EXTRA_PHASES = ("profile", "profile_mb", "profile_att",   # only with
                 "profile_mm", "profile_stream",            # --only
                 "profile_allmodal", "profile_backbones",
@@ -5259,6 +5478,9 @@ def main(argv=None) -> None:
         if "backbones" in phases:
             paths.update(backbones_phase(work, tmp))
             lap("backbones")
+        if "backbones_bert" in phases:
+            paths.update(text_backbone_phase(work, tmp, smi))
+            lap("backbones_bert")
         if "minibatch" in phases:
             paths.update(minibatch_phase(work, tmp, F))
             lap("minibatch")

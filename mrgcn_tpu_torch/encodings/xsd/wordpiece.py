@@ -36,18 +36,18 @@ point against the installed ``tokenizers``; rerun that sweep to take the
 tables anew.
 
 Files whose tokenizer is not this one (another ``model.type``, normaliser
-or pre-tokenizer in ``tokenizer.json``, or a model type outside BERT's
-family) raise ``ValueError`` naming it.
+or pre-tokenizer in ``tokenizer.json``) raise ``ValueError`` naming it.
 """
 
 from __future__ import annotations
 
 import functools
-import json
 import re
 import unicodedata
 from pathlib import Path
 from typing import Dict, List, Optional
+
+from mrgcn_tpu_torch.utils.hf import read_json, token_content
 
 
 # the Unicode database (``unicodedata.unidata_version``) that the exception
@@ -119,7 +119,7 @@ _LOWER_EXTRA = {
         (0xA7CE, 0xA7CF), (0xA7D2, 0xA7D3), (0xA7D4, 0xA7D5),
         (0xA7DA, 0xA7DB), (0xA7DC, 0x19B))}}
 # Rust's char::is_whitespace (the White_Space property)
-_WHITESPACE = frozenset(map(chr, (*range(0x09, 0x0E), 0x20, 0x85, 0xA0,
+WHITE_SPACE = frozenset(map(chr, (*range(0x09, 0x0E), 0x20, 0x85, 0xA0,
                                   0x1680, *range(0x2000, 0x200B), 0x2028,
                                   0x2029, 0x202F, 0x205F, 0x3000)))
 _CJK = ((0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF),
@@ -150,7 +150,7 @@ def _char_class(c: str) -> str:
     if cp in (0, 0xFFFD) or (category in ("Cc", "Cf", "Co", "Cs")
                              and cp not in _FORMAT_KEPT):
         return "drop"
-    if c in _WHITESPACE:
+    if c in WHITE_SPACE:
         return "space"
     if any(lo <= cp <= hi for lo, hi in _CJK):
         return "cjk"
@@ -249,11 +249,11 @@ class WordPieceTokenizer:
         words: List[str] = []
         word: List[str] = []
         for c in text:
-            if c in _WHITESPACE or _char_class(c) == "punct":
+            if c in WHITE_SPACE or _char_class(c) == "punct":
                 if word:
                     words.append("".join(word))
                     word = []
-                if c not in _WHITESPACE:
+                if c not in WHITE_SPACE:
                     words.append(c)
             else:
                 word.append(c)
@@ -287,10 +287,6 @@ class WordPieceTokenizer:
         return out
 
 
-def _token_content(value) -> str:
-    return value["content"] if isinstance(value, dict) else str(value)
-
-
 def _check_added(token: Dict) -> None:
     flags = [k for k in ("lstrip", "rstrip", "single_word", "normalized")
              if token.get(k)]
@@ -300,33 +296,20 @@ def _check_added(token: Dict) -> None:
                          f"port's WordPiece tokenizer")
 
 
-def _read_json(path: Path) -> Dict:
-    return json.loads(path.read_text(encoding="utf-8")) if path.is_file() \
-        else {}
-
-
 def load(directory: Path) -> Optional[WordPieceTokenizer]:
-    """The tokenizer of the snapshot ``directory`` as ``AutoTokenizer``
+    """The tokenizer of the snapshot ``directory`` (a BERT-family one:
+    ``string.tokenizer_module`` picks this module) as ``AutoTokenizer``
     builds it, or None where it holds no vocabulary (``tokenizer.json`` or
-    ``vocab.txt``). Raises ``ValueError`` naming the kind where the files
-    describe a tokenizer other than BERT's WordPiece, and ``RuntimeError``
-    where this Python's Unicode database is not ``UNIDATA_VERSION``."""
-    tok_cfg = _read_json(directory / "tokenizer_config.json")
-    model_cfg = _read_json(directory / "config.json")
+    ``vocab.txt``). Raises ``ValueError`` naming the kind where
+    ``tokenizer.json`` describes a tokenizer other than BERT's WordPiece,
+    and ``RuntimeError`` where this Python's Unicode database is not
+    ``UNIDATA_VERSION``."""
+    tok_cfg = read_json(directory / "tokenizer_config.json")
     has_json = (directory / "tokenizer.json").is_file()
     if not has_json and not (directory / "vocab.txt").is_file():
         return None
-    cls_name = tok_cfg.get("tokenizer_class")
-    if cls_name:
-        if cls_name.removesuffix("Fast") not in WORDPIECE_CLASSES:
-            raise ValueError(f"tokenizer class {cls_name!r} in {directory}: "
-                             f"only BERT's WordPiece tokenizer is ported")
-    elif model_cfg.get("model_type") not in WORDPIECE_MODEL_TYPES:
-        raise ValueError(f"tokenizer of model type "
-                         f"{model_cfg.get('model_type')!r} in {directory}: "
-                         f"only BERT's WordPiece tokenizer is ported")
 
-    names = {k: _token_content(tok_cfg.get(k, v))
+    names = {k: token_content(tok_cfg.get(k, v))
              for k, v in DEFAULT_SPECIALS.items()}
     added: Dict[str, int] = {}
     for token_id, token in tok_cfg.get("added_tokens_decoder", {}).items():
@@ -335,7 +318,7 @@ def load(directory: Path) -> Optional[WordPieceTokenizer]:
     clean_text = True
     prefix, max_chars = "##", 100
     if has_json:
-        spec = _read_json(directory / "tokenizer.json")
+        spec = read_json(directory / "tokenizer.json")
         model = spec.get("model") or {}
         if model.get("type") != "WordPiece":
             raise ValueError(f"tokenizer.json of model type "

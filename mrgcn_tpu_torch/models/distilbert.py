@@ -67,6 +67,27 @@ class _Dense(nn.Module):
 
 # the feed-forward activations the config's ``activation`` may name
 ACTIVATIONS = {"gelu": F.gelu, "relu": F.relu}
+# the text backbones' ``model_type``s the port runs: DistilBERT here, the
+# others in :mod:`.bert`
+TEXT_BACKBONE_TYPES = ("distilbert", "bert", "roberta", "xlm-roberta")
+
+
+def backbone_type(config: Dict, accepted) -> str:
+    """``config``'s ``model_type`` (the first of ``accepted`` where it has
+    none); raises ``NotImplementedError`` naming it where it is not in
+    ``accepted``."""
+    model_type = config.get("model_type", accepted[0])
+    if model_type in accepted:
+        return model_type
+    if model_type in TEXT_BACKBONE_TYPES:
+        why = (f"this module reads {', '.join(accepted)}; "
+               "models.pretrained.load_text_backbone picks the module of "
+               "each type")
+    else:
+        why = (f"the port runs {', '.join(TEXT_BACKBONE_TYPES)}; the JAX "
+               "package's FlaxAutoModel would load it")
+    raise NotImplementedError(
+        f"text backbone of model_type {model_type!r}: {why}")
 
 
 def sinusoidal_positions(positions: int, dim: int) -> np.ndarray:
@@ -80,11 +101,31 @@ def sinusoidal_positions(positions: int, dim: int) -> np.ndarray:
     return angles.astype(np.float32)
 
 
-def _layer_norm(tree: Dict) -> LayerNorm:
-    ln = LayerNorm(len(tree["scale"]), torch.float32, epsilon=1e-12)
+def _layer_norm(tree: Dict, epsilon: float = 1e-12) -> LayerNorm:
+    """A flax LayerNorm of the backbone (``scale``, ``bias``), frozen."""
+    ln = LayerNorm(len(tree["scale"]), torch.float32, epsilon=epsilon)
     ln.scale = _frozen(tree["scale"])
     ln.bias = _frozen(tree["bias"])
     return ln
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """Softmax attention of the projections ``q``, ``k``, ``v`` ``(n, L,
+    dim)`` over ``n_heads`` heads: the query scaled by ``1 / sqrt(dim /
+    n_heads)``, ``1e30`` taken off the scores of keys where ``mask`` ``(n,
+    L)`` is 0, an f32 softmax; the context ``(n, L, dim)``."""
+    n, L, dim = q.shape
+    dh = dim // n_heads
+
+    def heads(t):
+        return t.view(n, L, n_heads, dh).transpose(1, 2)
+
+    scores = torch.matmul(heads(q) / math.sqrt(dh),
+                          heads(k).transpose(-1, -2))
+    scores = scores - 1e30 * (1.0 - mask[:, None, None, :])
+    p = torch.softmax(scores, dim=-1)
+    return torch.matmul(p, heads(v)).transpose(1, 2).reshape(n, L, dim)
 
 
 class _Block(nn.Module):
@@ -102,25 +143,66 @@ class _Block(nn.Module):
         self.activation = activation
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        n, L, dim = x.shape
-        h = self.n_heads
-        dh = dim // h
-
-        def heads(t):
-            return t.view(n, L, h, dh).transpose(1, 2)
-
-        q = heads(self.q_lin(x)) / math.sqrt(dh)
-        k, v = heads(self.k_lin(x)), heads(self.v_lin(x))
-        scores = torch.matmul(q, k.transpose(-1, -2))
-        scores = scores - 1e30 * (1.0 - mask[:, None, None, :])
-        p = torch.softmax(scores, dim=-1)
-        context = torch.matmul(p, v).transpose(1, 2).reshape(n, L, dim)
+        context = masked_attention(self.q_lin(x), self.k_lin(x),
+                                   self.v_lin(x), mask, self.n_heads)
         x = self.sa_layer_norm(self.out_lin(context) + x)
         y = self.lin2(self.activation(self.lin1(x)))
         return self.output_layer_norm(y + x)
 
 
-class DistilBert(nn.Module):
+class FrozenBackbone(nn.Module):
+    """What the frozen text backbones share: :meth:`from_pretrained`, and
+    :meth:`forward` over chunks of sequences (``chunk_rows``). A subclass
+    is built from ``(config, params)`` and sets ``dim``, ``n_heads``,
+    ``hidden_dim`` (the feed-forward width) and ``position_embeddings``,
+    and defines ``_encode(ids, mask)``; ``first_position`` is the
+    position embedding of the first token past which ``L`` tokens must
+    fit."""
+
+    first_position = 0
+
+    @classmethod
+    def from_pretrained(cls, directory):
+        """The model of a directory holding ``config.json`` and
+        ``flax_model.msgpack``."""
+        directory = Path(directory)
+        config = json.loads((directory / "config.json").read_text())
+        params = flax_msgpack.load(directory / "flax_model.msgpack")
+        return cls(config, params)
+
+    def chunk_rows(self, L: int) -> int:
+        """Sequences a chunk takes: its scores and its feed-forward
+        activations each within the budget."""
+        per_row = 4 * L * max(self.hidden_dim, self.n_heads * L, self.dim)
+        return max(1, BUDGET_BYTES // per_row)
+
+    @torch.no_grad()
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """Last hidden state ``(N, L, dim)`` f32 of ``input_ids`` ``(N,
+        L)``; ``attention_mask`` (1 at real tokens) defaults to all
+        ones."""
+        ids = input_ids.long()
+        mask = torch.ones_like(ids, dtype=torch.float32) \
+            if attention_mask is None else attention_mask.float()
+        N, L = ids.shape
+        positions = self.position_embeddings.shape[0]
+        if self.first_position + L > positions:
+            raise ValueError(f"{L} tokens; the model has {positions} "
+                             "positions" + (
+                                 f" from {self.first_position}"
+                                 if self.first_position else ""))
+        out = torch.empty((N, L, self.dim), dtype=torch.float32,
+                          device=ids.device)
+        step = self.chunk_rows(L)
+        for i in range(0, N, step):
+            out[i:i + step] = self._encode(ids[i:i + step],
+                                           mask[i:i + step])
+        return out
+
+
+class DistilBert(FrozenBackbone):
     """``FlaxDistilBertModel``'s forward in float32, frozen. ``config``:
     the model's ``config.json``; ``params``: its flax parameter tree
     (``embeddings/word_embeddings/embedding``,
@@ -128,10 +210,7 @@ class DistilBert(nn.Module):
 
     def __init__(self, config: Dict, params: Dict):
         super().__init__()
-        if config.get("model_type", "distilbert") != "distilbert":
-            raise NotImplementedError(
-                f"text backbone of type {config.get('model_type')!r}: the "
-                "port runs DistilBERT only")
+        backbone_type(config, ("distilbert",))
         activation = config.get("activation", "gelu")
         if activation not in ACTIVATIONS:
             raise NotImplementedError(
@@ -155,26 +234,7 @@ class DistilBert(nn.Module):
         self.layers = nn.ModuleList(
             _Block(layers[str(i)], self.n_heads, ACTIVATIONS[activation])
             for i in range(int(config["n_layers"])))
-        want = (int(config["vocab_size"]), self.dim)
-        if tuple(self.word_embeddings.shape) != want:
-            raise ValueError(f"word embeddings of shape "
-                             f"{tuple(self.word_embeddings.shape)}, the "
-                             f"config says {want}")
-
-    @classmethod
-    def from_pretrained(cls, directory) -> "DistilBert":
-        """The model of a directory holding ``config.json`` and
-        ``flax_model.msgpack``."""
-        directory = Path(directory)
-        config = json.loads((directory / "config.json").read_text())
-        params = flax_msgpack.load(directory / "flax_model.msgpack")
-        return cls(config, params)
-
-    def chunk_rows(self, L: int) -> int:
-        """Sequences a chunk takes: its scores and its feed-forward
-        activations each within the budget."""
-        per_row = 4 * L * max(self.hidden_dim, self.n_heads * L, self.dim)
-        return max(1, BUDGET_BYTES // per_row)
+        check_vocab(self.word_embeddings, config, self.dim)
 
     def _encode(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         L = ids.shape[1]
@@ -185,25 +245,11 @@ class DistilBert(nn.Module):
             x = layer(x, mask)
         return x
 
-    @torch.no_grad()
-    def forward(self, input_ids: torch.Tensor,
-                attention_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-        """Last hidden state ``(N, L, dim)`` f32 of ``input_ids`` ``(N,
-        L)``; ``attention_mask`` (1 at real tokens) defaults to all
-        ones."""
-        ids = input_ids.long()
-        mask = torch.ones_like(ids, dtype=torch.float32) \
-            if attention_mask is None else attention_mask.float()
-        N, L = ids.shape
-        if L > self.position_embeddings.shape[0]:
-            raise ValueError(f"{L} tokens; the model has "
-                             f"{self.position_embeddings.shape[0]} "
-                             "positions")
-        out = torch.empty((N, L, self.dim), dtype=torch.float32,
-                          device=ids.device)
-        step = self.chunk_rows(L)
-        for i in range(0, N, step):
-            out[i:i + step] = self._encode(ids[i:i + step],
-                                           mask[i:i + step])
-        return out
+
+def check_vocab(word_embeddings: torch.Tensor, config: Dict,
+                dim: int) -> None:
+    want = (int(config["vocab_size"]), dim)
+    if tuple(word_embeddings.shape) != want:
+        raise ValueError(f"word embeddings of shape "
+                         f"{tuple(word_embeddings.shape)}, the config says "
+                         f"{want}")

@@ -130,7 +130,8 @@ class MRGCN(nn.Module):
                     if model_cfg else None
                 if backbone is not None:
                     encoder = pretrained.PretrainedTextEncoder(
-                        backbone, dim_out, generator, p_dropout=dropout)
+                        backbone, dim_out, generator, p_dropout=dropout,
+                        pad_id=text_pad_id)
                 else:
                     encoder = TextEncoder(
                         dim_out, generator, vocab_size=text_vocab_size,

@@ -6,9 +6,12 @@ backbone output) -> ReLU -> dropout -> ``Dense_1`` (torch-linear kernels,
 zero biases: flax's initializers there), the reference's ``pre_fc`` /
 ``fc`` (reference: mrgcn/models/{transformer,imagecnn}.py).
 
-* :class:`PretrainedTextEncoder`: DistilBERT (:mod:`.distilbert`) over
-  token ids with ``attention_mask = tokens > 0``, pooled at the first
-  position (CLS).
+* :class:`PretrainedTextEncoder`: DistilBERT (:mod:`.distilbert`), BERT,
+  RoBERTa or XLM-R (:mod:`.bert`) over token ids with ``attention_mask =
+  tokens != pad_id``, pooled at the first position (CLS). The JAX
+  package masks ``tokens > 0``, which is the same for the BERT family
+  (pad 0) and wrong for RoBERTa and XLM-R (``<s>`` 0, ``<pad>`` 1): it
+  hides the CLS key and lets every pad be attended to.
 * :class:`PretrainedImageEncoder`: MobileNetV2 features (:mod:`.mobilenet`)
   over normalized ``(N, 3, H, W)`` images, averaged over H and W.
 
@@ -29,7 +32,7 @@ from torch import nn
 
 from mrgcn_tpu_torch.models import init as tinit
 from mrgcn_tpu_torch.models.encoders import Dense, dropout
-from mrgcn_tpu_torch.utils.hf import resolve_snapshot
+from mrgcn_tpu_torch.utils.hf import read_json, resolve_snapshot
 
 logger = logging.getLogger(__name__)
 
@@ -44,22 +47,32 @@ def hub_model_name(hub_spec) -> Optional[str]:
 
 
 def load_text_backbone(hub_spec):
-    """The frozen DistilBERT of a locally available model, else None (the
-    from-scratch text encoder is used): available where the model's
+    """The frozen text backbone of a locally available model, else None
+    (the from-scratch text encoder is used): available where the model's
     directory or hub-cache snapshot holds ``config.json`` and
     ``flax_model.msgpack`` (:func:`..utils.hf.resolve_snapshot`), which is
-    where the JAX package's loader succeeds. Files that are there but do
-    not load raise: the JAX package logs it and trains the from-scratch
+    where the JAX package's loader succeeds. ``config.json``'s
+    ``model_type`` picks the module: ``distilbert``
+    (:class:`.distilbert.DistilBert`), ``bert``, ``roberta`` or
+    ``xlm-roberta`` (:class:`.bert.Bert`); another type raises
+    ``NotImplementedError``, naming it. Files that are there but do not
+    load raise too: the JAX package logs it and trains the from-scratch
     encoder instead."""
-    from mrgcn_tpu_torch.models.distilbert import DistilBert
+    from mrgcn_tpu_torch.models.bert import BERT_TYPES, Bert
+    from mrgcn_tpu_torch.models.distilbert import (TEXT_BACKBONE_TYPES,
+                                                   DistilBert, backbone_type)
     name = hub_model_name(hub_spec)
     snapshot = resolve_snapshot(name) if name else None
     if snapshot is None:
         logger.info("Pretrained LM %s unavailable locally; using the "
                     "from-scratch text encoder", name)
         return None
-    logger.info("Using pretrained language model %s (frozen)", name)
-    return DistilBert.from_pretrained(snapshot)
+    model_type = backbone_type(read_json(snapshot / "config.json"),
+                               TEXT_BACKBONE_TYPES)
+    logger.info("Using pretrained language model %s (%s, frozen)", name,
+                model_type)
+    cls = Bert if model_type in BERT_TYPES else DistilBert
+    return cls.from_pretrained(snapshot)
 
 
 class _Head(nn.Module):
@@ -90,17 +103,22 @@ class _Head(nn.Module):
 
 class PretrainedTextEncoder(_Head):
     """Frozen language model + trainable head over token ids ``(N, L)``
-    (0 pads); returns ``(N, output_dim)`` f32."""
+    padded with ``pad_id`` (the tokenizer's, which ``densify`` padded
+    with); returns ``(N, output_dim)`` f32. The head is as wide as the
+    backbone (DistilBERT's ``dim``, the others' ``hidden_size``)."""
 
     def __init__(self, backbone: nn.Module, output_dim: int,
-                 generator: torch.Generator, p_dropout: float = 0.2):
+                 generator: torch.Generator, p_dropout: float = 0.2, *,
+                 pad_id: int):
         super().__init__(backbone, backbone.dim, output_dim, generator,
                          p_dropout)
+        self.pad_id = pad_id
 
     def features(self, tokens: torch.Tensor) -> torch.Tensor:
         """The backbone's pooled output (CLS), ``(N, dim)``."""
         with torch.no_grad():
-            hidden = self.backbone(tokens, attention_mask=tokens > 0)
+            hidden = self.backbone(tokens,
+                                   attention_mask=tokens != self.pad_id)
             return hidden[:, 0].contiguous()
 
     def forward(self, tokens: torch.Tensor, train: bool = False

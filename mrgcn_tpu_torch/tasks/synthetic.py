@@ -20,13 +20,15 @@ checkpoint with the reference's names for a port model's state.
 
 So are the pretrained backbones' files, with random weights from a seed
 (the published weights are not in the repository and nothing is
-fetched): :func:`save_distilbert_snapshot` writes a DistilBERT model in
-the HuggingFace hub cache's layout (``config.json``, a WordPiece-layout
-``vocab.txt`` and flax's ``flax_model.msgpack``) at
-``distilbert-base-multilingual-cased``'s published widths by default, and
-:func:`save_mobilenet_checkpoint` a torchvision-format MobileNetV2
-``.pth``. :func:`multimodal_features` draws WordPiece-like token strings
-for them with ``wordpiece_vocab``.
+fetched): :func:`save_text_backbone_snapshot` writes a DistilBERT, BERT,
+RoBERTa or XLM-R model in the HuggingFace hub cache's layout
+(``config.json``, the tokenizer's files and flax's ``flax_model.msgpack``)
+at ``distilbert-base-multilingual-cased``'s published widths by default
+(``BERT_MULTILINGUAL`` and ``ROBERTA_BASE`` are the other published
+configs here), and :func:`save_mobilenet_checkpoint` a torchvision-format
+MobileNetV2 ``.pth``. :func:`multimodal_features` draws WordPiece-like
+token strings for them with ``wordpiece_vocab``, RoBERTa-like ones with
+``bpe_vocab``.
 """
 
 from __future__ import annotations
@@ -70,11 +72,41 @@ DISTILBERT_MULTILINGUAL = {
     "qa_dropout": 0.1, "seq_classif_dropout": 0.2,
     "sinusoidal_pos_embds": False, "tie_weights_": True,
     "vocab_size": 119547}
+# bert-base-multilingual-cased's published config.json (the model
+# DistilBERT's was distilled from)
+BERT_MULTILINGUAL = {
+    "architectures": ["BertForMaskedLM"],
+    "attention_probs_dropout_prob": 0.1, "directionality": "bidi",
+    "hidden_act": "gelu", "hidden_dropout_prob": 0.1, "hidden_size": 768,
+    "initializer_range": 0.02, "intermediate_size": 3072,
+    "layer_norm_eps": 1e-12, "max_position_embeddings": 512,
+    "model_type": "bert", "num_attention_heads": 12,
+    "num_hidden_layers": 12, "pad_token_id": 0, "pooler_fc_size": 768,
+    "pooler_num_attention_heads": 12, "pooler_num_fc_layers": 3,
+    "pooler_size_per_head": 128, "pooler_type": "first_token_transform",
+    "type_vocab_size": 2, "vocab_size": 119547}
+# roberta-base's published config.json
+ROBERTA_BASE = {
+    "architectures": ["RobertaForMaskedLM"],
+    "attention_probs_dropout_prob": 0.1, "bos_token_id": 0,
+    "eos_token_id": 2, "hidden_act": "gelu", "hidden_dropout_prob": 0.1,
+    "hidden_size": 768, "initializer_range": 0.02,
+    "intermediate_size": 3072, "layer_norm_eps": 1e-05,
+    "max_position_embeddings": 514, "model_type": "roberta",
+    "num_attention_heads": 12, "num_hidden_layers": 12, "pad_token_id": 1,
+    "type_vocab_size": 1, "vocab_size": 50265}
 # a BERT WordPiece vocabulary's special ids, and the first id of its
 # word pieces
 WORDPIECE_SPECIALS = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102,
                       "[MASK]": 103}
 FIRST_WORDPIECE = 1000
+# a RoBERTa byte-level BPE vocabulary's special ids (``<mask>`` is its
+# last id), and the first id of its other tokens
+BPE_SPECIALS = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+FIRST_BPE = 4
+# the merges of the small byte-level BPE that save_byte_bpe writes
+BYTE_BPE_MERGES = ("Ġ t", "h e", "i n", "e r", "a n", "Ġt he", "o n",
+                   "r e", "Ġ a", "e n", "Ġ s", "a t", "Ġ c", "o r")
 
 
 def multimodal_features(num_nodes: int, seed: int = 0,
@@ -83,7 +115,8 @@ def multimodal_features(num_nodes: int, seed: int = 0,
                         max_len: int = 128, num_geometries: int = 0,
                         num_images: int = 0, image_size: int = 224,
                         geometry_points=(4, WKT_MAX_POINTS),
-                        wordpiece_vocab: int = 0) -> dict:
+                        wordpiece_vocab: int = 0, bpe_vocab: int = 0
+                        ) -> dict:
     """``F`` with one encoding set each of ``xsd.numeric`` (one standard
     normal per node), ``xsd.gYear`` (``GYEAR_WIDTH`` values in [-1, 1])
     and ``xsd.string`` (byte tokens, lengths uniform in [1, max_len]), on
@@ -100,7 +133,10 @@ def multimodal_features(num_nodes: int, seed: int = 0,
     stay as they were. With ``wordpiece_vocab`` > 0 the strings are
     WordPiece-like token ids for a pretrained text backbone instead:
     ``[CLS]`` (101), 1 to ``max_len`` ids uniform in ``[1000,
-    wordpiece_vocab)``, ``[SEP]`` (102); the tokenizer's pad is 0."""
+    wordpiece_vocab)``, ``[SEP]`` (102); the tokenizer's pad is 0. With
+    ``bpe_vocab`` > 0 they are RoBERTa-like ids: ``<s>`` (0), ids uniform
+    in ``[4, bpe_vocab - 1)`` (the last id is ``<mask>``), ``</s>`` (2);
+    the tokenizer's pad is 1."""
     rng = np.random.default_rng(seed)
 
     def nodes(k):
@@ -111,20 +147,24 @@ def multimodal_features(num_nodes: int, seed: int = 0,
     years = rng.uniform(-1.0, 1.0, (num_years, GYEAR_WIDTH)).astype(
         np.float32)
     lengths = rng.integers(1, max_len + 1, num_strings)
+    # (first id, end of the ids, the ids around each string)
     if wordpiece_vocab > 0:
-        tokens = rng.integers(FIRST_WORDPIECE, wordpiece_vocab,
-                              int(lengths.sum())).astype(np.int32)
+        ids = (FIRST_WORDPIECE, wordpiece_vocab,
+               (WORDPIECE_SPECIALS["[CLS]"], WORDPIECE_SPECIALS["[SEP]"]))
+    elif bpe_vocab > 0:
+        ids = (FIRST_BPE, bpe_vocab - 1,
+               (BPE_SPECIALS["<s>"], BPE_SPECIALS["</s>"]))
     else:
-        tokens = rng.integers(0, ByteTokenizer.PAD,
-                              int(lengths.sum())).astype(np.int32)
+        ids = (0, ByteTokenizer.PAD, None)
+    tokens = rng.integers(ids[0], ids[1], int(lengths.sum())).astype(
+        np.int32)
     strings = np.empty(num_strings, dtype=object)
     for i, part in enumerate(np.split(tokens, np.cumsum(lengths)[:-1])):
-        if wordpiece_vocab > 0:
-            part = np.concatenate([[WORDPIECE_SPECIALS["[CLS]"]], part,
-                                   [WORDPIECE_SPECIALS["[SEP]"]]]
+        if ids[2]:
+            part = np.concatenate([ids[2][:1], part, ids[2][1:]]
                                   ).astype(np.int32)
         strings[i] = part
-    if wordpiece_vocab > 0:
+    if ids[2]:
         lengths = lengths + 2
     F = {
         "xsd.numeric": [[numeric, nodes(num_numeric),
@@ -381,41 +421,76 @@ def save_reference_checkpoint(path: str, model: nn.Module, epoch: int,
 # pretrained backbones' files, random weights
 # --------------------------------------------------------------------------
 
-def distilbert_params(config: Dict, seed: int = 0) -> Dict:
-    """A DistilBERT parameter tree in flax's layout
-    (``FlaxDistilBertModel.params``) at ``config``'s widths: embeddings
-    and kernels normal with the config's ``initializer_range``, biases 0,
-    LayerNorm scales 1, float32."""
+def _normal_params(config: Dict, seed: int):
+    """Draws for a parameter tree: ``normal(*shape)`` with the config's
+    ``initializer_range``, ``dense(n_in, n_out)`` (zero bias) and
+    ``norm(n)`` (scale 1, bias 0), float32."""
     rng = np.random.default_rng(seed)
-    std = float(config.get("initializer_range", 0.02))
-    dim, hidden = int(config["dim"]), int(config["hidden_dim"])
+    std = np.float32(config.get("initializer_range", 0.02))
 
     def normal(*shape):
-        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+        return rng.standard_normal(shape, dtype=np.float32) * std
 
     def dense(n_in, n_out):
         return {"kernel": normal(n_in, n_out),
                 "bias": np.zeros(n_out, np.float32)}
 
-    def norm():
-        return {"scale": np.ones(dim, np.float32),
-                "bias": np.zeros(dim, np.float32)}
+    def norm(n):
+        return {"scale": np.ones(n, np.float32),
+                "bias": np.zeros(n, np.float32)}
 
+    return normal, dense, norm
+
+
+def distilbert_params(config: Dict, seed: int = 0) -> Dict:
+    """A DistilBERT parameter tree in flax's layout
+    (``FlaxDistilBertModel.params``) at ``config``'s widths: embeddings
+    and kernels normal with the config's ``initializer_range``, biases 0,
+    LayerNorm scales 1, float32."""
+    normal, dense, norm = _normal_params(config, seed)
+    dim, hidden = int(config["dim"]), int(config["hidden_dim"])
     layers = {}
     for i in range(int(config["n_layers"])):
         layers[str(i)] = {
             "attention": {name: dense(dim, dim) for name in
                           ("q_lin", "k_lin", "v_lin", "out_lin")},
-            "sa_layer_norm": norm(),
+            "sa_layer_norm": norm(dim),
             "ffn": {"lin1": dense(dim, hidden), "lin2": dense(hidden, dim)},
-            "output_layer_norm": norm()}
+            "output_layer_norm": norm(dim)}
     return {"embeddings": {
                 "word_embeddings": {"embedding": normal(
                     int(config["vocab_size"]), dim)},
                 "position_embeddings": {"embedding": normal(
                     int(config["max_position_embeddings"]), dim)},
-                "LayerNorm": norm()},
+                "LayerNorm": norm(dim)},
             "transformer": {"layer": layers}}
+
+
+def bert_params(config: Dict, seed: int = 0) -> Dict:
+    """A BERT / RoBERTa / XLM-R parameter tree in flax's layout
+    (``FlaxBertModel.params``: ``embeddings``, ``encoder/layer/<i>``,
+    ``pooler``) at ``config``'s widths, drawn as :func:`distilbert_params`
+    draws."""
+    normal, dense, norm = _normal_params(config, seed)
+    dim = int(config["hidden_size"])
+    hidden = int(config["intermediate_size"])
+    layers = {}
+    for i in range(int(config["num_hidden_layers"])):
+        layers[str(i)] = {
+            "attention": {
+                "self": {name: dense(dim, dim)
+                         for name in ("query", "key", "value")},
+                "output": {"dense": dense(dim, dim), "LayerNorm": norm(dim)}},
+            "intermediate": {"dense": dense(dim, hidden)},
+            "output": {"dense": dense(hidden, dim), "LayerNorm": norm(dim)}}
+    embeddings = {
+        name: {"embedding": normal(int(config[size]), dim)}
+        for name, size in (("word_embeddings", "vocab_size"),
+                           ("position_embeddings", "max_position_embeddings"),
+                           ("token_type_embeddings", "type_vocab_size"))}
+    return {"embeddings": {**embeddings, "LayerNorm": norm(dim)},
+            "encoder": {"layer": layers},
+            "pooler": {"dense": dense(dim, dim)}}
 
 
 def wordpiece_vocab_lines(vocab_size: int):
@@ -426,31 +501,64 @@ def wordpiece_vocab_lines(vocab_size: int):
                       else f"piece{i}") for i in range(vocab_size)]
 
 
-def save_distilbert_snapshot(cache_dir, name: str =
-                             "distilbert-base-multilingual-cased",
-                             config: Optional[Dict] = None, seed: int = 0,
-                             revision: str = "0" * 40) -> Path:
-    """Write a random DistilBERT (``config``: a ``config.json``,
-    ``DISTILBERT_MULTILINGUAL`` by default) into the hub cache
+def save_byte_bpe(directory) -> None:
+    """Write a small RoBERTa byte-level BPE as ``vocab.json`` and
+    ``merges.txt`` (what transformers' ``RobertaTokenizer`` reads, without
+    the ``tokenizers`` library): ``BPE_SPECIALS`` at their ids, the 256
+    byte symbols, each product of ``BYTE_BPE_MERGES``, ``<mask>`` last;
+    the merges as ``"left right"`` lines after a ``#version`` header."""
+    from mrgcn_tpu_torch.encodings.xsd.bpe import byte_symbols
+    vocab = dict(BPE_SPECIALS)
+    for token in [*byte_symbols(),
+                  *(m.replace(" ", "") for m in BYTE_BPE_MERGES), "<mask>"]:
+        vocab.setdefault(token, len(vocab))
+    directory = Path(directory)
+    (directory / "vocab.json").write_text(json.dumps(vocab),
+                                          encoding="utf-8")
+    (directory / "merges.txt").write_text(
+        "#version: 0.2\n" + "".join(m + "\n" for m in BYTE_BPE_MERGES),
+        encoding="utf-8")
+
+
+def save_text_backbone_snapshot(cache_dir, name: str =
+                                "distilbert-base-multilingual-cased",
+                                config: Optional[Dict] = None,
+                                seed: int = 0,
+                                revision: str = "0" * 40) -> Path:
+    """Write a random text backbone (``config``: a ``config.json``,
+    ``DISTILBERT_MULTILINGUAL`` by default, or ``BERT_MULTILINGUAL``,
+    ``ROBERTA_BASE`` or another of their types) into the hub cache
     ``cache_dir`` as the hub lays out ``name`` (``models--<name>/refs/main``
     naming ``snapshots/<revision>/``), with ``config.json``,
-    ``tokenizer_config.json``, a WordPiece ``vocab.txt`` and
-    ``flax_model.msgpack``. Returns the snapshot directory."""
+    ``tokenizer_config.json``, the tokenizer's files and
+    ``flax_model.msgpack`` (:func:`distilbert_params` or
+    :func:`bert_params`). The tokenizer is a WordPiece ``vocab.txt`` of
+    the model's vocabulary for DistilBERT and BERT, the small byte-level
+    BPE of :func:`save_byte_bpe` for RoBERTa, none for XLM-R (whose
+    tokenizer the port does not run). Returns the snapshot directory."""
     from mrgcn_tpu_torch.utils import flax_msgpack
     config = dict(config or DISTILBERT_MULTILINGUAL)
+    model_type = config.get("model_type", "distilbert")
     repo = Path(cache_dir) / ("models--" + name.replace("/", "--"))
     snapshot = repo / "snapshots" / revision
     snapshot.mkdir(parents=True, exist_ok=True)
     (repo / "refs").mkdir(exist_ok=True)
     (repo / "refs" / "main").write_text(revision)
     (snapshot / "config.json").write_text(json.dumps(config, indent=2))
-    (snapshot / "tokenizer_config.json").write_text(json.dumps(
-        {"do_lower_case": False, "model_max_length": 512}))
-    (snapshot / "vocab.txt").write_text(
-        "\n".join(wordpiece_vocab_lines(int(config["vocab_size"]))) + "\n",
-        encoding="utf-8")
+    if model_type in ("distilbert", "bert"):
+        (snapshot / "tokenizer_config.json").write_text(json.dumps(
+            {"do_lower_case": False, "model_max_length": 512}))
+        (snapshot / "vocab.txt").write_text(
+            "\n".join(wordpiece_vocab_lines(int(config["vocab_size"])))
+            + "\n", encoding="utf-8")
+    elif model_type == "roberta":
+        (snapshot / "tokenizer_config.json").write_text(json.dumps(
+            {"model_max_length": 512}))
+        save_byte_bpe(snapshot)
+    params = distilbert_params if model_type == "distilbert" \
+        else bert_params
     flax_msgpack.save(snapshot / "flax_model.msgpack",
-                      distilbert_params(config, seed))
+                      params(config, seed))
     return snapshot
 
 

@@ -11,10 +11,11 @@ path as given, or a snapshot of the hub cache. The cache is
 
 from __future__ import annotations
 
+import json
 import os
 import re
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 # a hub model id: "name" or "org/name" (huggingface_hub's validate_repo_id)
 _REPO_ID = re.compile(r"^[\w.\-]{1,96}(/[\w.\-]{1,96})?$")
@@ -63,3 +64,15 @@ def resolve_snapshot(name: str) -> Optional[Path]:
     if all((snapshot / f).is_file() for f in BACKBONE_FILES):
         return snapshot
     return None
+
+
+def read_json(path: Path) -> Dict:
+    """A JSON file of a snapshot, or ``{}`` where it is absent."""
+    return json.loads(path.read_text(encoding="utf-8")) if path.is_file() \
+        else {}
+
+
+def token_content(value) -> str:
+    """A token of a tokenizer file: a string, or an ``AddedToken``'s dict
+    (its ``content``)."""
+    return value["content"] if isinstance(value, dict) else str(value)

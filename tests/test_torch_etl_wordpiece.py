@@ -175,11 +175,14 @@ def test_another_tokenizer_raises_where_the_reference_takes_bytes(kind,
                                                                   tmp_path):
     """Reference fault: ``mrgcn_tpu.encodings.xsd.string.load_tokenizer``
     catches every exception and tokenizes bytes, which trains another
-    model from the same config. The port raises, naming the model type."""
+    model from the same config. The port raises, naming the model type:
+    a Unigram ``tokenizer.json`` beside a DistilBERT config, and a RoBERTa
+    BPE ``tokenizer.json`` without the byte-level pre-tokenizer (the one
+    BPE the port runs, ``tests/test_torch_etl_bpe.py``)."""
     directory = tmp_path / kind
     directory.mkdir()
     (directory / "config.json").write_text(json.dumps(
-        {"model_type": "distilbert"}))
+        {"model_type": "roberta" if kind == "BPE" else "distilbert"}))
     (directory / "tokenizer_config.json").write_text("{}")
     (directory / "tokenizer.json").write_text(json.dumps({
         "version": "1.0", "added_tokens": [], "normalizer": None,

@@ -2,14 +2,15 @@
 
 Every ``.py`` of ``mrgcn_tpu_torch/`` and ``chip_smoke.py`` is parsed with
 ``ast`` and must hold no ``import jax``, ``import mrgcn_tpu``, ``import
-transformers`` or ``from mrgcn_tpu... import`` (at any depth: inside
-functions too; the machine with the card has neither JAX nor
-transformers); and the CLI module imports, a link-prediction run trains,
+transformers``, ``import tokenizers`` or ``from mrgcn_tpu... import`` (at
+any depth: inside functions too; the machine with the card has neither JAX
+nor transformers); and the CLI module imports, a link-prediction run trains,
 a mini-batch NC run trains one epoch (the host batch sampler and its
 native library included), a full-batch NC run over all five modalities
 (the convolutional encoders) trains one epoch, and so does one over
 strings and images on the pretrained backbones (a tiny DistilBERT in a
-hub cache and a MobileNetV2 checkpoint, written by the port), in a
+hub cache and a MobileNetV2 checkpoint, written by the port), and one
+over strings on a tiny RoBERTa (its byte-level BPE gives the pad id), in a
 subprocess in which these names are blocked (``sys.modules[name] =
 None``). In another such subprocess the port's ``mkdataset`` CLI builds an
 artifact from N-Quads and gzipped N-Triples, its strings tokenized by the
@@ -28,7 +29,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mrgcn_tpu", "transformers",
-             "msgpack")
+             "tokenizers", "msgpack")
 SOURCES = sorted((REPO / "mrgcn_tpu_torch").rglob("*.py")) \
     + [REPO / "chip_smoke.py"]
 
@@ -52,6 +53,8 @@ def test_the_walk_finds_the_port():
             "mrgcn_tpu_torch/data/native.py",
             "mrgcn_tpu_torch/ops/compose_kernels.py",
             "mrgcn_tpu_torch/models/distilbert.py",
+            "mrgcn_tpu_torch/models/bert.py",
+            "mrgcn_tpu_torch/encodings/xsd/bpe.py",
             "mrgcn_tpu_torch/models/mobilenet.py",
             "mrgcn_tpu_torch/models/pretrained.py",
             "mrgcn_tpu_torch/utils/flax_msgpack.py",
@@ -75,7 +78,7 @@ def test_source_imports_no_jax_and_no_jax_package(path):
 BLOCKED = """
 import sys
 for name in ("jax", "jaxlib", "flax", "optax", "mrgcn_tpu", "transformers",
-             "msgpack"):
+             "tokenizers", "msgpack"):
     sys.modules[name] = None
 import os, tempfile
 os.environ["MRGCN_PLATFORM"] = "cpu"
@@ -147,8 +150,8 @@ with tempfile.TemporaryDirectory() as tmp:
                 n_heads=2, hidden_dim=32, vocab_size=1100,
                 max_position_embeddings=16)
     os.environ["HF_HUB_CACHE"] = os.path.join(tmp, "hub")
-    synthetic.save_distilbert_snapshot(os.environ["HF_HUB_CACHE"],
-                                       config=tiny)
+    synthetic.save_text_backbone_snapshot(os.environ["HF_HUB_CACHE"],
+                                          config=tiny)
     os.environ["MRGCN_VISION_WEIGHTS"] = os.path.join(tmp, "mnv2.pth")
     synthetic.save_mobilenet_checkpoint(os.environ["MRGCN_VISION_WEIGHTS"])
     art = os.path.join(tmp, "bb.npz")
@@ -169,9 +172,34 @@ with tempfile.TemporaryDirectory() as tmp:
     assert isinstance(res.model.xsd_string_0, PretrainedTextEncoder)
     assert isinstance(res.model.blob_image_0, PretrainedImageEncoder)
     assert len(res.history) == 1
+
+    # and over strings on a tiny RoBERTa, its byte-level BPE giving the
+    # pad id 1
+    from mrgcn_tpu_torch.models.bert import Bert
+    tiny = dict(synthetic.ROBERTA_BASE, hidden_size=16,
+                num_hidden_layers=1, num_attention_heads=2,
+                intermediate_size=32, vocab_size=1100)
+    synthetic.save_text_backbone_snapshot(os.environ["HF_HUB_CACHE"],
+                                          "roberta-base", config=tiny)
+    art = os.path.join(tmp, "rb.npz")
+    save_nc_artifact(art, n, R, rng.integers(0, n, E), rng.integers(0, n, E),
+                     rng.integers(0, R, E), rng.random(E).astype("float32"),
+                     rng.choice(n, 40, replace=False),
+                     rng.integers(0, 3, 40), 3, num_eval=10,
+                     F=multimodal_features(n, num_numeric=20, num_years=10,
+                                           num_strings=10, max_len=8,
+                                           bpe_vocab=1100))
+    cfg = os.path.join(tmp, "rb.toml")
+    chip_smoke.write_config(Path(cfg), 1, 2, 8, features=chip_smoke.MULTIMODAL,
+                            backbones=True,
+                            text_model=("roberta-base", "<pad>"))
+    res = run.run_cli(["-c", cfg, "-i", art, "-o", tmp, "--dry_run"])
+    text = res.model.xsd_string_0
+    assert isinstance(text.backbone, Bert) and text.pad_id == 1
+    assert len(res.history) == 1
 loaded = [m for m in sys.modules if m.split(".")[0] in
           ("jax", "jaxlib", "flax", "optax", "mrgcn_tpu", "transformers",
-           "msgpack")
+           "tokenizers", "msgpack")
           and sys.modules[m] is not None]
 assert not loaded, loaded
 print("ok-no-jax")

@@ -4,8 +4,8 @@ images) in the port against the JAX package's.
 No file is fetched: the text backbone is a tiny DistilBERT (vocabulary 64
 or 1,200, width 32, 2 layers, 2 heads) saved by transformers'
 ``FlaxDistilBertModel.save_pretrained`` or by the port's own writer
-(``tasks/synthetic.save_distilbert_snapshot``), as a directory or in the
-hub cache's layout; the image backbone a random torchvision-format
+(``tasks/synthetic.save_text_backbone_snapshot``), as a directory or in
+the hub cache's layout; the image backbone a random torchvision-format
 MobileNetV2 ``.pth`` (``tasks/synthetic.save_mobilenet_checkpoint``, the
 format ``tests/test_pretrained.py`` writes), over 32 x 32 images. The hub
 stays offline in every case (the ``offline_hub`` fixture pins it so, and
@@ -134,7 +134,7 @@ def test_snapshot_resolution_matches_jax(case, offline_hub, tmp_path):
         load_text_backbone as jax_load_text_backbone
     spec = list(SPEC)
     if case in ("full", "config_only"):
-        snapshot = synthetic.save_distilbert_snapshot(
+        snapshot = synthetic.save_text_backbone_snapshot(
             offline_hub, "tiny-org/tiny-lm", config=TINY)
         if case == "config_only":
             (snapshot / "flax_model.msgpack").unlink()
@@ -153,8 +153,8 @@ def test_tokenizer_pad_id_matches_jax(offline_hub):
     # nothing cached: both take the byte-level tokenizer's pad
     assert tstring.pad_symbol_for(config) == jstring.pad_symbol_for(config) \
         == 256
-    synthetic.save_distilbert_snapshot(offline_hub, "tiny-org/tiny-lm",
-                                       config=TINY)
+    synthetic.save_text_backbone_snapshot(offline_hub, "tiny-org/tiny-lm",
+                                          config=TINY)
     assert tstring.pad_symbol_for(config) == jstring.pad_symbol_for(config) \
         == 0
 
@@ -167,7 +167,7 @@ def test_corrupt_files_raise_where_the_reference_trains_another_encoder(
     from mrgcn_tpu.models import mobilenet as jmobilenet
     from mrgcn_tpu.models.pretrained import \
         load_text_backbone as jax_load_text_backbone
-    snapshot = synthetic.save_distilbert_snapshot(
+    snapshot = synthetic.save_text_backbone_snapshot(
         offline_hub, "tiny-org/tiny-lm", config=TINY)
     raw = (snapshot / "flax_model.msgpack").read_bytes()
     (snapshot / "flax_model.msgpack").write_bytes(raw[:len(raw) // 2])
@@ -229,7 +229,8 @@ def test_text_backbone_and_encoder_match_jax(offline_hub, tmp_path,
     jmod = JText(backbone=module, backbone_params=frozen, output_dim=5,
                  p_dropout=0.0)
     variables = jmod.init(jax.random.PRNGKey(0), jnp.asarray(tokens))
-    mod = pretrained.PretrainedTextEncoder(backbone, 5, GEN, p_dropout=0.0)
+    mod = pretrained.PretrainedTextEncoder(backbone, 5, GEN, p_dropout=0.0,
+                                           pad_id=0)
     load_jax_params(mod, variables["params"])
     assert_encoder_matches(jmod, variables, jnp.asarray(tokens), mod, ids)
 
@@ -294,7 +295,8 @@ def test_unsupported_text_backbones_raise():
     params = synthetic.distilbert_params(TINY)
     DistilBert(TINY, params)
     for bad, match in (({"activation": "silu"}, "activation 'silu'"),
-                       ({"model_type": "bert"}, "DistilBERT only")):
+                       ({"model_type": "albert"},
+                        "'albert'.*FlaxAutoModel would load it")):
         with pytest.raises(NotImplementedError, match=match):
             DistilBert(dict(TINY, **bad), params)
 
@@ -368,7 +370,7 @@ def backbone_config(task, epochs=3):
 
 @pytest.fixture
 def backbone_files(offline_hub, tmp_path, monkeypatch):
-    synthetic.save_distilbert_snapshot(offline_hub, SPEC[-1], config=TINY)
+    synthetic.save_text_backbone_snapshot(offline_hub, SPEC[-1], config=TINY)
     path = tmp_path / "mobilenet_v2-test.pth"
     synthetic.save_mobilenet_checkpoint(path, seed=0)
     monkeypatch.setenv("MRGCN_VISION_WEIGHTS", str(path))
