@@ -117,17 +117,22 @@ prints no result line. Phases, each printing its own lines:
    and a checkpoint that holds the heads and no backbone tensor, from
    which a restored run gives the same eval-mode logits (1e-5). Then
    (``backbones_bert``) the multimodal graph, no images, on random
-   ``bert-base-multilingual-cased`` and ``roberta-base`` at their
-   published widths (12 layers, 768 wide, 12 heads, hidden 3,072;
-   vocabularies 119,547 and 50,265; the tokenizer's files beside them,
-   RoBERTa's a small byte-level BPE whose pad is 1), 8,000 strings of
-   3-130 ids (RoBERTa's ``<s>`` ... ``</s>``, padded with 1), 3 epochs
-   each through the CLI: the same checks of launches and backbone, each
-   step's time, device time (CUDA events) and peak printed beside the
-   card; on a small graph the first loss and the backbone's output card
-   against CPU (1e-4), and for RoBERTa the pad mask on the card (pads
-   changed under the mask move no real token's output; a padded row
-   pools as it does alone);
+   ``bert-base-multilingual-cased``, ``roberta-base``,
+   ``xlm-roberta-base``, RoBERTa-PreLayerNorm (transformers' defaults)
+   and ALBERT-xxlarge (transformers' defaults) at their published widths
+   (12 layers, 768 wide, 12 heads, hidden 3,072, vocabularies 119,547,
+   50,265, 250,002 and 50,265; ALBERT 4,096 wide in one shared group,
+   embeddings 128, 64 heads, hidden 16,384, vocabulary 30,000; the
+   tokenizer's files beside them: WordPiece, a small byte-level BPE whose
+   pad is 1, a Unigram ``tokenizer.json`` with a precompiled charsmap),
+   8,000 strings (1,000 for ALBERT): 3-130 drawn ids, or for XLM-R and
+   ALBERT the ids the port's Unigram tokenizer gives generated strings
+   (host seconds printed), 3 epochs each through the CLI: the same checks
+   of launches and backbone, each step's time, device time (CUDA events)
+   and peak printed beside the card; on a small graph the first loss and
+   the backbone's output card against CPU (1e-4), and for the pad-1
+   models the pad mask on the card (pads changed under the mask move no
+   real token's output; a padded row pools as it does alone);
 6. the link-prediction path, this slice's main path: the same CLI with
    ``[task] type = 'link prediction'`` on a synthetic graph at FB15k-237's
    sizes (14,541 entities, 475 relations, 272,115 / 17,535 / 20,466
@@ -4315,14 +4320,60 @@ def backbones_phase(work, tmp: Path) -> dict:
 
 # the text backbones of the backbones_bert phase: (the model's hub name,
 # its published config.json in tasks/synthetic, the tokenizer's pad token,
-# the multimodal_features argument that draws its string ids, the pad id)
+# where its string ids come from: the multimodal_features argument that
+# draws them, or "unigram" for the snapshot's own Unigram tokenizer over
+# generated strings (text_literals through string.generate_features), the
+# pad id, the strings of the graph)
 TEXT_BACKBONES = {
     "bert": ("bert-base-multilingual-cased", "BERT_MULTILINGUAL", "[PAD]",
-             "wordpiece_vocab", 0),
-    "roberta": ("roberta-base", "ROBERTA_BASE", "<pad>", "bpe_vocab", 1)}
+             "wordpiece_vocab", 0, 8_000),
+    "roberta": ("roberta-base", "ROBERTA_BASE", "<pad>", "bpe_vocab", 1,
+                8_000),
+    "xlm-roberta": ("xlm-roberta-base", "XLM_ROBERTA_BASE", "<pad>",
+                    "unigram", 1, 8_000),
+    "roberta-prelayernorm": ("andreasmadsen/efficient_mlm_m0.40",
+                             "ROBERTA_PRELAYERNORM", "<pad>", "bpe_vocab", 1,
+                             8_000),
+    # about 4.8 GFLOP a token: 1,000 strings (cut from 8,000) keep a step
+    # near 13 s
+    "albert": ("albert-xxlarge-v2", "ALBERT_XXLARGE", "<pad>", "unigram", 0,
+               1_000)}
 TEXT_BACKBONE_EPOCHS = 3
-# strings of the small graph the text backbones run on card and CPU
-TEXT_BACKBONE_SMALL_STRINGS = 24
+# the most words of a generated string (text_literals); the strings of
+# the small graph the text backbones run on card and CPU, and their most
+# words (ALBERT-xxlarge's CPU side: fewer and shorter)
+TEXT_WORDS = 40
+TEXT_BACKBONE_SMALL = {"albert": (6, 8)}
+TEXT_BACKBONE_SMALL_DEFAULT = (24, TEXT_WORDS)
+
+
+def text_strings(kind: str, num_nodes: int, num_strings: int, tag: str,
+                 max_words: int = TEXT_WORDS):
+    """``kind``'s string features for ``multimodal_features`` on a graph of
+    ``num_nodes``: a function that draws them, and the host seconds that
+    tokenizing took (0 for drawn ids). Unigram kinds tokenize
+    ``num_strings`` generated strings through the port's tokenizer of the
+    snapshot in the hub cache (``synthetic.tokenized_strings``)."""
+    from mrgcn_tpu_torch.tasks import synthetic
+    name, config_name, pad_token, strings, _, _ = TEXT_BACKBONES[kind]
+    if strings != "unigram":
+        return functools.partial(
+            synthetic.multimodal_features, num_nodes, seed=0,
+            num_strings=num_strings,
+            **{strings: getattr(synthetic, config_name)["vocab_size"]}), 0.0
+    t0 = time.perf_counter()
+    feature = {"datatype": "xsd.string", "tokenizer": {
+        "config": ["huggingface/pytorch-transformers", "tokenizer", name],
+        "pad_token": pad_token}}
+    ids, _, lengths = synthetic.tokenized_strings(
+        feature, synthetic.text_literals(num_strings, seed=0,
+                                         max_words=max_words))
+    seconds = time.perf_counter() - t0
+    print(f"[backbones_bert] {tag}: {num_strings} strings tokenized by the "
+          f"port's Unigram in {seconds:.2f} s of host, {int(lengths.sum())} "
+          f"ids, {int(lengths.min())}-{int(lengths.max())} a string")
+    return functools.partial(synthetic.multimodal_features, num_nodes,
+                             seed=0, token_strings=(ids, lengths)), seconds
 
 
 @contextlib.contextmanager
@@ -4349,26 +4400,26 @@ def step_events(task):
 
 
 def text_backbone_agreement(tmp: Path, kind: str) -> dict:
-    """The small graph (``TEXT_BACKBONE_SMALL_STRINGS`` strings of 3-130
-    ids) on ``kind``'s backbone, one epoch through the CLI on the card and
-    the CPU: the loss within 1e-4 relative, and the backbone's last hidden
+    """The small graph (``TEXT_BACKBONE_SMALL`` strings: 3-130
+    drawn ids, or the Unigram tokenizer's ids of generated strings) on
+    ``kind``'s backbone, one epoch through the CLI on the card and the
+    CPU: the loss within 1e-4 relative, and the backbone's last hidden
     state over the graph's token rows within 1e-4 of its largest entry.
-    For RoBERTa (pad 1, ``<s>`` 0) also, on the card: the ids under a
-    zero mask changed from the pad to another id leave every real token's
-    output as it was, and each padded row's pooled output is the row's
-    own, run alone at its length (1e-4 of the largest entry)."""
+    For the RoBERTa family (pad 1, ``<s>`` 0) also, on the card: the ids
+    under a zero mask changed from the pad to another id leave every real
+    token's output as it was, and each padded row's pooled output is the
+    row's own, run alone at its length (1e-4 of the largest entry)."""
     import torch
     from mrgcn_tpu_torch import run
     from mrgcn_tpu_torch.tasks import synthetic
     from mrgcn_tpu_torch.tasks.common import prepare_inputs
-    name, config_name, pad_token, strings, pad = TEXT_BACKBONES[kind]
-    config = getattr(synthetic, config_name)
+    name, _, pad_token, _, pad, _ = TEXT_BACKBONES[kind]
     small = small_graph()
-    F = functools.partial(
-        synthetic.multimodal_features, small["n"], seed=0, num_numeric=600,
-        num_years=300, num_strings=TEXT_BACKBONE_SMALL_STRINGS, max_len=128,
-        **{strings: config["vocab_size"]})
     tag = f"small_{kind}"
+    num_strings, max_words = TEXT_BACKBONE_SMALL.get(
+        kind, TEXT_BACKBONE_SMALL_DEFAULT)
+    draw, _ = text_strings(kind, small["n"], num_strings, tag, max_words)
+    F = functools.partial(draw, num_numeric=600, num_years=300, max_len=128)
     runs = [train_via_cli(tmp, tag, small, 1, 4, platform=platform, F=F,
                           backbones=True, text_model=(name, pad_token))
             for platform in (None, "cpu")]
@@ -4398,7 +4449,7 @@ def text_backbone_agreement(tmp: Path, kind: str) -> dict:
           f"{tag}: the backbone's outputs differ ({hidden_err})")
     out = {"small_loss": {"cuda": a, "cpu": b}, "small_loss_err": loss_err,
            "small_backbone_err": hidden_err}
-    if kind != "roberta":
+    if pad != 1:
         return out
     encoder, ids = encoders[0], tokens.to(devices[0])
     real = ids != pad
@@ -4431,15 +4482,20 @@ def text_backbone_phase(work, tmp: Path, smi: str) -> dict:
     through the CLI for ``TEXT_BACKBONE_EPOCHS`` epochs on each of
     ``TEXT_BACKBONES`` at its published widths, random weights from seed
     0 written into a hub cache that ``HF_HUB_CACHE`` names (the
-    tokenizer's files with them: WordPiece, or a small byte-level BPE
-    whose pad is 1); 8,000 strings of 3-130 ids (RoBERTa's framed by
-    ``<s>`` 0 and ``</s>`` 2, padded with 1). Each run: finite losses,
-    the multimodal path's launches by route with #6-#9 at 0
-    (``slice_phase``), the backbone bit-equal to its file after training
-    and the heads moved (``backbones_unchanged``), the step's time by the
-    CLI, its device time by CUDA events and the peak, beside the card;
-    then the small graph card against CPU (``text_backbone_agreement``)."""
+    tokenizer's files with them: WordPiece, a small byte-level BPE whose
+    pad is 1, or a Unigram ``tokenizer.json`` with a precompiled charsmap
+    as large as the model's vocabulary); 8,000 strings (1,000 for
+    ALBERT-xxlarge): 3-130 drawn ids (the RoBERTa family's framed by
+    ``<s>`` 0 and ``</s>`` 2, padded with 1), or for XLM-R and ALBERT the
+    ids the port's Unigram tokenizer gives generated strings, timed on the
+    host. Each run: finite losses, the multimodal path's launches by route
+    with #6-#9 at 0 (``slice_phase``), the backbone bit-equal to its file
+    after training and the heads moved (``backbones_unchanged``), the
+    step's time by the CLI, its device time by CUDA events and the peak,
+    beside the card; then the small graph card against CPU
+    (``text_backbone_agreement``)."""
     import torch
+    from mrgcn_tpu_torch.models.albert import Albert
     from mrgcn_tpu_torch.models.bert import Bert
     from mrgcn_tpu_torch.models.pretrained import PretrainedTextEncoder
     from mrgcn_tpu_torch.tasks import node_classification as nc
@@ -4448,47 +4504,51 @@ def text_backbone_phase(work, tmp: Path, smi: str) -> dict:
     os.environ["HF_HUB_CACHE"] = str(hub)
     paths = {}
     try:
-        for kind, (name, config_name, pad_token, strings, pad) in \
+        for kind, (name, config_name, pad_token, _, pad, num_strings) in \
                 TEXT_BACKBONES.items():
             config = getattr(synthetic, config_name)
+            cls = Albert if kind == "albert" else Bert
             t0 = time.perf_counter()
             snapshot = synthetic.save_text_backbone_snapshot(
                 hub, name, config=config, seed=0)
             write_s = time.perf_counter() - t0
+            tag = f"dmg_synth_{kind}"
+            draw, tokenize_s = text_strings(kind, work["n"], num_strings,
+                                            tag)
 
-            def unchanged(res, snapshot=snapshot, kind=kind, pad=pad):
+            def unchanged(res, snapshot=snapshot, kind=kind, pad=pad,
+                          cls=cls):
                 text = res.model.xsd_string_0
                 check(isinstance(text, PretrainedTextEncoder)
-                      and isinstance(text.backbone, Bert)
+                      and isinstance(text.backbone, cls)
                       and text.backbone.model_type == kind
                       and text.pad_id == pad,
                       f"{kind}: built {type(text).__name__} on "
                       f"{type(getattr(text, 'backbone', None)).__name__}")
                 return backbones_unchanged(kind, ((
-                    text, Bert.from_pretrained(snapshot)),))
+                    text, cls.from_pretrained(snapshot)),))
 
             with step_events(nc) as events:
                 summary = slice_phase(
-                    work, tmp, f"dmg_synth_{kind}",
+                    work, tmp, tag,
                     {"sorted_scatter": 1, "fused_place_scatter": 3},
-                    F=functools.partial(
-                        synthetic.multimodal_features, work["n"], seed=0,
-                        **{strings: config["vocab_size"]}),
-                    backbones=True, absent=ENCODER_KERNELS,
+                    F=draw, backbones=True, absent=ENCODER_KERNELS,
                     epochs=TEXT_BACKBONE_EPOCHS,
                     text_model=(name, pad_token), inspect=unchanged)
             torch.cuda.synchronize()
             device_ms = [a.elapsed_time(b) for a, b in events]
             summary.update(snapshot_write_s=write_s,
-                           step_device_ms=device_ms)
+                           tokenize_host_s=tokenize_s,
+                           strings=num_strings, step_device_ms=device_ms)
             print(f"[backbones_bert] {kind} ({name}, {smi}): epoch "
                   f"{summary['epoch_s_median_after_first']:.4f} s "
                   f"(median after the first; all {summary['epoch_s_after_first']}"
                   f"), a training step's device time by CUDA events "
                   f"{statistics.median(device_ms[1:]):.2f} ms (all "
                   f"{[round(x, 2) for x in device_ms]}), peak "
-                  f"{summary['peak_mem_bytes']} B; files written in "
-                  f"{write_s:.1f} s")
+                  f"{summary['peak_mem_bytes']} B; {num_strings} strings, "
+                  f"tokenized on the host in {tokenize_s:.2f} s; files "
+                  f"written in {write_s:.1f} s")
             summary.update(text_backbone_agreement(tmp, kind))
             paths[f"nc_{kind}"] = summary
             shutil.rmtree(hub, ignore_errors=True)

@@ -82,7 +82,7 @@ _NUMBERS_EXTRA = _ranges(
 # tokenizer classes (``tokenizer_config.json``) and model types
 # (``config.json``) whose AutoTokenizer is the fast RoBERTa tokenizer
 BPE_CLASSES = ("RobertaTokenizer",)
-BPE_MODEL_TYPES = ("roberta",)
+BPE_MODEL_TYPES = ("roberta", "roberta-prelayernorm")
 # RobertaTokenizer's special tokens (its defaults)
 DEFAULT_SPECIALS = {"bos_token": "<s>", "eos_token": "</s>",
                     "sep_token": "</s>", "cls_token": "<s>",
@@ -185,6 +185,81 @@ def _trailing_space_end(text: str, start: int) -> int:
     return start
 
 
+def added_pattern(tokens: Sequence[AddedToken]):
+    """``(pattern, {content: token})`` that finds ``tokens`` in a text,
+    leftmost and longest first, or None where there are none."""
+    tokens = sorted((t for t in tokens if t.content),
+                    key=lambda t: len(t.content), reverse=True)
+    if not tokens:
+        return None
+    return (re.compile("|".join(re.escape(t.content) for t in tokens)),
+            {t.content: t for t in tokens})
+
+
+def split_added(text: str, pattern, tokens) -> List[Tuple[str,
+                                                          Optional[int]]]:
+    """``text`` cut around the added tokens that ``pattern`` finds, as the
+    Rust library's ``AddedVocabulary::find_matches`` cuts it: ``(piece,
+    None)`` between them and ``(text taken, id)`` for each, leftmost
+    longest, widened over whitespace by ``lstrip`` (not over what an
+    earlier match took) and ``rstrip``."""
+    out: List[Tuple[str, Optional[int]]] = []
+    done = 0
+    for m in pattern.finditer(text):
+        token = tokens[m.group()]
+        start, stop = m.start(), m.end()
+        if token.lstrip:
+            start = max(_leading_space_start(text[:start]), done)
+        if token.rstrip:
+            stop = _trailing_space_end(text, stop)
+        if done < start:
+            out.append((text[done:start], None))
+        out.append((text[start:stop], token.id))
+        done = stop
+    if done < len(text) or not text:
+        out.append((text[done:], None))
+    return out
+
+
+def resolve_specials(added: Dict[str, AddedToken], tok_cfg: Dict,
+                     vocab: Dict[str, int], defaults: Dict[str, str],
+                     where: str, file_tokens=frozenset()) -> Dict[str, str]:
+    """Complete ``added`` (content -> token, from ``tokenizer.json``) as
+    transformers' fast tokenizer does: the tokens of
+    ``tokenizer_config.json``'s ``added_tokens_decoder``; each special
+    token (``defaults``, or ``tokenizer_config.json``'s) missing from them
+    at its vocabulary id, or the next free id in transformers' order;
+    the mask token with ``lstrip`` unless ``tokenizer_config.json`` gives
+    its flags, and then with those of ``tokenizer.json`` where it is among
+    that file's ``file_tokens``. Returns the special tokens' contents by
+    name."""
+    names = {k: token_content(tok_cfg.get(k, v))
+             for k, v in defaults.items()}
+    for token_id, token in tok_cfg.get("added_tokens_decoder", {}).items():
+        added[token["content"]] = AddedToken(
+            token["content"], int(token_id),
+            **_flags(token, "tokenizer_config.json", where))
+    mask = names["mask_token"]
+    if isinstance(tok_cfg.get("mask_token"), dict):
+        mask_flags = added[mask].flags() if mask in file_tokens else \
+            _flags(tok_cfg["mask_token"], "tokenizer_config.json", where)
+    elif mask in {token_content(t) for t in
+                  tok_cfg.get("added_tokens_decoder", {}).values()}:
+        mask_flags = added[mask].flags()
+    else:
+        mask_flags = {"lstrip": True}
+    next_id = len(vocab) + sum(t not in vocab for t in added)
+    for key in ("bos_token", "eos_token", "unk_token", "sep_token",
+                "pad_token", "cls_token", "mask_token"):
+        token = names[key]
+        if token not in added:
+            added[token] = AddedToken(token, vocab.get(token, next_id),
+                                      normalized=True)
+            next_id += token not in vocab
+    added[mask] = AddedToken(mask, added[mask].id, **mask_flags)
+    return names
+
+
 class ByteLevelBPE:
     """The fast RoBERTa tokenizer's ``encode`` (see the module docstring).
 
@@ -217,16 +292,9 @@ class ByteLevelBPE:
         self.unk_id = None if unk_token is None else vocab[unk_token]
         self.fuse_unk = fuse_unk
         self.ignore_merges = ignore_merges
-        self._passes = []
-        for normalized in (False, True):
-            tokens = sorted((t for t in self.added
-                             if t.normalized == normalized and t.content),
-                            key=lambda t: len(t.content), reverse=True)
-            if tokens:
-                self._passes.append((
-                    re.compile("|".join(re.escape(t.content)
-                                        for t in tokens)),
-                    {t.content: t for t in tokens}))
+        self._passes = [p for p in (
+            added_pattern([t for t in self.added if not t.normalized]),
+            added_pattern([t for t in self.added if t.normalized])) if p]
 
     def encode(self, text: str, add_special_tokens: bool = True
                ) -> List[int]:
@@ -247,34 +315,11 @@ class ByteLevelBPE:
             out: List[Tuple[str, Optional[int]]] = []
             for piece, token_id in pieces:
                 if token_id is None:
-                    out += self._find(piece, pattern, tokens)
+                    out += split_added(piece, pattern, tokens)
                 else:
                     out.append((piece, token_id))
             pieces = out
         return pieces
-
-    @staticmethod
-    def _find(text: str, pattern, tokens) -> List[Tuple[str,
-                                                         Optional[int]]]:
-        """The Rust library's ``AddedVocabulary::find_matches``: leftmost
-        longest matches, widened over whitespace by ``lstrip`` (not over
-        what an earlier match took) and ``rstrip``."""
-        out: List[Tuple[str, Optional[int]]] = []
-        done = 0
-        for m in pattern.finditer(text):
-            token = tokens[m.group()]
-            start, stop = m.start(), m.end()
-            if token.lstrip:
-                start = max(_leading_space_start(text[:start]), done)
-            if token.rstrip:
-                stop = _trailing_space_end(text, stop)
-            if done < start:
-                out.append((text[done:start], None))
-            out.append((text[start:stop], token.id))
-            done = stop
-        if done < len(text) or not text:
-            out.append((text[done:], None))
-        return out
 
     def _encode_piece(self, text: str) -> List[int]:
         if self.add_prefix_space and text and not text.startswith(" "):
@@ -337,7 +382,7 @@ class ByteLevelBPE:
         return [i for i, a in zip(ids, alive) if a]
 
 
-def _flags(token, where: str) -> Dict:
+def _flags(token, where: str, tokenizer: str = "byte-level BPE") -> Dict:
     """``lstrip`` / ``rstrip`` / ``normalized`` of an added token's entry
     (a dict, or a bare string: no flags); raises on ``single_word``."""
     if not isinstance(token, dict):
@@ -345,7 +390,7 @@ def _flags(token, where: str) -> Dict:
     if token.get("single_word"):
         raise ValueError(f"added token {token.get('content')!r} with "
                          f"single_word in {where} is not implemented by "
-                         f"the port's byte-level BPE")
+                         f"the port's {tokenizer}")
     return {k: bool(token.get(k, False))
             for k in ("lstrip", "rstrip", "normalized")}
 
@@ -392,8 +437,6 @@ def load(directory: Path) -> Optional[ByteLevelBPE]:
     if not has_json and not all((directory / f).is_file()
                                 for f in ("vocab.json", "merges.txt")):
         return None
-    names = {k: token_content(tok_cfg.get(k, v))
-             for k, v in DEFAULT_SPECIALS.items()}
     added: Dict[str, AddedToken] = {}
     model: Dict = {}
     wrap = None
@@ -421,31 +464,8 @@ def load(directory: Path) -> Optional[ByteLevelBPE]:
         lines = (directory / "merges.txt").read_text(
             encoding="utf-8").split("\n")[1:-1]
         merges = list(dict.fromkeys(tuple(line.split()) for line in lines))
-    for token_id, token in tok_cfg.get("added_tokens_decoder", {}).items():
-        added[token["content"]] = AddedToken(
-            token["content"], int(token_id),
-            **_flags(token, "tokenizer_config.json"))
-    # RobertaTokenizer's <mask> takes the space before it, unless
-    # tokenizer_config.json gives its flags
-    mask = names["mask_token"]
-    if isinstance(tok_cfg.get("mask_token"), dict):
-        mask_flags = _flags(tok_cfg["mask_token"], "tokenizer_config.json")
-    elif mask in {token_content(t) for t in
-                  tok_cfg.get("added_tokens_decoder", {}).values()}:
-        mask_flags = added[mask].flags()
-    else:
-        mask_flags = {"lstrip": True}
-    # a special token missing from the added ones takes its vocabulary id,
-    # or the next free id, in transformers' order
-    next_id = len(vocab) + sum(t not in vocab for t in added)
-    for key in ("bos_token", "eos_token", "unk_token", "sep_token",
-                "pad_token", "cls_token", "mask_token"):
-        token = names[key]
-        if token not in added:
-            added[token] = AddedToken(token, vocab.get(token, next_id),
-                                      normalized=True)
-            next_id += token not in vocab
-    added[mask] = AddedToken(mask, added[mask].id, **mask_flags)
+    names = resolve_specials(added, tok_cfg, vocab, DEFAULT_SPECIALS,
+                             "byte-level BPE")
     if not has_json:   # the converter's RobertaProcessing
         wrap = (added[names["cls_token"]].id, added[names["sep_token"]].id)
     if unicodedata.unidata_version != UNIDATA_VERSION:

@@ -7,15 +7,16 @@ feeds the from-scratch text encoder, and, where the feature's configured
 HuggingFace tokenizer is on disk (a directory or the hub cache, with its
 ``config.json`` or ``tokenizer_config.json`` and its vocabulary: what
 transformers' offline ``AutoTokenizer`` needs), BERT's WordPiece
-(:mod:`.wordpiece`: ``vocab.txt`` or a WordPiece ``tokenizer.json``) or
+(:mod:`.wordpiece`: ``vocab.txt`` or a WordPiece ``tokenizer.json``),
 RoBERTa's byte-level BPE (:mod:`.bpe`: ``tokenizer.json``, or
-``vocab.json`` and ``merges.txt``), both without transformers, which give
-the ids of the JAX package's ``AutoTokenizer``. The tokenizer class of
-``tokenizer_config.json``, else ``config.json``'s model type, picks
-between them. Files of another kind of tokenizer (XLM-R's SentencePiece
-Unigram among them) raise, naming it; the JAX package falls back to the
-byte-level tokenizer on any exception there, which trains another model
-from the same config. Where no files are found, both use the byte-level
+``vocab.json`` and ``merges.txt``) or XLM-R's and ALBERT's SentencePiece
+Unigram (:mod:`.unigram`: ``tokenizer.json``), all without transformers,
+which give the ids of the JAX package's ``AutoTokenizer``. The tokenizer
+class of ``tokenizer_config.json``, else ``config.json``'s model type,
+picks between them. Files of another kind of tokenizer raise, naming it
+(a Unigram snapshot with ``spiece.model`` and no ``tokenizer.json``
+too); the JAX package falls back to the byte-level tokenizer on any
+exception there, which trains another model from the same config. Where no files are found, both use the byte-level
 one.
 
 This module also covers ``xsd.anyURI`` (the reference's anyURI module is
@@ -32,7 +33,7 @@ import numpy as np
 
 from mrgcn_tpu_torch.data.rdf import xsd
 from mrgcn_tpu_torch.encodings.common import literal_nodes, plain_string_nodes
-from mrgcn_tpu_torch.encodings.xsd import bpe, wordpiece
+from mrgcn_tpu_torch.encodings.xsd import bpe, unigram, wordpiece
 from mrgcn_tpu_torch.utils.hf import read_json, snapshot_dir
 
 logger = logging.getLogger(__name__)
@@ -67,29 +68,32 @@ class ByteTokenizer:
 
 def tokenizer_module(directory):
     """The module that reads the tokenizer of the snapshot ``directory``
-    (:mod:`.wordpiece` or :mod:`.bpe`), from ``tokenizer_config.json``'s
-    tokenizer class or else ``config.json``'s model type, as
-    ``AutoTokenizer`` picks its class; raises ``ValueError`` naming a kind
-    the port does not implement."""
+    (:mod:`.wordpiece`, :mod:`.bpe` or :mod:`.unigram`), from
+    ``tokenizer_config.json``'s tokenizer class or else ``config.json``'s
+    model type, as ``AutoTokenizer`` picks its class; raises
+    ``ValueError`` naming a kind the port does not implement."""
     cls_name = read_json(directory / "tokenizer_config.json").get(
         "tokenizer_class")
     model_type = read_json(directory / "config.json").get("model_type")
     for module, classes, model_types in (
             (wordpiece, wordpiece.WORDPIECE_CLASSES,
              wordpiece.WORDPIECE_MODEL_TYPES),
-            (bpe, bpe.BPE_CLASSES, bpe.BPE_MODEL_TYPES)):
+            (bpe, bpe.BPE_CLASSES, bpe.BPE_MODEL_TYPES),
+            (unigram, unigram.UNIGRAM_CLASSES,
+             unigram.UNIGRAM_MODEL_TYPES)):
         if (cls_name.removesuffix("Fast") in classes if cls_name
                 else model_type in model_types):
             return module
     kind = f"class {cls_name!r}" if cls_name \
         else f"of model type {model_type!r}"
     raise ValueError(f"tokenizer {kind} in {directory}: the port runs "
-                     f"BERT's WordPiece and RoBERTa's byte-level BPE")
+                     f"BERT's WordPiece, RoBERTa's byte-level BPE and "
+                     f"XLM-R's and ALBERT's SentencePiece Unigram")
 
 
 def load_tokenizer(feature_config: Dict):
     """The tokenizer of a string-family feature config: the configured
-    HuggingFace tokenizer (WordPiece or byte-level BPE,
+    HuggingFace tokenizer (WordPiece, byte-level BPE or Unigram,
     :func:`tokenizer_module`) where its files are on disk (a directory or
     the hub cache, with ``config.json`` or ``tokenizer_config.json`` and a
     vocabulary), else :class:`ByteTokenizer`. Nothing is fetched. Raises
@@ -108,7 +112,7 @@ def load_tokenizer(feature_config: Dict):
             (directory / f).is_file()
             for f in ("config.json", "tokenizer_config.json")) and any(
             (directory / f).is_file()
-            for f in ("tokenizer.json", "vocab.txt", "vocab.json")):
+            for f in unigram.TOKENIZER_FILES):
         tokenizer = tokenizer_module(directory).load(directory)
     if tokenizer is None:
         logger.info("Pretrained tokenizer %s unavailable; using byte-level "

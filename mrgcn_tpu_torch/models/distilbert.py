@@ -68,8 +68,46 @@ class _Dense(nn.Module):
 # the feed-forward activations the config's ``activation`` may name
 ACTIVATIONS = {"gelu": F.gelu, "relu": F.relu}
 # the text backbones' ``model_type``s the port runs: DistilBERT here, the
-# others in :mod:`.bert`
-TEXT_BACKBONE_TYPES = ("distilbert", "bert", "roberta", "xlm-roberta")
+# others in :mod:`.bert` and :mod:`.albert`
+TEXT_BACKBONE_TYPES = ("distilbert", "bert", "roberta", "xlm-roberta",
+                       "roberta-prelayernorm", "albert")
+# the other families of transformers' ``FlaxAutoModel``: what the JAX
+# package's encoder meets at its first step, which calls the module with
+# ``input_ids`` and ``attention_mask`` alone
+JAX_FIRST_STEP_FAILS = {
+    ("electra", "roformer", "big_bird", "gpt2", "gpt-sw3", "gpt_neo",
+     "gptj", "opt", "xglm"):
+        "a TypeError: its module's token types or positions are required "
+        "positional arguments",
+    ("t5", "mt5", "longt5"):
+        "an AttributeError: it is given no decoder inputs",
+    ("llama", "mistral", "gemma"):
+        "a broadcast error in its rotary tables",
+    ("bart", "mbart", "marian", "pegasus", "blenderbot",
+     "blenderbot-small"):
+        "a TypeError: its decoder inputs are required",
+    ("beit", "clip", "dinov2", "regnet", "resnet", "vision-text-dual-encoder",
+     "vit", "wav2vec2", "whisper"):
+        "an error: it is no text encoder",
+}
+# families the JAX package's encoder runs that the port does not yet
+QUEUED_TEXT_BACKBONES = {
+    "bloom": "ALiBi, a causal mask and its own byte-level BPE"}
+
+
+def unported_reason(model_type: str) -> str:
+    """Why the port does not run a text backbone of ``model_type``, and
+    what the JAX package does with it."""
+    if model_type in QUEUED_TEXT_BACKBONES:
+        return (f"queued to port ({QUEUED_TEXT_BACKBONES[model_type]}); "
+                "the JAX package's encoder runs it, pooling the first "
+                "causal position")
+    for families, error in JAX_FIRST_STEP_FAILS.items():
+        if model_type in families:
+            return ("the JAX package's FlaxAutoModel loads it and its "
+                    f"encoder fails at the first step with {error}")
+    return ("transformers' FlaxAutoModel does not map it: the JAX package "
+            "trains its from-scratch text encoder instead")
 
 
 def backbone_type(config: Dict, accepted) -> str:
@@ -84,8 +122,8 @@ def backbone_type(config: Dict, accepted) -> str:
                "models.pretrained.load_text_backbone picks the module of "
                "each type")
     else:
-        why = (f"the port runs {', '.join(TEXT_BACKBONE_TYPES)}; the JAX "
-               "package's FlaxAutoModel would load it")
+        why = (f"the port runs {', '.join(TEXT_BACKBONE_TYPES)}; "
+               + unported_reason(model_type))
     raise NotImplementedError(
         f"text backbone of model_type {model_type!r}: {why}")
 

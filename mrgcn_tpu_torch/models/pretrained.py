@@ -7,11 +7,12 @@ zero biases: flax's initializers there), the reference's ``pre_fc`` /
 ``fc`` (reference: mrgcn/models/{transformer,imagecnn}.py).
 
 * :class:`PretrainedTextEncoder`: DistilBERT (:mod:`.distilbert`), BERT,
-  RoBERTa or XLM-R (:mod:`.bert`) over token ids with ``attention_mask =
-  tokens != pad_id``, pooled at the first position (CLS). The JAX
-  package masks ``tokens > 0``, which is the same for the BERT family
-  (pad 0) and wrong for RoBERTa and XLM-R (``<s>`` 0, ``<pad>`` 1): it
-  hides the CLS key and lets every pad be attended to.
+  RoBERTa, XLM-R or RoBERTa-PreLayerNorm (:mod:`.bert`) or ALBERT
+  (:mod:`.albert`) over token ids with ``attention_mask = tokens !=
+  pad_id``, pooled at the first position (CLS). The JAX package masks
+  ``tokens > 0``, which is the same for the BERT family and ALBERT (pad
+  0) and wrong for the RoBERTa family (``<s>`` 0, ``<pad>`` 1): it hides
+  the CLS key and lets every pad be attended to.
 * :class:`PretrainedImageEncoder`: MobileNetV2 features (:mod:`.mobilenet`)
   over normalized ``(N, 3, H, W)`` images, averaged over H and W.
 
@@ -53,11 +54,13 @@ def load_text_backbone(hub_spec):
     ``flax_model.msgpack`` (:func:`..utils.hf.resolve_snapshot`), which is
     where the JAX package's loader succeeds. ``config.json``'s
     ``model_type`` picks the module: ``distilbert``
-    (:class:`.distilbert.DistilBert`), ``bert``, ``roberta`` or
-    ``xlm-roberta`` (:class:`.bert.Bert`); another type raises
-    ``NotImplementedError``, naming it. Files that are there but do not
-    load raise too: the JAX package logs it and trains the from-scratch
-    encoder instead."""
+    (:class:`.distilbert.DistilBert`), ``bert``, ``roberta``,
+    ``xlm-roberta`` or ``roberta-prelayernorm`` (:class:`.bert.Bert`),
+    ``albert`` (:class:`.albert.Albert`); another type raises
+    ``NotImplementedError``, naming it and what the JAX package does
+    with it. Files that are there but do not load raise too: the JAX
+    package logs it and trains the from-scratch encoder instead."""
+    from mrgcn_tpu_torch.models.albert import Albert
     from mrgcn_tpu_torch.models.bert import BERT_TYPES, Bert
     from mrgcn_tpu_torch.models.distilbert import (TEXT_BACKBONE_TYPES,
                                                    DistilBert, backbone_type)
@@ -71,7 +74,8 @@ def load_text_backbone(hub_spec):
                                TEXT_BACKBONE_TYPES)
     logger.info("Using pretrained language model %s (%s, frozen)", name,
                 model_type)
-    cls = Bert if model_type in BERT_TYPES else DistilBert
+    cls = Bert if model_type in BERT_TYPES else \
+        Albert if model_type == "albert" else DistilBert
     return cls.from_pretrained(snapshot)
 
 

@@ -21,22 +21,29 @@ checkpoint with the reference's names for a port model's state.
 So are the pretrained backbones' files, with random weights from a seed
 (the published weights are not in the repository and nothing is
 fetched): :func:`save_text_backbone_snapshot` writes a DistilBERT, BERT,
-RoBERTa or XLM-R model in the HuggingFace hub cache's layout
-(``config.json``, the tokenizer's files and flax's ``flax_model.msgpack``)
-at ``distilbert-base-multilingual-cased``'s published widths by default
-(``BERT_MULTILINGUAL`` and ``ROBERTA_BASE`` are the other published
-configs here), and :func:`save_mobilenet_checkpoint` a torchvision-format
-MobileNetV2 ``.pth``. :func:`multimodal_features` draws WordPiece-like
-token strings for them with ``wordpiece_vocab``, RoBERTa-like ones with
-``bpe_vocab``.
+RoBERTa, XLM-R, RoBERTa-PreLayerNorm or ALBERT model in the HuggingFace
+hub cache's layout (``config.json``, the tokenizer's files and flax's
+``flax_model.msgpack``) at ``distilbert-base-multilingual-cased``'s
+published widths by default (``BERT_MULTILINGUAL``, ``ROBERTA_BASE``,
+``XLM_ROBERTA_BASE``, ``ROBERTA_PRELAYERNORM`` and ``ALBERT_XXLARGE`` are
+the other published configs here), and :func:`save_mobilenet_checkpoint`
+a torchvision-format MobileNetV2 ``.pth``. :func:`multimodal_features`
+draws WordPiece-like token strings for them with ``wordpiece_vocab``,
+RoBERTa-like ones with ``bpe_vocab``, or takes the ids a tokenizer gave
+generated strings (:func:`text_literals`, :func:`tokenized_strings`);
+:func:`save_unigram_tokenizer` writes a SentencePiece Unigram
+``tokenizer.json`` with a precompiled charsmap (:func:`charsmap_bytes`).
 """
 
 from __future__ import annotations
 
+import base64
 import io
 import json
 import pickle
+import struct
 import tarfile
+import unicodedata
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -95,6 +102,43 @@ ROBERTA_BASE = {
     "max_position_embeddings": 514, "model_type": "roberta",
     "num_attention_heads": 12, "num_hidden_layers": 12, "pad_token_id": 1,
     "type_vocab_size": 1, "vocab_size": 50265}
+# xlm-roberta-base's published config.json
+XLM_ROBERTA_BASE = {
+    "architectures": ["XLMRobertaForMaskedLM"],
+    "attention_probs_dropout_prob": 0.1, "bos_token_id": 0,
+    "eos_token_id": 2, "hidden_act": "gelu", "hidden_dropout_prob": 0.1,
+    "hidden_size": 768, "initializer_range": 0.02,
+    "intermediate_size": 3072, "layer_norm_eps": 1e-05,
+    "max_position_embeddings": 514, "model_type": "xlm-roberta",
+    "num_attention_heads": 12, "num_hidden_layers": 12,
+    "output_past": True, "pad_token_id": 1, "type_vocab_size": 1,
+    "vocab_size": 250002}
+# transformers' RobertaPreLayerNormConfig() defaults, which its docstring
+# likens to andreasmadsen/efficient_mlm_m0.40
+ROBERTA_PRELAYERNORM = {
+    "architectures": ["RobertaPreLayerNormForMaskedLM"],
+    "attention_probs_dropout_prob": 0.1, "bos_token_id": 0,
+    "eos_token_id": 2, "hidden_act": "gelu", "hidden_dropout_prob": 0.1,
+    "hidden_size": 768, "initializer_range": 0.02,
+    "intermediate_size": 3072, "layer_norm_eps": 1e-12,
+    "max_position_embeddings": 512, "model_type": "roberta-prelayernorm",
+    "num_attention_heads": 12, "num_hidden_layers": 12, "pad_token_id": 1,
+    "position_embedding_type": "absolute", "type_vocab_size": 2,
+    "vocab_size": 50265}
+# transformers' AlbertConfig() defaults, which its docstring gives as
+# albert-xxlarge-v2
+ALBERT_XXLARGE = {
+    "architectures": ["AlbertForMaskedLM"],
+    "attention_probs_dropout_prob": 0, "bos_token_id": 2,
+    "classifier_dropout_prob": 0.1, "embedding_size": 128,
+    "eos_token_id": 3, "hidden_act": "gelu_new", "hidden_dropout_prob": 0,
+    "hidden_size": 4096, "initializer_range": 0.02, "inner_group_num": 1,
+    "intermediate_size": 16384, "layer_norm_eps": 1e-12,
+    "max_position_embeddings": 512, "model_type": "albert",
+    "num_attention_heads": 64, "num_hidden_groups": 1,
+    "num_hidden_layers": 12, "pad_token_id": 0,
+    "position_embedding_type": "absolute", "type_vocab_size": 2,
+    "vocab_size": 30000}
 # a BERT WordPiece vocabulary's special ids, and the first id of its
 # word pieces
 WORDPIECE_SPECIALS = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102,
@@ -104,48 +148,22 @@ FIRST_WORDPIECE = 1000
 # last id), and the first id of its other tokens
 BPE_SPECIALS = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
 FIRST_BPE = 4
+# the special pieces of a SentencePiece Unigram vocabulary, first in it
+# (XLM-R's ``<mask>`` is its last piece), its unknown piece, and its
+# tokenizer class (``tokenizer_config.json``)
+UNIGRAM_SPECIALS = {
+    "xlm-roberta": (("<s>", "<pad>", "</s>", "<unk>"), "<unk>",
+                    "XLMRobertaTokenizer"),
+    "albert": (("<pad>", "<unk>", "[CLS]", "[SEP]", "[MASK]"), "<unk>",
+               "AlbertTokenizer")}
 # the merges of the small byte-level BPE that save_byte_bpe writes
 BYTE_BPE_MERGES = ("Ġ t", "h e", "i n", "e r", "a n", "Ġt he", "o n",
                    "r e", "Ġ a", "e n", "Ġ s", "a t", "Ġ c", "o r")
 
 
-def multimodal_features(num_nodes: int, seed: int = 0,
-                        num_numeric: int = 20_000, num_years: int = 10_000,
-                        num_strings: int = 8_000,
-                        max_len: int = 128, num_geometries: int = 0,
-                        num_images: int = 0, image_size: int = 224,
-                        geometry_points=(4, WKT_MAX_POINTS),
-                        wordpiece_vocab: int = 0, bpe_vocab: int = 0
-                        ) -> dict:
-    """``F`` with one encoding set each of ``xsd.numeric`` (one standard
-    normal per node), ``xsd.gYear`` (``GYEAR_WIDTH`` values in [-1, 1])
-    and ``xsd.string`` (byte tokens, lengths uniform in [1, max_len]), on
-    distinct random nodes per set, from ``seed``. The default counts are
-    ``benchmarks/bench_suite.multimodal_workload``'s.
-
-    With ``num_geometries`` > 0, an ``ogc.wktLiteral`` set of polygons
-    laid out as the vectorizer writes them: ``(WKT_ROWS, n)`` float32
-    arrays of ``n`` points, uniform in ``geometry_points`` (a random walk
-    in x / y, the mean rows, the exterior-ring flag, the full stop on the
-    last point), lengths beside them; with ``num_images`` > 0, a
-    ``blob.image`` set of ``(3, image_size, image_size)`` uint8 images.
-    Both counts default to 0 and are drawn after the other sets, so those
-    stay as they were. With ``wordpiece_vocab`` > 0 the strings are
-    WordPiece-like token ids for a pretrained text backbone instead:
-    ``[CLS]`` (101), 1 to ``max_len`` ids uniform in ``[1000,
-    wordpiece_vocab)``, ``[SEP]`` (102); the tokenizer's pad is 0. With
-    ``bpe_vocab`` > 0 they are RoBERTa-like ids: ``<s>`` (0), ids uniform
-    in ``[4, bpe_vocab - 1)`` (the last id is ``<mask>``), ``</s>`` (2);
-    the tokenizer's pad is 1."""
-    rng = np.random.default_rng(seed)
-
-    def nodes(k):
-        return np.sort(rng.choice(num_nodes, k, replace=False)).astype(
-            np.int32)
-
-    numeric = rng.standard_normal((num_numeric, 1)).astype(np.float32)
-    years = rng.uniform(-1.0, 1.0, (num_years, GYEAR_WIDTH)).astype(
-        np.float32)
+def _drawn_strings(rng, num_strings: int, max_len: int,
+                   wordpiece_vocab: int, bpe_vocab: int):
+    """``multimodal_features``' string ids and lengths, drawn."""
     lengths = rng.integers(1, max_len + 1, num_strings)
     # (first id, end of the ids, the ids around each string)
     if wordpiece_vocab > 0:
@@ -166,6 +184,54 @@ def multimodal_features(num_nodes: int, seed: int = 0,
         strings[i] = part
     if ids[2]:
         lengths = lengths + 2
+    return strings, lengths
+
+
+def multimodal_features(num_nodes: int, seed: int = 0,
+                        num_numeric: int = 20_000, num_years: int = 10_000,
+                        num_strings: int = 8_000,
+                        max_len: int = 128, num_geometries: int = 0,
+                        num_images: int = 0, image_size: int = 224,
+                        geometry_points=(4, WKT_MAX_POINTS),
+                        wordpiece_vocab: int = 0, bpe_vocab: int = 0,
+                        token_strings=None) -> dict:
+    """``F`` with one encoding set each of ``xsd.numeric`` (one standard
+    normal per node), ``xsd.gYear`` (``GYEAR_WIDTH`` values in [-1, 1])
+    and ``xsd.string`` (byte tokens, lengths uniform in [1, max_len]), on
+    distinct random nodes per set, from ``seed``. The default counts are
+    ``benchmarks/bench_suite.multimodal_workload``'s.
+
+    With ``num_geometries`` > 0, an ``ogc.wktLiteral`` set of polygons
+    laid out as the vectorizer writes them: ``(WKT_ROWS, n)`` float32
+    arrays of ``n`` points, uniform in ``geometry_points`` (a random walk
+    in x / y, the mean rows, the exterior-ring flag, the full stop on the
+    last point), lengths beside them; with ``num_images`` > 0, a
+    ``blob.image`` set of ``(3, image_size, image_size)`` uint8 images.
+    Both counts default to 0 and are drawn after the other sets, so those
+    stay as they were. With ``wordpiece_vocab`` > 0 the strings are
+    WordPiece-like token ids for a pretrained text backbone instead:
+    ``[CLS]`` (101), 1 to ``max_len`` ids uniform in ``[1000,
+    wordpiece_vocab)``, ``[SEP]`` (102); the tokenizer's pad is 0. With
+    ``bpe_vocab`` > 0 they are RoBERTa-like ids: ``<s>`` (0), ids uniform
+    in ``[4, bpe_vocab - 1)`` (the last id is ``<mask>``), ``</s>`` (2);
+    the tokenizer's pad is 1. ``token_strings``: the string set's ids and
+    lengths as a tokenizer gave them (:func:`tokenized_strings`), taken
+    as they are (``num_strings`` and ``max_len`` unused)."""
+    rng = np.random.default_rng(seed)
+
+    def nodes(k):
+        return np.sort(rng.choice(num_nodes, k, replace=False)).astype(
+            np.int32)
+
+    numeric = rng.standard_normal((num_numeric, 1)).astype(np.float32)
+    years = rng.uniform(-1.0, 1.0, (num_years, GYEAR_WIDTH)).astype(
+        np.float32)
+    if token_strings is not None:
+        strings, lengths = token_strings
+        num_strings = len(strings)
+    else:
+        strings, lengths = _drawn_strings(rng, num_strings, max_len,
+                                          wordpiece_vocab, bpe_vocab)
     F = {
         "xsd.numeric": [[numeric, nodes(num_numeric),
                          np.ones(num_numeric, np.int32)]],
@@ -488,9 +554,299 @@ def bert_params(config: Dict, seed: int = 0) -> Dict:
         for name, size in (("word_embeddings", "vocab_size"),
                            ("position_embeddings", "max_position_embeddings"),
                            ("token_type_embeddings", "type_vocab_size"))}
-    return {"embeddings": {**embeddings, "LayerNorm": norm(dim)},
+    tree = {"embeddings": {**embeddings, "LayerNorm": norm(dim)},
             "encoder": {"layer": layers},
             "pooler": {"dense": dense(dim, dim)}}
+    if config.get("model_type") == "roberta-prelayernorm":
+        # the norms before the sublayers, and one after the last layer
+        for layer in layers.values():
+            layer["attention"]["LayerNorm"] = \
+                layer["attention"]["output"].pop("LayerNorm")
+            layer["intermediate"]["LayerNorm"] = \
+                layer["output"].pop("LayerNorm")
+        tree["LayerNorm"] = norm(dim)
+    return tree
+
+
+def albert_params(config: Dict, seed: int = 0) -> Dict:
+    """An ALBERT parameter tree in flax's layout (``FlaxAlbertModel.params``:
+    ``embeddings`` at ``embedding_size``,
+    ``encoder/embedding_hidden_mapping_in``,
+    ``encoder/albert_layer_groups/<g>/albert_layers/<j>``, ``pooler``) at
+    ``config``'s widths, drawn as :func:`distilbert_params` draws."""
+    normal, dense, norm = _normal_params(config, seed)
+    emb = int(config.get("embedding_size", 128))
+    dim = int(config["hidden_size"])
+    hidden = int(config["intermediate_size"])
+    groups = {}
+    for g in range(int(config.get("num_hidden_groups", 1))):
+        layers = {}
+        for j in range(int(config.get("inner_group_num", 1))):
+            layers[str(j)] = {
+                "attention": {**{name: dense(dim, dim) for name in
+                                 ("query", "key", "value", "dense")},
+                              "LayerNorm": norm(dim)},
+                "ffn": dense(dim, hidden), "ffn_output": dense(hidden, dim),
+                "full_layer_layer_norm": norm(dim)}
+        groups[str(g)] = {"albert_layers": layers}
+    embeddings = {
+        name: {"embedding": normal(int(config[size]), emb)}
+        for name, size in (("word_embeddings", "vocab_size"),
+                           ("position_embeddings", "max_position_embeddings"),
+                           ("token_type_embeddings", "type_vocab_size"))}
+    return {"embeddings": {**embeddings, "LayerNorm": norm(emb)},
+            "encoder": {"embedding_hidden_mapping_in": dense(emb, dim),
+                        "albert_layer_groups": groups},
+            "pooler": dense(dim, dim)}
+
+
+# --------------------------------------------------------------------------
+# SentencePiece Unigram tokenizers and the strings they read
+# --------------------------------------------------------------------------
+
+def charsmap_bytes(mapping: Dict[bytes, str]) -> bytes:
+    """A precompiled charsmap (what ``tokenizer.json``'s ``Precompiled``
+    normalizer holds, base64) of ``mapping``, key bytes to replacement:
+    a little-endian u32 trie size, the darts-clone double array of the
+    keys (units placed first-fit: a node's children at ``base ^ label``,
+    its leaf at ``base``, each base used once), then the NUL-terminated
+    replacements."""
+    blob = bytearray()
+    value_at = {}
+    for key in sorted(mapping):
+        if not key or 0 in key:
+            raise ValueError(f"charsmap key {key!r}: empty or holding NUL")
+        value_at[key] = len(blob)
+        blob += mapping[key].encode("utf-8") + b"\0"
+    root: Dict = {}                      # label -> child; None -> its key
+    for key in mapping:
+        node = root
+        for b in key:
+            node = node.setdefault(b, {})
+        node[None] = key
+    units, used, bases = [0], bytearray(b"\1"), set()
+
+    def place(node, pos):
+        labels = sorted(0 if b is None else b for b in node)
+        q = used.find(0, 1)
+        q = len(used) if q < 0 else q
+        while True:
+            base = q ^ labels[0]
+            if base | 0xFF >= len(used):
+                grow = (base | 0xFF) + 1 - len(used)
+                used.extend(bytes(grow))
+                units.extend([0] * grow)
+            if base and base not in bases and (pos ^ base) < (1 << 21) \
+                    and not any(used[base ^ b] for b in labels):
+                break
+            q = used.find(0, q + 1)
+            q = len(used) if q < 0 else q
+        bases.add(base)
+        for b in labels:
+            used[base ^ b] = 1
+        units[pos] |= (pos ^ base) << 10
+        if None in node:
+            units[pos] |= 1 << 8
+            units[base] = value_at[node[None]] | (1 << 31)
+        children = sorted((b, c) for b, c in node.items() if b is not None)
+        for b, _ in children:
+            units[base ^ b] = b
+        for b, child in children:
+            place(child, base ^ b)
+
+    place(root, 0)
+    trie = struct.pack(f"<{len(units)}I", *units)
+    return struct.pack("<I", len(trie)) + trie + bytes(blob)
+
+
+def nfkc_charsmap() -> bytes:
+    """A charsmap in the manner of SentencePiece's ``nmt_nfkc``: each code
+    point of the BMP to Python's NFKC of it where that differs, controls
+    dropped, tab, LF and CR to a space; and keys of several code points:
+    CR LF to a space, and the Latin letters followed by one of eight
+    combining accents to their precomposed letter."""
+    mapping: Dict[bytes, str] = {}
+    for cp in range(1, 0x10000):
+        c = chr(cp)
+        if 0xD800 <= cp <= 0xDFFF:
+            continue
+        if c in "\t\n\r":
+            mapping[c.encode()] = " "
+        elif unicodedata.category(c) == "Cc":
+            mapping[c.encode()] = ""
+        elif unicodedata.normalize("NFKC", c) != c:
+            mapping[c.encode()] = unicodedata.normalize("NFKC", c)
+    mapping[b"\r\n"] = " "
+    for base in "aeiouncyAEIOUNCY":
+        for mark in "\u0300\u0301\u0302\u0303\u0308\u030a\u0327\u030c":
+            composed = unicodedata.normalize("NFC", base + mark)
+            if len(composed) == 1:
+                mapping[(base + mark).encode()] = composed
+    return charsmap_bytes(mapping)
+
+
+# the pools that text_literals draws words from
+_SYLLABLES = [c + v for c in "bdfgklmnprstvz" for v in "aeiou"]
+_WORDS = ["café", "cafe\u0301", "naïve", "Über", "straße", "ﬁnal", "Ａｂｃ",
+          "１２３", "東京", "大学", "😀", "👍🏽", "👩\u200d💻", "don't", "2024",
+          "3.14", "Ελληνικά", "русский", "한국어", "\r\n", "\t", "  ", "   ",
+          "!!", "…", "–", "<mask>", "<s>", "</s>", "[MASK]", "[CLS]",
+          "``quoted''", "x\u0301\u0302\u0303", "\u00a0", "ℌ", "㍿", "ǅ"]
+
+
+def text_literals(num: int, seed: int = 0, max_words: int = 40) -> list:
+    """``num`` distinct strings of 1 to ``max_words`` words, from ``seed``:
+    syllable words (some capitalised) and, one word in five, one of
+    ``_WORDS`` (accents precomposed and not, ligatures, fullwidth forms,
+    CJK, Hangul, emoji with modifiers and ZWJ, CR LF, tabs, runs of spaces,
+    no-break spaces, special tokens of XLM-R and ALBERT but their pad,
+    which an encoder masks wherever it stands), joined by spaces; each
+    ends with its index, so that no two are equal."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(num):
+        words = []
+        for _ in range(int(rng.integers(1, max_words + 1))):
+            if rng.random() < 0.2:
+                words.append(_WORDS[rng.integers(len(_WORDS))])
+            else:
+                word = "".join(rng.choice(_SYLLABLES, rng.integers(1, 4)))
+                words.append(word.capitalize() if rng.random() < 0.2
+                             else word)
+        out.append(" ".join(words) + f" {i}")
+    return out
+
+
+def unigram_pieces(num: int, seed: int = 0, lowercase: bool = False) -> list:
+    """``num`` distinct ``(piece, score)`` pairs for a Unigram vocabulary
+    over :func:`text_literals`' strings: every character of their words
+    and ``▁``, the syllables and digits alone and after ``▁``, then words
+    of two or three syllables, after ``▁`` or not; scores uniform in [-14,
+    -1], rounded to 0.1 so that paths tie. ``lowercase``: no capitals
+    (ALBERT's normalizer lowercases)."""
+    rng = np.random.default_rng(seed)
+    chars = sorted({c for w in _WORDS + _SYLLABLES
+                    for c in unicodedata.normalize("NFKC", w)
+                    if not c.isspace()} | set("0123456789▁ABCDEFGHIJKLMNOP"
+                                              "QRSTUVWXYZ.,"))
+    if lowercase:
+        chars = sorted({c.lower() for c in chars})
+    pieces = dict.fromkeys(chars)
+    units = _SYLLABLES + [str(d) for d in range(10)]
+    if not lowercase:
+        units += [u.capitalize() for u in _SYLLABLES]
+    for unit in units:
+        pieces.setdefault(unit)
+        pieces.setdefault("▁" + unit)
+    while len(pieces) < num:
+        size = 1 << 16
+        counts = rng.integers(2, 4, size)
+        draws = rng.integers(0, len(_SYLLABLES), (size, 3))
+        marks = rng.random(size) < 0.5
+        for k, row, mark in zip(counts, draws, marks):
+            pieces.setdefault(("▁" if mark else "")
+                              + "".join(_SYLLABLES[j] for j in row[:k]))
+    scores = np.round(rng.uniform(-14.0, -1.0, len(pieces)), 1)
+    return [(p, float(x)) for p, x in zip(list(pieces)[:num], scores)]
+
+
+def _template(specials, vocab):
+    ids = {t: i for i, (t, _) in enumerate(vocab)}
+
+    def seq(*parts):
+        return [{"SpecialToken": {"id": p, "type_id": 0}} if p != "$A"
+                else {"Sequence": {"id": "A", "type_id": 0}}
+                for p in parts]
+
+    first, last = specials
+    return {"type": "TemplateProcessing", "single": seq(first, "$A", last),
+            "pair": seq(first, "$A", last, last) + [
+                {"Sequence": {"id": "B", "type_id": 0}},
+                {"SpecialToken": {"id": last, "type_id": 0}}],
+            "special_tokens": {t: {"id": t, "ids": [ids[t]], "tokens": [t]}
+                               for t in specials}}
+
+
+def save_unigram_tokenizer(directory, model_type: str = "xlm-roberta",
+                           num_pieces: int = 4000, seed: int = 0) -> Path:
+    """Write a SentencePiece Unigram tokenizer as transformers saves
+    XLM-R's or ALBERT's (``model_type``) into ``directory``:
+    ``tokenizer.json`` (the special pieces of ``UNIGRAM_SPECIALS`` at
+    their ids, :func:`unigram_pieces` to ``num_pieces`` pieces in all,
+    XLM-R's ``<mask>`` last; the normalizer, XLM-R's ``Precompiled`` of
+    :func:`nfkc_charsmap` then runs of spaces to one, ALBERT's quote
+    replacements, NFKD, accents stripped, lowercase and the same; a
+    ``Metaspace`` pre-tokenizer; ``<s> $A </s>`` or ``[CLS] $A [SEP]``)
+    and ``tokenizer_config.json`` naming the tokenizer class."""
+    specials, unk, cls = UNIGRAM_SPECIALS[model_type]
+    albert = model_type == "albert"
+    extra = () if albert else ("<mask>",)
+    vocab = [(t, 0.0) for t in specials] + unigram_pieces(
+        num_pieces - len(specials) - len(extra), seed, lowercase=albert) \
+        + [(t, 0.0) for t in extra]
+    charsmap = {"type": "Precompiled", "precompiled_charsmap":
+                base64.b64encode(nfkc_charsmap()).decode("ascii")}
+    spaces = {"type": "Replace", "pattern": {"Regex": " {2,}"},
+              "content": " "}
+    if albert:
+        normalizers = [
+            {"type": "Replace", "pattern": {"String": "``"},
+             "content": '"'},
+            {"type": "Replace", "pattern": {"String": "''"},
+             "content": '"'},
+            {"type": "NFKD"}, {"type": "StripAccents"},
+            {"type": "Lowercase"}, charsmap, spaces]
+        template = ("[CLS]", "[SEP]")
+    else:
+        normalizers = [charsmap, spaces]
+        template = ("<s>", "</s>")
+    masks = {"<mask>", "[MASK]"}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [
+            {"id": i, "content": t, "single_word": False,
+             "lstrip": t in masks, "rstrip": False, "normalized": False,
+             "special": True}
+            for i, (t, _) in enumerate(vocab)
+            if t in specials or t in extra],
+        "normalizer": {"type": "Sequence", "normalizers": normalizers},
+        "pre_tokenizer": {"type": "Metaspace", "replacement": "▁",
+                          "prepend_scheme": "always", "split": True},
+        "post_processor": _template(template, vocab),
+        "decoder": {"type": "Metaspace", "replacement": "▁",
+                    "prepend_scheme": "always", "split": True},
+        "model": {"type": "Unigram", "unk_id": [t for t, _ in vocab]
+                  .index(unk), "vocab": [list(v) for v in vocab],
+                  "byte_fallback": False}}
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    (directory / "tokenizer.json").write_text(
+        json.dumps(spec, ensure_ascii=False), encoding="utf-8")
+    (directory / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": cls, "model_max_length": 512,
+         **({"do_lower_case": True, "keep_accents": False} if albert
+            else {})}))
+    return directory
+
+
+def tokenized_strings(feature_config: Dict, strings) -> list:
+    """The string vectorizer's arrays for ``strings`` as literals of one
+    predicate (``encodings/xsd/string.generate_features`` under
+    ``feature_config``'s tokenizer): ``[ragged ids, node_idx,
+    seq_lengths]``, rows in ``strings``' order."""
+    from mrgcn_tpu_torch.data.rdf import Literal, xsd
+    from mrgcn_tpu_torch.encodings.common import IndexedNodesMap
+    from mrgcn_tpu_torch.encodings.xsd import string
+    nodes = [Literal(t, datatype=xsd("string")) for t in strings]
+    nodes_map = IndexedNodesMap.build({n: i for i, n in enumerate(nodes)})
+    out = string.generate_features(
+        nodes_map, {n: {"http://example.org/text"} for n in nodes},
+        feature_config)
+    if out is None or len(out) != 1 or len(out[0][1]) != len(strings):
+        raise ValueError("the tokenizer encoded "
+                         f"{0 if out is None else len(out[0][1])} of "
+                         f"{len(strings)} strings")
+    return out[0]
 
 
 def wordpiece_vocab_lines(vocab_size: int):
@@ -527,15 +883,18 @@ def save_text_backbone_snapshot(cache_dir, name: str =
                                 revision: str = "0" * 40) -> Path:
     """Write a random text backbone (``config``: a ``config.json``,
     ``DISTILBERT_MULTILINGUAL`` by default, or ``BERT_MULTILINGUAL``,
-    ``ROBERTA_BASE`` or another of their types) into the hub cache
+    ``ROBERTA_BASE``, ``XLM_ROBERTA_BASE``, ``ROBERTA_PRELAYERNORM``,
+    ``ALBERT_XXLARGE`` or another of their types) into the hub cache
     ``cache_dir`` as the hub lays out ``name`` (``models--<name>/refs/main``
     naming ``snapshots/<revision>/``), with ``config.json``,
     ``tokenizer_config.json``, the tokenizer's files and
-    ``flax_model.msgpack`` (:func:`distilbert_params` or
-    :func:`bert_params`). The tokenizer is a WordPiece ``vocab.txt`` of
-    the model's vocabulary for DistilBERT and BERT, the small byte-level
-    BPE of :func:`save_byte_bpe` for RoBERTa, none for XLM-R (whose
-    tokenizer the port does not run). Returns the snapshot directory."""
+    ``flax_model.msgpack`` (:func:`distilbert_params`,
+    :func:`bert_params` or :func:`albert_params`). The tokenizer is a
+    WordPiece ``vocab.txt`` of the model's vocabulary for DistilBERT and
+    BERT, the small byte-level BPE of :func:`save_byte_bpe` for RoBERTa
+    and RoBERTa-PreLayerNorm, a Unigram ``tokenizer.json``
+    (:func:`save_unigram_tokenizer`, as many pieces as the model's
+    vocabulary) for XLM-R and ALBERT. Returns the snapshot directory."""
     from mrgcn_tpu_torch.utils import flax_msgpack
     config = dict(config or DISTILBERT_MULTILINGUAL)
     model_type = config.get("model_type", "distilbert")
@@ -551,12 +910,15 @@ def save_text_backbone_snapshot(cache_dir, name: str =
         (snapshot / "vocab.txt").write_text(
             "\n".join(wordpiece_vocab_lines(int(config["vocab_size"])))
             + "\n", encoding="utf-8")
-    elif model_type == "roberta":
+    elif model_type in ("roberta", "roberta-prelayernorm"):
         (snapshot / "tokenizer_config.json").write_text(json.dumps(
             {"model_max_length": 512}))
         save_byte_bpe(snapshot)
-    params = distilbert_params if model_type == "distilbert" \
-        else bert_params
+    elif model_type in UNIGRAM_SPECIALS:
+        save_unigram_tokenizer(snapshot, model_type,
+                               int(config["vocab_size"]), seed)
+    params = {"distilbert": distilbert_params,
+              "albert": albert_params}.get(model_type, bert_params)
     flax_msgpack.save(snapshot / "flax_model.msgpack",
                       params(config, seed))
     return snapshot

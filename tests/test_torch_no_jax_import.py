@@ -12,7 +12,9 @@ strings and images on the pretrained backbones (a tiny DistilBERT in a
 hub cache and a MobileNetV2 checkpoint, written by the port), and one
 over strings on a tiny RoBERTa (its byte-level BPE gives the pad id), in a
 subprocess in which these names are blocked (``sys.modules[name] =
-None``). In another such subprocess the port's ``mkdataset`` CLI builds an
+None``); and one over strings on a tiny ALBERT whose ids the port's
+Unigram tokenizer gives from generated strings (its ``tokenizer.json``
+written by the port). In another such subprocess the port's ``mkdataset`` CLI builds an
 artifact from N-Quads and gzipped N-Triples, its strings tokenized by the
 port's WordPiece from a ``vocab.txt`` snapshot, and ``run`` trains it.
 The ranks of a mesh world (``parallel.mesh.launch``, spawned processes)
@@ -55,6 +57,10 @@ def test_the_walk_finds_the_port():
             "mrgcn_tpu_torch/models/distilbert.py",
             "mrgcn_tpu_torch/models/bert.py",
             "mrgcn_tpu_torch/encodings/xsd/bpe.py",
+            "mrgcn_tpu_torch/encodings/xsd/unigram.py",
+            "mrgcn_tpu_torch/encodings/xsd/charsmap.py",
+            "mrgcn_tpu_torch/encodings/xsd/graphemes.py",
+            "mrgcn_tpu_torch/models/albert.py",
             "mrgcn_tpu_torch/models/mobilenet.py",
             "mrgcn_tpu_torch/models/pretrained.py",
             "mrgcn_tpu_torch/utils/flax_msgpack.py",
@@ -196,6 +202,37 @@ with tempfile.TemporaryDirectory() as tmp:
     res = run.run_cli(["-c", cfg, "-i", art, "-o", tmp, "--dry_run"])
     text = res.model.xsd_string_0
     assert isinstance(text.backbone, Bert) and text.pad_id == 1
+    assert len(res.history) == 1
+
+    # and on a tiny ALBERT, its strings tokenized by the port's Unigram
+    from mrgcn_tpu_torch.encodings.xsd.unigram import UnigramTokenizer
+    from mrgcn_tpu_torch.encodings.xsd.string import load_tokenizer
+    from mrgcn_tpu_torch.models.albert import Albert
+    tiny = dict(synthetic.ALBERT_XXLARGE, embedding_size=8, hidden_size=16,
+                num_hidden_layers=1, num_attention_heads=2,
+                intermediate_size=32, vocab_size=600)
+    synthetic.save_text_backbone_snapshot(os.environ["HF_HUB_CACHE"],
+                                          "albert-base-v2", config=tiny)
+    feature = {"datatype": "xsd.string", "tokenizer": {
+        "config": ["hf", "tokenizer", "albert-base-v2"],
+        "pad_token": "<pad>"}}
+    assert isinstance(load_tokenizer(feature), UnigramTokenizer)
+    ids, _, lengths = synthetic.tokenized_strings(
+        feature, synthetic.text_literals(10, max_words=6))
+    art = os.path.join(tmp, "al.npz")
+    save_nc_artifact(art, n, R, rng.integers(0, n, E), rng.integers(0, n, E),
+                     rng.integers(0, R, E), rng.random(E).astype("float32"),
+                     rng.choice(n, 40, replace=False),
+                     rng.integers(0, 3, 40), 3, num_eval=10,
+                     F=multimodal_features(n, num_numeric=20, num_years=10,
+                                           token_strings=(ids, lengths)))
+    cfg = os.path.join(tmp, "al.toml")
+    chip_smoke.write_config(Path(cfg), 1, 2, 8, features=chip_smoke.MULTIMODAL,
+                            backbones=True,
+                            text_model=("albert-base-v2", "<pad>"))
+    res = run.run_cli(["-c", cfg, "-i", art, "-o", tmp, "--dry_run"])
+    text = res.model.xsd_string_0
+    assert isinstance(text.backbone, Albert) and text.pad_id == 0
     assert len(res.history) == 1
 loaded = [m for m in sys.modules if m.split(".")[0] in
           ("jax", "jaxlib", "flax", "optax", "mrgcn_tpu", "transformers",
