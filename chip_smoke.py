@@ -119,20 +119,24 @@ prints no result line. Phases, each printing its own lines:
    (``backbones_bert``) the multimodal graph, no images, on random
    ``bert-base-multilingual-cased``, ``roberta-base``,
    ``xlm-roberta-base``, RoBERTa-PreLayerNorm (transformers' defaults)
-   and ALBERT-xxlarge (transformers' defaults) at their published widths
-   (12 layers, 768 wide, 12 heads, hidden 3,072, vocabularies 119,547,
-   50,265, 250,002 and 50,265; ALBERT 4,096 wide in one shared group,
-   embeddings 128, 64 heads, hidden 16,384, vocabulary 30,000; the
-   tokenizer's files beside them: WordPiece, a small byte-level BPE whose
-   pad is 1, a Unigram ``tokenizer.json`` with a precompiled charsmap),
-   8,000 strings (1,000 for ALBERT): 3-130 drawn ids, or for XLM-R and
-   ALBERT the ids the port's Unigram tokenizer gives generated strings
-   (host seconds printed), 3 epochs each through the CLI: the same checks
-   of launches and backbone, each step's time, device time (CUDA events)
+   ALBERT-xxlarge (transformers' defaults) and ``bigscience/bloom-560m``
+   at their published widths (12 layers, 768 wide, 12 heads, hidden
+   3,072, vocabularies 119,547, 50,265, 250,002 and 50,265; ALBERT 4,096
+   wide in one shared group, embeddings 128, 64 heads, hidden 16,384,
+   vocabulary 30,000; BLOOM 24 layers, 1,024 wide, 16 heads, hidden
+   4,096, vocabulary 250,880, ALiBi and a causal mask; the tokenizer's
+   files beside them: WordPiece, a small byte-level BPE whose pad is 1,
+   a Unigram ``tokenizer.json`` with a precompiled charsmap, BLOOM's
+   byte-level BPE layout whose pad is 3), 2,000 strings (500 for
+   ALBERT): 3-130 drawn ids, or for XLM-R, ALBERT and
+   BLOOM the ids the port's tokenizer gives generated strings (host
+   seconds printed), 2 epochs each through the CLI: the same checks of
+   launches and backbone, each step's time, device time (CUDA events)
    and peak printed beside the card; on a small graph the first loss and
-   the backbone's output card against CPU (1e-4), and for the pad-1
-   models the pad mask on the card (pads changed under the mask move no
-   real token's output; a padded row pools as it does alone);
+   the backbone's output card against CPU (1e-4), and for the models
+   whose pad is not 0 the pad mask on the card (pads changed under the
+   mask move no real token's output; a padded row pools as it does
+   alone);
 6. the link-prediction path, this slice's main path: the same CLI with
    ``[task] type = 'link prediction'`` on a synthetic graph at FB15k-237's
    sizes (14,541 entities, 475 relations, 272,115 / 17,535 / 20,466
@@ -277,8 +281,9 @@ prints no result line. Phases, each printing its own lines:
    JSON-LD (in the N-Triples file's triple order), each built by the
    CLI (host seconds by stage and the files' bytes printed) with arrays
    equal to the N-Triples build, the parity NC graph as TriG and under
-   ``.n3``, ``.owl`` and ``.json`` names likewise, and the Turtle build
-   trained as above;
+   ``.n3``, ``.owl`` and ``.json`` names likewise (these writes and
+   builds in worker processes, beside each other and the steps before
+   them), and the Turtle build trained as above;
 10. multi-device training (``mesh``, ``mrgcn_tpu_torch.parallel``):
    (a) a world of one rank over NCCL through ``parallel.mesh.launch``
    trains phase 4's featureless model at DMG width, its losses and
@@ -300,7 +305,7 @@ prints no result line. Phases, each printing its own lines:
    collectives a step and each rank's peak memory printed (ranks sharing
    one card: not a scaling figure); (c) the same over NCCL, one card a
    rank, where the machine has two cards or more, else ``mesh nccl
-   multi-card: not run`` is printed.
+   multi-card: not run`` is printed. The worlds run side by side.
 
 Every kernel comparison checks bit identity across two runs, and the
 slice-shape ones time the kernel, the plain version and, where one PyTorch
@@ -402,6 +407,15 @@ MINIBATCH_TEXT_ROWS = 2048 * 128
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+@contextlib.contextmanager
+def timed_part(label: str):
+    """Print the wall seconds of the body, a part of a phase, as
+    ``[time]   <label>``: where a phase's time goes."""
+    t0 = time.perf_counter()
+    yield
+    print(f"[time]   {label}: {time.perf_counter() - t0:.1f} s")
 
 
 def card() -> str:
@@ -3716,11 +3730,16 @@ def checkpoint_phase(work, tmp: Path) -> dict:
     """Checkpoints, the reference's formats and the profiler on the card:
     (a) to (e) above. Returns the full-width runs' launch counts, each
     counted from 0 just before its run."""
-    paths = resume_allmodal(work, tmp)
-    paths.update(resume_lp(tmp))
-    card_cpu_checkpoints(tmp)
-    reference_interop(tmp)
-    paths.update(profiled_run(work, tmp))
+    with timed_part("checkpoint all-modality resume"):
+        paths = resume_allmodal(work, tmp)
+    with timed_part("checkpoint LP resume"):
+        paths.update(resume_lp(tmp))
+    with timed_part("checkpoint card <-> CPU"):
+        card_cpu_checkpoints(tmp)
+    with timed_part("checkpoint reference formats"):
+        reference_interop(tmp)
+    with timed_part("checkpoint profiler"):
+        paths.update(profiled_run(work, tmp))
     return paths
 
 
@@ -4133,9 +4152,12 @@ def text_attn_phase(work, tmp: Path, device, rows) -> dict:
     multi-head encoder's training paths (``heads_paths``) and every other
     text attention path card against CPU (``text_attn_agreement``).
     Returns the paths' summaries."""
-    rows.update(heads_kernel_phase(device))
-    paths = heads_paths(work, device)
-    paths.update(text_attn_agreement(tmp))
+    with timed_part("text_attn #12 cases"):
+        rows.update(heads_kernel_phase(device))
+    with timed_part("text_attn head paths"):
+        paths = heads_paths(work, device)
+    with timed_part("text_attn card vs CPU"):
+        paths.update(text_attn_agreement(tmp))
     return paths
 
 
@@ -4311,7 +4333,8 @@ def backbones_phase(work, tmp: Path) -> dict:
             features=ALLMODAL, backbones=True, absent=ENCODER_KERNELS,
             inspect=lambda res: both_backbones_unchanged(res.model,
                                                          files))}
-        paths["nc_backbones"].update(backbone_agreement(tmp, files))
+        with timed_part("backbones small graph and checkpoint"):
+            paths["nc_backbones"].update(backbone_agreement(tmp, files))
     finally:
         os.environ.pop("HF_HUB_CACHE", None)
         os.environ.pop("MRGCN_VISION_WEIGHTS", None)
@@ -4321,42 +4344,48 @@ def backbones_phase(work, tmp: Path) -> dict:
 # the text backbones of the backbones_bert phase: (the model's hub name,
 # its published config.json in tasks/synthetic, the tokenizer's pad token,
 # where its string ids come from: the multimodal_features argument that
-# draws them, or "unigram" for the snapshot's own Unigram tokenizer over
-# generated strings (text_literals through string.generate_features), the
-# pad id, the strings of the graph)
+# draws them, or "tokenizer" for the snapshot's own tokenizer (Unigram,
+# BLOOM's byte-level BPE) over generated strings (text_literals through
+# string.generate_features), the pad id, the strings of the graph)
 TEXT_BACKBONES = {
+    # 2,000 strings (cut from 8,000 to keep the whole run well inside its
+    # time limit): a step near 1.3 s
     "bert": ("bert-base-multilingual-cased", "BERT_MULTILINGUAL", "[PAD]",
-             "wordpiece_vocab", 0, 8_000),
+             "wordpiece_vocab", 0, 2_000),
     "roberta": ("roberta-base", "ROBERTA_BASE", "<pad>", "bpe_vocab", 1,
-                8_000),
+                2_000),
     "xlm-roberta": ("xlm-roberta-base", "XLM_ROBERTA_BASE", "<pad>",
-                    "unigram", 1, 8_000),
+                    "tokenizer", 1, 2_000),
     "roberta-prelayernorm": ("andreasmadsen/efficient_mlm_m0.40",
                              "ROBERTA_PRELAYERNORM", "<pad>", "bpe_vocab", 1,
-                             8_000),
-    # about 4.8 GFLOP a token: 1,000 strings (cut from 8,000) keep a step
-    # near 13 s
-    "albert": ("albert-xxlarge-v2", "ALBERT_XXLARGE", "<pad>", "unigram", 0,
-               1_000)}
-TEXT_BACKBONE_EPOCHS = 3
+                             2_000),
+    # about 4.8 GFLOP a token: 500 strings (cut from 8,000) keep a step
+    # near 5 s
+    "albert": ("albert-xxlarge-v2", "ALBERT_XXLARGE", "<pad>", "tokenizer",
+               0, 500),
+    # about 0.6 GFLOP a token: 2,000 strings of up to about 140 ids keep a
+    # step near 4 s
+    "bloom": ("bigscience/bloom-560m", "BLOOM_560M", "<pad>", "tokenizer", 3,
+              2_000)}
+TEXT_BACKBONE_EPOCHS = 2
 # the most words of a generated string (text_literals); the strings of
 # the small graph the text backbones run on card and CPU, and their most
-# words (ALBERT-xxlarge's CPU side: fewer and shorter)
+# words (few and short: the CPU side runs the published widths)
 TEXT_WORDS = 40
-TEXT_BACKBONE_SMALL = {"albert": (6, 8)}
-TEXT_BACKBONE_SMALL_DEFAULT = (24, TEXT_WORDS)
+TEXT_BACKBONE_SMALL = (6, 8)
 
 
 def text_strings(kind: str, num_nodes: int, num_strings: int, tag: str,
                  max_words: int = TEXT_WORDS):
     """``kind``'s string features for ``multimodal_features`` on a graph of
     ``num_nodes``: a function that draws them, and the host seconds that
-    tokenizing took (0 for drawn ids). Unigram kinds tokenize
+    tokenizing took (0 for drawn ids). The other kinds tokenize
     ``num_strings`` generated strings through the port's tokenizer of the
     snapshot in the hub cache (``synthetic.tokenized_strings``)."""
+    from mrgcn_tpu_torch.encodings.xsd.string import load_tokenizer
     from mrgcn_tpu_torch.tasks import synthetic
     name, config_name, pad_token, strings, _, _ = TEXT_BACKBONES[kind]
-    if strings != "unigram":
+    if strings != "tokenizer":
         return functools.partial(
             synthetic.multimodal_features, num_nodes, seed=0,
             num_strings=num_strings,
@@ -4370,8 +4399,9 @@ def text_strings(kind: str, num_nodes: int, num_strings: int, tag: str,
                                          max_words=max_words))
     seconds = time.perf_counter() - t0
     print(f"[backbones_bert] {tag}: {num_strings} strings tokenized by the "
-          f"port's Unigram in {seconds:.2f} s of host, {int(lengths.sum())} "
-          f"ids, {int(lengths.min())}-{int(lengths.max())} a string")
+          f"port's {type(load_tokenizer(feature)).__name__} in "
+          f"{seconds:.2f} s of host, {int(lengths.sum())} ids, "
+          f"{int(lengths.min())}-{int(lengths.max())} a string")
     return functools.partial(synthetic.multimodal_features, num_nodes,
                              seed=0, token_strings=(ids, lengths)), seconds
 
@@ -4401,14 +4431,15 @@ def step_events(task):
 
 def text_backbone_agreement(tmp: Path, kind: str) -> dict:
     """The small graph (``TEXT_BACKBONE_SMALL`` strings: 3-130
-    drawn ids, or the Unigram tokenizer's ids of generated strings) on
+    drawn ids, or the snapshot tokenizer's ids of generated strings) on
     ``kind``'s backbone, one epoch through the CLI on the card and the
     CPU: the loss within 1e-4 relative, and the backbone's last hidden
     state over the graph's token rows within 1e-4 of its largest entry.
-    For the RoBERTa family (pad 1, ``<s>`` 0) also, on the card: the ids
-    under a zero mask changed from the pad to another id leave every real
-    token's output as it was, and each padded row's pooled output is the
-    row's own, run alone at its length (1e-4 of the largest entry)."""
+    Where the pad is not 0 (the RoBERTa family's 1, after ``<s>`` 0;
+    BLOOM's 3) also, on the card: the ids under a zero mask changed from
+    the pad to another id leave every real token's output as it was, and
+    each padded row's pooled output is the row's own, run alone at its
+    length (1e-4 of the largest entry)."""
     import torch
     from mrgcn_tpu_torch import run
     from mrgcn_tpu_torch.tasks import synthetic
@@ -4416,8 +4447,7 @@ def text_backbone_agreement(tmp: Path, kind: str) -> dict:
     name, _, pad_token, _, pad, _ = TEXT_BACKBONES[kind]
     small = small_graph()
     tag = f"small_{kind}"
-    num_strings, max_words = TEXT_BACKBONE_SMALL.get(
-        kind, TEXT_BACKBONE_SMALL_DEFAULT)
+    num_strings, max_words = TEXT_BACKBONE_SMALL
     draw, _ = text_strings(kind, small["n"], num_strings, tag, max_words)
     F = functools.partial(draw, num_numeric=600, num_years=300, max_len=128)
     runs = [train_via_cli(tmp, tag, small, 1, 4, platform=platform, F=F,
@@ -4449,12 +4479,12 @@ def text_backbone_agreement(tmp: Path, kind: str) -> dict:
           f"{tag}: the backbone's outputs differ ({hidden_err})")
     out = {"small_loss": {"cuda": a, "cpu": b}, "small_loss_err": loss_err,
            "small_backbone_err": hidden_err}
-    if pad != 1:
+    if pad == 0:
         return out
     encoder, ids = encoders[0], tokens.to(devices[0])
     real = ids != pad
-    check(bool((ids[:, 0] == 0).all()) and not bool(real.all()),
-          f"{tag}: rows without <s> first, or no padding")
+    check(not bool(real.all()) and (pad != 1 or bool((ids[:, 0] == 0).all())),
+          f"{tag}: no padding, or rows without <s> first")
     with torch.no_grad():
         want = encoder.backbone(ids, attention_mask=real)
         moved = encoder.backbone(torch.where(real, ids, 5),
@@ -4483,12 +4513,12 @@ def text_backbone_phase(work, tmp: Path, smi: str) -> dict:
     ``TEXT_BACKBONES`` at its published widths, random weights from seed
     0 written into a hub cache that ``HF_HUB_CACHE`` names (the
     tokenizer's files with them: WordPiece, a small byte-level BPE whose
-    pad is 1, or a Unigram ``tokenizer.json`` with a precompiled charsmap
-    as large as the model's vocabulary); 8,000 strings (1,000 for
-    ALBERT-xxlarge): 3-130 drawn ids (the RoBERTa family's framed by
-    ``<s>`` 0 and ``</s>`` 2, padded with 1), or for XLM-R and ALBERT the
-    ids the port's Unigram tokenizer gives generated strings, timed on the
-    host. Each run: finite losses, the multimodal path's launches by route
+    pad is 1, a Unigram ``tokenizer.json`` with a precompiled charsmap
+    as large as the model's vocabulary, or BLOOM's byte-level BPE
+    layout); 2,000 strings (500 for ALBERT-xxlarge): 3-130 drawn ids (the RoBERTa family's framed by ``<s>``
+    0 and ``</s>`` 2, padded with 1), or for XLM-R, ALBERT and BLOOM the
+    ids the port's tokenizer (Unigram, byte-level BPE) gives generated
+    strings, timed on the host. Each run: finite losses, the multimodal path's launches by route
     with #6-#9 at 0 (``slice_phase``), the backbone bit-equal to its file
     after training and the heads moved (``backbones_unchanged``), the
     step's time by the CLI, its device time by CUDA events and the peak,
@@ -4497,6 +4527,7 @@ def text_backbone_phase(work, tmp: Path, smi: str) -> dict:
     import torch
     from mrgcn_tpu_torch.models.albert import Albert
     from mrgcn_tpu_torch.models.bert import Bert
+    from mrgcn_tpu_torch.models.bloom import Bloom
     from mrgcn_tpu_torch.models.pretrained import PretrainedTextEncoder
     from mrgcn_tpu_torch.tasks import node_classification as nc
     from mrgcn_tpu_torch.tasks import synthetic
@@ -4507,7 +4538,7 @@ def text_backbone_phase(work, tmp: Path, smi: str) -> dict:
         for kind, (name, config_name, pad_token, _, pad, num_strings) in \
                 TEXT_BACKBONES.items():
             config = getattr(synthetic, config_name)
-            cls = Albert if kind == "albert" else Bert
+            cls = {"albert": Albert, "bloom": Bloom}.get(kind, Bert)
             t0 = time.perf_counter()
             snapshot = synthetic.save_text_backbone_snapshot(
                 hub, name, config=config, seed=0)
@@ -4528,7 +4559,8 @@ def text_backbone_phase(work, tmp: Path, smi: str) -> dict:
                 return backbones_unchanged(kind, ((
                     text, cls.from_pretrained(snapshot)),))
 
-            with step_events(nc) as events:
+            with step_events(nc) as events, timed_part(
+                    f"backbones_bert {kind} run"):
                 summary = slice_phase(
                     work, tmp, tag,
                     {"sorted_scatter": 1, "fused_place_scatter": 3},
@@ -4549,7 +4581,8 @@ def text_backbone_phase(work, tmp: Path, smi: str) -> dict:
                   f"{summary['peak_mem_bytes']} B; {num_strings} strings, "
                   f"tokenized on the host in {tokenize_s:.2f} s; files "
                   f"written in {write_s:.1f} s")
-            summary.update(text_backbone_agreement(tmp, kind))
+            with timed_part(f"backbones_bert {kind} small graph"):
+                summary.update(text_backbone_agreement(tmp, kind))
             paths[f"nc_{kind}"] = summary
             shutil.rmtree(hub, ignore_errors=True)
     finally:
@@ -4566,6 +4599,8 @@ ETL_LITERALS = {"xsd.numeric": 20_000, "xsd.gYear": 10_000,
                 "xsd.string": 8_000, "ogc.wktLiteral": 10_000}
 ETL_FEATURES = tuple(ETL_LITERALS)
 ETL_LP_EPOCHS = 3
+# worker processes that write and build the etl phase's step (e)
+ETL_WORKERS = 4
 
 
 def write_etl_graph(work, directory: Path, seed: int = 0) -> dict:
@@ -4947,11 +4982,12 @@ def etl_phase(work, tmp: Path) -> dict:
     the launches against ``lp_planned_launches``; (e) (a)'s graph as
     Turtle, RDF/XML and JSON-LD and the parity graph as TriG, ``.n3``,
     ``.owl`` and ``.json``, each build equal to its N-Triples build
-    (``serialisation_builds``), and the Turtle build trained as (c)."""
-    import torch
-    from mrgcn_tpu_torch import run
-    from mrgcn_tpu_torch.data import artifact as artifact_io
-    from mrgcn_tpu_torch.data import native, ntriples
+    (``serialisation_builds``; written and built in ``ETL_WORKERS``
+    worker processes beside (b) to (d)), and the Turtle build trained
+    as (c)."""
+    import concurrent.futures
+    import multiprocessing
+    from mrgcn_tpu_torch.data import native
     print("[etl] images left out of the graph: PIL decodes them and the "
           "card's machine need not have it; tests/test_torch_etl_*.py hold "
           "the image vectorizer against the JAX package's on the CPU")
@@ -4969,6 +5005,23 @@ def etl_phase(work, tmp: Path) -> dict:
                  features=ETL_FEATURES,
                  task={"target_property": f"{EX}hasClass",
                        "target_property_inv": ""}, graph=graph)
+    native.get_lib()     # built once here, not in each worker
+    with concurrent.futures.ProcessPoolExecutor(
+            ETL_WORKERS, mp_context=multiprocessing.get_context("spawn")) \
+            as pool:
+        pending = start_serialisations(pool, cfg, graph, data, tmp)
+        return etl_steps(work, tmp, cfg, graph, write_s, pending)
+
+
+def etl_steps(work, tmp: Path, cfg: Path, graph: dict, write_s: float,
+              pending: dict) -> dict:
+    """The etl phase's steps (b) to (e) (``etl_phase``), step (e)'s
+    builds ``pending`` in worker processes."""
+    import torch
+    from mrgcn_tpu_torch import run
+    from mrgcn_tpu_torch.data import artifact as artifact_io
+    from mrgcn_tpu_torch.data import native, ntriples
+    t0 = time.perf_counter()
     art, stages = etl_build(cfg, tmp / "etl_out1")
     art2, stages2 = etl_build(cfg, tmp / "etl_out2")
     first, second = artifact_io.load(str(art)), artifact_io.load(str(art2))
@@ -4996,6 +5049,7 @@ def etl_phase(work, tmp: Path) -> dict:
               "encoding_sets": {k: len(v) for k, v in first.F.items()}}
     print(f"[etl] {json.dumps(report)}")
 
+    print(f"[time]   etl (b): {time.perf_counter() - t0:.1f} s")
     # (c) train it: the slice phase on the artifact and config above
     shutil.copy(art, tmp / "etl_nc.npz")
     etl_work = dict(work, n=A.num_nodes, src=A.src, dst=A.dst, rel=A.rel,
@@ -5046,7 +5100,8 @@ def etl_phase(work, tmp: Path) -> dict:
     print(f"[slice] {json.dumps(lp)}")
 
     # (e) the same graph in the other serialisations, built and trained
-    serialised = serialisation_builds(cfg, art, graph, data, tmp)
+    with timed_part("etl (e) waiting for the workers"):
+        serialised = serialisation_builds(pending, art, tmp)
     ttl = artifact_io.load(str(tmp / "etl_nc_turtle.npz"))
     nc_ttl = slice_phase(etl_work, tmp, "etl_nc_turtle",
                          {"sorted_scatter": 1, "fused_place_scatter": 2,
@@ -5069,54 +5124,79 @@ def build_with_files(cfg: Path, paths: dict, tmp: Path, tag: str) -> tuple:
     return etl_build(tmp / f"{tag}.toml", tmp / f"{tag}_out")
 
 
-def serialisation_builds(cfg: Path, art: Path, graph: dict, data: Path,
+def serialised_build(cfg: Path, files: dict, directory: Path,
+                     serialisation: str, ext: str, tmp: Path,
+                     tag: str) -> tuple:
+    """``files`` written as ``serialisation`` under ``directory``
+    (``serialise_graph``, skipped where ``serialisation`` is None) and
+    built with ``cfg`` (``build_with_files``): the artifact's path, the
+    host seconds by stage, the seconds the writing took and the files'
+    bytes. A worker process's job in step (e) of the etl phase."""
+    t0 = time.perf_counter()
+    paths = files if serialisation is None else serialise_graph(
+        files, directory, serialisation, ext)
+    write_s = time.perf_counter() - t0
+    built, stages = build_with_files(cfg, paths, tmp, tag)
+    return built, stages, write_s, sum(Path(p).stat().st_size
+                                       for p in paths.values())
+
+
+def start_serialisations(pool, cfg: Path, graph: dict, data: Path,
                          tmp: Path) -> dict:
-    """The etl phase's step (e): ``graph``'s N-Triples files (step (a))
-    written again as gzipped Turtle, RDF/XML and JSON-LD by
-    ``serialise_graph``, each built by ``mkdataset``'s CLI with ``cfg``
-    and held array for array to ``art`` (step (b)'s build), the Turtle
-    build kept as ``etl_nc_turtle.npz`` for training; then
-    ``benchmarks/parity/big``'s NC graph as TriG and as Turtle, RDF/XML
-    and JSON-LD under ``.n3``, ``.owl`` and ``.json`` names, each build
-    held to that graph's N-Triples build. Returns the seconds and bytes
-    of each."""
+    """The etl phase's step (e), handed to ``pool``'s worker processes so
+    that it runs beside steps (b) to (d): ``graph``'s N-Triples files
+    (step (a)) written again as gzipped Turtle, RDF/XML and JSON-LD by
+    ``serialise_graph``, each built by ``mkdataset``'s CLI with ``cfg``;
+    ``benchmarks/parity/big``'s NC graph built from its N-Triples and
+    from TriG and from Turtle, RDF/XML and JSON-LD under ``.n3``,
+    ``.owl`` and ``.json`` names. Returns the futures by key
+    (``serialisation_builds`` reads them)."""
+    files = {k: v for k, v in graph.items() if k != "structural"}
+    jobs = {serialisation: (cfg, files, data / serialisation,
+                            serialisation, ext, tmp, f"etl_{serialisation}")
+            for serialisation, ext in SERIALISATIONS.items()}
+    big = ROOT / "benchmarks" / "parity" / "big"
+    nt = {split: str(big / "nc" / f"{split}.nt.gz")
+          for split in ("context", "train", "valid", "test")}
+    jobs["parity.nt"] = (big / "nc_config.toml", nt, None, None, None, tmp,
+                         "parity_nt")
+    for serialisation, ext in (("trig", ".trig"), ("turtle", ".n3"),
+                               ("rdfxml", ".owl"), ("jsonld", ".json")):
+        jobs[f"parity{ext}"] = (big / "nc_config.toml", nt,
+                                data / f"parity{ext}", serialisation, ext,
+                                tmp, f"parity_{ext[1:]}")
+    return {key: pool.submit(serialised_build, *args)
+            for key, args in jobs.items()}
+
+
+def serialisation_builds(pending: dict, art: Path, tmp: Path) -> dict:
+    """Step (e)'s builds (``start_serialisations``) held array for array
+    to their N-Triples builds: the DMG-scale graph's to ``art`` (step
+    (b)'s), the Turtle build kept as ``etl_nc_turtle.npz`` for training;
+    the parity graph's to its own. Returns the seconds and bytes of
+    each, taken in worker processes that ran beside each other and
+    beside steps (b) to (d)."""
     from mrgcn_tpu_torch.data import artifact as artifact_io
     want = artifact_io.load(str(art))
-    files = {k: v for k, v in graph.items() if k != "structural"}
     out = {}
-    for serialisation, ext in SERIALISATIONS.items():
-        t0 = time.perf_counter()
-        paths = serialise_graph(files, data / serialisation, serialisation,
-                                ext)
-        write_s = time.perf_counter() - t0
-        built, stages = build_with_files(cfg, paths, tmp,
-                                         f"etl_{serialisation}")
+    for serialisation in SERIALISATIONS:
+        built, stages, write_s, size = pending[serialisation].result()
         check(same_artifacts(artifact_io.load(str(built)), want),
               f"etl: the {serialisation} build differs from N-Triples'")
         if serialisation == "turtle":
             shutil.copy(built, tmp / "etl_nc_turtle.npz")
-        out[serialisation] = {
-            "write_s": write_s, "stages_s": stages,
-            "file_bytes": sum(Path(p).stat().st_size
-                              for p in paths.values())}
+        out[serialisation] = {"write_s": write_s, "stages_s": stages,
+                              "file_bytes": size}
         print(f"[etl] {serialisation}: {json.dumps(out[serialisation])}")
-    del want
-
-    big = ROOT / "benchmarks" / "parity" / "big"
-    nt = {split: str(big / "nc" / f"{split}.nt.gz")
-          for split in ("context", "train", "valid", "test")}
-    reference, _ = build_with_files(big / "nc_config.toml", nt, tmp,
-                                    "parity_nt")
+    reference = pending.pop("parity.nt").result()[0]
     want = artifact_io.load(str(reference))
-    for serialisation, ext in (("trig", ".trig"), ("turtle", ".n3"),
-                               ("rdfxml", ".owl"), ("jsonld", ".json")):
-        paths = serialise_graph(nt, data / f"parity{ext}", serialisation,
-                                ext)
-        built, stages = build_with_files(big / "nc_config.toml", paths, tmp,
-                                         f"parity_{ext[1:]}")
-        check(same_artifacts(artifact_io.load(str(built)), want),
-              f"etl: the parity graph's {ext} build differs from N-Triples'")
-        out[f"parity{ext}"] = {"stages_s": stages}
+    for key, future in pending.items():
+        if key.startswith("parity"):
+            built, stages, _, _ = future.result()
+            check(same_artifacts(artifact_io.load(str(built)), want),
+                  f"etl: the parity graph's {key[6:]} build differs from "
+                  "N-Triples'")
+            out[key] = {"stages_s": stages}
     print("[etl] the parity graph as .trig, .n3, .owl and .json: each "
           "build equals the N-Triples build")
     return out
@@ -5220,19 +5300,12 @@ def relative_max(got: dict, want: dict) -> dict:
     return out
 
 
-def mesh_world(label: str, spec: str, backend: str, devices, jobs: dict,
-               refs: dict, smi: str) -> dict:
-    """One world's ranks through ``parallel.mesh.launch``: the first step
-    and the tasks' own ``run`` of each job, held against the
-    single-device run on this card (``refs``): the first step's loss
-    within 1e-5 relative and every gradient within 1e-4 of its largest
-    entry; later epochs' losses within 1e-3 relative, NC test accuracy
-    within one test node; the trained state bit-equal on every rank;
-    each rank's launches by kernel and route equal to the single-device
-    run's. Prints the epoch times, the bytes handed to the collectives per
-    step and each rank's peak memory, all of ranks sharing one card where
-    the devices repeat."""
-    import numpy as np
+def launch_world(spec: str, backend: str, devices, jobs: dict) -> tuple:
+    """One world's ranks on ``devices`` over ``backend`` through
+    ``parallel.mesh.launch``, each running the first step and the task's
+    own ``run`` of each of ``jobs`` under mesh ``spec``: the ranks'
+    results in rank order and the seconds from the first spawn to the
+    last join."""
     from mrgcn_tpu_torch.parallel import mesh as pmesh
     from mrgcn_tpu_torch.parallel import parity
     mine = []
@@ -5243,9 +5316,25 @@ def mesh_world(label: str, spec: str, backend: str, devices, jobs: dict,
     t0 = time.perf_counter()
     ranks = pmesh.launch(parity.rank_worker, len(devices), backend, devices,
                          args=(mine,))
-    wall = time.perf_counter() - t0
+    return ranks, time.perf_counter() - t0
+
+
+def mesh_world(label: str, spec: str, backend: str, devices, jobs: dict,
+               launched: tuple, refs: dict, smi: str) -> dict:
+    """One world's ranks (``launch_world``'s ``launched``): the first step
+    and the tasks' own ``run`` of each job, held against the
+    single-device run on this card (``refs``): the first step's loss
+    within 1e-5 relative and every gradient within 1e-4 of its largest
+    entry; later epochs' losses within 1e-3 relative, NC test accuracy
+    within one test node; the trained state bit-equal on every rank;
+    each rank's launches by kernel and route equal to the single-device
+    run's. Prints the epoch times, the bytes handed to the collectives per
+    step and each rank's peak memory, all of ranks sharing one card where
+    the devices repeat."""
+    ranks, wall = launched
     print(f"[mesh] {label}: {len(devices)} ranks, {len(jobs)} jobs, "
-          f"{wall:.1f} s from the first spawn to the last join")
+          f"{wall:.1f} s from the first spawn to the last join (beside the "
+          "other worlds)")
     shared = len(set(map(str, devices))) < len(devices)
     summary = {"world": label, "spec": spec, "backend": backend,
                "ranks": len(devices), "wall_s": wall, "jobs": {}}
@@ -5332,8 +5421,10 @@ def mesh_phase(work, tmp: Path, smi: str) -> dict:
     ``"2x2"`` on this one card over gloo (NCCL refuses two ranks on one
     GPU), each holding its jobs of ``MESH_WORLDS`` against the
     single-device run (``mesh_world``); (c) the same over NCCL, one card a
-    rank, where there are two cards or more. Returns each world's launch
+    rank, where there are two cards or more. The worlds run side by side
+    (their times are not scaling figures). Returns each world's launch
     counts by path for the kernels line."""
+    import concurrent.futures
     import torch
     from mrgcn_tpu_torch.parallel import mesh as pmesh
     from mrgcn_tpu_torch.parallel import parity
@@ -5344,14 +5435,53 @@ def mesh_phase(work, tmp: Path, smi: str) -> dict:
         start_path()
         refs[tag] = {"first": parity.first_step(job),
                      "train": parity.train(job)}
+    # (b) gloo worlds sharing this card; (c) NCCL over cards
+    worlds = [(f"gloo {spec}", spec, "gloo") for spec in MESH_WORLDS]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        worlds += [(f"nccl {spec}", spec, "nccl") for spec in MESH_WORLDS
+                   if math.prod(pmesh.mesh_shape(spec)) <= cards]
+    else:
+        print(f"mesh nccl multi-card: not run ({cards} card)")
+    devices = {}
+    for label, spec, backend in worlds:
+        data, model = pmesh.mesh_shape(spec)
+        devices[label] = ["cuda:0"] * (data * model) if backend == "gloo" \
+            else [f"cuda:{i}" for i in range(data * model)]
     paths = {}
     # (a) NCCL on the card, one rank, every collective through NCCL
     one_rank = {"one_rank_collectives": True}
-    one = pmesh.launch(parity.rank_worker, 1, "nccl", ["cuda:0"], args=([
-        {**jobs["dmg"], **one_rank, "work": "train",
-         "config": parity.with_mesh(jobs["dmg"]["config"], "1x1")},
-        {**jobs["mm"], **one_rank, "work": "first_step",
-         "config": parity.with_mesh(jobs["mm"]["config"], "1x1")}],))[0]
+    with concurrent.futures.ThreadPoolExecutor(len(worlds) + 1) as pool:
+        launched_one = pool.submit(
+            pmesh.launch, parity.rank_worker, 1, "nccl", ["cuda:0"], args=([
+                {**jobs["dmg"], **one_rank, "work": "train",
+                 "config": parity.with_mesh(jobs["dmg"]["config"], "1x1")},
+                {**jobs["mm"], **one_rank, "work": "first_step",
+                 "config": parity.with_mesh(jobs["mm"]["config"],
+                                            "1x1")}],))
+        launched = {label: pool.submit(
+            launch_world, spec, backend, devices[label],
+            {tag: jobs[tag] for tag in MESH_WORLDS[spec]})
+            for label, spec, backend in worlds}
+        paths["mesh_nccl_1_dmg"] = one_rank_world(
+            launched_one.result()[0], jobs, refs)
+        for label, spec, backend in worlds:
+            summary = mesh_world(
+                label, spec, backend, devices[label],
+                {tag: jobs[tag] for tag in MESH_WORLDS[spec]},
+                launched[label].result(), refs, smi)
+            for tag, report in summary["jobs"].items():
+                paths[f"mesh_{backend}_{spec}_{tag}"] = {
+                    "launches": report["launches_rank0"]}
+    print(f"[mesh] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+def one_rank_world(one, jobs: dict, refs: dict) -> dict:
+    """The mesh phase's (a): the one NCCL rank's trained DMG run and
+    multimodal first step (``one``) against the single-device runs
+    (``refs``). Returns the run's launch counts."""
+    from mrgcn_tpu_torch.parallel import parity
     run, first = one
     got = [h["train_loss"] for h in run["history"]]
     want = [h["train_loss"] for h in refs["dmg"]["train"]["history"]]
@@ -5384,27 +5514,7 @@ def mesh_phase(work, tmp: Path, smi: str) -> dict:
         err <= (MESH_NORM_RTOL if name.endswith(".*") else 1e-4)
         for name, err in grad_err.items()),
         f"mesh nccl 1 rank mm: loss {loss_err}, gradients {grad_err}")
-    paths["mesh_nccl_1_dmg"] = {"launches": run["launches"]}
-    # (b) gloo worlds sharing this card; (c) NCCL over cards
-    worlds = [(f"gloo {spec}", spec, "gloo") for spec in MESH_WORLDS]
-    cards = torch.cuda.device_count()
-    if cards >= 2:
-        worlds += [(f"nccl {spec}", spec, "nccl") for spec in MESH_WORLDS
-                   if math.prod(pmesh.mesh_shape(spec)) <= cards]
-    else:
-        print(f"mesh nccl multi-card: not run ({cards} card)")
-    for label, spec, backend in worlds:
-        data, model = pmesh.mesh_shape(spec)
-        devices = ["cuda:0"] * (data * model) if backend == "gloo" \
-            else [f"cuda:{i}" for i in range(data * model)]
-        summary = mesh_world(label, spec, backend, devices,
-                             {tag: jobs[tag] for tag in MESH_WORLDS[spec]},
-                             refs, smi)
-        for tag, report in summary["jobs"].items():
-            paths[f"mesh_{backend}_{spec}_{tag}"] = {
-                "launches": report["launches_rank0"]}
-    print(f"[mesh] the phase took {time.perf_counter() - t_phase:.1f} s")
-    return paths
+    return {"launches": run["launches"]}
 
 
 SOURCES = {
@@ -5580,8 +5690,10 @@ def main(argv=None) -> None:
                 os.environ.pop("MRGCN_VISION_WEIGHTS", None)
             del files
         if "encoders" in phases:
-            rows.update(encoder_kernel_phase(device))
-            conv_encoder_phase(device)
+            with timed_part("encoders kernel cases"):
+                rows.update(encoder_kernel_phase(device))
+            with timed_part("encoders conv card vs CPU"):
+                conv_encoder_phase(device)
             lap("encoders")
         if "text_attn" in phases:
             paths.update(text_attn_phase(work, tmp, device, rows))
@@ -5589,13 +5701,16 @@ def main(argv=None) -> None:
         if "conv_algorithms" in phases:
             conv_algorithm_phase()
         if "agree" in phases:
-            agreement_phase(tmp)
+            with timed_part("agree NC"):
+                agreement_phase(tmp)
             save_lp_artifact(str(tmp / "lp_small.npz"), num_nodes=3000,
                              num_props=12, num_train=20_000, num_valid=1000,
                              num_test=1500, seed=0)
-            lp_agreement(tmp, "lp_small", 3, budget=2 ** 20, ranks=True)
-            lp_agreement(tmp, "lp_small", 3, ranks=True, sliced=(256, 500))
-            lp_agreement(tmp, "lp", 1)     # full width: one step
+            with timed_part("agree LP"):
+                lp_agreement(tmp, "lp_small", 3, budget=2 ** 20, ranks=True)
+                lp_agreement(tmp, "lp_small", 3, ranks=True,
+                             sliced=(256, 500))
+                lp_agreement(tmp, "lp", 1)     # full width: one step
             lap("agree")
         if "mesh" in phases:
             paths.update(mesh_phase(work, tmp, smi))

@@ -1,11 +1,13 @@
-"""RoBERTa's byte-level BPE tokenizer in plain Python, without transformers.
+"""RoBERTa's and BLOOM's byte-level BPE tokenizers in plain Python,
+without transformers.
 
 The string vectorizer's tokenizer where the feature's configured
 HuggingFace tokenizer is a RoBERTa snapshot on disk (``tokenizer.json``,
-or ``vocab.json`` and ``merges.txt``). :meth:`ByteLevelBPE.encode` gives
+or ``vocab.json`` and ``merges.txt``) or a BLOOM one (``tokenizer.json``
+only: BLOOM has no slow tokenizer). :meth:`ByteLevelBPE.encode` gives
 the ids of the JAX package's ``AutoTokenizer.from_pretrained(name)
-.encode(text, add_special_tokens=True)``, which is the fast RoBERTa
-tokenizer of the Rust ``tokenizers`` library:
+.encode(text, add_special_tokens=True)``, which is the fast RoBERTa (or
+BLOOM) tokenizer of the Rust ``tokenizers`` library:
 
 1. added tokens (``<s>``, ``<pad>``, ``</s>``, ``<unk>``, ``<mask>`` and
    any other) are cut out of the raw text, leftmost and longest first,
@@ -24,6 +26,16 @@ tokenizer of the Rust ``tokenizers`` library:
    rank first and of equal ranks the leftmost, as the Rust library's
    ``Word::merge_all`` does;
 4. the ids are wrapped in ``<s> ... </s>`` (``RobertaProcessing``).
+
+BLOOM's ``tokenizer.json`` differs in its pre-tokenizer and its
+post-processor: a ``Sequence`` of a ``Split`` on ``BLOOM_SPLIT`` (in
+Oniguruma the class nested in the negated class is a union: a piece is
+an optional space and a run of anything but White_Space, ``(``, ``|``,
+``)`` and ``.,!?…。，、।۔،``), ``Isolated`` (the stretches between
+matches are pieces too), then ``ByteLevel`` without its regex (each
+piece whole is one part of step 3); its ``ByteLevel`` post-processor
+adds no ids. Its specials are ``<unk> <s> </s> <pad>`` (``BLOOM_SPECIALS``,
+``BloomTokenizerFast``'s defaults).
 
 The pattern is Python's ``re`` over explicit character classes taken from
 :mod:`unicodedata`, corrected where Oniguruma's tables are newer: the
@@ -80,14 +92,22 @@ _NUMBERS_EXTRA = _ranges(
     (0x1E5F1, 0x1E5FA))
 
 # tokenizer classes (``tokenizer_config.json``) and model types
-# (``config.json``) whose AutoTokenizer is the fast RoBERTa tokenizer
-BPE_CLASSES = ("RobertaTokenizer",)
-BPE_MODEL_TYPES = ("roberta", "roberta-prelayernorm")
+# (``config.json``) whose AutoTokenizer is the fast RoBERTa or BLOOM
+# tokenizer
+BPE_CLASSES = ("RobertaTokenizer", "BloomTokenizer")
+BPE_MODEL_TYPES = ("roberta", "roberta-prelayernorm", "bloom")
 # RobertaTokenizer's special tokens (its defaults)
 DEFAULT_SPECIALS = {"bos_token": "<s>", "eos_token": "</s>",
                     "sep_token": "</s>", "cls_token": "<s>",
                     "unk_token": "<unk>", "pad_token": "<pad>",
                     "mask_token": "<mask>"}
+# BloomTokenizerFast's special tokens (its defaults)
+BLOOM_SPECIALS = {"unk_token": "<unk>", "bos_token": "<s>",
+                  "eos_token": "</s>", "pad_token": "<pad>"}
+# the pattern of BLOOM's Split pre-tokenizer, as its tokenizer.json has it
+BLOOM_SPLIT = " ?[^(\\s|[.,!?…。，、।۔،])]+"
+# what that pattern's class holds besides ``\s``
+_BLOOM_STOPS = "(|).,!?…。，、।۔،"
 
 
 @functools.lru_cache(maxsize=None)
@@ -129,16 +149,55 @@ def char_classes() -> Dict[str, List[Tuple[int, int]]]:
     return out
 
 
+def _class(kind: str) -> str:
+    """The ranges of a class of :func:`char_classes`, for a ``re`` class."""
+    return "".join(f"\\U{lo:08x}" if lo == hi
+                   else f"\\U{lo:08x}-\\U{hi:08x}"
+                   for lo, hi in char_classes()[kind])
+
+
 @functools.lru_cache(maxsize=None)
 def split_pattern() -> "re.Pattern":
     """GPT-2's pattern over the explicit classes of :func:`char_classes`."""
-    def cls(kind):
-        return "".join(f"\\U{lo:08x}" if lo == hi
-                       else f"\\U{lo:08x}-\\U{hi:08x}"
-                       for lo, hi in char_classes()[kind])
-    s, L, N = cls("s"), cls("L"), cls("N")
+    s, L, N = _class("s"), _class("L"), _class("N")
     return re.compile(f"'s|'t|'re|'ve|'m|'ll|'d| ?[{L}]+| ?[{N}]+"
                       f"| ?[^{s}{L}{N}]+|[{s}]+(?![^{s}])|[{s}]+")
+
+
+@functools.lru_cache(maxsize=None)
+def bloom_pattern() -> "re.Pattern":
+    """``BLOOM_SPLIT`` as Oniguruma reads it, over the explicit
+    White_Space class: an optional space, then a run of anything but
+    White_Space and ``_BLOOM_STOPS``."""
+    return re.compile(f" ?[^{_class('s')}{re.escape(_BLOOM_STOPS)}]+")
+
+
+def gpt2_parts(text: str, add_prefix_space: bool = False) -> List[str]:
+    """``ByteLevel`` with its regex: ``text`` (a space put first where
+    ``add_prefix_space`` is set and it has none) split by GPT-2's
+    pattern."""
+    if add_prefix_space and text and not text.startswith(" "):
+        text = " " + text
+    return split_pattern().findall(text)
+
+
+def bloom_parts(text: str, add_prefix_space: bool = False) -> List[str]:
+    """BLOOM's ``Split``, ``Isolated`` (each match, and each non-empty
+    stretch between matches), then ``ByteLevel`` without its regex, which
+    puts a space before each piece that has none where
+    ``add_prefix_space`` is set."""
+    parts: List[str] = []
+    done = 0
+    for m in bloom_pattern().finditer(text):
+        if m.start() > done:
+            parts.append(text[done:m.start()])
+        parts.append(m.group())
+        done = m.end()
+    if done < len(text):
+        parts.append(text[done:])
+    if add_prefix_space:
+        parts = [p if p.startswith(" ") else " " + p for p in parts]
+    return parts
 
 
 @functools.lru_cache(maxsize=None)
@@ -146,12 +205,14 @@ def _byte_table() -> Dict[int, str]:
     return dict(enumerate(byte_symbols()))
 
 
-def pre_tokenize(text: str) -> List[str]:
-    """The byte-level pre-tokenizer's parts of ``text`` (no prefix
-    space), each as its bytes' symbols."""
+def pre_tokenize(text: str, parts=gpt2_parts,
+                 add_prefix_space: bool = False) -> List[str]:
+    """The byte-level pre-tokenizer's parts of ``text`` (``parts``:
+    :func:`gpt2_parts` or :func:`bloom_parts`), each as its bytes'
+    symbols."""
     table = _byte_table()
     return [part.encode("utf-8").decode("latin-1").translate(table)
-            for part in split_pattern().findall(text)]
+            for part in parts(text, add_prefix_space)]
 
 
 class AddedToken:
@@ -229,18 +290,20 @@ def resolve_specials(added: Dict[str, AddedToken], tok_cfg: Dict,
     ``tokenizer_config.json``'s ``added_tokens_decoder``; each special
     token (``defaults``, or ``tokenizer_config.json``'s) missing from them
     at its vocabulary id, or the next free id in transformers' order;
-    the mask token with ``lstrip`` unless ``tokenizer_config.json`` gives
-    its flags, and then with those of ``tokenizer.json`` where it is among
-    that file's ``file_tokens``. Returns the special tokens' contents by
-    name."""
+    the mask token, where ``defaults`` has one, with ``lstrip`` unless
+    ``tokenizer_config.json`` gives its flags, and then with those of
+    ``tokenizer.json`` where it is among that file's ``file_tokens``.
+    Returns the special tokens' contents by name."""
     names = {k: token_content(tok_cfg.get(k, v))
              for k, v in defaults.items()}
     for token_id, token in tok_cfg.get("added_tokens_decoder", {}).items():
         added[token["content"]] = AddedToken(
             token["content"], int(token_id),
             **_flags(token, "tokenizer_config.json", where))
-    mask = names["mask_token"]
-    if isinstance(tok_cfg.get("mask_token"), dict):
+    mask = names.get("mask_token")
+    if mask is None:
+        mask_flags = None
+    elif isinstance(tok_cfg.get("mask_token"), dict):
         mask_flags = added[mask].flags() if mask in file_tokens else \
             _flags(tok_cfg["mask_token"], "tokenizer_config.json", where)
     elif mask in {token_content(t) for t in
@@ -251,12 +314,13 @@ def resolve_specials(added: Dict[str, AddedToken], tok_cfg: Dict,
     next_id = len(vocab) + sum(t not in vocab for t in added)
     for key in ("bos_token", "eos_token", "unk_token", "sep_token",
                 "pad_token", "cls_token", "mask_token"):
-        token = names[key]
-        if token not in added:
+        token = names.get(key)
+        if token is not None and token not in added:
             added[token] = AddedToken(token, vocab.get(token, next_id),
                                       normalized=True)
             next_id += token not in vocab
-    added[mask] = AddedToken(mask, added[mask].id, **mask_flags)
+    if mask is not None:
+        added[mask] = AddedToken(mask, added[mask].id, **mask_flags)
     return names
 
 
@@ -267,7 +331,9 @@ class ByteLevelBPE:
     in rank order; ``added`` the added tokens; ``wrap`` the ``(cls,
     sep)`` ids put around the ids (None: nothing); ``unk_token`` the
     model's unknown token (None: a symbol outside the vocabulary is
-    dropped), ``fuse_unk`` whether unknown symbols in a row make one."""
+    dropped), ``fuse_unk`` whether unknown symbols in a row make one;
+    ``parts`` the pre-tokenizer (:func:`gpt2_parts`, RoBERTa's, or
+    :func:`bloom_parts`)."""
 
     def __init__(self, vocab: Dict[str, int],
                  merges: Sequence[Tuple[str, str]],
@@ -275,7 +341,7 @@ class ByteLevelBPE:
                  wrap: Optional[Tuple[int, int]] = None,
                  add_prefix_space: bool = False,
                  unk_token: Optional[str] = None, fuse_unk: bool = False,
-                 ignore_merges: bool = False):
+                 ignore_merges: bool = False, parts=gpt2_parts):
         self.vocab = vocab
         self.merges: Dict[Tuple[int, int], Tuple[int, int]] = {}
         for rank, (left, right) in enumerate(merges):
@@ -292,6 +358,7 @@ class ByteLevelBPE:
         self.unk_id = None if unk_token is None else vocab[unk_token]
         self.fuse_unk = fuse_unk
         self.ignore_merges = ignore_merges
+        self.parts = parts
         self._passes = [p for p in (
             added_pattern([t for t in self.added if not t.normalized]),
             added_pattern([t for t in self.added if t.normalized])) if p]
@@ -322,10 +389,8 @@ class ByteLevelBPE:
         return pieces
 
     def _encode_piece(self, text: str) -> List[int]:
-        if self.add_prefix_space and text and not text.startswith(" "):
-            text = " " + text
         ids: List[int] = []
-        for word in pre_tokenize(text):
+        for word in pre_tokenize(text, self.parts, self.add_prefix_space):
             ids += self._word_ids(word)
         return ids
 
@@ -404,14 +469,17 @@ def _check_spec(spec: Dict, directory: Path) -> None:
     if spec.get("normalizer") is not None:
         raise ValueError(f"tokenizer.json BPE normalizer "
                          f"{spec['normalizer'].get('type')!r} in "
-                         f"{directory}: only RoBERTa's byte-level BPE, "
-                         f"which has none, is ported")
+                         f"{directory}: only RoBERTa's and BLOOM's "
+                         f"byte-level BPE, which have none, are ported")
     pre = spec.get("pre_tokenizer") or {}
-    if pre.get("type") != "ByteLevel" or not pre.get("use_regex", True):
+    if pre.get("type") == "Sequence":
+        _check_bloom_sequence(pre, directory)
+    elif pre.get("type") != "ByteLevel" or not pre.get("use_regex", True):
         raise ValueError(f"tokenizer.json BPE pre_tokenizer "
                          f"{pre.get('type')!r} in {directory}: only "
                          f"RoBERTa's byte-level BPE (ByteLevel, use_regex) "
-                         f"is ported")
+                         f"and BLOOM's (Sequence of Split and ByteLevel) "
+                         f"are ported")
     for key, bad in (("dropout", None), ("byte_fallback", False),
                      ("continuing_subword_prefix", ""),
                      ("end_of_word_suffix", "")):
@@ -422,24 +490,68 @@ def _check_spec(spec: Dict, directory: Path) -> None:
     post = (spec.get("post_processor") or {}).get("type")
     if post not in ("RobertaProcessing", "ByteLevel"):
         raise ValueError(f"tokenizer.json BPE post_processor {post!r} in "
-                         f"{directory}: only RoBERTa's <s> ... </s> is "
-                         f"ported")
+                         f"{directory}: only RoBERTa's <s> ... </s> and "
+                         f"ByteLevel (no ids) are ported")
+
+
+def _check_bloom_sequence(pre: Dict, directory: Path) -> None:
+    """Raise ``ValueError`` naming the part where the ``Sequence``
+    pre-tokenizer ``pre`` is not BLOOM's: ``Split`` on ``BLOOM_SPLIT``,
+    ``Isolated``, not inverted, then ``ByteLevel`` without a prefix space
+    or its regex."""
+    parts = pre.get("pretokenizers") or []
+    kinds = [p.get("type") for p in parts]
+    if kinds != ["Split", "ByteLevel"]:
+        raise ValueError(f"tokenizer.json BPE pre_tokenizer Sequence of "
+                         f"{kinds} in {directory}: only BLOOM's "
+                         f"['Split', 'ByteLevel'] is ported")
+    split, byte_level = parts
+    got = (split.get("pattern"), split.get("behavior"),
+           bool(split.get("invert", False)))
+    want = ({"Regex": BLOOM_SPLIT}, "Isolated", False)
+    if got != want:
+        raise ValueError(f"tokenizer.json BPE pre_tokenizer Split "
+                         f"(pattern, behavior, invert) {got!r} in "
+                         f"{directory}: only BLOOM's {want!r} is ported")
+    got = (bool(byte_level.get("add_prefix_space", True)),
+           bool(byte_level.get("use_regex", True)))
+    if got != (False, False):
+        raise ValueError(f"tokenizer.json BPE pre_tokenizer ByteLevel "
+                         f"after Split with (add_prefix_space, use_regex) "
+                         f"{got!r} in {directory}: only BLOOM's "
+                         f"(False, False) is ported")
 
 
 def load(directory: Path) -> Optional[ByteLevelBPE]:
     """The tokenizer of the snapshot ``directory`` as ``AutoTokenizer``
     builds it, or None where it holds neither ``tokenizer.json`` nor
-    ``vocab.json`` and ``merges.txt``. Raises ``ValueError`` naming what
-    is not RoBERTa's byte-level BPE, and ``RuntimeError`` where this
-    Python's Unicode database is not ``UNIDATA_VERSION``."""
+    ``vocab.json`` and ``merges.txt``. A BLOOM snapshot (its tokenizer
+    class, or else its model type) is read from ``tokenizer.json`` alone:
+    ``BloomTokenizerFast`` has no slow tokenizer to convert. Raises
+    ``ValueError`` naming what is not RoBERTa's or BLOOM's byte-level
+    BPE, and ``RuntimeError`` where this Python's Unicode database is not
+    ``UNIDATA_VERSION``."""
     tok_cfg = read_json(directory / "tokenizer_config.json")
+    cls_name = tok_cfg.get("tokenizer_class")
+    bloom = cls_name.removesuffix("Fast") == "BloomTokenizer" if cls_name \
+        else read_json(directory / "config.json").get("model_type") \
+        == "bloom"
     has_json = (directory / "tokenizer.json").is_file()
+    if bloom and not has_json:
+        present = [f for f in ("vocab.json", "merges.txt")
+                   if (directory / f).is_file()]
+        if not present:
+            return None
+        raise ValueError(f"BLOOM tokenizer in {directory} with "
+                         f"{', '.join(present)} and no tokenizer.json: "
+                         f"BloomTokenizerFast reads tokenizer.json only")
     if not has_json and not all((directory / f).is_file()
                                 for f in ("vocab.json", "merges.txt")):
         return None
     added: Dict[str, AddedToken] = {}
     model: Dict = {}
     wrap = None
+    parts = gpt2_parts
     if has_json:
         spec = read_json(directory / "tokenizer.json")
         _check_spec(spec, directory)
@@ -457,6 +569,8 @@ def load(directory: Path) -> Optional[ByteLevelBPE]:
         post = spec["post_processor"]
         if post["type"] == "RobertaProcessing":
             wrap = (post["cls"][1], post["sep"][1])
+        if spec["pre_tokenizer"]["type"] == "Sequence":
+            parts = bloom_parts
     else:
         vocab = read_json(directory / "vocab.json")
         # RobertaTokenizer drops the first line (the #version header) and
@@ -464,8 +578,13 @@ def load(directory: Path) -> Optional[ByteLevelBPE]:
         lines = (directory / "merges.txt").read_text(
             encoding="utf-8").split("\n")[1:-1]
         merges = list(dict.fromkeys(tuple(line.split()) for line in lines))
-    names = resolve_specials(added, tok_cfg, vocab, DEFAULT_SPECIALS,
+    names = resolve_specials(added, tok_cfg, vocab,
+                             BLOOM_SPECIALS if bloom else DEFAULT_SPECIALS,
                              "byte-level BPE")
+    # transformers sets a ByteLevel pre-tokenizer's add_prefix_space to the
+    # config's; inside BLOOM's Sequence only BloomTokenizerFast does
+    add_prefix_space = bool(tok_cfg.get("add_prefix_space", False)) and (
+        bloom or parts is gpt2_parts)
     if not has_json:   # the converter's RobertaProcessing
         wrap = (added[names["cls_token"]].id, added[names["sep_token"]].id)
     if unicodedata.unidata_version != UNIDATA_VERSION:
@@ -476,7 +595,7 @@ def load(directory: Path) -> Optional[ByteLevelBPE]:
             f"AutoTokenizer's; take the tables anew")
     return ByteLevelBPE(
         vocab, merges, added.values(), wrap=wrap,
-        add_prefix_space=bool(tok_cfg.get("add_prefix_space", False)),
+        add_prefix_space=add_prefix_space,
         unk_token=model.get("unk_token"),
         fuse_unk=bool(model.get("fuse_unk", False)),
-        ignore_merges=bool(model.get("ignore_merges", False)))
+        ignore_merges=bool(model.get("ignore_merges", False)), parts=parts)

@@ -9,7 +9,8 @@ HuggingFace tokenizer is on disk (a directory or the hub cache, with its
 transformers' offline ``AutoTokenizer`` needs), BERT's WordPiece
 (:mod:`.wordpiece`: ``vocab.txt`` or a WordPiece ``tokenizer.json``),
 RoBERTa's byte-level BPE (:mod:`.bpe`: ``tokenizer.json``, or
-``vocab.json`` and ``merges.txt``) or XLM-R's and ALBERT's SentencePiece
+``vocab.json`` and ``merges.txt``), BLOOM's (:mod:`.bpe`:
+``tokenizer.json``) or XLM-R's and ALBERT's SentencePiece
 Unigram (:mod:`.unigram`: ``tokenizer.json``), all without transformers,
 which give the ids of the JAX package's ``AutoTokenizer``. The tokenizer
 class of ``tokenizer_config.json``, else ``config.json``'s model type,
@@ -87,8 +88,8 @@ def tokenizer_module(directory):
     kind = f"class {cls_name!r}" if cls_name \
         else f"of model type {model_type!r}"
     raise ValueError(f"tokenizer {kind} in {directory}: the port runs "
-                     f"BERT's WordPiece, RoBERTa's byte-level BPE and "
-                     f"XLM-R's and ALBERT's SentencePiece Unigram")
+                     f"BERT's WordPiece, RoBERTa's and BLOOM's byte-level "
+                     f"BPE and XLM-R's and ALBERT's SentencePiece Unigram")
 
 
 def load_tokenizer(feature_config: Dict):

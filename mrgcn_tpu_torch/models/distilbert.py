@@ -68,9 +68,9 @@ class _Dense(nn.Module):
 # the feed-forward activations the config's ``activation`` may name
 ACTIVATIONS = {"gelu": F.gelu, "relu": F.relu}
 # the text backbones' ``model_type``s the port runs: DistilBERT here, the
-# others in :mod:`.bert` and :mod:`.albert`
+# others in :mod:`.bert`, :mod:`.albert` and :mod:`.bloom`
 TEXT_BACKBONE_TYPES = ("distilbert", "bert", "roberta", "xlm-roberta",
-                       "roberta-prelayernorm", "albert")
+                       "roberta-prelayernorm", "albert", "bloom")
 # the other families of transformers' ``FlaxAutoModel``: what the JAX
 # package's encoder meets at its first step, which calls the module with
 # ``input_ids`` and ``attention_mask`` alone
@@ -90,18 +90,11 @@ JAX_FIRST_STEP_FAILS = {
      "vit", "wav2vec2", "whisper"):
         "an error: it is no text encoder",
 }
-# families the JAX package's encoder runs that the port does not yet
-QUEUED_TEXT_BACKBONES = {
-    "bloom": "ALiBi, a causal mask and its own byte-level BPE"}
 
 
 def unported_reason(model_type: str) -> str:
     """Why the port does not run a text backbone of ``model_type``, and
     what the JAX package does with it."""
-    if model_type in QUEUED_TEXT_BACKBONES:
-        return (f"queued to port ({QUEUED_TEXT_BACKBONES[model_type]}); "
-                "the JAX package's encoder runs it, pooling the first "
-                "causal position")
     for families, error in JAX_FIRST_STEP_FAILS.items():
         if model_type in families:
             return ("the JAX package's FlaxAutoModel loads it and its "
@@ -195,7 +188,7 @@ class FrozenBackbone(nn.Module):
     ``hidden_dim`` (the feed-forward width) and ``position_embeddings``,
     and defines ``_encode(ids, mask)``; ``first_position`` is the
     position embedding of the first token past which ``L`` tokens must
-    fit."""
+    fit (a model without position embeddings, BLOOM, takes any ``L``)."""
 
     first_position = 0
 
@@ -225,7 +218,8 @@ class FrozenBackbone(nn.Module):
         mask = torch.ones_like(ids, dtype=torch.float32) \
             if attention_mask is None else attention_mask.float()
         N, L = ids.shape
-        positions = self.position_embeddings.shape[0]
+        table = getattr(self, "position_embeddings", None)
+        positions = L if table is None else table.shape[0]
         if self.first_position + L > positions:
             raise ValueError(f"{L} tokens; the model has {positions} "
                              "positions" + (

@@ -7,12 +7,16 @@ zero biases: flax's initializers there), the reference's ``pre_fc`` /
 ``fc`` (reference: mrgcn/models/{transformer,imagecnn}.py).
 
 * :class:`PretrainedTextEncoder`: DistilBERT (:mod:`.distilbert`), BERT,
-  RoBERTa, XLM-R or RoBERTa-PreLayerNorm (:mod:`.bert`) or ALBERT
-  (:mod:`.albert`) over token ids with ``attention_mask = tokens !=
-  pad_id``, pooled at the first position (CLS). The JAX package masks
-  ``tokens > 0``, which is the same for the BERT family and ALBERT (pad
-  0) and wrong for the RoBERTa family (``<s>`` 0, ``<pad>`` 1): it hides
-  the CLS key and lets every pad be attended to.
+  RoBERTa, XLM-R or RoBERTa-PreLayerNorm (:mod:`.bert`), ALBERT
+  (:mod:`.albert`) or BLOOM (:mod:`.bloom`) over token ids with
+  ``attention_mask = tokens != pad_id``, pooled at the first position
+  (CLS; BLOOM's first token, which its causal mask lets see itself
+  alone). The JAX package masks ``tokens > 0``, which is the same for
+  the BERT family and ALBERT (pad 0), the same at BLOOM's real tokens
+  (pad 3, right padding: a causal query never sees a later pad, and
+  ``<unk>`` 0 is never emitted by a byte-level BPE) and wrong for the
+  RoBERTa family (``<s>`` 0, ``<pad>`` 1): it hides the CLS key and lets
+  every pad be attended to.
 * :class:`PretrainedImageEncoder`: MobileNetV2 features (:mod:`.mobilenet`)
   over normalized ``(N, 3, H, W)`` images, averaged over H and W.
 
@@ -56,12 +60,14 @@ def load_text_backbone(hub_spec):
     ``model_type`` picks the module: ``distilbert``
     (:class:`.distilbert.DistilBert`), ``bert``, ``roberta``,
     ``xlm-roberta`` or ``roberta-prelayernorm`` (:class:`.bert.Bert`),
-    ``albert`` (:class:`.albert.Albert`); another type raises
+    ``albert`` (:class:`.albert.Albert`), ``bloom``
+    (:class:`.bloom.Bloom`); another type raises
     ``NotImplementedError``, naming it and what the JAX package does
     with it. Files that are there but do not load raise too: the JAX
     package logs it and trains the from-scratch encoder instead."""
     from mrgcn_tpu_torch.models.albert import Albert
     from mrgcn_tpu_torch.models.bert import BERT_TYPES, Bert
+    from mrgcn_tpu_torch.models.bloom import Bloom
     from mrgcn_tpu_torch.models.distilbert import (TEXT_BACKBONE_TYPES,
                                                    DistilBert, backbone_type)
     name = hub_model_name(hub_spec)
@@ -74,8 +80,8 @@ def load_text_backbone(hub_spec):
                                TEXT_BACKBONE_TYPES)
     logger.info("Using pretrained language model %s (%s, frozen)", name,
                 model_type)
-    cls = Bert if model_type in BERT_TYPES else \
-        Albert if model_type == "albert" else DistilBert
+    cls = Bert if model_type in BERT_TYPES else {
+        "albert": Albert, "bloom": Bloom}.get(model_type, DistilBert)
     return cls.from_pretrained(snapshot)
 
 

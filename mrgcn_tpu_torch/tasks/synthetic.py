@@ -139,6 +139,21 @@ ALBERT_XXLARGE = {
     "num_hidden_layers": 12, "pad_token_id": 0,
     "position_embedding_type": "absolute", "type_vocab_size": 2,
     "vocab_size": 30000}
+# bigscience/bloom-560m's published config.json, with its legacy names
+# (``n_embed``, ``num_attention_heads``) as transformers' BloomConfig
+# reads them: 24 layers, 1,024 wide, 16 heads, feed-forward 4,096
+BLOOM_560M = {
+    "apply_residual_connection_post_layernorm": False,
+    "architectures": ["BloomForCausalLM"], "attention_dropout": 0.0,
+    "attention_softmax_in_fp32": True, "bias_dropout_fusion": True,
+    "bos_token_id": 1, "eos_token_id": 2, "hidden_dropout": 0.0,
+    "initializer_range": 0.02, "layer_norm_epsilon": 1e-05,
+    "masked_softmax_fusion": True, "model_type": "bloom", "n_embed": 1024,
+    "n_inner": None, "n_layer": 24, "num_attention_heads": 16,
+    "offset_alibi": 100, "pad_token_id": 3, "pretraining_tp": 1,
+    "seq_length": 2048, "skip_bias_add": True, "skip_bias_add_qkv": False,
+    "slow_but_exact": False, "unk_token_id": 0, "use_cache": True,
+    "vocab_size": 250880}
 # a BERT WordPiece vocabulary's special ids, and the first id of its
 # word pieces
 WORDPIECE_SPECIALS = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102,
@@ -156,6 +171,8 @@ UNIGRAM_SPECIALS = {
                     "XLMRobertaTokenizer"),
     "albert": (("<pad>", "<unk>", "[CLS]", "[SEP]", "[MASK]"), "<unk>",
                "AlbertTokenizer")}
+# BLOOM's byte-level BPE's special ids, first in its vocabulary
+BLOOM_BPE_SPECIALS = {"<unk>": 0, "<s>": 1, "</s>": 2, "<pad>": 3}
 # the merges of the small byte-level BPE that save_byte_bpe writes
 BYTE_BPE_MERGES = ("Ġ t", "h e", "i n", "e r", "a n", "Ġt he", "o n",
                    "r e", "Ġ a", "e n", "Ġ s", "a t", "Ġ c", "o r")
@@ -600,6 +617,31 @@ def albert_params(config: Dict, seed: int = 0) -> Dict:
             "pooler": dense(dim, dim)}
 
 
+def bloom_params(config: Dict, seed: int = 0) -> Dict:
+    """A BLOOM parameter tree in flax's layout (``FlaxBloomModel.params``:
+    ``word_embeddings``, ``word_embeddings_layernorm``, ``h/<i>`` with
+    ``input_layernorm``, ``self_attention/{query_key_value,dense}``,
+    ``post_attention_layernorm``, ``mlp/{dense_h_to_4h,dense_4h_to_h}``,
+    then ``ln_f``) at ``config``'s widths (``models.bloom.bloom_sizes``),
+    drawn as :func:`distilbert_params` draws."""
+    from mrgcn_tpu_torch.models.bloom import BLOOM_DEFAULTS, bloom_sizes
+    normal, dense, norm = _normal_params(config, seed)
+    dim, n_layers, _ = bloom_sizes(config)
+    layers = {}
+    for i in range(n_layers):
+        layers[str(i)] = {
+            "input_layernorm": norm(dim),
+            "self_attention": {"query_key_value": dense(dim, 3 * dim),
+                               "dense": dense(dim, dim)},
+            "post_attention_layernorm": norm(dim),
+            "mlp": {"dense_h_to_4h": dense(dim, 4 * dim),
+                    "dense_4h_to_h": dense(4 * dim, dim)}}
+    vocab = int(config.get("vocab_size", BLOOM_DEFAULTS["vocab_size"]))
+    return {"word_embeddings": {"embedding": normal(vocab, dim)},
+            "word_embeddings_layernorm": norm(dim), "h": layers,
+            "ln_f": norm(dim)}
+
+
 # --------------------------------------------------------------------------
 # SentencePiece Unigram tokenizers and the strings they read
 # --------------------------------------------------------------------------
@@ -876,6 +918,66 @@ def save_byte_bpe(directory) -> None:
         encoding="utf-8")
 
 
+def save_bloom_bpe(directory, vocab_size: int) -> Path:
+    """Write a byte-level BPE in BLOOM's layout into ``directory``:
+    ``tokenizer.json`` (no normalizer; the pre-tokenizer a ``Sequence`` of
+    BLOOM's ``Split`` on ``encodings.xsd.bpe.BLOOM_SPLIT``, ``Isolated``,
+    and ``ByteLevel`` without a prefix space or its regex; a ``ByteLevel``
+    post-processor, which adds no ids; ``BLOOM_BPE_SPECIALS`` first, the
+    256 byte symbols, then the products of :func:`bloom_merges` while they
+    fit in ``vocab_size``) and ``tokenizer_config.json`` naming
+    ``BloomTokenizerFast`` with its specials, as bigscience/bloom's. The
+    merges, in rank order, cover :func:`text_literals`' words: each
+    syllable from its two letters, capitalised too, each after the
+    space's symbol ``Ġ``, the digits after ``Ġ``, two-digit runs, then
+    words of two syllables after ``Ġ`` and alone."""
+    from mrgcn_tpu_torch.encodings.xsd.bpe import BLOOM_SPLIT, byte_symbols
+    vocab = dict(BLOOM_BPE_SPECIALS)
+    for symbol in byte_symbols():
+        vocab.setdefault(symbol, len(vocab))
+    words = _SYLLABLES + [w.capitalize() for w in _SYLLABLES]
+    digits = "0123456789"
+    candidates = [f"{w[0]} {w[1]}" for w in words] \
+        + [f"Ġ {w}" for w in words] + [f"Ġ {d}" for d in digits] \
+        + [f"{a} {b}" for a in digits for b in digits] \
+        + [f"Ġ{a} {b}" for a in words for b in _SYLLABLES] \
+        + [f"{a} {b}" for a in words for b in _SYLLABLES]
+    merges = []
+    for merge in candidates:
+        if len(vocab) >= vocab_size:
+            break
+        vocab.setdefault(merge.replace(" ", ""), len(vocab))
+        merges.append(merge)
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False,
+                  "trim_offsets": True, "use_regex": False}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [
+            {"id": i, "content": t, "single_word": False, "lstrip": False,
+             "rstrip": False, "normalized": False, "special": True}
+            for t, i in BLOOM_BPE_SPECIALS.items()],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": BLOOM_SPLIT},
+             "behavior": "Isolated", "invert": False}, byte_level]},
+        "post_processor": dict(byte_level, add_prefix_space=True,
+                               trim_offsets=False),
+        "decoder": dict(byte_level, add_prefix_space=True),
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "vocab": vocab, "merges": merges}}
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    (directory / "tokenizer.json").write_text(
+        json.dumps(spec, ensure_ascii=False), encoding="utf-8")
+    (directory / "tokenizer_config.json").write_text(json.dumps(
+        {"unk_token": "<unk>", "eos_token": "</s>", "bos_token": "<s>",
+         "pad_token": "<pad>", "tokenizer_class": "BloomTokenizerFast",
+         "padding_side": "left"}))
+    return directory
+
+
 def save_text_backbone_snapshot(cache_dir, name: str =
                                 "distilbert-base-multilingual-cased",
                                 config: Optional[Dict] = None,
@@ -884,17 +986,20 @@ def save_text_backbone_snapshot(cache_dir, name: str =
     """Write a random text backbone (``config``: a ``config.json``,
     ``DISTILBERT_MULTILINGUAL`` by default, or ``BERT_MULTILINGUAL``,
     ``ROBERTA_BASE``, ``XLM_ROBERTA_BASE``, ``ROBERTA_PRELAYERNORM``,
-    ``ALBERT_XXLARGE`` or another of their types) into the hub cache
-    ``cache_dir`` as the hub lays out ``name`` (``models--<name>/refs/main``
-    naming ``snapshots/<revision>/``), with ``config.json``,
+    ``ALBERT_XXLARGE``, ``BLOOM_560M`` or another of their types) into the
+    hub cache ``cache_dir`` as the hub lays out ``name``
+    (``models--<name>/refs/main`` naming ``snapshots/<revision>/``), with
+    ``config.json``,
     ``tokenizer_config.json``, the tokenizer's files and
     ``flax_model.msgpack`` (:func:`distilbert_params`,
-    :func:`bert_params` or :func:`albert_params`). The tokenizer is a
-    WordPiece ``vocab.txt`` of the model's vocabulary for DistilBERT and
-    BERT, the small byte-level BPE of :func:`save_byte_bpe` for RoBERTa
-    and RoBERTa-PreLayerNorm, a Unigram ``tokenizer.json``
-    (:func:`save_unigram_tokenizer`, as many pieces as the model's
-    vocabulary) for XLM-R and ALBERT. Returns the snapshot directory."""
+    :func:`bert_params`, :func:`albert_params` or :func:`bloom_params`).
+    The tokenizer is a WordPiece ``vocab.txt`` of the model's vocabulary
+    for DistilBERT and BERT, the small byte-level BPE of
+    :func:`save_byte_bpe` for RoBERTa and RoBERTa-PreLayerNorm, a Unigram
+    ``tokenizer.json`` (:func:`save_unigram_tokenizer`, as many pieces as
+    the model's vocabulary) for XLM-R and ALBERT, BLOOM's layout
+    (:func:`save_bloom_bpe`, within the model's vocabulary) for BLOOM.
+    Returns the snapshot directory."""
     from mrgcn_tpu_torch.utils import flax_msgpack
     config = dict(config or DISTILBERT_MULTILINGUAL)
     model_type = config.get("model_type", "distilbert")
@@ -917,8 +1022,10 @@ def save_text_backbone_snapshot(cache_dir, name: str =
     elif model_type in UNIGRAM_SPECIALS:
         save_unigram_tokenizer(snapshot, model_type,
                                int(config["vocab_size"]), seed)
-    params = {"distilbert": distilbert_params,
-              "albert": albert_params}.get(model_type, bert_params)
+    elif model_type == "bloom":
+        save_bloom_bpe(snapshot, int(config["vocab_size"]))
+    params = {"distilbert": distilbert_params, "albert": albert_params,
+              "bloom": bloom_params}.get(model_type, bert_params)
     flax_msgpack.save(snapshot / "flax_model.msgpack",
                       params(config, seed))
     return snapshot

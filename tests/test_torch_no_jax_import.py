@@ -61,6 +61,7 @@ def test_the_walk_finds_the_port():
             "mrgcn_tpu_torch/encodings/xsd/charsmap.py",
             "mrgcn_tpu_torch/encodings/xsd/graphemes.py",
             "mrgcn_tpu_torch/models/albert.py",
+            "mrgcn_tpu_torch/models/bloom.py",
             "mrgcn_tpu_torch/models/mobilenet.py",
             "mrgcn_tpu_torch/models/pretrained.py",
             "mrgcn_tpu_torch/utils/flax_msgpack.py",
@@ -233,6 +234,34 @@ with tempfile.TemporaryDirectory() as tmp:
     res = run.run_cli(["-c", cfg, "-i", art, "-o", tmp, "--dry_run"])
     text = res.model.xsd_string_0
     assert isinstance(text.backbone, Albert) and text.pad_id == 0
+    assert len(res.history) == 1
+
+    # and on a tiny BLOOM, its strings tokenized by the port's BLOOM BPE
+    from mrgcn_tpu_torch.models.bloom import Bloom
+    tiny = dict(synthetic.BLOOM_560M, n_embed=16, n_layer=1,
+                num_attention_heads=2, vocab_size=600)
+    synthetic.save_text_backbone_snapshot(os.environ["HF_HUB_CACHE"],
+                                          "bigscience/bloom-560m",
+                                          config=tiny)
+    feature = {"datatype": "xsd.string", "tokenizer": {
+        "config": ["hf", "tokenizer", "bigscience/bloom-560m"],
+        "pad_token": "<pad>"}}
+    ids, _, lengths = synthetic.tokenized_strings(
+        feature, synthetic.text_literals(10, max_words=6))
+    art = os.path.join(tmp, "bl.npz")
+    save_nc_artifact(art, n, R, rng.integers(0, n, E), rng.integers(0, n, E),
+                     rng.integers(0, R, E), rng.random(E).astype("float32"),
+                     rng.choice(n, 40, replace=False),
+                     rng.integers(0, 3, 40), 3, num_eval=10,
+                     F=multimodal_features(n, num_numeric=20, num_years=10,
+                                           token_strings=(ids, lengths)))
+    cfg = os.path.join(tmp, "bl.toml")
+    chip_smoke.write_config(Path(cfg), 1, 2, 8, features=chip_smoke.MULTIMODAL,
+                            backbones=True,
+                            text_model=("bigscience/bloom-560m", "<pad>"))
+    res = run.run_cli(["-c", cfg, "-i", art, "-o", tmp, "--dry_run"])
+    text = res.model.xsd_string_0
+    assert isinstance(text.backbone, Bloom) and text.pad_id == 3
     assert len(res.history) == 1
 loaded = [m for m in sys.modules if m.split(".")[0] in
           ("jax", "jaxlib", "flax", "optax", "mrgcn_tpu", "transformers",

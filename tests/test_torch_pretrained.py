@@ -303,7 +303,7 @@ def test_backbone_is_frozen_and_off_the_tree(tmp_path):
     ({"model_type": "bart"}, "'bart'.*a TypeError: its decoder inputs are "
                              "required"),
     ({"model_type": "vit"}, "'vit'.*an error: it is no text encoder"),
-    ({"model_type": "bloom"}, "'bloom'.*queued to port"),
+    ({"model_type": "bloom"}, "'bloom': this module reads distilbert"),
     ({"model_type": "deberta"}, "'deberta'.*FlaxAutoModel does not map "
                                 "it"),
     ({"model_type": "albert"}, "'albert': this module reads distilbert")],
@@ -312,9 +312,10 @@ def test_backbone_is_frozen_and_off_the_tree(tmp_path):
 def test_unsupported_text_backbones_raise(bad, match):
     """Each kind of refusal names the type and what the JAX package does
     with it: a family its encoder cannot call fails at its first step
-    there, BLOOM runs there and waits here, a type FlaxAutoModel does not
-    map trains the JAX package's from-scratch encoder; a type the port
-    runs elsewhere names the loader that picks its module."""
+    there, a type FlaxAutoModel does not map trains the JAX package's
+    from-scratch encoder; a type the port runs elsewhere (ALBERT, BLOOM:
+    the case once named for BLOOM's queue) names the loader that picks
+    its module."""
     params = synthetic.distilbert_params(TINY)
     DistilBert(TINY, params)
     with pytest.raises(NotImplementedError, match=match):
