@@ -5,10 +5,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, the CUDA toolkit (``nvcc``) and no network, and it fails (exit code
 other than 0, no result line) where CUDA is absent or the repository is not
 beside it. ``--only a,b`` runs some phases alone (``stream``, ``compose``,
-``nc``, ``backbones``, ``backbones_bert``, ``minibatch``, ``lp``,
-``wide_basis``,
-``checkpoint``, ``etl``, ``encoders``, ``text_attn``, ``agree``,
-``mesh``; ``scatter_dot``,
+``nc``, ``nobases``, ``backbones``, ``backbones_bert``, ``minibatch``,
+``lp``, ``wide_basis``, ``checkpoint``, ``etl``, ``encoders``,
+``text_attn``, ``agree``, ``mesh``; ``scatter_dot``,
 the ``fused_scatter_dot`` cases of ``stream``; ``profile_stream``, the
 scatters' device time by kernel on every main-path stream; and
 ``profile`` /
@@ -109,7 +108,7 @@ prints no result line. Phases, each printing its own lines:
    cache that ``HF_HUB_CACHE`` names, and a random torchvision-format
    MobileNetV2 ``.pth`` that ``MRGCN_VISION_WEIGHTS`` names, both from
    seed 0; the strings are 8,000 WordPiece-like id sequences of 3-130
-   ids; 5 epochs through the CLI with the kernels by route as above and
+   ids; 2 epochs through the CLI with the kernels by route as above and
    the text kernels (#6-#9) never launched; the backbones bit-equal to
    their files after training and the heads moved; on a small graph
    (60 strings, 40 images) the first epoch's loss card against CPU within
@@ -127,7 +126,7 @@ prints no result line. Phases, each printing its own lines:
    4,096, vocabulary 250,880, ALiBi and a causal mask; the tokenizer's
    files beside them: WordPiece, a small byte-level BPE whose pad is 1,
    a Unigram ``tokenizer.json`` with a precompiled charsmap, BLOOM's
-   byte-level BPE layout whose pad is 3), 2,000 strings (500 for
+   byte-level BPE layout whose pad is 3), 1,000 strings (250 for
    ALBERT): 3-130 drawn ids, or for XLM-R, ALBERT and
    BLOOM the ids the port's tokenizer gives generated strings (host
    seconds printed), 2 epochs each through the CLI: the same checks of
@@ -136,7 +135,27 @@ prints no result line. Phases, each printing its own lines:
    the backbone's output card against CPU (1e-4), and for the models
    whose pad is not 0 the pad mask on the card (pads changed under the
    mask move no real token's output; a padded row pools as it does
-   alone);
+   alone). Then R-GCN without bases (``nobases``: ``num_bases = 0``, one
+   weight a relation, nothing composed), 5 epochs each through the CLI:
+   ``configs/synth.toml``'s model on the featureless DMG-scale graph and
+   over its five modalities (the from-scratch encoders, the artifacts of
+   the paths above), and ``configs/aifb.toml``'s model, task and features
+   on a graph at AIFB's published counts (8,285 entities, 45 relations
+   and their inverses, 29,043 triples, 140 / 36 labels, 4 classes) with
+   2,000 strings through a random DistilBERT at the published widths;
+   the compose kernels (#4, #10, #11) must launch no time, the scatters
+   by route as above, no ``comp_*`` coefficient, the backbone bit-equal
+   to its file. On the small graph without bases, card against CPU, the
+   losses and the encoders as in phase 8 and the first step's gradients
+   from equal parameters within 1e-4 of each largest entry (featureless,
+   and over the f32 numeric and gYear features); and the text-backbone
+   fields flax runs, card against CPU on the published widths (a causal
+   BERT with cross-attention subtrees, loaded by name; the same tree
+   with cross-attention alone and under ``silu``, ``swish``, ``tanh``,
+   ``quick_gelu``, ``gelu_pytorch_tanh``; DistilBERT under
+   ``gelu_new``): the hidden state within 1e-4, and for the causal model
+   a padded row pooled as alone (1e-4) and pooled rows unmoved by every
+   later token (1e-6);
 6. the link-prediction path, this slice's main path: the same CLI with
    ``[task] type = 'link prediction'`` on a synthetic graph at FB15k-237's
    sizes (14,541 entities, 475 relations, 272,115 / 17,535 / 20,466
@@ -221,7 +240,7 @@ prints no result line. Phases, each printing its own lines:
    from f32 sums taken in other orders land a bf16 step apart). Then the
    convolutional encoders (``conv_encoder_phase``; cuDNN's, no
    hand-written kernel): ``TCNN`` S / M / L and ``ImageCNN`` ``sep`` /
-   ``dense`` on 256 rows, card against CPU with the same weights and
+   ``dense`` on 128 rows, card against CPU with the same weights and
    running statistics, timed, TF32 checked off. Then ``text_attn``: #12,
    the attention kernels with H = 2, 4, 8 heads of width 128 / H read by
    strides in flax's ``(N, L, H, d)`` layout, against their plain version
@@ -256,7 +275,7 @@ prints no result line. Phases, each printing its own lines:
    gradients by norm, 1e-2), and on the FB15k-237-size graph at full
    width for one step. Mini-batch NC
    (``batchsize = 32``) on the small graph: losses within 1e-4 relative
-   over 3 epochs. The composed identity layer's output and gradients on
+   over 2 epochs. The composed identity layer's output and gradients on
    the card (``compose_table``, ``fused_place_scatter``,
    ``compose_grad_pass``, on a row slice of the parameter) within 1e-4 of
    their largest entry of the CPU's;
@@ -291,7 +310,7 @@ prints no result line. Phases, each printing its own lines:
    repeats itself to the bit); (b) worlds ``"2"`` and ``"2x2"`` on the
    one card over gloo with CUDA tensors (NCCL refuses two ranks on one
    GPU): featureless NC at DMG width and full-graph LP at FB15k-237's
-   width (3 epochs), multimodal and all-modality NC on the small graph (2
+   width (2 epochs), multimodal and all-modality NC on the small graph (2
    epochs; the image CNN's body in f32, its twin) and node-sliced LP on a
    small LP graph (1 epoch, its ReLU inputs that change side against the
    single-device run counted), each held to the single-device run on the
@@ -310,7 +329,8 @@ prints no result line. Phases, each printing its own lines:
 Every kernel comparison checks bit identity across two runs, and the
 slice-shape ones time the kernel, the plain version and, where one PyTorch
 call computes the same function, that call (median of 20 CUDA-event timed
-calls, in the order plain, kernel, kernel, plain). Each timed row carries
+calls, or of as many, at least 5, as fit in 100 ms; in the order plain,
+kernel, kernel, plain). Each timed row carries
 its bound: the larger of the bytes the function must move over the card's
 3.35 TB/s and its operations over the card's peak for their type (67
 TFLOP/s f32, 989 TFLOP/s bf16 and 495 TFLOP/s TF32 tensor cores), with
@@ -345,7 +365,10 @@ from mrgcn_tpu_torch.parallel.parity import (kernel_counters, read_launches,
 ROOT = Path(__file__).resolve().parent
 EPOCHS = 5
 ATOL, RTOL = 1e-4, 1e-5
-TIMED_CALLS = 20
+# a timing takes the median of TIMED_CALLS calls, or of as many (at least
+# MIN_TIMED_CALLS) as fit in TIMED_BUDGET_MS of the first call's time: the
+# plain versions take 10-70 ms a call
+TIMED_CALLS, MIN_TIMED_CALLS, TIMED_BUDGET_MS = 20, 5, 100.0
 # encoder (outputs, parameter gradients), card vs CPU (see
 # encoder_agreement). Sound kernels: the f32 MLP encoders agree to 3e-6,
 # the bf16 text encoder to 1.1e-3 and 2.8e-2 over five cotangents. One key
@@ -366,9 +389,11 @@ ENCODER_RTOL.update({"tcnn": ENCODER_RTOL["mlp"],
 ENCODER_RTOL["backbone"] = (1e-4, 1e-4)
 # rows of the encoders phase's card-vs-CPU cases; the image side there,
 # and the dmg_synth_allmodal path's counts and shapes
-CONV_ROWS, CONV_IMAGE_SIDE = 256, 64
+CONV_ROWS, CONV_IMAGE_SIDE = 128, 64
 ALLMODAL_GEOMETRIES, ALLMODAL_IMAGES, IMAGE_SIDE = 10_000, 2_000, 224
-# card vs CPU losses over three epochs of the all-modality small graph: the
+# epochs of the small graphs' card-vs-CPU runs through the CLI
+AGREE_EPOCHS = 2
+# card vs CPU losses over the epochs of the all-modality small graph: the
 # image CNN's bf16 body under batch statistics drifts by bf16 steps
 # between any two implementations, its gradients with it, and two Adam
 # steps carry that into the losses: 1.8e-3 to 2.0e-3 in three runs where
@@ -379,6 +404,8 @@ AGREE_ALLMODAL_RTOL = 5e-3
 # port's route (rspmm.compose_packed): the identity layer's forward
 # (compose_table) and its backward (compose_grad_pass)
 COMPOSE_PER_STEP = {"compose_table": 1, "compose_grad_pass": 1}
+# #10, #4, #11: what a path without bases must never launch
+COMPOSE_KERNELS = ("compose_table", "compose_grad_pass", "canonical_copy")
 KERNEL_SOURCES = ("sorted_scatter", "sorted_gather", "fused_place_scatter",
                   "scatter_dot", "compose", "fused_attention",
                   "fused_attention_heads", "fused_mlp")
@@ -448,12 +475,14 @@ def build_kernels() -> None:
 
 def time_ms(fn) -> float:
     """Median per-call milliseconds over TIMED_CALLS CUDA-event-timed
-    calls, after two warm-up calls."""
+    calls (fewer, at least MIN_TIMED_CALLS, where they would take more
+    than TIMED_BUDGET_MS), after two warm-up calls."""
     import torch
     for _ in range(2):
         fn()
     times = []
-    for _ in range(TIMED_CALLS):
+    calls = TIMED_CALLS
+    while len(times) < calls:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -461,6 +490,8 @@ def time_ms(fn) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+        calls = min(TIMED_CALLS, max(MIN_TIMED_CALLS, int(
+            TIMED_BUDGET_MS / max(times[0], 1e-3))))
     return statistics.median(times)
 
 
@@ -605,13 +636,13 @@ def allmodal_features(num_nodes: int, wordpiece_vocab: int = 0) -> dict:
                                wordpiece_vocab=wordpiece_vocab)
 
 
-def multimodal_width(features=MULTIMODAL) -> int:
+def multimodal_width(features=MULTIMODAL, source: str = "dmg.toml") -> int:
     """``X_width`` of a path over ``features``: the summed embedding widths
-    of those of ``configs/dmg.toml``'s features (``MULTIMODAL``: 4 + 1 +
-    16; ``ALLMODAL``: 4 + 1 + 16 + 128 + 16)."""
-    with open(ROOT / "configs" / "dmg.toml", "rb") as f:
-        dmg = tomllib.load(f)
-    return sum(f["embedding_dim"] for f in dmg["graph"]["features"]
+    of those of the features of ``configs/<source>`` (``configs/dmg.toml``:
+    ``MULTIMODAL`` 4 + 1 + 16, ``ALLMODAL`` 4 + 1 + 16 + 128 + 16)."""
+    with open(ROOT / "configs" / source, "rb") as f:
+        config = tomllib.load(f)
+    return sum(f["embedding_dim"] for f in config["graph"]["features"]
                if f["datatype"] in features)
 
 
@@ -1818,26 +1849,29 @@ def graph_lines(graph) -> list:
 
 def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
                  features=(), task=None, backbones: bool = False,
-                 graph=None, text_model=None) -> None:
-    """``configs/dmg.toml``'s model section; of its features, the
-    datatypes in ``features`` are included as DMG configures them (the
-    string and image features without their pretrained ``model`` key and
-    the string's ``tokenizer``: the from-scratch text and image encoders,
-    whatever backbone a machine caches; with ``backbones`` with them, so
-    the pretrained backbones run where their files are found), all others
-    excluded. ``task`` adds ``[task]`` entries to the full-batch default
-    (``batchsize``, ``neighbor_fanout``, ``neighbor_fanout_rounds``);
-    ``graph`` adds a ``[graph]`` section (``graph_lines``); ``text_model``
-    ``(name, pad token)`` names another model and tokenizer in the string
-    feature's specs, and its pad token."""
-    with open(ROOT / "configs" / "dmg.toml", "rb") as f:
-        dmg = tomllib.load(f)
-    model = dict(dmg["model"], epoch=epochs, num_bases=num_bases)
+                 graph=None, text_model=None,
+                 source: str = "dmg.toml") -> None:
+    """The model section of ``configs/<source>`` (``configs/dmg.toml`` by
+    default) and its ``[task]`` on the seed 0; of its features, the
+    datatypes in ``features`` are included as the source configures them
+    (the string and image features without their pretrained ``model`` key
+    and the string's ``tokenizer``: the from-scratch text and image
+    encoders, whatever backbone a machine caches; with ``backbones`` with
+    them, so the pretrained backbones run where their files are found),
+    all others excluded. ``task`` adds ``[task]`` entries to the
+    full-batch default (``batchsize``, ``neighbor_fanout``,
+    ``neighbor_fanout_rounds``); ``graph`` adds a ``[graph]`` section
+    (``graph_lines``); ``text_model`` ``(name, pad token)`` names another
+    model and tokenizer in the string feature's specs, and its pad
+    token."""
+    with open(ROOT / "configs" / source, "rb") as f:
+        config = tomllib.load(f)
+    model = dict(config["model"], epoch=epochs, num_bases=num_bases)
     layers = model.pop("layers")
-    task = {"type": "node classification", "seed": 0, "batchsize": -1,
-            **(task or {})}
-    lines = ['name = "DMG_SYNTH"', "", "[task]"]
-    lines += [f"{k} = {json.dumps(v)}" for k, v in task.items()]
+    task = {**config["task"], "seed": 0, "batchsize": -1, **(task or {})}
+    lines = [f"name = {json.dumps(config['name'] + '_SYNTH')}", "",
+             "[task]"]
+    lines += [f"{k} = {toml_value(v)}" for k, v in task.items()]
     lines += ["", "[model]"]
     lines += [f"{k} = {json.dumps(v)}" for k, v in model.items()]
     for layer in layers:
@@ -1846,7 +1880,7 @@ def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
                   for k, v in layer.items()]
     if graph:
         lines += graph_lines(graph)
-    for feature in dmg["graph"]["features"]:
+    for feature in config["graph"]["features"]:
         if text_model and "tokenizer" in feature:
             name, pad_token = text_model
             feature = dict(feature, model=[*feature["model"][:-1], name],
@@ -1866,16 +1900,19 @@ def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
 def train_via_cli(tmp: Path, tag: str, work, epochs, num_bases,
                   platform=None, F=None, task=None, graph=None,
                   features=MULTIMODAL, extra=(), backbones=False,
-                  text_model=None):
+                  text_model=None, source: str = "dmg.toml"):
     """``run.run_cli`` on ``work``'s graph; with ``F`` (literal features,
     or a function that draws them, called only where the artifact is not
     yet written) the config includes the ``features`` datatypes. The
     config is ``<tag>.toml`` (``task``: extra ``[task]`` entries), the
-    artifact ``<graph or tag>.npz``, so runs on one graph share its file;
+    artifact ``<graph or tag>.npz``, so runs on one graph share its file
+    (``work["num_eval"]`` unlabelled nodes each in the valid and test
+    splits, else a twentieth of the nodes up to 1,000);
     ``platform`` sets ``MRGCN_PLATFORM`` for the run alone; ``extra``
     adds CLI arguments (the checkpoint flags); ``backbones`` keeps the
     features' pretrained ``model`` specs, ``text_model`` renames the
-    string feature's (``write_config``)."""
+    string feature's, ``source`` names the config the run's is made from
+    (``write_config``)."""
     from mrgcn_tpu_torch import run
     from mrgcn_tpu_torch.tasks.synthetic import save_nc_artifact
     art = tmp / f"{graph or tag}.npz"
@@ -1885,12 +1922,14 @@ def train_via_cli(tmp: Path, tag: str, work, epochs, num_bases,
                          work["dst"], work["rel"], work["norm"],
                          work["labels_idx"], work["labels_cls"],
                          work["num_classes"], seed=0,
-                         num_eval=min(1000, work["n"] // 20),
+                         num_eval=work.get("num_eval",
+                                           min(1000, work["n"] // 20)),
                          F=F() if callable(F) else F)
     if not cfg.exists():
         write_config(cfg, epochs, num_bases, work["hidden"],
                      features=features if F else (), task=task,
-                     backbones=backbones, text_model=text_model)
+                     backbones=backbones, text_model=text_model,
+                     source=source)
     os.environ.pop("MRGCN_PLATFORM", None)
     if platform is not None:
         os.environ["MRGCN_PLATFORM"] = platform
@@ -1956,35 +1995,41 @@ def dense_routes(work, art: Path, x_width: int, epochs: int = EPOCHS
 
 def slice_phase(work, tmp: Path, tag: str, kernels, F=None,
                 features=MULTIMODAL, backbones=False, absent=(),
-                inspect=None, epochs: int = EPOCHS, text_model=None) -> dict:
+                inspect=None, epochs: int = EPOCHS, text_model=None,
+                graph=None, source: str = "dmg.toml") -> dict:
     """Train ``epochs`` NC epochs through the CLI with every launch count
     set to 0 just before and read just after; ``kernels`` names each
     kernel the path runs with its least launch count per epoch. With
-    ``F``, the config includes ``features``. The identity layer's compose
-    launches exactly ``COMPOSE_PER_STEP`` of each compose kernel a
-    training step, and ``compose_table`` once more for the test split's
-    evaluation. The scatters' launches by route, each count exact: the
-    identity half's row-sorted ``fwd`` (each forward, the test split's
-    too) and ``bwd_table`` (each step) on ``fused_place_scatter``'s
-    row-segmented kernel; with features, the dense half's streams on the
-    routes the planner gives them (``dense_routes``). Over the image and
-    WKT features, every BatchNorm's running statistics must be finite and
-    moved from their 0 / 1 init. With ``backbones`` the string and image
-    features keep their pretrained ``model`` specs (``text_model``: see
-    ``write_config``); each kernel named in ``absent`` must launch no
-    time; ``inspect(res)`` adds checks of the trained model and returns
+    ``F``, the config includes ``features``; ``graph`` names the artifact
+    another path wrote, ``source`` the config (``train_via_cli``). With
+    ``work["num_bases"]`` > 0 the identity layer's compose launches
+    exactly ``COMPOSE_PER_STEP`` of each compose kernel a training step,
+    and ``compose_table`` once more for the test split's evaluation;
+    without bases it composes nothing, and no compose kernel
+    (``COMPOSE_KERNELS``) launches. The scatters' launches by route, each
+    count exact: the identity half's row-sorted ``fwd`` (each forward, the
+    test split's too) and ``bwd_table`` (each step) on
+    ``fused_place_scatter``'s row-segmented kernel; with features, the dense
+    half's streams on the routes the planner gives them (``dense_routes``).
+    Over the image and WKT features, every BatchNorm's running statistics
+    must be finite and moved from their 0 / 1 init. With ``backbones`` the
+    string and image features keep their pretrained ``model`` specs
+    (``text_model``: see ``write_config``); each kernel named in ``absent``
+    must launch no time; ``inspect(res)`` adds checks of the trained model and returns
     entries for the summary."""
     import torch
     counters = start_path()
     t0 = time.perf_counter()
     res = train_via_cli(tmp, tag, work, epochs, work["num_bases"], F=F,
                         features=features, backbones=backbones,
-                        text_model=text_model)
+                        text_model=text_model, graph=graph, source=source)
     wall = time.perf_counter() - t0
     launches = read_launches(counters)
     peak = torch.cuda.max_memory_allocated()
-    for name, per_step in COMPOSE_PER_STEP.items():
-        want = per_step * (epochs + (name == "compose_table"))
+    for name in COMPOSE_KERNELS:
+        want = COMPOSE_PER_STEP.get(name, 0) \
+            * (epochs + (name == "compose_table")) if work["num_bases"] \
+            else 0
         check(launches[name] == want,
               f"{tag}: {name} launched {launches[name]} times, not {want}")
     scatters = ("fused_place_scatter", "sorted_scatter")
@@ -1993,8 +2038,8 @@ def slice_phase(work, tmp: Path, tag: str, kernels, F=None,
     want["fused_place_scatter", ROW_KERNELS["fused_place_scatter"][0]] = \
         2 * epochs + 1
     if F is not None:
-        for key, n in dense_routes(work, tmp / f"{tag}.npz",
-                                   multimodal_width(features),
+        for key, n in dense_routes(work, tmp / f"{graph or tag}.npz",
+                                   multimodal_width(features, source),
                                    epochs).items():
             want[key] += n
     got = {(name, kernel): n for name in scatters
@@ -3163,11 +3208,13 @@ def lp_agreement(tmp: Path, tag: str, steps: int, budget=None,
               f"{tag}: {differ} of {a.size} {kind} ranks differ")
 
 
-def encoder_agreement(tmp: Path, tag: str, gpu_model, cpu_model) -> None:
+def encoder_agreement(tmp: Path, tag: str, gpu_model, cpu_model,
+                      graph=None) -> None:
     """Every encoder of the multimodal model on the small graph's feature
-    rows, with the CPU run's weights on both sides: outputs before the
-    gates, and the encoder's parameter gradients for a seeded cotangent,
-    card (kernels) against CPU (plain versions). Bounds
+    rows (the artifact ``<graph or tag>.npz``), with the CPU run's weights
+    on both sides: outputs before the gates, and the encoder's parameter
+    gradients for a seeded cotangent, card (kernels) against CPU (plain
+    versions). Bounds
     (``ENCODER_RTOL[kind]``): the outputs' max abs error relative to
     max |CPU output|; each gradient's error norm relative to its norm.
     The key projection's bias of the text paths that have one (``plain``,
@@ -3180,7 +3227,7 @@ def encoder_agreement(tmp: Path, tag: str, gpu_model, cpu_model) -> None:
                                                    PretrainedTextEncoder)
     from mrgcn_tpu_torch.tasks.common import prepare_inputs
     config = run.load_config(str(tmp / f"{tag}.toml"))
-    artifact = run.artifact_io.load(str(tmp / f"{tag}.npz"))
+    artifact = run.artifact_io.load(str(tmp / f"{graph or tag}.npz"))
     gpu_model.load_state_dict(cpu_model.state_dict())
     sides = [(m, prepare_inputs(artifact, config, False, device).features)
              for m in (gpu_model, cpu_model)
@@ -3249,9 +3296,11 @@ def agreement_phase(tmp: Path) -> None:
             ("small_mm", "small_mm", F, 1e-3, None, MULTIMODAL),
             ("small_am", "small_am", F_all, AGREE_ALLMODAL_RTOL, None,
              ALLMODAL)):
-        gpu = train_via_cli(tmp, tag, small, 3, 4, F=feats, task=task,
+        gpu = train_via_cli(tmp, tag, small, AGREE_EPOCHS, 4, F=feats,
+                            task=task,
                             graph=graph, features=features)
-        cpu = train_via_cli(tmp, tag, small, 3, 4, platform="cpu", F=feats,
+        cpu = train_via_cli(tmp, tag, small, AGREE_EPOCHS, 4,
+                            platform="cpu", F=feats,
                             task=task, graph=graph, features=features)
         a = [h["train_loss"] for h in gpu.history] + [gpu.loss]
         b = [h["train_loss"] for h in cpu.history] + [cpu.loss]
@@ -4106,7 +4155,8 @@ def heads_paths(work, device) -> dict:
 
 def text_attn_agreement(tmp: Path) -> dict:
     """The CLI on the agreement phase's small multimodal graph under
-    ``MRGCN_TEXT_ATTN`` = each of ``TEXT_ATTN_IMPLS``, 3 epochs on the card
+    ``MRGCN_TEXT_ATTN`` = each of ``TEXT_ATTN_IMPLS``, ``AGREE_EPOCHS``
+    epochs on the card
     (counts set to 0 just before, read just after: #6 / #7 launch, #12
     does not: ``MRGCN`` builds one head) and on the CPU: the losses within
     1e-3 (the multimodal bound), the first within 1e-4, and each encoder
@@ -4122,9 +4172,10 @@ def text_attn_agreement(tmp: Path) -> dict:
             os.environ["MRGCN_TEXT_ATTN"] = impl
             tag = f"small_mm_{impl}"
             counters = start_path()
-            gpu = train_via_cli(tmp, tag, small, 3, 4, F=F)
+            gpu = train_via_cli(tmp, tag, small, AGREE_EPOCHS, 4, F=F)
             launches = read_launches(counters)
-            cpu = train_via_cli(tmp, tag, small, 3, 4, platform="cpu", F=F)
+            cpu = train_via_cli(tmp, tag, small, AGREE_EPOCHS, 4,
+                                platform="cpu", F=F)
             check(gpu.model.xsd_string_0.attn_impl == impl,
                   f"{tag}: built {gpu.model.xsd_string_0.attn_impl}")
             check(launches["attention_fwd"] > 0
@@ -4313,7 +4364,8 @@ def backbone_agreement(tmp: Path, files) -> dict:
 
 def backbones_phase(work, tmp: Path) -> dict:
     """``dmg_synth_allmodal`` with both pretrained backbones at the
-    published widths through the CLI (``slice_phase``, ``EPOCHS`` epochs):
+    published widths through the CLI (``slice_phase``, ``BACKBONE_EPOCHS``
+    epochs):
     8,000 strings of 3-130 WordPiece-like ids, 2,000 images of 224 x 224,
     the WKT, numeric and gYear features as before, X_width 165. The
     kernels by route as the all-modality path (#5, #1, #4, #10), #6-#9
@@ -4331,6 +4383,7 @@ def backbones_phase(work, tmp: Path) -> dict:
                 work["n"],
                 wordpiece_vocab=DISTILBERT_MULTILINGUAL["vocab_size"]),
             features=ALLMODAL, backbones=True, absent=ENCODER_KERNELS,
+            epochs=BACKBONE_EPOCHS,
             inspect=lambda res: both_backbones_unchanged(res.model,
                                                          files))}
         with timed_part("backbones small graph and checkpoint"):
@@ -4348,26 +4401,27 @@ def backbones_phase(work, tmp: Path) -> dict:
 # BLOOM's byte-level BPE) over generated strings (text_literals through
 # string.generate_features), the pad id, the strings of the graph)
 TEXT_BACKBONES = {
-    # 2,000 strings (cut from 8,000 to keep the whole run well inside its
-    # time limit): a step near 1.3 s
+    # 1,000 strings (cut from 8,000, then 2,000, to keep the whole run well
+    # inside its time limit): a step near 0.65 s
     "bert": ("bert-base-multilingual-cased", "BERT_MULTILINGUAL", "[PAD]",
-             "wordpiece_vocab", 0, 2_000),
+             "wordpiece_vocab", 0, 1_000),
     "roberta": ("roberta-base", "ROBERTA_BASE", "<pad>", "bpe_vocab", 1,
-                2_000),
+                1_000),
     "xlm-roberta": ("xlm-roberta-base", "XLM_ROBERTA_BASE", "<pad>",
-                    "tokenizer", 1, 2_000),
+                    "tokenizer", 1, 1_000),
     "roberta-prelayernorm": ("andreasmadsen/efficient_mlm_m0.40",
                              "ROBERTA_PRELAYERNORM", "<pad>", "bpe_vocab", 1,
-                             2_000),
-    # about 4.8 GFLOP a token: 500 strings (cut from 8,000) keep a step
-    # near 5 s
+                             1_000),
+    # about 4.8 GFLOP a token: 250 strings (cut from 8,000, then 500) keep
+    # a step near 2.5 s
     "albert": ("albert-xxlarge-v2", "ALBERT_XXLARGE", "<pad>", "tokenizer",
-               0, 500),
-    # about 0.6 GFLOP a token: 2,000 strings of up to about 140 ids keep a
-    # step near 4 s
+               0, 250),
+    # about 0.6 GFLOP a token: 1,000 strings of up to about 140 ids keep a
+    # step near 2.2 s
     "bloom": ("bigscience/bloom-560m", "BLOOM_560M", "<pad>", "tokenizer", 3,
-              2_000)}
-TEXT_BACKBONE_EPOCHS = 2
+              1_000)}
+# the epochs of the pretrained-backbone paths (the step is the backbone's)
+BACKBONE_EPOCHS = 2
 # the most words of a generated string (text_literals); the strings of
 # the small graph the text backbones run on card and CPU, and their most
 # words (few and short: the CPU side runs the published widths)
@@ -4509,13 +4563,14 @@ def text_backbone_agreement(tmp: Path, kind: str) -> dict:
 def text_backbone_phase(work, tmp: Path, smi: str) -> dict:
     """``backbones_bert``: the multimodal graph (numeric, gYear and
     string features; no images, so the step is the text backbone's)
-    through the CLI for ``TEXT_BACKBONE_EPOCHS`` epochs on each of
+    through the CLI for ``BACKBONE_EPOCHS`` epochs on each of
     ``TEXT_BACKBONES`` at its published widths, random weights from seed
     0 written into a hub cache that ``HF_HUB_CACHE`` names (the
     tokenizer's files with them: WordPiece, a small byte-level BPE whose
     pad is 1, a Unigram ``tokenizer.json`` with a precompiled charsmap
     as large as the model's vocabulary, or BLOOM's byte-level BPE
-    layout); 2,000 strings (500 for ALBERT-xxlarge): 3-130 drawn ids (the RoBERTa family's framed by ``<s>``
+    layout); 1,000 strings (250 for ALBERT-xxlarge): 3-130 drawn ids (the
+    RoBERTa family's framed by ``<s>``
     0 and ``</s>`` 2, padded with 1), or for XLM-R, ALBERT and BLOOM the
     ids the port's tokenizer (Unigram, byte-level BPE) gives generated
     strings, timed on the host. Each run: finite losses, the multimodal path's launches by route
@@ -4565,7 +4620,7 @@ def text_backbone_phase(work, tmp: Path, smi: str) -> dict:
                     work, tmp, tag,
                     {"sorted_scatter": 1, "fused_place_scatter": 3},
                     F=draw, backbones=True, absent=ENCODER_KERNELS,
-                    epochs=TEXT_BACKBONE_EPOCHS,
+                    epochs=BACKBONE_EPOCHS,
                     text_model=(name, pad_token), inspect=unchanged)
             torch.cuda.synchronize()
             device_ms = [a.elapsed_time(b) for a, b in events]
@@ -4587,6 +4642,346 @@ def text_backbone_phase(work, tmp: Path, smi: str) -> dict:
             shutil.rmtree(hub, ignore_errors=True)
     finally:
         os.environ.pop("HF_HUB_CACHE", None)
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# the nobases phase: R-GCN without bases (configs/aifb.toml,
+# configs/synth.toml: one weight per relation, no compose), and the
+# text-backbone config fields the port runs as flax does (every activation
+# of flax's ACT2FN, BERT's is_decoder and add_cross_attention)
+# ---------------------------------------------------------------------------
+
+# AIFB's published counts (Schlichtkrull et al. 2018, Table 1): entities,
+# relations (each also as its inverse, plus the self-loop: R = 91),
+# triples, labelled entities for training and test, classes
+AIFB = {"entities": 8_285, "relations": 45, "triples": 29_043,
+        "train": 140, "test": 36, "classes": 4}
+# configs/aifb.toml's features (numeric 4, gYear 1, string 32 through
+# distilbert-base-multilingual-cased) and this script's counts of them
+AIFB_FEATURES = ("xsd.numeric", "xsd.gYear", "xsd.string")
+AIFB_LITERALS = {"num_numeric": 1_000, "num_years": 1_000,
+                 "num_strings": 2_000}
+# the cases of (e): a config's changed fields, on the BERT file the phase
+# writes (is_decoder and add_cross_attention set) or on DistilBERT; each
+# activation of flax's ACT2FN that the port did not run before once
+FIELD_CASES = {
+    "bert_is_decoder": ("bert", {}),
+    "bert_add_cross_attention": ("bert", {"is_decoder": False}),
+    **{f"bert_{act}": ("bert", {"is_decoder": False, "hidden_act": act})
+       for act in ("silu", "swish", "tanh", "quick_gelu",
+                   "gelu_pytorch_tanh")},
+    "distilbert_gelu_new": ("distilbert", {"activation": "gelu_new"})}
+
+
+def aifb_graph(seed: int = 0) -> dict:
+    """A graph at AIFB's published counts (``AIFB``), drawn from ``seed``:
+    its triples uniform over the entities and relations, each also as its
+    inverse (relation ``r + 45``), and every entity's self-loop (relation
+    90), normalised per relation and row as ``build_workload``
+    normalises: 66,371 edges. 176 labelled entities over 4 classes: 104
+    training labels and 36 each in the valid and test splits
+    (``num_eval``), so that ``--test`` trains on 140 and tests on 36;
+    ``configs/aifb.toml``'s hidden 16, no bases."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n, P, T = AIFB["entities"], AIFB["relations"], AIFB["triples"]
+    s, o = rng.integers(0, n, T), rng.integers(0, n, T)
+    p = rng.integers(0, P, T)
+    loop = np.arange(n)
+    src = np.concatenate([s, o, loop]).astype(np.int64)
+    dst = np.concatenate([o, s, loop]).astype(np.int64)
+    rel = np.concatenate([p, p + P, np.full(n, 2 * P)]).astype(np.int64)
+    R = 2 * P + 1
+    key = rel * n + src
+    norm = (1.0 / np.bincount(key, minlength=R * n)[key]).astype(np.float32)
+    train = AIFB["train"] - AIFB["test"]
+    return dict(n=n, R=R, src=src, dst=dst, rel=rel, norm=norm, hidden=16,
+                num_classes=AIFB["classes"], num_bases=0,
+                labels_idx=rng.choice(n, train, replace=False),
+                labels_cls=rng.integers(0, AIFB["classes"], train),
+                num_eval=AIFB["test"])
+
+
+def per_relation(tag: str, num_relations: int, more=None):
+    """``slice_phase``'s ``inspect`` for a model without bases: no
+    ``comp_*`` coefficient anywhere, layer 0's identity weight one table
+    a relation; then ``more(res)``, if given."""
+    def inspect(res) -> dict:
+        named = dict(res.model.named_parameters())
+        comps = [k for k in named if k.endswith((".comp_i", ".comp_f"))]
+        check(not comps, f"{tag}: coefficients {comps} without bases")
+        layer = res.model.rgcn.layer_0
+        weight = getattr(layer, layer.weight_i_name)
+        check(weight.shape[0] == num_relations,
+              f"{tag}: identity weight {tuple(weight.shape)}, not "
+              f"{num_relations} tables")
+        return {"identity_weight_shape": list(weight.shape),
+                "parameter_bytes": sum(p.numel() * p.element_size()
+                                       for p in named.values()),
+                **(more(res) if more else {})}
+    return inspect
+
+
+# the f32 features of the small multimodal graph: its first step without
+# bases is held card against CPU entry by entry over these alone
+F32_FEATURES = ("xsd.numeric", "xsd.gYear")
+
+
+def nobases_agreement(tmp: Path) -> dict:
+    """(d) The small graph at ``num_bases = 0``, featureless and over the
+    multimodal features, card against CPU as ``agreement_phase`` holds
+    the based paths: ``AGREE_EPOCHS`` epochs through the CLI, the losses
+    within rtol
+    1e-4 featureless, 1e-3 multimodal, the first epoch's 1e-4; with
+    features each encoder as ``encoder_agreement`` holds it. And the
+    first training step's gradients from equal parameters
+    (``parallel.parity.first_step``), each within 1e-4 of its largest
+    entry as ``lp_agreement`` holds LP's (1e-2 by norm where a ReLU input
+    within rounding of zero changes side: counted): featureless, and over
+    the f32 features (``F32_FEATURES``, the same artifact), whose layer 0
+    runs both halves. Downstream of the bf16 text encoder, which rounds at
+    other places on the two sides, the step's gradients differ by
+    percents (3.4e-2 by norm in layer 0, 12 ReLU inputs on the other side
+    of zero, on an H100 80GB HBM3 at 700 W): the encoders alone hold that
+    path."""
+    import numpy as np
+    import torch
+    from mrgcn_tpu_torch import run
+    from mrgcn_tpu_torch.parallel import parity
+    from mrgcn_tpu_torch.tasks.synthetic import multimodal_features
+    small = dict(small_graph(), num_bases=0)
+    F = multimodal_features(small["n"], seed=0, num_numeric=600,
+                            num_years=300, num_strings=240, max_len=128)
+    out = {}
+    for tag, graph, feats, rtol in (
+            ("small_nobases", "small", None, 1e-4),
+            ("small_mm_nobases", "small_mm", F, 1e-3)):
+        features = MULTIMODAL if feats is not None else ()
+        runs = [train_via_cli(tmp, tag, small, AGREE_EPOCHS, 0,
+                              platform=platform,
+                              F=feats, graph=graph, features=features,
+                              source="synth.toml")
+                for platform in (None, "cpu")]
+        a, b = ([h["train_loss"] for h in r.history] + [r.loss]
+                for r in runs)
+        err = max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b))
+        first = abs(a[0] - b[0]) / max(abs(b[0]), 1e-12)
+        print(f"[nobases] {tag} losses cuda {a} cpu {b} (max rel err "
+              f"{err:.3g}, bound {rtol}; first {first:.3g}, bound 1e-4)")
+        check(err <= rtol, f"{tag}: cuda and cpu losses differ (rel {err})")
+        check(first <= 1e-4, f"{tag}: first losses differ (rel {first})")
+        out[tag] = {"losses": {"cuda": a, "cpu": b}, "loss_err": err}
+        if feats is not None:
+            encoder_agreement(tmp, tag, runs[0].model, runs[1].model,
+                              graph)
+            tag = "small_f32_nobases"
+            write_config(tmp / f"{tag}.toml", AGREE_EPOCHS, 0,
+                         small["hidden"],
+                         features=F32_FEATURES, source="synth.toml")
+        job = {"task": "nc", "artifact": str(tmp / f"{graph}.npz"),
+               "config": run.load_config(str(tmp / f"{tag}.toml")),
+               "featureless": feats is None, "relu": True}
+        card, cpu = (parity.first_step(job, torch.device(d))
+                     for d in ("cuda", "cpu"))
+        check(not any(k.endswith((".comp_i", ".comp_f"))
+                      for k in cpu["grads"]),
+              f"{tag}: a compose coefficient without bases")
+        flips = int((np.sign(card["relu_inputs"][0])
+                     != np.sign(cpu["relu_inputs"][0])).sum())
+        step_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        errs = relative_errors(*({k: torch.from_numpy(v)
+                                  for k, v in side["grads"].items()}
+                                 for side in (card, cpu))) \
+            if flips else relative_max(card["grads"], cpu["grads"])
+        bound = 1e-2 if flips else 1e-4
+        worst = max(errs, key=errs.get)
+        print(f"[nobases] {tag} first step card vs CPU: loss rel err "
+              f"{step_err:.3g} (bound 1e-4), {flips} ReLU inputs on the "
+              f"other side of zero, worst gradient {worst} "
+              f"{errs[worst]:.3g} (bound {bound}"
+              f"{' by norm' if flips else ' of its largest entry'})")
+        check(step_err <= 1e-4, f"{tag}: first-step losses differ")
+        check(errs[worst] <= bound,
+              f"{tag}: first-step gradients differ: {errs}")
+        out[tag] = {**out.get(tag, {}), "relu_flips": flips,
+                    "step_loss_err": step_err, "gradient_errors": errs}
+    return out
+
+
+def backbone_fields_agreement(tmp: Path) -> dict:
+    """(e) The text-backbone config fields flax runs, card against CPU on
+    the small graph's strings (``TEXT_BACKBONE_SMALL``'s 6, 3-130 drawn
+    WordPiece ids, padded with 0), as ``text_backbone_agreement`` holds
+    the backbones: ``bert-base-multilingual-cased``'s published widths
+    written with ``is_decoder`` and ``add_cross_attention`` set (each
+    layer's ``crossattention`` subtree in the file), loaded through
+    ``load_text_backbone`` by name from the hub cache; the same file's
+    tree under the cases of ``FIELD_CASES``, and a DistilBERT at
+    ``distilbert-base-multilingual-cased``'s widths: the last hidden
+    state within 1e-4 of its largest entry. For the causal model, on the
+    card: each padded row pools as it does alone (1e-4 of the largest),
+    and the pooled rows do not move when every later token changes
+    (1e-6)."""
+    import torch
+    from mrgcn_tpu_torch.models import pretrained
+    from mrgcn_tpu_torch.models.bert import Bert
+    from mrgcn_tpu_torch.models.distilbert import DistilBert
+    from mrgcn_tpu_torch.tasks import synthetic
+    from mrgcn_tpu_torch.utils import flax_msgpack
+    name = TEXT_BACKBONES["bert"][0]
+    config = dict(synthetic.BERT_MULTILINGUAL, is_decoder=True,
+                  add_cross_attention=True)
+    hub = tmp / "hub_fields"
+    t0 = time.perf_counter()
+    snapshot = synthetic.save_text_backbone_snapshot(hub, name,
+                                                     config=config)
+    params = {"bert": flax_msgpack.load(snapshot / "flax_model.msgpack"),
+              "distilbert": synthetic.distilbert_params(
+                  synthetic.DISTILBERT_MULTILINGUAL)}
+    configs = {"bert": config,
+               "distilbert": synthetic.DISTILBERT_MULTILINGUAL}
+    check(all("crossattention" in layer for layer in
+              params["bert"]["encoder"]["layer"].values()),
+          "backbone fields: the file holds no crossattention subtree")
+    write_s = time.perf_counter() - t0
+    strings = synthetic.multimodal_features(
+        small_graph()["n"], seed=0, num_numeric=600, num_years=300,
+        num_strings=TEXT_BACKBONE_SMALL[0], max_len=128,
+        wordpiece_vocab=synthetic.BERT_MULTILINGUAL["vocab_size"]
+    )["xsd.string"][0][0]
+    ids = torch.from_numpy(padded_tokens(strings, 0))
+    real = ids != 0
+    check(not bool(real.all()), "backbone fields: no padding")
+    os.environ["HF_HUB_CACHE"] = str(hub)
+    out = {}
+    try:
+        for case, (kind, fields) in FIELD_CASES.items():
+            if case == "bert_is_decoder":
+                backbone = pretrained.load_text_backbone(
+                    ["huggingface/pytorch-transformers", "model", name])
+            else:
+                cls = Bert if kind == "bert" else DistilBert
+                backbone = cls(dict(configs[kind], **fields), params[kind])
+            causal = getattr(backbone, "causal", False)
+            check(causal == (case == "bert_is_decoder"),
+                  f"{case}: the backbone is{'' if causal else ' not'} "
+                  "causal")
+            hidden = [backbone(ids, attention_mask=real)]
+            backbone.cuda()
+            card_ids = ids.cuda()
+            hidden.append(backbone(card_ids, attention_mask=card_ids != 0)
+                          .cpu())
+            err = float((hidden[1] - hidden[0]).abs().max()
+                        / hidden[0].abs().max())
+            out[case] = {"hidden_err": err}
+            check(err <= 1e-4, f"{case}: the backbone's outputs differ on "
+                  f"the card and the CPU ({err})")
+            if causal:
+                encoder = pretrained.PretrainedTextEncoder(
+                    backbone, 8, torch.Generator().manual_seed(0),
+                    pad_id=0)
+                pooled = encoder.features(card_ids)
+                alone = max(
+                    float((encoder.features(card_ids[i:i + 1, :n])[0]
+                           - pooled[i]).abs().max() / pooled.abs().max())
+                    for i, n in enumerate(real.sum(dim=1).tolist())
+                    if n < ids.shape[1])
+                later = card_ids.clone()
+                later[:, 1:] = torch.flip(later[:, 1:], dims=[0])
+                moved = float((encoder.features(later) - pooled).abs().max()
+                              / pooled.abs().max())
+                out[case].update(row_alone_err=alone, later_tokens_err=moved)
+                check(alone <= 1e-4, f"{case}: a pad moved a row's pooled "
+                      f"output ({alone})")
+                check(moved <= 1e-6, f"{case}: later tokens moved the "
+                      f"pooled output ({moved})")
+            del backbone
+    finally:
+        os.environ.pop("HF_HUB_CACHE", None)
+        shutil.rmtree(hub, ignore_errors=True)
+    print(f"[nobases] backbone fields card vs CPU on {tuple(ids.shape)} "
+          f"ids (bounds: hidden 1e-4, row alone 1e-4, later tokens 1e-6; "
+          f"files written in {write_s:.1f} s): {json.dumps(out)}")
+    return out
+
+
+def nobases_phase(work, tmp: Path, smi: str) -> dict:
+    """R-GCN without bases through the CLI, ``EPOCHS`` epochs each, with
+    ``slice_phase``'s checks (no compose kernel launched, the scatters'
+    launches by route exact; every parameter on the card, finite) and
+    ``per_relation``'s: (a) ``dmg_synth_nobases``, the DMG-width
+    featureless graph (phase 4's artifact) under ``configs/synth.toml``'s
+    model; (b) ``dmg_synth_allmodal_nobases``, the all-modality graph
+    (phase 5's artifact) under ``configs/synth.toml``'s model and its
+    five modalities, the from-scratch image and WKT encoders; (c)
+    ``aifb_nobases``, ``aifb_graph`` under ``configs/aifb.toml``'s model,
+    task and features, the string through a random DistilBERT at
+    ``distilbert-base-multilingual-cased``'s published widths (2,000
+    strings of 3-130 drawn ids; #6-#9 never launched; the backbone
+    bit-equal to its file after training). Then the small graphs card
+    against CPU (``nobases_agreement``) and the new backbone fields
+    (``backbone_fields_agreement``)."""
+    from mrgcn_tpu_torch.models.distilbert import DistilBert
+    from mrgcn_tpu_torch.tasks import synthetic
+    for source in ("synth.toml", "aifb.toml"):
+        with open(ROOT / "configs" / source, "rb") as f:
+            check(tomllib.load(f)["model"]["num_bases"] == 0,
+                  f"configs/{source} sets bases")
+    nb = dict(work, num_bases=0)
+    paths = {}
+    with timed_part("nobases dmg_synth_nobases"):
+        paths["nc_featureless_nobases"] = slice_phase(
+            nb, tmp, "dmg_synth_nobases", {"fused_place_scatter": 2},
+            graph="dmg_synth", source="synth.toml",
+            inspect=per_relation("dmg_synth_nobases", work["R"]))
+    with timed_part("nobases dmg_synth_allmodal_nobases"):
+        paths["nc_allmodal_nobases"] = slice_phase(
+            nb, tmp, "dmg_synth_allmodal_nobases",
+            {"sorted_scatter": 1, "fused_place_scatter": 3,
+             **dict.fromkeys(ENCODER_KERNELS, 2)},
+            F=functools.partial(allmodal_features, work["n"]),
+            features=ALLMODAL, graph="dmg_synth_allmodal",
+            source="synth.toml",
+            inspect=per_relation("dmg_synth_allmodal_nobases", work["R"]))
+    hub = tmp / "hub_aifb"
+    with timed_part("nobases aifb_nobases"):
+        snapshot = synthetic.save_text_backbone_snapshot(hub, seed=0)
+        os.environ["HF_HUB_CACHE"] = str(hub)
+        try:
+            aifb = aifb_graph()
+
+            def unchanged(res):
+                return backbones_unchanged("aifb_nobases", ((
+                    res.model.xsd_string_0,
+                    DistilBert.from_pretrained(snapshot)),))
+
+            paths["nc_aifb_nobases"] = slice_phase(
+                aifb, tmp, "aifb_nobases", {"fused_place_scatter": 2},
+                F=functools.partial(
+                    synthetic.multimodal_features, aifb["n"], seed=0,
+                    wordpiece_vocab=synthetic.DISTILBERT_MULTILINGUAL[
+                        "vocab_size"], **AIFB_LITERALS),
+                features=AIFB_FEATURES, backbones=True,
+                absent=ENCODER_KERNELS, source="aifb.toml",
+                inspect=per_relation("aifb_nobases", aifb["R"], unchanged))
+        finally:
+            os.environ.pop("HF_HUB_CACHE", None)
+            shutil.rmtree(hub, ignore_errors=True)
+    for tag, summary in paths.items():
+        routes = summary["scatter_routes"]
+        print(f"[nobases] {tag} ({smi}): epoch "
+              f"{summary['epoch_s_median_after_first']:.6f} s (median "
+              f"after the first; all {summary['epoch_s_after_first']}), "
+              f"peak {summary['peak_mem_bytes']} B, launches in "
+              f"{summary['epochs']} epochs and the test forward: "
+              f"{json.dumps(routes)}")
+    with timed_part("nobases small graphs"):
+        paths["nc_featureless_nobases"]["agreement"] = \
+            nobases_agreement(tmp)
+    with timed_part("nobases backbone fields"):
+        paths["nc_featureless_nobases"]["backbone_fields"] = \
+            backbone_fields_agreement(tmp)
     return paths
 
 
@@ -5206,7 +5601,7 @@ def serialisation_builds(pending: dict, art: Path, tmp: Path) -> dict:
 # into the kernels line: the call its main path makes)
 # the mesh phase: epochs of the full-width worlds (DMG-width featureless
 # NC, FB15k-237-width LP), of the small parity graph's, of node-sliced LP
-MESH_EPOCHS, MESH_SMALL_EPOCHS, MESH_SLICED_EPOCHS = 3, 2, 1
+MESH_EPOCHS, MESH_SMALL_EPOCHS, MESH_SLICED_EPOCHS = 2, 2, 1
 # the worlds that share the one card over gloo (or take a card a rank
 # over NCCL), and the jobs of ``mesh_jobs`` each runs: the small graphs'
 # only in "2x2", where rows split over data and basis weights over model
@@ -5563,9 +5958,9 @@ ROW_KERNELS = {
 STREAM_KERNELS = ("sorted_scatter", "sorted_gather", "fused_scatter_dot",
                   "fused_place_scatter")
 ENCODER_KERNELS = ("attention_fwd", "attention_bwd", "mlp_fwd", "mlp_bwd")
-PHASES = ("stream", "compose", "nc", "backbones", "backbones_bert",
-          "minibatch", "lp", "wide_basis", "checkpoint", "etl", "encoders",
-          "text_attn", "agree", "mesh")
+PHASES = ("stream", "compose", "nc", "nobases", "backbones",
+          "backbones_bert", "minibatch", "lp", "wide_basis", "checkpoint",
+          "etl", "encoders", "text_attn", "agree", "mesh")
 EXTRA_PHASES = ("profile", "profile_mb", "profile_att",   # only with
                 "profile_mm", "profile_stream",            # --only
                 "profile_allmodal", "profile_backbones",
@@ -5645,6 +6040,9 @@ def main(argv=None) -> None:
                  **dict.fromkeys(ENCODER_KERNELS, 2)},
                 F=allmodal_features(work["n"]), features=ALLMODAL)
             lap("nc")
+        if "nobases" in phases:
+            paths.update(nobases_phase(work, tmp, smi))
+            lap("nobases")
         if "backbones" in phases:
             paths.update(backbones_phase(work, tmp))
             lap("backbones")

@@ -18,8 +18,10 @@ by flax's names, and frozen:
   ``num_attention_heads`` heads, the keys masked
   (:func:`.distilbert.masked_attention`), ``attention/dense`` and
   ``attention/LayerNorm`` of that plus the input; ``ffn`` ->
-  ``hidden_act`` (``gelu_new`` by default) -> ``ffn_output``, and
-  ``full_layer_layer_norm`` of that plus the attention's output;
+  ``hidden_act`` (any of flax's ``ACT2FN``; ``gelu_new`` by default) ->
+  ``ffn_output``, and ``full_layer_layer_norm`` of that plus the
+  attention's output; ``is_decoder`` and ``add_cross_attention`` are not
+  read, as flax's ALBERT reads neither;
 * the output is the last layer's hidden state ``(N, L, hidden_size)``;
   ``pooler`` is read where the file has it and never run.
 
@@ -37,11 +39,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mrgcn_tpu_torch.models.bert import HIDDEN_ACTS, check_encoder_config
+from mrgcn_tpu_torch.models.bert import check_positions
 from mrgcn_tpu_torch.models.distilbert import (FrozenBackbone, _Dense,
                                                _frozen, _layer_norm,
-                                               backbone_type, check_vocab,
-                                               masked_attention)
+                                               activation, backbone_type,
+                                               check_vocab, masked_attention)
 
 
 class _Layer(nn.Module):
@@ -78,7 +80,8 @@ class Albert(FrozenBackbone):
     def __init__(self, config: Dict, params: Dict):
         super().__init__()
         self.model_type = backbone_type(config, ("albert",))
-        check_encoder_config(config)
+        check_positions(config)
+        act = activation(config, "hidden_act", "gelu_new")
         if "embeddings" not in params:        # saved from a head model
             params = params["albert"]
         self.dim = int(config["hidden_size"])
@@ -96,7 +99,6 @@ class Albert(FrozenBackbone):
         encoder = params["encoder"]
         self.embedding_hidden_mapping_in = _Dense(
             encoder["embedding_hidden_mapping_in"])
-        act = HIDDEN_ACTS[config.get("hidden_act", "gelu_new")]
         n_layers = int(config["num_hidden_layers"])
         n_groups = int(config.get("num_hidden_groups", 1))
         inner = int(config.get("inner_group_num", 1))

@@ -21,9 +21,15 @@ architecture:
   ``num_attention_heads`` heads with the attention mask applied to the
   keys (:func:`.distilbert.masked_attention`), ``attention/output/dense``
   and ``attention/output/LayerNorm`` of that plus the input;
-  ``intermediate/dense`` -> ``hidden_act`` (``gelu``: exact (erf);
-  ``gelu_new``: tanh; ``relu``) -> ``output/dense``, ``output/LayerNorm``
+  ``intermediate/dense`` -> ``hidden_act`` (any of flax's ``ACT2FN``,
+  :data:`.distilbert.ACT2FN`) -> ``output/dense``, ``output/LayerNorm``
   of that plus its input;
+* with ``is_decoder`` the attention is causal, as flax's is: the causal
+  mask and the padding mask combined (a key is seen where both let it
+  be), so the first position's output is a function of the first token
+  alone; with ``add_cross_attention`` each layer's ``crossattention``
+  subtree is in the file and is not run, as flax runs it only when it is
+  given encoder states, which the encoder never passes;
 * RoBERTa-PreLayerNorm instead normalises before each sublayer and not
   after it: ``attention/LayerNorm`` of the input feeds the attention,
   whose ``attention/output/dense`` is added to the input;
@@ -34,9 +40,11 @@ architecture:
   ``pooler`` is read where the file has it and never run (the encoder
   pools the first position).
 
-Anything else the config may ask for (another activation, relative
-position embeddings, a decoder or cross-attention) raises
-``NotImplementedError`` naming the field. The model runs in chunks of
+Relative position embeddings (``position_embedding_type`` other than
+``absolute``) raise ``NotImplementedError`` naming the field: flax's BERT
+family reads no such field and runs absolute positions, without the
+distance embeddings (a reference fault, ROADMAP Queue 3); so does an
+activation flax's ``ACT2FN`` lacks. The model runs in chunks of
 sequences within :data:`.distilbert.BUDGET_BYTES`, as DistilBERT does.
 """
 
@@ -48,10 +56,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mrgcn_tpu_torch.models import distilbert
 from mrgcn_tpu_torch.models.distilbert import (FrozenBackbone, _Dense,
                                                _frozen, _layer_norm,
-                                               backbone_type, check_vocab,
-                                               masked_attention)
+                                               activation, backbone_type,
+                                               check_vocab, masked_attention)
 
 # the model types this module reads, and those that number positions
 # from the pad id
@@ -59,27 +68,15 @@ BERT_TYPES = ("bert", "roberta", "xlm-roberta", "roberta-prelayernorm")
 PAD_POSITIONED = ("roberta", "xlm-roberta", "roberta-prelayernorm")
 # the model types whose layers normalise before each sublayer
 PRE_LAYER_NORM = ("roberta-prelayernorm",)
-# ``hidden_act`` as transformers' flax ``ACT2FN`` has it
-HIDDEN_ACTS = {"gelu": F.gelu,
-               "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
-               "relu": F.relu}
 
 
-def check_encoder_config(config: Dict) -> None:
-    """Raise ``NotImplementedError`` naming a field of ``config`` that asks
-    for what the port's encoders do not run."""
-    act = config.get("hidden_act", "gelu")
-    if act not in HIDDEN_ACTS:
-        raise NotImplementedError(
-            f"hidden_act {act!r}; the port runs {', '.join(HIDDEN_ACTS)}")
+def check_positions(config: Dict) -> None:
+    """Raise ``NotImplementedError`` where ``config`` asks for relative
+    position embeddings."""
     kind = config.get("position_embedding_type", "absolute")
     if kind != "absolute":
         raise NotImplementedError(
             f"position_embedding_type {kind!r}; the port runs 'absolute'")
-    for field in ("is_decoder", "add_cross_attention"):
-        if config.get(field, False):
-            raise NotImplementedError(
-                f"{field} is set; the port runs the encoder alone")
 
 
 class _Layer(nn.Module):
@@ -142,7 +139,9 @@ class Bert(FrozenBackbone):
     def __init__(self, config: Dict, params: Dict):
         super().__init__()
         self.model_type = backbone_type(config, BERT_TYPES)
-        check_encoder_config(config)
+        check_positions(config)
+        act = activation(config, "hidden_act", "gelu")
+        self.causal = bool(config.get("is_decoder", False))
         if "embeddings" not in params:        # saved from a head model
             params = next(params[k] for k in (
                 "bert", "roberta", "xlm-roberta", "roberta_prelayernorm")
@@ -161,8 +160,9 @@ class Bert(FrozenBackbone):
         self.token_type_embedding = _frozen(
             emb["token_type_embeddings"]["embedding"][0])
         self.LayerNorm = _layer_norm(emb["LayerNorm"], eps)
+        # each layer's crossattention subtree (add_cross_attention) is
+        # read with the file and left unused
         layers = params["encoder"]["layer"]
-        act = HIDDEN_ACTS[config.get("hidden_act", "gelu")]
         layer = _Layer
         if self.model_type in PRE_LAYER_NORM:
             layer = _PreLNLayer
@@ -174,6 +174,15 @@ class Bert(FrozenBackbone):
         if pooler is not None:
             self.pooler = _Dense(pooler)
         check_vocab(self.word_embeddings, config, self.dim)
+
+    def chunk_rows(self, L: int) -> int:
+        """As :meth:`FrozenBackbone.chunk_rows`; a causal model's scores
+        take the ``(L, L)`` mask beside them."""
+        if not self.causal:
+            return super().chunk_rows(L)
+        per_row = 4 * L * max(self.hidden_dim, (self.n_heads + 1) * L,
+                              self.dim)
+        return max(1, distilbert.BUDGET_BYTES // per_row)
 
     def position_ids(self, ids: torch.Tensor) -> torch.Tensor:
         """``(n, L)`` positions: ``0 .. L-1`` (BERT), or
@@ -188,6 +197,10 @@ class Bert(FrozenBackbone):
             + self.token_type_embedding \
             + F.embedding(self.position_ids(ids), self.position_embeddings)
         x = self.LayerNorm(x)
+        if self.causal:
+            L = ids.shape[1]
+            mask = mask[:, None, :] * torch.ones(
+                L, L, dtype=mask.dtype, device=mask.device).tril()
         for layer in self.layers:
             x = layer(x, mask)
         if self.model_type in PRE_LAYER_NORM:

@@ -15,9 +15,9 @@ read the same files:
   ``n_heads`` heads, the query scaled by ``1 / sqrt(dim / n_heads)``,
   ``1e30`` taken off the scores of keys where the attention mask is 0,
   an f32 softmax; ``sa_layer_norm`` of the attention output plus its
-  input, ``ffn.lin1`` -> the config's ``activation`` (exact (erf) GELU,
-  the default, or ReLU) -> ``ffn.lin2``, ``output_layer_norm`` of that
-  plus its input;
+  input, ``ffn.lin1`` -> the config's ``activation`` (any of flax's
+  ``ACT2FN``; exact (erf) GELU by default) -> ``ffn.lin2``,
+  ``output_layer_norm`` of that plus its input;
 * the output is the last layer's hidden state ``(N, L, dim)``.
 
 Kernels are flax's ``(in, out)``; they stay in that layout. The model is
@@ -30,6 +30,7 @@ them would take 100 GB).
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 from pathlib import Path
@@ -65,8 +66,17 @@ class _Dense(nn.Module):
         return torch.matmul(x, self.kernel) + self.bias
 
 
-# the feed-forward activations the config's ``activation`` may name
-ACTIVATIONS = {"gelu": F.gelu, "relu": F.relu}
+# the feed-forward activations a backbone's config may name
+# (DistilBERT's ``activation``, the others' ``hidden_act``): transformers'
+# flax ``ACT2FN`` by its names, with its functions
+ACT2FN = {"gelu": F.gelu,                                 # exact (erf)
+          "relu": F.relu,
+          "silu": F.silu,                                 # x sigmoid(x)
+          "swish": F.silu,
+          "gelu_new": functools.partial(F.gelu, approximate="tanh"),
+          "quick_gelu": lambda x: x * torch.sigmoid(1.702 * x),
+          "gelu_pytorch_tanh": functools.partial(F.gelu, approximate="tanh"),
+          "tanh": torch.tanh}
 # the text backbones' ``model_type``s the port runs: DistilBERT here, the
 # others in :mod:`.bert`, :mod:`.albert` and :mod:`.bloom`
 TEXT_BACKBONE_TYPES = ("distilbert", "bert", "roberta", "xlm-roberta",
@@ -101,6 +111,18 @@ def unported_reason(model_type: str) -> str:
                     f"encoder fails at the first step with {error}")
     return ("transformers' FlaxAutoModel does not map it: the JAX package "
             "trains its from-scratch text encoder instead")
+
+
+def activation(config: Dict, field: str, default: str):
+    """The function of ``ACT2FN`` that ``config[field]`` names (``default``
+    where the config has none); raises ``NotImplementedError`` naming the
+    field and the names flax runs where ``ACT2FN`` lacks it."""
+    name = config.get(field, default)
+    if name not in ACT2FN:
+        raise NotImplementedError(
+            f"{field} {name!r}; the port runs those of flax's ACT2FN: "
+            f"{', '.join(ACT2FN)}")
+    return ACT2FN[name]
 
 
 def backbone_type(config: Dict, accepted) -> str:
@@ -144,8 +166,9 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: torch.Tensor, n_heads: int) -> torch.Tensor:
     """Softmax attention of the projections ``q``, ``k``, ``v`` ``(n, L,
     dim)`` over ``n_heads`` heads: the query scaled by ``1 / sqrt(dim /
-    n_heads)``, ``1e30`` taken off the scores of keys where ``mask`` ``(n,
-    L)`` is 0, an f32 softmax; the context ``(n, L, dim)``."""
+    n_heads)``, ``1e30`` taken off the scores where ``mask`` is 0 (``(n,
+    L)`` over the keys, or ``(n, L, L)`` by query and key), an f32
+    softmax; the context ``(n, L, dim)``."""
     n, L, dim = q.shape
     dh = dim // n_heads
 
@@ -154,7 +177,8 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     scores = torch.matmul(heads(q) / math.sqrt(dh),
                           heads(k).transpose(-1, -2))
-    scores = scores - 1e30 * (1.0 - mask[:, None, None, :])
+    keep = mask[:, None, None, :] if mask.dim() == 2 else mask[:, None]
+    scores = scores - 1e30 * (1.0 - keep)
     p = torch.softmax(scores, dim=-1)
     return torch.matmul(p, heads(v)).transpose(1, 2).reshape(n, L, dim)
 
@@ -243,11 +267,7 @@ class DistilBert(FrozenBackbone):
     def __init__(self, config: Dict, params: Dict):
         super().__init__()
         backbone_type(config, ("distilbert",))
-        activation = config.get("activation", "gelu")
-        if activation not in ACTIVATIONS:
-            raise NotImplementedError(
-                f"DistilBERT activation {activation!r}; the port runs "
-                f"{' and '.join(ACTIVATIONS)}")
+        act = activation(config, "activation", "gelu")
         if "embeddings" not in params and "distilbert" in params:
             params = params["distilbert"]     # saved from a head model
         self.dim = int(config["dim"])
@@ -264,7 +284,7 @@ class DistilBert(FrozenBackbone):
         self.LayerNorm = _layer_norm(emb["LayerNorm"])
         layers = params["transformer"]["layer"]
         self.layers = nn.ModuleList(
-            _Block(layers[str(i)], self.n_heads, ACTIVATIONS[activation])
+            _Block(layers[str(i)], self.n_heads, act)
             for i in range(int(config["n_layers"])))
         check_vocab(self.word_embeddings, config, self.dim)
 

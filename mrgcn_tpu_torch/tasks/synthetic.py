@@ -507,12 +507,14 @@ def save_reference_checkpoint(path: str, model: nn.Module, epoch: int,
 def _normal_params(config: Dict, seed: int):
     """Draws for a parameter tree: ``normal(*shape)`` with the config's
     ``initializer_range``, ``dense(n_in, n_out)`` (zero bias) and
-    ``norm(n)`` (scale 1, bias 0), float32."""
-    rng = np.random.default_rng(seed)
-    std = np.float32(config.get("initializer_range", 0.02))
+    ``norm(n)`` (scale 1, bias 0), float32. The normals are torch's
+    (twice numpy's rate on the CPU: a published-width tree holds hundreds
+    of millions)."""
+    gen = torch.Generator().manual_seed(seed)
+    std = float(config.get("initializer_range", 0.02))
 
     def normal(*shape):
-        return rng.standard_normal(shape, dtype=np.float32) * std
+        return (torch.randn(shape, generator=gen) * std).numpy()
 
     def dense(n_in, n_out):
         return {"kernel": normal(n_in, n_out),
@@ -553,17 +555,21 @@ def bert_params(config: Dict, seed: int = 0) -> Dict:
     """A BERT / RoBERTa / XLM-R parameter tree in flax's layout
     (``FlaxBertModel.params``: ``embeddings``, ``encoder/layer/<i>``,
     ``pooler``) at ``config``'s widths, drawn as :func:`distilbert_params`
-    draws."""
+    draws; with ``add_cross_attention`` each layer also holds a
+    ``crossattention`` in its attention's layout, drawn after the rest."""
     normal, dense, norm = _normal_params(config, seed)
     dim = int(config["hidden_size"])
     hidden = int(config["intermediate_size"])
+
+    def attention():
+        return {"self": {name: dense(dim, dim)
+                         for name in ("query", "key", "value")},
+                "output": {"dense": dense(dim, dim), "LayerNorm": norm(dim)}}
+
     layers = {}
     for i in range(int(config["num_hidden_layers"])):
         layers[str(i)] = {
-            "attention": {
-                "self": {name: dense(dim, dim)
-                         for name in ("query", "key", "value")},
-                "output": {"dense": dense(dim, dim), "LayerNorm": norm(dim)}},
+            "attention": attention(),
             "intermediate": {"dense": dense(dim, hidden)},
             "output": {"dense": dense(hidden, dim), "LayerNorm": norm(dim)}}
     embeddings = {
@@ -574,7 +580,8 @@ def bert_params(config: Dict, seed: int = 0) -> Dict:
     tree = {"embeddings": {**embeddings, "LayerNorm": norm(dim)},
             "encoder": {"layer": layers},
             "pooler": {"dense": dense(dim, dim)}}
-    if config.get("model_type") == "roberta-prelayernorm":
+    preln = config.get("model_type") == "roberta-prelayernorm"
+    if preln:
         # the norms before the sublayers, and one after the last layer
         for layer in layers.values():
             layer["attention"]["LayerNorm"] = \
@@ -582,6 +589,11 @@ def bert_params(config: Dict, seed: int = 0) -> Dict:
             layer["intermediate"]["LayerNorm"] = \
                 layer["output"].pop("LayerNorm")
         tree["LayerNorm"] = norm(dim)
+    if config.get("add_cross_attention"):
+        for layer in layers.values():
+            cross = layer["crossattention"] = attention()
+            if preln:
+                cross["LayerNorm"] = cross["output"].pop("LayerNorm")
     return tree
 
 

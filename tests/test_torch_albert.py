@@ -13,11 +13,13 @@ RoBERTa-PreLayerNorm's starting with ``<s>`` (0), ending with ``</s>``
 
 * (a) ``models/albert.Albert`` against ``FlaxAlbertModel`` under
   ``attention_mask = ids != 0``, with ``num_hidden_groups`` and
-  ``inner_group_num`` of 1 and 2 (three layers over two groups take
-  flax's own float division), and ``models/bert.Bert`` of type
-  ``roberta-prelayernorm`` against ``FlaxRobertaPreLayerNormModel`` under
-  ``ids != 1``: the last hidden state within 1e-5 of its largest entry;
-  ALBERT's chunks sized by its feed-forward width.
+  ``inner_group_num`` of 1 and 2 (three layers over two groups take flax's
+  own float division), each activation of flax's ``ACT2FN``, and
+  ``is_decoder`` with ``add_cross_attention`` (read by neither), and
+  ``models/bert.Bert`` of type ``roberta-prelayernorm`` against
+  ``FlaxRobertaPreLayerNormModel`` under ``ids != 1``: the last hidden state
+  within 1e-5 of its largest entry; ALBERT's chunks sized by its
+  feed-forward width.
 * (b) The port's ``load_text_backbone`` + ``PretrainedTextEncoder``
   against the JAX package's, heads carried across by
   ``tasks/jax_import``: for ALBERT the output and the head gradients
@@ -60,13 +62,15 @@ TINY_ALBERT = dict(synthetic.ALBERT_XXLARGE, embedding_size=16,
 
 
 def flax_albert(directory, layers=2, groups=1, inner=1, seed=0,
-                hidden_act="gelu_new"):
+                **options):
+    """``options``: more config fields (``hidden_act`` gelu_new by
+    default)."""
     import transformers as tf
     cfg = tf.AlbertConfig(vocab_size=100, embedding_size=16, hidden_size=32,
                           num_hidden_layers=layers, num_hidden_groups=groups,
                           inner_group_num=inner, num_attention_heads=4,
                           intermediate_size=64, max_position_embeddings=64,
-                          hidden_act=hidden_act)
+                          **options)
     model = tf.FlaxAlbertModel(cfg, seed=seed)
     model.save_pretrained(str(directory))
     return model
@@ -88,10 +92,28 @@ def flax_preln(directory, hidden_act="gelu", seed=0):
 # (a) the backbones against Flax
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("layers, groups, inner", [
-    (2, 1, 1), (4, 2, 1), (2, 1, 2), (3, 2, 2)])
-def test_albert_matches_flax(layers, groups, inner, tmp_path):
-    model = flax_albert(tmp_path / "albert", layers, groups, inner)
+# the layer groups under the default gelu_new; then one layer group under
+# each other activation of flax's ACT2FN, and with the decoder flags,
+# which flax's ALBERT does not read
+ALBERT_CASES = [(2, 1, 1, {}), (4, 2, 1, {}), (2, 1, 2, {}), (3, 2, 2, {})] \
+    + [(2, 1, 1, {"hidden_act": act}) for act in (
+        "gelu", "relu", "silu", "swish", "quick_gelu", "gelu_pytorch_tanh",
+        "tanh")] \
+    + [(2, 1, 1, {"is_decoder": True, "add_cross_attention": True})]
+
+
+def albert_id(case):
+    *shape, options = case
+    return "-".join([str(n) for n in shape]
+                    + ([options.get("hidden_act", "is_decoder")]
+                       if options else []))
+
+
+@pytest.mark.parametrize("layers, groups, inner, options", ALBERT_CASES,
+                         ids=[albert_id(case) for case in ALBERT_CASES])
+def test_albert_matches_flax(layers, groups, inner, options, tmp_path):
+    model = flax_albert(tmp_path / "albert", layers, groups, inner,
+                        **options)
     ids = ragged_ids("bert")
     want = flax_hidden(model, ids, 0)
     backbone = Albert.from_pretrained(tmp_path / "albert")

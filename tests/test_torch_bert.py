@@ -12,8 +12,15 @@ RoBERTa's and XLM-R's starting with ``<s>`` (0), ending with ``</s>``
 
 * (a) ``models/bert.Bert`` against the Flax model run with ``attention_mask
   = ids != pad`` (the model numbers RoBERTa's positions from the pad id
-  itself), each ``hidden_act``, the last hidden state within 1e-5 of its
-  largest entry; RoBERTa at 512 tokens, and past it a raise.
+  itself), each ``hidden_act`` of flax's ``ACT2FN`` (the three of every
+  kind, the other five on BERT), ``is_decoder`` (the causal mask combined
+  with the padding mask) and ``add_cross_attention`` (a ``crossattention``
+  subtree in each layer, not run) on BERT and RoBERTa, the last hidden
+  state within 1e-5 of its largest entry; RoBERTa at 512 tokens, and past
+  it a raise; a causal model's first position is the first token's
+  alone. The port's activation table is flax's ``ACT2FN``, and the JAX
+  package's encoder runs a ``relative_key`` config as an absolute one
+  (the port refuses it).
 * (b) The port's ``load_text_backbone`` + ``PretrainedTextEncoder`` against
   the JAX package's, heads carried across by ``tasks/jax_import``: for
   BERT output and head gradients within 1e-5 of the largest entry; for
@@ -54,13 +61,14 @@ TINY_BERT = dict(synthetic.BERT_MULTILINGUAL, hidden_size=32,
                  max_position_embeddings=64)
 
 
-def flax_model(kind, directory, hidden_act="gelu", positions=64, seed=0):
+def flax_model(kind, directory, hidden_act="gelu", positions=64, seed=0,
+               **options):
     """A tiny Flax model of ``kind`` from ``seed``, saved to
-    ``directory``."""
+    ``directory``; ``options``: more config fields."""
     import transformers as tf
     common = dict(vocab_size=100, hidden_size=32, num_hidden_layers=2,
                   num_attention_heads=4, intermediate_size=64,
-                  hidden_act=hidden_act)
+                  hidden_act=hidden_act, **options)
     if kind == "bert":
         cfg = tf.BertConfig(max_position_embeddings=positions,
                             type_vocab_size=2, pad_token_id=0, **common)
@@ -102,8 +110,17 @@ def flax_hidden(model, ids, pad, **kw):
 # (a) the backbones against Flax
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("hidden_act", ["gelu", "gelu_new", "relu"])
-@pytest.mark.parametrize("kind", KINDS)
+# every kind with the three activations of the published configs; the
+# other five of flax's ACT2FN on BERT alone (the function is the same in
+# every kind)
+OTHER_ACTS = ("silu", "swish", "tanh", "quick_gelu", "gelu_pytorch_tanh")
+KIND_ACTS = [(kind, act) for kind in KINDS
+             for act in ("gelu", "gelu_new", "relu")] \
+    + [("bert", act) for act in OTHER_ACTS]
+
+
+@pytest.mark.parametrize("kind, hidden_act", KIND_ACTS,
+                         ids=[f"{k}-{a}" for k, a in KIND_ACTS])
 def test_backbone_matches_flax(kind, hidden_act, tmp_path):
     model = flax_model(kind, tmp_path / kind, hidden_act)
     ids = ragged_ids(kind)
@@ -133,12 +150,78 @@ def test_roberta_at_512_tokens_and_past_them(tmp_path):
         backbone(longer)
 
 
+def test_activation_table_is_flax_act2fn():
+    """The port's table has ``ACT2FN``'s names (a transformers release
+    that adds one shows here), each the same function within f32
+    rounding."""
+    from transformers.modeling_flax_utils import ACT2FN as FLAX
+    from mrgcn_tpu_torch.models.distilbert import ACT2FN
+    assert sorted(ACT2FN) == sorted(FLAX)
+    x = np.linspace(-8, 8, 4001, dtype=np.float32)
+    for name, fn in ACT2FN.items():
+        want = np.asarray(FLAX[name](jnp.asarray(x)))
+        np.testing.assert_allclose(fn(torch.from_numpy(x)).numpy(), want,
+                                   rtol=1e-6, atol=1e-6, err_msg=name)
+
+
+DECODER_FLAGS = [(kind, flag) for kind in ("bert", "roberta")
+                 for flag in ("is_decoder", "add_cross_attention")]
+
+
+@pytest.mark.parametrize("kind, flag", DECODER_FLAGS,
+                         ids=[f"{k}-{f}" for k, f in DECODER_FLAGS])
+def test_decoder_flags_match_flax(kind, flag, tmp_path):
+    """``is_decoder``: flax's causal attention, its mask combined with the
+    padding mask; ``add_cross_attention``: each layer's
+    ``crossattention`` subtree is loaded and not run (the encoder gives
+    flax no encoder states). The port's writer draws flax's tree."""
+    model = flax_model(kind, tmp_path / kind, **{flag: True})
+    assert "crossattention" in model.params["encoder"]["layer"]["0"] \
+        or flag == "is_decoder"
+    ids = ragged_ids(kind)
+    want = flax_hidden(model, ids, PAD[kind])
+    backbone = Bert.from_pretrained(tmp_path / kind)
+    assert backbone.causal == (flag == "is_decoder")
+    t = torch.from_numpy(ids)
+    got = backbone(t, attention_mask=t != PAD[kind])
+    assert max_rel(got.numpy(), want) <= 1e-5
+    config = model.config.to_dict()
+    assert jax.tree_util.tree_structure(synthetic.bert_params(config)) \
+        == jax.tree_util.tree_structure(model.params)
+
+
+def test_causal_first_position_is_the_first_token_alone(monkeypatch):
+    """With ``is_decoder`` the first position sees itself alone: later
+    tokens, padding among them, leave it as it is, so a padded row pools
+    as it does alone; chunks sized with the ``(L, L)`` mask give the same
+    numbers."""
+    from mrgcn_tpu_torch.models import distilbert
+    config = dict(TINY_BERT, is_decoder=True)
+    backbone = Bert(config, synthetic.bert_params(config, seed=3))
+    encoder = pretrained.PretrainedTextEncoder(backbone, 5, GEN, pad_id=0)
+    t = torch.from_numpy(ragged_ids("bert", L=20, vocab=1200))
+    pooled = encoder.features(t)
+    other = t.clone()
+    other[:, 1:] = torch.flip(other[:, 1:], dims=[0])
+    assert torch.equal(encoder.features(other), pooled)
+    lengths = (t != 0).sum(dim=1)
+    assert int(lengths.min()) < t.shape[1]
+    for row, n, want in zip(t, lengths, pooled):
+        alone = encoder.features(row[None, :int(n)])[0]
+        assert max_rel(alone.numpy(), want.numpy()) <= 1e-5
+    # 4 heads of 20 x 20 scores, and the mask: 4 rows a chunk, 5 without
+    whole = backbone(t, attention_mask=t != 0)
+    monkeypatch.setattr(distilbert, "BUDGET_BYTES", 4 * 4 * 20 * 5 * 20)
+    assert backbone.chunk_rows(20) == 4
+    assert Bert(TINY_BERT, synthetic.bert_params(TINY_BERT)) \
+        .chunk_rows(20) == 5
+    assert torch.equal(backbone(t, attention_mask=t != 0), whole)
+
+
 @pytest.mark.parametrize("bad, match", [
-    ({"hidden_act": "silu"}, "hidden_act 'silu'"),
+    ({"hidden_act": "mish"}, "hidden_act 'mish'.*ACT2FN: gelu, relu, silu"),
     ({"position_embedding_type": "relative_key"},
      "position_embedding_type 'relative_key'"),
-    ({"is_decoder": True}, "is_decoder"),
-    ({"add_cross_attention": True}, "add_cross_attention"),
     ({"model_type": "distilbert"}, "'distilbert': this module reads bert"),
     ({"model_type": "electra"},
      "'electra'.*FlaxAutoModel loads it and its encoder fails at the first "
@@ -221,6 +304,36 @@ def test_roberta_encoder_masks_the_real_pad_where_jax_does_not(offline_hub,
         other = np.asarray(model(ids, attention_mask=mask.astype("i4"),
                                  **kw)[0])[:, 0]
         assert max_rel(other, want) > 1e-3
+
+
+def test_jax_encoder_runs_relative_key_as_absolute(offline_hub, tmp_path):
+    """flax's BERT family reads no ``position_embedding_type``: the JAX
+    package's encoder gives a ``relative_key`` config the output of the
+    same files with absolute positions, distance embeddings dropped (the
+    reference fault of ROADMAP Queue 3); the port refuses the field."""
+    import json
+    import shutil
+    from mrgcn_tpu.models.pretrained import PretrainedTextEncoder as JText
+    from mrgcn_tpu.models.pretrained import \
+        load_text_backbone as jax_load_text_backbone
+    flax_model("bert", tmp_path / "absolute", seed=5)
+    shutil.copytree(tmp_path / "absolute", tmp_path / "relative")
+    path = tmp_path / "relative" / "config.json"
+    path.write_text(json.dumps(dict(json.loads(path.read_text()),
+                                    position_embedding_type="relative_key")))
+    ids = jnp.asarray(ragged_ids("bert"))
+    outs = []
+    for name in ("absolute", "relative"):
+        module, frozen = jax_load_text_backbone([str(tmp_path / name)])
+        assert module.config.position_embedding_type == (
+            "relative_key" if name == "relative" else "absolute")
+        jmod = JText(backbone=module, backbone_params=frozen, output_dim=5,
+                     p_dropout=0.0)
+        variables = jmod.init(jax.random.PRNGKey(0), ids)
+        outs.append(np.asarray(jmod.apply(variables, ids)))
+    np.testing.assert_array_equal(outs[1], outs[0])
+    with pytest.raises(NotImplementedError, match="relative_key"):
+        pretrained.load_text_backbone([str(tmp_path / "relative")])
 
 
 # --------------------------------------------------------------------------

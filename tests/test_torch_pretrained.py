@@ -292,7 +292,7 @@ def test_backbone_is_frozen_and_off_the_tree(tmp_path):
 
 
 @pytest.mark.parametrize("bad, match", [
-    ({"activation": "silu"}, "activation 'silu'"),
+    ({"activation": "mish"}, "activation 'mish'.*ACT2FN: gelu, relu"),
     ({"model_type": "electra"},
      "'electra'.*FlaxAutoModel loads it and its encoder fails at the first "
      "step with a TypeError: its module's token types or positions"),
@@ -322,15 +322,21 @@ def test_unsupported_text_backbones_raise(bad, match):
         DistilBert(dict(TINY, **bad), params)
 
 
+DISTILBERT_ACTS = ("gelu_new", "gelu_pytorch_tanh", "quick_gelu", "silu",
+                   "swish", "tanh")
+
+
 @pytest.mark.parametrize("options", [
     {"sinusoidal_pos_embds": True}, {"activation": "relu"},
-    {"sinusoidal_pos_embds": True, "activation": "relu"}],
-    ids=["sinusoidal", "relu", "both"])
+    {"sinusoidal_pos_embds": True, "activation": "relu"}]
+    + [{"activation": act} for act in DISTILBERT_ACTS],
+    ids=["sinusoidal", "relu", "both", *DISTILBERT_ACTS])
 def test_distilbert_config_options_match_flax(offline_hub, options):
-    """DistilBERT's fixed sinusoidal position embeddings and its ReLU
-    feed-forward: the port against ``FlaxDistilBertModel`` built from the
-    same config with random parameters (nothing fetched), within 1e-5 of
-    the largest entry."""
+    """DistilBERT's fixed sinusoidal position embeddings and each
+    feed-forward activation of flax's ``ACT2FN`` (exact GELU, the
+    default, in the sinusoidal case): the port against
+    ``FlaxDistilBertModel`` built from the same config with random
+    parameters (nothing fetched), within 1e-5 of the largest entry."""
     from transformers import DistilBertConfig, FlaxDistilBertModel
     cfg = DistilBertConfig(vocab_size=64, dim=32, n_layers=2, n_heads=2,
                            hidden_dim=64, max_position_embeddings=64,
@@ -376,7 +382,7 @@ def backbone_features(n):
         num_images=12, image_size=32, wordpiece_vocab=TINY["vocab_size"])
 
 
-def backbone_config(task, epochs=3):
+def backbone_config(task, epochs=3, num_bases=3):
     from mrgcn_tpu.config import apply_defaults
     layers = [{"hidden_nodes": 16}, {"type": "mrgcn"}]
     if task == "link prediction":
@@ -385,7 +391,7 @@ def backbone_config(task, epochs=3):
         "name": "BB", "graph": {"features": [
             json.loads(json.dumps(f)) for f in BACKBONE_FEATURES]},
         "task": {"type": task, "seed": 0},
-        "model": {"epoch": epochs, "num_bases": 3, "gates_lr": 0.01,
+        "model": {"epoch": epochs, "num_bases": num_bases, "gates_lr": 0.01,
                   "l2_lambda": 5e-4, "layers": layers}})
 
 
@@ -398,26 +404,47 @@ def backbone_files(offline_hub, tmp_path, monkeypatch):
     return tmp_path
 
 
-@pytest.fixture
-def nc_sides(backbone_files):
+def backbone_nc_sides(directory, num_bases=3):
+    """The small NC workload with both backbones: its artifact, config and
+    both packages' inputs, batch and model (``both_sides``)."""
     from mrgcn_tpu.data import artifact as jax_artifact_io
     from tests.test_torch_multimodal_slice import both_sides, small_workload
     w = small_workload()
-    path = backbone_files / "bb.npz"
+    path = directory / "bb.npz"
     synthetic.save_nc_artifact(
         str(path), w["n"], w["R"], w["src"], w["dst"], w["rel"], w["norm"],
         w["labels_idx"], w["labels_cls"], w["num_classes"], seed=0,
         num_eval=40, F=backbone_features(w["n"]))
     art = jax_artifact_io.load(str(path))
-    config = backbone_config("node classification")
+    config = backbone_config("node classification", num_bases=num_bases)
     Y_train = np.asarray(art.Y["train"]).reshape(-1, 2)
     return path, config, both_sides(art, config, Y_train, False)
 
 
+@pytest.fixture
+def nc_sides(backbone_files):
+    return backbone_nc_sides(backbone_files)
+
+
 def test_nc_model_with_both_backbones_matches_jax(nc_sides):
+    assert_nc_with_both_backbones_matches_jax(*nc_sides[1:])
+
+
+def test_nc_model_with_both_backbones_without_bases_matches_jax(
+        backbone_files):
+    """The same at ``num_bases = 0``, as ``configs/synth.toml`` runs both
+    backbones: one weight per relation in both halves of layer 0."""
+    config, sides = backbone_nc_sides(backbone_files, num_bases=0)[1:]
+    layer0 = dict(sides[1][2].rgcn.layer_0.named_parameters())
+    assert "comp_i" not in layer0 and "comp_f" not in layer0
+    assert_nc_with_both_backbones_matches_jax(config, sides)
+
+
+def assert_nc_with_both_backbones_matches_jax(config, sides):
+    """Logits from the JAX model's parameters, then three training steps'
+    losses, the port against the JAX package."""
     from tests.test_torch_multimodal_slice import (assert_logits_close,
                                                    train_both)
-    _, config, sides = nc_sides
     (jin, jbatch, jmodel, params), (tin, tbatch, tmodel) = sides
     assert tin.text_pad_id == jin.text_pad_id == 0
     assert isinstance(tmodel.xsd_string_0, pretrained.PretrainedTextEncoder)

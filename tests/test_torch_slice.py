@@ -120,6 +120,53 @@ def test_restricted_chain_logits_match_jax(small_artifact, num_bases):
                                rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("rows", [512, 528, 64],
+                         ids=["the_plans_rows", "cut", "padded"])
+def test_identity_layer_without_bases_grads_land_in_the_parameter(
+        small_artifact, rows):
+    """``num_bases = 0``: layer 0's identity half aggregates its own
+    parameter, one table a relation, with no compose. ``_fit_rows`` cuts
+    a parameter longer than the plan's 512 rows, or pads a shorter one
+    (64 rows hold the 400 nodes at 8 a line). Output and gradient equal
+    the unplanned gather's on the same parameter
+    (``rspmm.gather_aggregate_packed``), within 1e-6 of the largest
+    entry, and the gradient is exactly 0 wherever no edge reads."""
+    from mrgcn_tpu_torch.models import rgcn
+    from mrgcn_tpu_torch.ops import rspmm
+    config = make_config(num_bases=0)
+    tin = prepare_inputs(small_artifact, config, True, CPU)
+    Y_train = np.asarray(small_artifact.Y["train"]).reshape(-1, 2)
+    edges = nc.make_batches(tin, Y_train, -1, 2)[0].edges[0]
+    layer = nc.build_model(tin, config, 5, torch.Generator().manual_seed(0)
+                           ).rgcn.layer_0
+    assert layer.comp_i is None and layer.weight_i_name == "weight_i_packed"
+    plan = edges.plan_for(16, 16, identity=True)
+    assert plan.n_in_rows == 512
+    gen = torch.Generator().manual_seed(1)
+    weight = torch.randn(tin.num_relations, rows, 128, generator=gen)
+    cot = torch.randn(edges.num_out, 16, generator=gen)
+    found = []
+    for planned in (True, False):
+        w = weight.clone().requires_grad_()
+        out = rgcn._identity_planned(w, None, plan, 16) if planned else \
+            rspmm.gather_aggregate_packed(
+                w, edges.src, edges.identity_dst, edges.rel, edges.norm,
+                edges.num_out, 16, 8)
+        out.backward(cot)
+        found.append((out.detach(), w.grad))
+    for got, want in zip(*found):
+        assert float((got - want).abs().max()) \
+            <= 1e-6 * float(want.abs().max())
+    read = torch.zeros(tin.num_relations, rows, 8, dtype=torch.bool)
+    dst = edges.identity_dst.long()
+    read[edges.rel.long(), dst // 8, dst % 8] = True
+    unread = ~read.repeat_interleave(16, dim=2)
+    grad = found[0][1]
+    assert bool(unread[:, 50:].all()) and int(unread.sum()) < unread.numel()
+    assert bool((grad[unread] == 0).all())
+    assert bool((grad[~unread] != 0).any())
+
+
 def test_three_training_steps_match_jax(small_artifact):
     config = make_config(l2=5e-4)
     (jin, jbatch, jmodel, params), (tin, tbatch, tmodel) = \
