@@ -5,7 +5,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card, the CUDA toolkit (``nvcc``) and no network, and it fails (exit code
 other than 0, no result line) where CUDA is absent or the repository is not
 beside it. ``--only a,b`` runs some phases alone (``stream``, ``compose``,
-``nc``, ``nobases``, ``backbones``, ``backbones_bert``, ``minibatch``,
+``nc``, ``nobases``, ``backbones``, ``dmg_reference``, ``backbones_bert``,
+``minibatch``,
 ``lp``, ``wide_basis``, ``checkpoint``, ``etl``, ``encoders``,
 ``text_attn``, ``agree``, ``mesh``; ``scatter_dot``,
 the ``fused_scatter_dot`` cases of ``stream``; ``profile_stream``, the
@@ -107,14 +108,34 @@ prints no result line. Phases, each printing its own lines:
    layers, 12 heads, hidden 3,072, vocabulary 119,547) written into a hub
    cache that ``HF_HUB_CACHE`` names, and a random torchvision-format
    MobileNetV2 ``.pth`` that ``MRGCN_VISION_WEIGHTS`` names, both from
-   seed 0; the strings are 8,000 WordPiece-like id sequences of 3-130
-   ids; 2 epochs through the CLI with the kernels by route as above and
+   seed 0; the graph's labels and features are the ``dmg_reference``
+   artifact's below (2,000 labels; 2,000 strings of 3-130 WordPiece-like
+   ids); 2 epochs through the CLI with the kernels by route as above and
    the text kernels (#6-#9) never launched; the backbones bit-equal to
    their files after training and the heads moved; on a small graph
    (60 strings, 40 images) the first epoch's loss card against CPU within
    1e-4 and each encoder (backbone outputs, head gradients) within 1e-4;
    and a checkpoint that holds the heads and no backbone tensor, from
    which a restored run gives the same eval-mode logits (1e-5). Then
+   (``dmg_reference``) ``configs/dmg_reference.toml``'s own ``[task]``
+   (batches of 32), ``[model]`` (hidden 16, 40 bases, ``gates_lr``) and
+   all seven of its features at their widths (numeric, date, boolean,
+   gYear, 2,000 strings through the random DistilBERT, 2,000 images
+   through the random MobileNetV2, 10,000 geometries through ``TCNN``,
+   10,000 dates and 10,000 booleans) on the DMG-scale graph with 2,000
+   labels and 500 nodes each in the valid and test splits, 2 epochs of
+   79 batches and the test split's 16 through the CLI: the losses finite
+   and falling, #4 once a training batch and #10 once a training and test
+   batch (exact), every other kernel never, the backbones bit-equal to
+   their files and the heads moved, the TCNN's running statistics moved,
+   the date and boolean encoders' gradients not 0; the epochs' seconds,
+   peak, host build seconds, the card memory of each split's batches and
+   the distinct conv input shapes printed; then its small graph, one
+   epoch card against CPU: the first loss within 1e-4, each encoder
+   within 1e-4, the first step's gradients within 1e-4 of each largest
+   entry (1e-2 by norm for what lies upstream of a counted ReLU input
+   that changes side, the crossings printed by module) and the TCNN's
+   running statistics after it within 1e-4. Then
    (``backbones_bert``) the multimodal graph, no images, on random
    ``bert-base-multilingual-cased``, ``roberta-base``,
    ``xlm-roberta-base``, RoBERTa-PreLayerNorm (transformers' defaults)
@@ -621,19 +642,21 @@ def sorted_adversarial_stream(rng, n_edges, rb, eb, n_blocks, hub):
             scale.reshape(-1).astype(np.float32))
 
 
-def allmodal_features(num_nodes: int, wordpiece_vocab: int = 0) -> dict:
+def allmodal_features(num_nodes: int, wordpiece_vocab: int = 0,
+                      **counts) -> dict:
     """The ``dmg_synth_allmodal`` path's features, drawn from seed 0: the
     multimodal path's (the same draws) and ``ALLMODAL_GEOMETRIES`` WKT
     geometries of 4-64 points and ``ALLMODAL_IMAGES`` uint8 images of
     ``IMAGE_SIDE`` x ``IMAGE_SIDE`` (DMG's ``centerCrop``); with
     ``wordpiece_vocab`` the strings are WordPiece-like ids for the
-    pretrained text backbone (``[CLS]``, 1-128 ids, ``[SEP]``)."""
+    pretrained text backbone (``[CLS]``, 1-128 ids, ``[SEP]``);
+    ``counts``: other ``multimodal_features`` counts, or these ones
+    changed (``REFERENCE_COUNTS``)."""
     from mrgcn_tpu_torch.tasks.synthetic import multimodal_features
-    return multimodal_features(num_nodes, seed=0,
-                               num_geometries=ALLMODAL_GEOMETRIES,
-                               num_images=ALLMODAL_IMAGES,
-                               image_size=IMAGE_SIDE,
-                               wordpiece_vocab=wordpiece_vocab)
+    return multimodal_features(num_nodes, seed=0, **{
+        "num_geometries": ALLMODAL_GEOMETRIES,
+        "num_images": ALLMODAL_IMAGES, "image_size": IMAGE_SIDE,
+        "wordpiece_vocab": wordpiece_vocab, **counts})
 
 
 def multimodal_width(features=MULTIMODAL, source: str = "dmg.toml") -> int:
@@ -1859,7 +1882,7 @@ def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
     encoders, whatever backbone a machine caches; with ``backbones`` with
     them, so the pretrained backbones run where their files are found),
     all others excluded. ``task`` adds ``[task]`` entries to the
-    full-batch default (``batchsize``, ``neighbor_fanout``,
+    source's (``batchsize``, ``neighbor_fanout``,
     ``neighbor_fanout_rounds``); ``graph`` adds a ``[graph]`` section
     (``graph_lines``); ``text_model`` ``(name, pad token)`` names another
     model and tokenizer in the string feature's specs, and its pad
@@ -1868,7 +1891,7 @@ def write_config(path: Path, epochs: int, num_bases: int, hidden: int,
         config = tomllib.load(f)
     model = dict(config["model"], epoch=epochs, num_bases=num_bases)
     layers = model.pop("layers")
-    task = {**config["task"], "seed": 0, "batchsize": -1, **(task or {})}
+    task = {**config["task"], "seed": 0, **(task or {})}
     lines = [f"name = {json.dumps(config['name'] + '_SYNTH')}", "",
              "[task]"]
     lines += [f"{k} = {toml_value(v)}" for k, v in task.items()]
@@ -4226,15 +4249,19 @@ def backbone_files(tmp: Path) -> dict:
     at ``distilbert-base-multilingual-cased``'s published widths (dim 768,
     6 layers, 12 heads, hidden 3,072, vocabulary 119,547, 512 positions)
     in a hub cache that ``HF_HUB_CACHE`` names, and a torchvision-format
-    MobileNetV2 ``.pth`` that ``MRGCN_VISION_WEIGHTS`` names."""
+    MobileNetV2 ``.pth`` that ``MRGCN_VISION_WEIGHTS`` names; written
+    once a run, and found again by a later phase."""
     from mrgcn_tpu_torch.tasks.synthetic import (
         save_mobilenet_checkpoint, save_text_backbone_snapshot)
+    from mrgcn_tpu_torch.utils.hf import resolve_snapshot
     t0 = time.perf_counter()
     hub = tmp / "hub"
-    snapshot = save_text_backbone_snapshot(hub, seed=0)
     pth = tmp / "mobilenet_v2-random.pth"
-    save_mobilenet_checkpoint(pth, seed=0)
     os.environ["HF_HUB_CACHE"] = str(hub)
+    snapshot = resolve_snapshot("distilbert-base-multilingual-cased")
+    if snapshot is None or not pth.exists():
+        snapshot = save_text_backbone_snapshot(hub, seed=0)
+        save_mobilenet_checkpoint(pth, seed=0)
     os.environ["MRGCN_VISION_WEIGHTS"] = str(pth)
     files = {"snapshot": snapshot, "pth": pth,
              "msgpack_bytes": (snapshot / "flax_model.msgpack")
@@ -4365,23 +4392,25 @@ def backbone_agreement(tmp: Path, files) -> dict:
 def backbones_phase(work, tmp: Path) -> dict:
     """``dmg_synth_allmodal`` with both pretrained backbones at the
     published widths through the CLI (``slice_phase``, ``BACKBONE_EPOCHS``
-    epochs):
-    8,000 strings of 3-130 WordPiece-like ids, 2,000 images of 224 x 224,
+    epochs) on the ``dmg_reference`` phase's graph and artifact
+    (``reference_work``, ``REFERENCE_COUNTS``, written by whichever
+    phase runs first: its dates and booleans are not in this config):
+    2,000 labels, 2,000 strings of 3-130 WordPiece-like ids, 2,000 images of 224 x 224,
     the WKT, numeric and gYear features as before, X_width 165. The
     kernels by route as the all-modality path (#5, #1, #4, #10), #6-#9
     none (the text encoder is the backbone); the backbones bit-equal to
     their files after training, on the card, and the heads moved
     (``backbones_unchanged``); then the small graph card against CPU and
     a checkpoint round trip (``backbone_agreement``)."""
-    from mrgcn_tpu_torch.tasks.synthetic import DISTILBERT_MULTILINGUAL
     files = backbone_files(tmp)
+    work = reference_work(work)
     try:
         paths = {"nc_backbones": slice_phase(
             work, tmp, "dmg_synth_allmodal_bb",
             {"sorted_scatter": 1, "fused_place_scatter": 3},
-            F=allmodal_features(
-                work["n"],
-                wordpiece_vocab=DISTILBERT_MULTILINGUAL["vocab_size"]),
+            F=functools.partial(allmodal_features, work["n"],
+                                **REFERENCE_COUNTS),
+            graph="dmg_reference",
             features=ALLMODAL, backbones=True, absent=ENCODER_KERNELS,
             epochs=BACKBONE_EPOCHS,
             inspect=lambda res: both_backbones_unchanged(res.model,
@@ -4392,6 +4421,205 @@ def backbones_phase(work, tmp: Path) -> dict:
         os.environ.pop("HF_HUB_CACHE", None)
         os.environ.pop("MRGCN_VISION_WEIGHTS", None)
     return paths
+
+
+# configs/dmg_reference.toml's seven datatypes (numeric 4, date 3, boolean
+# 4, gYear 1, string 16 through DistilBERT, image 128 through MobileNetV2,
+# WKT 16 through TCNN)
+REFERENCE = ("xsd.numeric", "xsd.date", "xsd.boolean", "xsd.gYear",
+             "xsd.string", "blob.image", "ogc.wktLiteral")
+# its depth at DMG width, cut: 2 epochs of the config's 50; 2,000
+# labelled nodes and 500 each in the valid and test splits (10,000 and
+# 1,000 in the other DMG-width paths): 79 training batches an epoch with
+# the valid split, 16 test batches; 2,000 strings (8,000 in the
+# from-scratch DMG-width paths), so that a batch's 28 or so strings fill
+# one bucket of 64 rows, as WordPiece-like ids below the vocabulary of
+# distilbert-base-multilingual-cased (tasks/synthetic.DISTILBERT_MULTILINGUAL);
+# dates and booleans are the smoke's draws (no published DMG count). The
+# features are allmodal_features' with these counts; the backbones phase
+# trains on the same artifact
+REFERENCE_EPOCHS = 2
+REFERENCE_LABELS, REFERENCE_EVAL = 2_000, 500
+REFERENCE_COUNTS = {"num_strings": 2_000, "wordpiece_vocab": 119_547,
+                    "num_dates": 10_000, "num_booleans": 10_000}
+# its small graph, card against CPU: 64 labels, 32 valid and 32 test
+# (three training batches and one test batch of 32), 6 strings of up to
+# 8 ids, 40 images of 224 x 224 (the CPU side runs both backbones at
+# their published widths on each batch's rows)
+REFERENCE_SMALL = {"num_labeled": 64, "num_eval": 32}
+REFERENCE_SMALL_COUNTS = {"num_numeric": 600, "num_years": 300,
+                          "num_strings": 6, "max_len": 8,
+                          "num_geometries": 300,
+                          "num_images": BB_SMALL_IMAGES,
+                          "num_dates": 300, "num_booleans": 300}
+
+
+def reference_work(work) -> dict:
+    """The DMG-width graph with its labels cut to ``REFERENCE_LABELS``
+    and ``REFERENCE_EVAL`` nodes each in the valid and test splits."""
+    return dict(work, labels_idx=work["labels_idx"][:REFERENCE_LABELS],
+                labels_cls=work["labels_cls"][:REFERENCE_LABELS],
+                num_eval=REFERENCE_EVAL)
+
+
+def reference_run(work, tmp: Path, files) -> dict:
+    """(a) ``configs/dmg_reference.toml``'s ``[task]`` (batches of 32),
+    ``[model]`` and seven ``[[graph.features]]`` at their widths through
+    the CLI on the DMG-width graph, ``REFERENCE_EPOCHS`` epochs and the
+    test split, both backbones from ``files``, the launch counts set to 0
+    just before and read just after. Checks: finite losses that fall;
+    every parameter and buffer on the card and finite; at least one batch
+    a 32 labels; #4 once a training batch and #10 once a training and
+    test batch, exactly; every other kernel never (mini-batch blocks carry
+    no plans: the identity half gathers, the feature half transforms);
+    both backbones bit-equal to their files and the heads moved; every
+    running statistic of the TCNN finite and moved; every parameter of
+    the date and boolean encoders with a gradient that is not 0 after the
+    last step. Prints the epochs' seconds, the peak memory, the host
+    seconds of the batches, the card's memory that each split's move to it
+    took (``device_put_batches``) and the distinct input shapes of the convolutional encoders. The graph is
+    ``reference_work``'s."""
+    import numpy as np
+    import torch
+    from torch.nn.modules.module import register_module_forward_pre_hook
+    from mrgcn_tpu_torch.data import artifact as artifact_io
+    from mrgcn_tpu_torch.data import batching
+    from mrgcn_tpu_torch.models.encoders import TCNN
+    from mrgcn_tpu_torch.models.mobilenet import MobileNetV2Features
+    tag = "dmg_reference"
+    work = reference_work(work)
+    moved = []
+    put = batching.device_put_batches
+
+    def counted(payloads, device):
+        before = torch.cuda.memory_allocated()
+        out = put(payloads, device)
+        moved.append(torch.cuda.memory_allocated() - before)
+        return out
+
+    shapes = set()
+
+    def record(module, args):
+        if isinstance(module, (TCNN, MobileNetV2Features)):
+            shapes.add((type(module).__name__, tuple(args[0].shape)))
+
+    batching.device_put_batches = counted
+    hook = register_module_forward_pre_hook(record)
+    counters = start_path()
+    t0 = time.perf_counter()
+    try:
+        res = train_via_cli(
+            tmp, tag, work, REFERENCE_EPOCHS, work["num_bases"],
+            F=functools.partial(allmodal_features, work["n"],
+                                **REFERENCE_COUNTS),
+            features=REFERENCE, backbones=True,
+            source="dmg_reference.toml")
+    finally:
+        batching.device_put_batches = put
+        hook.remove()
+    wall = time.perf_counter() - t0
+    launches = read_launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    Y = artifact_io.load(str(tmp / f"{tag}.npz")).Y
+    labels = sum(len(np.asarray(Y[k]).reshape(-1, 2))
+                 for k in ("train", "valid"))
+    tests = math.ceil(len(np.asarray(Y["test"]).reshape(-1, 2)) / 32)
+    steps = res.batches["train"] * REFERENCE_EPOCHS
+    losses = [h["train_loss"] for h in res.history]
+    check(len(losses) == REFERENCE_EPOCHS
+          and all(math.isfinite(x) for x in losses + [res.loss]),
+          f"{tag}: losses {losses}, test {res.loss}")
+    check(losses[-1] < losses[0], f"{tag}: the loss did not fall: {losses}")
+    state = res.model.state_dict()
+    check({t.device.type for t in state.values()} == {"cuda"}
+          and all(bool(torch.isfinite(t).all()) for t in state.values()),
+          f"{tag}: a parameter or buffer is off the card or not finite")
+    check(res.batches["train"] >= math.ceil(labels / 32),
+          f"{tag}: {res.batches} batches for {labels} labels")
+    want = {name: 0 for name in launches}
+    want.update(compose_grad_pass=steps, compose_table=steps + tests)
+    check(launches == want, f"{tag}: launches {launches}; want {want}")
+    extra = both_backbones_unchanged(res.model, files)
+    stats = {k: t for k, t in state.items()
+             if ".BatchNorm_" in k and k.endswith((".mean", ".var"))}
+    check(stats and all(k.startswith("ogc_wktLiteral_0.") for k in stats),
+          f"{tag}: running statistics {sorted(stats)}")
+    for k, t in stats.items():
+        check(bool((t != (0.0 if k.endswith(".mean") else 1.0)).any()),
+              f"{tag}: {k} never moved")
+    for name in ("xsd_date_0", "xsd_boolean_0"):
+        for n, p in getattr(res.model, name).named_parameters():
+            check(p.grad is not None and bool(p.grad.ne(0).any()),
+                  f"{tag}: {name}.{n} has no gradient")
+    secs = [h["seconds"] for h in res.history]
+    summary = {
+        "path": tag, "epochs": REFERENCE_EPOCHS, "train_loss": losses,
+        "test_loss": res.loss, "test_acc": res.acc,
+        "batches": res.batches, "test_batches": tests,
+        "first_epoch_s": secs[0], "epoch_s_after_first": secs[1:],
+        "peak_mem_bytes": peak, "cli_wall_s": wall,
+        "host_build_s": res.batches["build_seconds"],
+        "bytes_to_card_by_split": moved,
+        "conv_input_shapes": sorted(shapes),
+        "launches": launches, "batchnorm_statistics": len(stats), **extra}
+    print(f"[dmg_reference] {json.dumps(summary)}")
+    return summary
+
+
+def reference_agreement(tmp: Path) -> dict:
+    """(b) The same sections on a small graph (``REFERENCE_SMALL``, its
+    features ``REFERENCE_SMALL_COUNTS``), one epoch through the CLI on the
+    card and on the CPU: the first epoch's loss within 1e-4 relative;
+    each encoder card against CPU with the CPU run's weights
+    (``encoder_agreement``: the backbones' outputs and the heads',
+    the MLPs' and the TCNN's gradients within 1e-4); the first step from
+    equal parameters (``first_step_agreement``: its gradients within 1e-4
+    of each largest entry, by norm within 1e-2 where a counted ReLU input
+    changes side; the TCNN's running statistics within 1e-4)."""
+    from benchmarks.torch_baseline import build_workload
+    from mrgcn_tpu_torch import run
+    tag = "small_reference"
+    small = dict(build_workload(
+        n=3000, num_props=6, num_edges=20_000, seed=0,
+        num_labeled=REFERENCE_SMALL["num_labeled"]),
+        num_eval=REFERENCE_SMALL["num_eval"])
+    F = functools.partial(allmodal_features, small["n"],
+                          **{**REFERENCE_COUNTS, **REFERENCE_SMALL_COUNTS})
+    runs = [train_via_cli(tmp, tag, small, 1, small["num_bases"],
+                          platform=platform, F=F, features=REFERENCE,
+                          backbones=True, source="dmg_reference.toml")
+            for platform in (None, "cpu")]
+    a, b = (r.history[0]["train_loss"] for r in runs)
+    first = abs(a - b) / abs(b)
+    print(f"[dmg_reference] {tag}: {runs[0].batches['train']} batches, "
+          f"first epoch's loss cuda {a} cpu {b}, rel err {first:.3g} "
+          "(bound 1e-4)")
+    check(first <= 1e-4, f"{tag}: the first losses differ (rel {first})")
+    encoder_agreement(tmp, tag, runs[0].model, runs[1].model)
+    job = {"task": "nc", "artifact": str(tmp / f"{tag}.npz"),
+           "config": run.load_config(str(tmp / f"{tag}.toml")),
+           "featureless": False}
+    step = first_step_agreement("dmg_reference", tag, job)
+    del step["grads"]
+    return {"first_loss": {"cuda": a, "cpu": b}, "first_loss_err": first,
+            **step}
+
+
+def dmg_reference_phase(work, tmp: Path) -> dict:
+    """``configs/dmg_reference.toml`` on the card: (a)
+    ``reference_run`` at DMG width, (b) ``reference_agreement`` on a small
+    graph, with the random DistilBERT and MobileNetV2 of
+    ``backbone_files``."""
+    files = backbone_files(tmp)
+    try:
+        with timed_part("dmg_reference (a) DMG width"):
+            summary = reference_run(work, tmp, files)
+        with timed_part("dmg_reference (b) small graph card vs CPU"):
+            summary["agreement"] = reference_agreement(tmp)
+    finally:
+        os.environ.pop("HF_HUB_CACHE", None)
+        os.environ.pop("MRGCN_VISION_WEIGHTS", None)
+    return {"nc_dmg_reference": summary}
 
 
 # the text backbones of the backbones_bert phase: (the model's hub name,
@@ -4744,11 +4972,8 @@ def nobases_agreement(tmp: Path) -> dict:
     other places on the two sides, the step's gradients differ by
     percents (3.4e-2 by norm in layer 0, 12 ReLU inputs on the other side
     of zero, on an H100 80GB HBM3 at 700 W): the encoders alone hold that
-    path."""
-    import numpy as np
-    import torch
+    path (``first_step_agreement``)."""
     from mrgcn_tpu_torch import run
-    from mrgcn_tpu_torch.parallel import parity
     from mrgcn_tpu_torch.tasks.synthetic import multimodal_features
     small = dict(small_graph(), num_bases=0)
     F = multimodal_features(small["n"], seed=0, num_numeric=600,
@@ -4781,31 +5006,81 @@ def nobases_agreement(tmp: Path) -> dict:
                          features=F32_FEATURES, source="synth.toml")
         job = {"task": "nc", "artifact": str(tmp / f"{graph}.npz"),
                "config": run.load_config(str(tmp / f"{tag}.toml")),
-               "featureless": feats is None, "relu": True}
-        card, cpu = (parity.first_step(job, torch.device(d))
-                     for d in ("cuda", "cpu"))
+               "featureless": feats is None}
+        step = first_step_agreement("nobases", tag, job)
         check(not any(k.endswith((".comp_i", ".comp_f"))
-                      for k in cpu["grads"]),
+                      for k in step.pop("grads")),
               f"{tag}: a compose coefficient without bases")
-        flips = int((np.sign(card["relu_inputs"][0])
-                     != np.sign(cpu["relu_inputs"][0])).sum())
-        step_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
-        errs = relative_errors(*({k: torch.from_numpy(v)
-                                  for k, v in side["grads"].items()}
-                                 for side in (card, cpu))) \
-            if flips else relative_max(card["grads"], cpu["grads"])
-        bound = 1e-2 if flips else 1e-4
-        worst = max(errs, key=errs.get)
-        print(f"[nobases] {tag} first step card vs CPU: loss rel err "
-              f"{step_err:.3g} (bound 1e-4), {flips} ReLU inputs on the "
-              f"other side of zero, worst gradient {worst} "
-              f"{errs[worst]:.3g} (bound {bound}"
-              f"{' by norm' if flips else ' of its largest entry'})")
-        check(step_err <= 1e-4, f"{tag}: first-step losses differ")
-        check(errs[worst] <= bound,
-              f"{tag}: first-step gradients differ: {errs}")
-        out[tag] = {**out.get(tag, {}), "relu_flips": flips,
-                    "step_loss_err": step_err, "gradient_errors": errs}
+        out[tag] = {**out.get(tag, {}), **step}
+    return out
+
+
+def first_step_agreement(label: str, tag: str, job: dict) -> dict:
+    """The first training step of the NC ``job`` from equal parameters,
+    card against CPU (``parallel.parity.first_step``): the loss within
+    1e-4 relative, each gradient within 1e-4 of its largest entry
+    (``relative_max``); the running statistics after the step within
+    1e-4 of each largest entry. A ReLU input within rounding of zero that
+    lies on the other side on the two sides (counted for each module: what
+    each R-GCN layer but the last and each encoder's BatchNorm hands its
+    ReLU) changes the gradient of what lies upstream of that ReLU; those
+    gradients are held by norm within 1e-2 (``flipped_upstream``), every
+    other at 1e-4 of its largest entry. Returns the crossings by module
+    and the errors, and the CPU side's gradients under ``grads``."""
+    import numpy as np
+    import torch
+    from mrgcn_tpu_torch.parallel import parity
+    job = dict(job, relu=True)
+    card, cpu = (parity.first_step(job, torch.device(d))
+                 for d in ("cuda", "cpu"))
+    last = max(k for k in cpu["relu_inputs"] if isinstance(k, int))
+    flips = {(f"rgcn.layer_{k}" if isinstance(k, int) else k):
+             int((np.sign(card["relu_inputs"][k]) != np.sign(y)).sum())
+             for k, y in cpu["relu_inputs"].items() if k != last}
+    step_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    loose = flipped_upstream(cpu["grads"], flips)
+    tight = [n for n in cpu["grads"] if n not in loose]
+    errs = {**relative_max({n: card["grads"][n] for n in tight},
+                           {n: cpu["grads"][n] for n in tight}),
+            **relative_errors(*({n: torch.from_numpy(side["grads"][n])
+                                 for n in loose} for side in (card, cpu)))}
+    over = {n: e / (1e-2 if n in loose else 1e-4) for n, e in errs.items()}
+    worst = max(over, key=over.get)
+    stats = relative_max(card["batch_stats"], cpu["batch_stats"])
+    print(f"[{label}] {tag} first step card vs CPU: loss rel err "
+          f"{step_err:.3g} (bound 1e-4); ReLU inputs on the other side of "
+          f"zero by module {flips}, {len(loose)} gradients upstream of "
+          f"one held by norm (bound 1e-2), {len(tight)} at 1e-4 of their "
+          f"largest entry; worst gradient against its bound {worst} "
+          f"{errs[worst]:.3g} (bound {1e-2 if worst in loose else 1e-4}); "
+          f"{len(stats)} running statistics, worst "
+          f"{max(stats.values(), default=0.0):.3g} (bound 1e-4)")
+    check(step_err <= 1e-4, f"{tag}: first-step losses differ")
+    check(over[worst] <= 1.0, f"{tag}: first-step gradients differ: {errs}")
+    check(max(stats.values(), default=0.0) <= 1e-4,
+          f"{tag}: running statistics after the first step differ: "
+          f"{stats}")
+    return {"relu_flips": flips, "step_loss_err": step_err,
+            "gradients_by_norm": sorted(loose), "gradient_errors": errs,
+            "batch_stats_errors": stats, "grads": cpu["grads"]}
+
+
+def flipped_upstream(grads: dict, flips: dict) -> set:
+    """The names in ``grads`` upstream of a ReLU whose input changed side
+    (``flips``: crossings by module): for R-GCN layer ``k``, every
+    parameter but those of the R-GCN's later layers (the encoders and the
+    gates feed layer 0); for an encoder's BatchNorm, that encoder's own
+    parameters."""
+    out = set()
+    for module, n in flips.items():
+        if not n:
+            continue
+        m = re.fullmatch(r"rgcn\.layer_(\d+)", module)
+        for name in grads:
+            later = re.match(r"rgcn\.layer_(\d+)\.", name)
+            if m and not (later and int(later[1]) > int(m[1])) \
+                    or not m and name.split(".")[0] == module.split(".")[0]:
+                out.add(name)
     return out
 
 
@@ -5959,8 +6234,9 @@ STREAM_KERNELS = ("sorted_scatter", "sorted_gather", "fused_scatter_dot",
                   "fused_place_scatter")
 ENCODER_KERNELS = ("attention_fwd", "attention_bwd", "mlp_fwd", "mlp_bwd")
 PHASES = ("stream", "compose", "nc", "nobases", "backbones",
-          "backbones_bert", "minibatch", "lp", "wide_basis", "checkpoint",
-          "etl", "encoders", "text_attn", "agree", "mesh")
+          "dmg_reference", "backbones_bert", "minibatch", "lp",
+          "wide_basis", "checkpoint", "etl", "encoders", "text_attn",
+          "agree", "mesh")
 EXTRA_PHASES = ("profile", "profile_mb", "profile_att",   # only with
                 "profile_mm", "profile_stream",            # --only
                 "profile_allmodal", "profile_backbones",
@@ -6046,6 +6322,9 @@ def main(argv=None) -> None:
         if "backbones" in phases:
             paths.update(backbones_phase(work, tmp))
             lap("backbones")
+        if "dmg_reference" in phases:
+            paths.update(dmg_reference_phase(work, tmp))
+            lap("dmg_reference")
         if "backbones_bert" in phases:
             paths.update(text_backbone_phase(work, tmp, smi))
             lap("backbones_bert")

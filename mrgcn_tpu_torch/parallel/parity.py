@@ -37,6 +37,7 @@ import torch
 
 from mrgcn_tpu_torch.data import artifact as artifact_io
 from mrgcn_tpu_torch.data.tsv import TSV
+from mrgcn_tpu_torch.models.encoders import BatchNorm
 from mrgcn_tpu_torch.models.rgcn import RGCN, EdgeBlock
 from mrgcn_tpu_torch.ops import relational as rl
 from mrgcn_tpu_torch.parallel import collectives as coll
@@ -188,18 +189,25 @@ def first_step(job: Dict, device=None, mesh=None) -> Dict:
     ``traffic``: the bytes the step handed to each collective. For LP also
     the corrupted triples the step drew (every rank draws the same). With
     ``job['relu']``, ``relu_inputs``: what each R-GCN layer hands its ReLU
-    (or the logits) in the training forward."""
+    (or the logits) in the training forward, by layer index, and what
+    each BatchNorm of an encoder hands its ReLU, by the BatchNorm's
+    name."""
     device = select_device() if device is None else device
     config, task = job["config"], job["task"]
     seed = job.get("seed", 0)
     art, inputs, model, optimizer = _setup(job, device, mesh)
     coll.reset_traffic()
-    relu_inputs: Dict[int, np.ndarray] = {}
+    relu_inputs: Dict = {}
     if job.get("relu"):
         for i, layer in enumerate(model.rgcn.layers()):
             layer.register_forward_hook(
                 lambda _m, _a, y, i=i: relu_inputs.__setitem__(
                     i, _numpy(y)) if y.requires_grad else None)
+        for name, module in model.named_modules():
+            if isinstance(module, BatchNorm):
+                module.register_forward_hook(
+                    lambda _m, _a, y, name=name: relu_inputs.__setitem__(
+                        name, _numpy(y)) if y.requires_grad else None)
     torch.manual_seed(seed)
     rng = torch.Generator(device=device).manual_seed(seed)
     l1, l2 = config["model"]["l1_lambda"], config["model"]["l2_lambda"]

@@ -64,6 +64,9 @@ from mrgcn_tpu_torch.tasks.torch_import import _tcnn_sequential_map
 # (mrgcn_tpu/encodings/xsd/temporal.py: sign, century, decade and year
 # on the unit circle)
 GYEAR_WIDTH = 6
+# feature width of an encoded xsd:date (the gYear columns, then month and
+# day on the unit circle)
+DATE_WIDTH = 10
 # rows of an encoded WKT point (mrgcn_tpu/encodings/ogc/wkt.py: the
 # geometry's mean x / y, then x, y, is_point, is_exterior_ring,
 # is_interior_ring, sub_stop, full_stop) and the reference's cap on points
@@ -211,7 +214,8 @@ def multimodal_features(num_nodes: int, seed: int = 0,
                         num_images: int = 0, image_size: int = 224,
                         geometry_points=(4, WKT_MAX_POINTS),
                         wordpiece_vocab: int = 0, bpe_vocab: int = 0,
-                        token_strings=None) -> dict:
+                        token_strings=None, num_dates: int = 0,
+                        num_booleans: int = 0) -> dict:
     """``F`` with one encoding set each of ``xsd.numeric`` (one standard
     normal per node), ``xsd.gYear`` (``GYEAR_WIDTH`` values in [-1, 1])
     and ``xsd.string`` (byte tokens, lengths uniform in [1, max_len]), on
@@ -225,7 +229,12 @@ def multimodal_features(num_nodes: int, seed: int = 0,
     last point), lengths beside them; with ``num_images`` > 0, a
     ``blob.image`` set of ``(3, image_size, image_size)`` uint8 images.
     Both counts default to 0 and are drawn after the other sets, so those
-    stay as they were. With ``wordpiece_vocab`` > 0 the strings are
+    stay as they were. So are, after them, ``num_dates`` ``xsd.date``
+    values (``DATE_WIDTH`` columns: day 1-28 of a month of a year
+    1000-2024 through the port's own date vectorizer, its century column
+    min/max scaled over the set) and ``num_booleans`` ``xsd.boolean``
+    values (+1 or -1, as the boolean vectorizer maps ``true`` and
+    ``false``). With ``wordpiece_vocab`` > 0 the strings are
     WordPiece-like token ids for a pretrained text backbone instead:
     ``[CLS]`` (101), 1 to ``max_len`` ids uniform in ``[1000,
     wordpiece_vocab)``, ``[SEP]`` (102); the tokenizer's pad is 0. With
@@ -275,7 +284,32 @@ def multimodal_features(num_nodes: int, seed: int = 0,
                                        image_size), dtype=np.uint8)
         F["blob.image"] = [[images, nodes(num_images),
                             -np.ones(num_images, np.float32)]]
+    if num_dates > 0:
+        F["xsd.date"] = [[_drawn_dates(rng, num_dates), nodes(num_dates),
+                          np.full(num_dates, DATE_WIDTH, np.int32)]]
+    if num_booleans > 0:
+        booleans = rng.choice(np.array([-1.0, 1.0], np.float32),
+                              (num_booleans, 1))
+        F["xsd.boolean"] = [[booleans, nodes(num_booleans),
+                             np.ones(num_booleans, np.int32)]]
     return F
+
+
+def _drawn_dates(rng, num_dates: int) -> np.ndarray:
+    """``multimodal_features``' dates: ``(num_dates, DATE_WIDTH)`` rows
+    as the date vectorizer encodes ``YYYY-MM-DD`` literals of drawn days,
+    the century column scaled over the set as the vectorizer scales it
+    per predicate."""
+    from mrgcn_tpu_torch.encodings.xsd.temporal import _encode_date
+    days = np.stack([rng.integers(1000, 2025, num_dates),
+                     rng.integers(1, 13, num_dates),
+                     rng.integers(1, 29, num_dates)], axis=1)
+    rows = np.array([_encode_date(f"{y:04d}-{m:02d}-{d:02d}")
+                     for y, m, d in days], np.float32)
+    century = rows[:, 1]
+    lo, hi = float(century.min()), float(century.max())
+    rows[:, 1] = 0.0 if hi == lo else 2 * (century - lo) / (hi - lo) - 1.0
+    return rows
 
 
 def save_nc_artifact(path: str, num_nodes: int, num_relations: int,

@@ -741,3 +741,33 @@ def test_a_rank_that_raises_ends_the_world_with_its_error(monkeypatch):
                        r"(.|\n)*KeyError: 'no such work'"):
         pmesh.launch(parity.rank_worker, 2, "gloo", ["cpu"] * 2,
                      args=([{"work": "no such work", "mesh": "2"}],))
+
+
+
+def test_first_step_relu_inputs_hold_each_encoder_batchnorm(artifacts,
+                                                            monkeypatch):
+    """With ``relu``, ``first_step`` keeps what each R-GCN layer hands its
+    ReLU (by layer index) and what each encoder BatchNorm hands its ReLU
+    (by the BatchNorm's name): the training forward's output of the
+    BatchNorm, so at fresh weights (scale 1, bias 0) each channel has
+    mean 0 and variance 1 over the batch's rows and positions, less the
+    share of the epsilon 1e-5 in the denominator."""
+    from mrgcn_tpu_torch.models.encoders import BatchNorm
+    monkeypatch.setenv("MRGCN_PLATFORM", "cpu")
+    monkeypatch.delenv("MRGCN_MESH", raising=False)
+    job = {"task": "nc", "artifact": artifacts["nc"], "relu": True,
+           "config": nc_config(epochs=1, features=FEATURES),
+           "featureless": False}
+    out = parity.first_step(job)
+    _, _, model, _ = parity._setup(job, torch.device("cpu"), None)
+    names = [n for n, m in model.named_modules() if isinstance(m, BatchNorm)]
+    assert names and all(n.startswith(TCNN_PREFIX) for n in names)
+    layers = len(list(model.rgcn.layers()))
+    assert sorted(out["relu_inputs"], key=str) \
+        == sorted([*range(layers), *names], key=str)
+    for name in names:
+        y = out["relu_inputs"][name].astype(np.float64)
+        axes = (0, *range(2, y.ndim))
+        np.testing.assert_allclose(y.mean(axis=axes), 0.0, atol=1e-5)
+        var = y.var(axis=axes)
+        assert ((var > 0.99) & (var <= 1.0 + 1e-6)).all(), var
